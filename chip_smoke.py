@@ -6,20 +6,28 @@
 Phases, each of which raises on failure (nothing is caught):
 
 1. Card, torch and CUDA versions; build every kernel from ``csrc/`` with
-   ``nvcc`` (sources compiled in parallel), printing the build seconds
-   and the ptxas register/shared-memory report.
-2. Each kernel against its plain PyTorch version on the card, fp32 and
-   bf16, at the serving path's shapes: max abs error within the stated
-   tolerance, and kernel / plain / library times with the byte bound.
-3. The main path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
-   published shape at full depth (random weights from a seeded
+   ``nvcc`` (one process per source, all started together), printing the
+   build seconds and the ptxas register/shared-memory report.
+2. Each kernel against its plain PyTorch version on the card, at the
+   shapes its path gives it: max abs error within the stated tolerance,
+   and kernel / plain / library times beside the bound (the least time
+   the card could take for the same work).
+3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
+   published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
-   one sampled stream. Launch counters are zeroed just before and read
-   just after; the outputs are checked, the block accounting is checked,
-   and one decode step's log-probs with the kernels are held against the
-   plain versions on the same state. Last, one decode block is timed and
-   one is profiled (device time by kernel, device busy share).
+   one sampled stream. Outputs, block accounting, exact launch counts,
+   one decode step's log-probs with the kernels against the plain
+   versions, and one profiled decode block.
+4. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
+   O2 bf16, ``AdamW(lr=1e-4, weight_decay=0.01)`` with fp32 masters,
+   ``TrainStep`` on a 4 x 2048 batch from ``np.random.RandomState(0)``
+   (labels rolled by one, as bench.py): first, at batch 1, one forward
+   and backward with the kernels against the plain versions on the
+   initial weights (loss and every parameter's gradient); then 2
+   warm-up and 5 timed steps with exact launch counts per step and
+   finite losses; last, one profiled step.
 
+Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU the script
 exits 1 before printing any result."""
@@ -32,6 +40,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 
 
 def _time_ms(fn, iters: int = 50) -> float:
@@ -56,6 +66,33 @@ def _time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _time_eager(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn`` for work too large or too
+    autograd-bound to capture: ``iters`` eager calls between CUDA
+    events after one warm-up call (each call runs for milliseconds, so
+    the host stays ahead of the device)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound_ms(nbytes: float, flops: float = 0.0,
+              peak: float = BF16_FLOPS):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the type's peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), \
+        "operations" if t_ops > t_bytes else "bytes"
+
+
 def _card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -67,15 +104,21 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+# RMSNorm in bf16, (atol, rtol): both sides round x·rsqrt to bf16 and
+# then the product with the weight. rsqrtf and the reduction order differ
+# from torch's by a few fp32 ulp, which can flip the first rounding by
+# one bf16 ulp of the normalised value (2^-7 of it at most), carried
+# through the weight; then each side rounds its product (2^-8 each).
+RMS_BF16_TOL = (1e-6, 1.01 * 2.0 ** -6)
+
+
 def check_rms_norm(torch, results, main_shape):
     from paddle_tpu_torch.ops.fused import rms_norm, rms_norm_reference
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
     h, eps = 4096, 1e-5
-    # fp32: rsqrtf and the reduction order differ from torch's by a few
-    # ulp; bf16: one bf16 rounding of a value a few fp32 ulp off can
-    # move the result by one bf16 ulp (2^-8 relative)
-    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
+    # fp32: rsqrtf and the reduction order differ from torch's by a few ulp
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: RMS_BF16_TOL}
     for dtype in (torch.float32, torch.bfloat16):
         for rows in (8, 32, 512):
             x = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
@@ -165,6 +208,477 @@ def check_paged_attention(torch, results, main_kvh):
                                library_ms=None)
 
 
+def check_flash(torch, results):
+    """The three flash kernels against their plain versions, at the
+    training path's shape (4, 2048, 32, 128) bf16 causal, a GQA kvh=8
+    case and an fp32 case at seq 512. The backward pair gets the
+    kernel's o and lse and the same delta on both sides.
+
+    Tolerances. fp32: o and lse 2e-5, gradients 1e-4 absolute (the same
+    fp32 sums in another order). bf16, per element: the kernels round
+    the probabilities p to bf16 before o = p·v and dv = pᵀ·do, and ds
+    before dq = ds·k and dk = dsᵀ·q, with fp32 sums; the plain forward
+    rounds the normalised p (the JAX order), the plain backward nothing
+    but its outputs. So |kernel - plain| <= half a bf16 ulp of each
+    side plus 7 standard deviations of those operands' rounding
+    (``bf16_tolerance``; a kv or q tile left out moves an element by
+    several times that); lse is fp32 on both sides (1e-4)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # the plain version's bf16 products sum in fp32 throughout
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cases = [("main", 4, 2048, 32, 32, torch.bfloat16),
+             ("gqa", 4, 2048, 32, 8, torch.bfloat16),
+             ("fp32", 4, 512, 32, 32, torch.float32)]
+    for name, b, s, h, hk, dtype in cases:
+        d = 128
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(
+                dtype)
+
+        q, k, v, do = rnd(b, s, h, d), rnd(b, s, hk, d), rnd(b, s, hk, d), \
+            rnd(b, s, h, d)
+        kw = dict(is_causal=True, scale=1 / math.sqrt(d), window=None)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do * o).float().sum(-1).transpose(1, 2).contiguous()
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        ref = fa.flash_attention_reference(q, k, v, **{
+            x: kw[x] for x in ("is_causal", "scale", "window")})
+        rdq, rdk, rdv = fa.flash_attention_bwd_reference(
+            q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        fp32 = dtype == torch.float32
+        errs = {"o": _max_err(o, ref[0]), "lse": _max_err(lse, ref[1])}
+        outs = (("o", o, ref[0]), ("dq", dq, rdq), ("dk", dk, rdk),
+                ("dv", dv, rdv))
+        if fp32:
+            tols = {"o": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4,
+                    "dv": 1e-4}
+            for gname, got, want in outs[1:]:
+                errs[gname] = _max_err(got, want)
+            bad = {x: e for x, e in errs.items() if not (e <= tols[x])}
+            tol_text = " ".join(f"{x}={e:.3e}(tol {tols[x]:.1e})"
+                                for x, e in errs.items())
+        else:
+            spread = fa.bf16_rounding_spread(q, k, v, do, lse, delta, **kw)
+            bad, ratios = {}, {}
+            if not errs["lse"] <= 1e-4:
+                bad["lse"] = errs["lse"]
+            for (gname, got, want), sp in zip(outs, spread):
+                tol = fa.bf16_tolerance(got, want, sp, 2 if gname == "o"
+                                        else 1)
+                diff = (got.float() - want.float()).abs()
+                errs[gname] = float(diff.max())
+                # the largest share of its own tolerance any element uses
+                ratios[gname] = float((diff / tol).max())
+                if not ratios[gname] <= 1.0:
+                    bad[gname] = ratios[gname]
+                del tol, diff
+            del spread
+            tol_text = f"lse={errs['lse']:.3e}(tol 1e-4) " + " ".join(
+                f"{x}={errs[x]:.3e}(largest share of its per-element "
+                f"tol {ratios[x]:.3f})" for x in ratios)
+        if bad:
+            raise AssertionError(f"flash {name}: over tolerance {bad}; "
+                                 f"{tol_text}")
+        del ref, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+        pairs = b * h * s * (s + 1) // 2       # causal (query, key) pairs
+        peak = FP32_FLOPS if fp32 else BF16_FLOPS
+        elt = q.element_size()
+        io = b * s * (h + 2 * hk) * d * elt
+        ms_f = _time_eager(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        ms_dq = _time_eager(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw))
+        ms_dkv = _time_eager(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw))
+        plain_f = _time_eager(lambda: fa.flash_attention_reference(
+            q, k, v, True, kw["scale"]), iters=3)
+        plain_b = _time_eager(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, do, lse, delta, **kw), iters=3)
+        # the library yardstick (never called by the port): PyTorch's
+        # fused attention in its (b, h, s, d) layout, forward alone and
+        # its backward (one call computing dq, dk and dv)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        gqa = dict(enable_gqa=True) if hk != h else {}
+        lib_f = _time_eager(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa))
+        lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            **gqa)
+        dot = do.transpose(1, 2).contiguous()
+        lib_b = _time_eager(lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), dot, retain_graph=True))
+        del lo, qt, kt, vt
+        bounds = {
+            "fwd": _bound_ms(io + b * s * h * (d * elt + 4), 4 * d * pairs,
+                             peak),
+            "dq": _bound_ms(io + b * s * h * (2 * d * elt + 8),
+                            6 * d * pairs, peak),
+            "dkv": _bound_ms(io + b * s * h * (d * elt + 8)
+                             + 2 * b * s * hk * d * elt, 8 * d * pairs,
+                             peak)}
+        print(f"flash {name} b={b} s={s} h={h} kvh={hk} d={d} "
+              f"{str(dtype)[6:]} causal: max_abs_err {tol_text}")
+        for kname, ms, plain, lib in (("fwd", ms_f, plain_f, lib_f),
+                                      ("dq", ms_dq, plain_b, lib_b),
+                                      ("dkv", ms_dkv, plain_b, lib_b)):
+            bms, by = bounds[kname]
+            print(f"  flash_{kname}: kernel_ms={ms:.4f} plain_ms={plain:.4f}"
+                  f" library_ms={lib:.4f} bound_ms={bms:.4f} ({by})")
+            if name == "main":
+                err = errs["o"] if kname == "fwd" else \
+                    errs["dq"] if kname == "dq" else max(errs["dk"],
+                                                         errs["dv"])
+                results[kname] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain, bound_ms=bms,
+                                      bound_by=by, library_ms=lib)
+        print(f"  (plain_ms of dq and dkv: the whole plain backward; "
+              f"library_ms of dq and dkv: the library's whole backward)")
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced
+
+
+def check_rope(torch, results):
+    """RoPE on the training path's q and k (4, 2048, 32, 128) bf16 with
+    the model's tables: one launch for both; then the backward (sin
+    negated). bf16: the kernel rounds once from fp32, the plain version
+    (the JAX order) rounds each product, so one bf16 ulp of the largest
+    term (|x|max * 2^-7, the tables being in [-1, 1])."""
+    from paddle_tpu_torch.models.llama import _rope_cache, llama_7b_config
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import _rope_pair
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s, h, d = 4, 2048, 32, 128
+    cos, sin = _rope_cache(llama_7b_config(), "cuda")
+    cos, sin = cos[:s].bfloat16(), sin[:s].bfloat16()
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    tol = 2.0 ** -7 * 2 * float(max(q.float().abs().max(),
+                                    k.float().abs().max()))
+    for sign in (1.0, -1.0):
+        got = _rope_pair(q, k, cos, sin, sign)
+        with plain_versions():
+            want = _rope_pair(q, k, cos, sin, sign)
+        torch.cuda.synchronize()
+        err = max(_max_err(a, w) for a, w in zip(got, want))
+        if not err <= tol:
+            raise AssertionError(f"rope sign={sign}: max abs err {err} > "
+                                 f"{tol}")
+    ms = _time_ms(lambda: _rope_pair(q, k, cos, sin, 1.0))
+
+    def plain():
+        with plain_versions():
+            return _rope_pair(q, k, cos, sin, 1.0)
+
+    plain_ms = _time_ms(plain)
+    nbytes = 4 * q.numel() * 2 + 2 * s * d * 2
+    bms, by = _bound_ms(nbytes)
+    print(f"rope (4, 2048, 32, 128) bf16, q and k in one launch: "
+          f"max_abs_err={err:.3e} (tol {tol:.3e}) kernel_ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms=none bound_ms={bms:.5f} "
+          f"({by})")
+    results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=None)
+
+
+def check_adamw(torch, results):
+    """AdamW on a gate_proj-sized (11008 x 4096 = 45.1M) fp32 master with
+    a bf16 gradient, step 3, in place. The kernel and the plain version
+    (the same fp32 arithmetic, op by op) agree to the last bits: m and v
+    1e-6 relative, the master one ulp of its largest entry (a contracted
+    FMA moves the last bit)."""
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = 11008 * 4096
+    p = 0.02 * torch.randn(n, generator=gen, device="cuda")
+    g = (1e-3 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
+    m = 1e-4 * torch.randn(n, generator=gen, device="cuda")
+    v = 1e-8 * torch.rand(n, generator=gen, device="cuda")
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              step=3)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    fused_adamw(kp, g, km, kv, **hp)
+    with plain_versions():
+        fused_adamw(p, g, m, v, **hp)
+    torch.cuda.synchronize()
+    errs = (_max_err(kp, p), _max_err(km, m) / float(m.abs().max()),
+            _max_err(kv, v) / float(v.abs().max()))
+    ptol = 2.0 ** -23 * float(p.abs().max())     # one ulp of the largest
+    if not (errs[0] <= ptol and errs[1] <= 1e-6 and errs[2] <= 1e-6):
+        raise AssertionError(f"adamw: errors (p abs, m rel, v rel) {errs}")
+    ms = _time_eager(lambda: fused_adamw(kp, g, km, kv, **hp), iters=20)
+
+    def plain():
+        with plain_versions():
+            fused_adamw(p, g, m, v, **hp)
+
+    plain_ms = _time_eager(plain, iters=5)
+    # the library yardstick: PyTorch's fused AdamW on the one tensor
+    # (it takes the gradient in the parameter's dtype)
+    gf = g.float()
+    steps = [torch.tensor(2.0, device="cuda")]
+    lib_ms = _time_eager(lambda: torch._fused_adamw_(
+        [kp], [gf], [km], [kv], [], steps, lr=1e-4, beta1=0.9,
+        beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False), iters=20)
+    bms, by = _bound_ms(n * (4 + 2 + 4 + 4 + 4 + 4 + 4))
+    print(f"adamw n={n} fp32 master, bf16 grad: max_abs_err p={errs[0]:.3e}"
+          f" (tol {ptol:.1e}), rel m={errs[1]:.3e} v={errs[2]:.3e} (tol 1e-6) "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} (torch._fused_adamw_, fp32 grad) "
+          f"bound_ms={bms:.4f} ({by})")
+    results.update(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def check_rms_norm_backward(torch):
+    """RMSNorm on the training path's (8192, 4096) bf16 rows. The
+    forward kernel against its plain version at ``RMS_BF16_TOL``, timed
+    beside the plain version and ``F.rms_norm``. Then forward +
+    backward: the backward is the same torch recompute of the plain
+    version's VJP on both paths, so equal gradients show only that the
+    autograd wiring carries them through the kernel's output."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import rms_norm, rms_norm_reference
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(8192, 4096, generator=gen, device="cuda").bfloat16()
+    w = (1 + 0.1 * torch.randn(4096, generator=gen, device="cuda")).bfloat16()
+    ct = torch.randn(8192, 4096, generator=gen, device="cuda").bfloat16()
+
+    y, want = rms_norm(x, w, 1e-5), rms_norm_reference(x, w, 1e-5)
+    torch.cuda.synchronize()
+    err = _max_err(y, want)
+    atol, rtol = RMS_BF16_TOL
+    rel = float(((y.float() - want.float()).abs()
+                 / want.float().abs().clamp_min(atol)).max())
+    if not torch.allclose(y.float(), want.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"rms_norm (8192, 4096) bf16 forward: max "
+                             f"abs err {err}, max relative err {rel}")
+    ms = _time_ms(lambda: rms_norm(x, w, 1e-5), iters=20)
+    plain_ms = _time_ms(lambda: rms_norm_reference(x, w, 1e-5), iters=20)
+    lib_ms = _time_ms(lambda: F.rms_norm(x, (4096,), w, 1e-5), iters=20)
+    bms, by = _bound_ms(2 * x.numel() * 2 + 4096 * 2)
+    print(f"rms_norm forward (8192, 4096) bf16: max_abs_err={err:.3e} "
+          f"max_rel_err={rel:.3e} (tol {atol:g} + {rtol:.4e} relative) "
+          f"kernel_ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={bms:.5f} "
+          f"({by})")
+    del y, want
+
+    def run():
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        rms_norm(xl, wl, 1e-5).backward(ct)
+        return xl.grad, wl.grad
+
+    def plain():
+        with plain_versions():
+            return run()
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max(_max_err(a, b) for a, b in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"rms_norm backward: kernel path vs plain "
+                             f"path differ by {err}")
+    ms, plain_ms = _time_eager(run), _time_eager(plain)
+    bms, by = _bound_ms(4 * x.numel() * 2 + 2 * 4096 * 2)
+    print(f"rms_norm forward+backward (8192, 4096) bf16: grads equal to "
+          f"the plain path's (autograd wiring); kernel-path ms={ms:.4f} "
+          f"plain ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}; x, grad "
+          f"in, dx out, y out)")
+
+
+def _train_loss(model, batch):
+    loss, _ = model(*batch)
+    return loss
+
+
+def _grads(torch, model, batch, plain):
+    """(loss, {name: fp32 grad}) of one forward and backward, with the
+    kernels or under ``ops.plain_versions()``; no update."""
+    import contextlib
+    from paddle_tpu_torch import ops
+    model.zero_grad(set_to_none=True)
+    with ops.plain_versions() if plain else contextlib.nullcontext():
+        loss = _train_loss(model, batch)
+        loss.backward()
+    out = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), out
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def compare_plain(torch, model, cfg, b1):
+    """Kernels vs plain versions on the training model's initial weights
+    at batch 1, forward and backward, no update. First an fp32 copy of
+    the weights (the bf16 values, exact in fp32): there the kernels and
+    the plain versions differ only by summation order, so the loss to
+    1e-4 and every parameter's gradient to 1e-3 relative (the norm of
+    the difference over the norm). Then the bf16 model itself, held
+    against that fp32 gradient: bf16 rounds at other sites in the kernels
+    than in the plain versions (RoPE rounds once instead of per product;
+    flash rounds the unnormalised probabilities and ds, the plain
+    versions the normalised probabilities and nothing in the backward),
+    so each parameter's bf16 gradient with the kernels must be no
+    further from the fp32 one than 1.1 times the plain versions' is;
+    the bf16 losses within 2e-2 of each other. The bf16 gradients lie
+    several percent from their fp32 values at initialisation whichever
+    path runs, so this check guards the wiring; the per-element kernel
+    checks guard the kernels' arithmetic."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    ref = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    ref.load_state_dict({n: p.float() for n, p in
+                         model.state_dict().items()})
+    l32p, g32 = _grads(torch, ref, b1, plain=True)
+    l32k, g32k = _grads(torch, ref, b1, plain=False)
+    del ref
+    rel32 = {n: _rel(g32k[n], g32[n]) for n in g32}
+    del g32k
+    lk, gk = _grads(torch, model, b1, plain=False)
+    ek = {n: _rel(gk[n], g32[n]) for n in g32}
+    bad = [n for n, g in gk.items() if not torch.isfinite(g).all()]
+    del gk
+    lp, gp = _grads(torch, model, b1, plain=True)
+    ep = {n: _rel(gp[n], g32[n]) for n in g32}
+    del gp, g32
+    torch.cuda.empty_cache()
+
+    def stats(d):
+        worst = max(d, key=d.get)
+        return (f"max {d[worst]:.3e} ({worst}), median "
+                f"{sorted(d.values())[len(d) // 2]:.3e}")
+
+    ratio = {n: ek[n] / max(ep[n], 1e-12) for n in ek}
+    print(f"batch-1 fp32 weights, kernels vs plain: loss {l32k:.6f} vs "
+          f"{l32p:.6f} (|diff| {abs(l32k - l32p):.3e}, tol 1e-4); grad "
+          f"relative error {stats(rel32)} (tol 1e-3)")
+    print(f"batch-1 bf16 (O2) model: loss kernels {lk:.6f} plain {lp:.6f} "
+          f"fp32 {l32p:.6f} (|kernels - plain| {abs(lk - lp):.3e}, tol "
+          f"2e-2); grad error vs fp32: kernels {stats(ek)}; plain "
+          f"{stats(ep)}; ratio kernels/plain {stats(ratio)} (tol "
+          f"kernels <= 1.1 x plain)")
+    over = [n for n in ek if ek[n] > 1.1 * ep[n]]
+    if bad or abs(l32k - l32p) > 1e-4 or max(rel32.values()) > 1e-3 \
+            or abs(lk - lp) > 2e-2 or over:
+        raise AssertionError(f"kernels vs plain: non-finite {bad}, fp32 "
+                             f"loss {l32k} vs {l32p}, over tolerance "
+                             f"{over}")
+
+
+def train_path(torch, card):
+    """The training step at Llama-2-7B's width, 8 layers (see the module
+    docstring). Returns the launch counts of its 7 steps."""
+    import numpy as np
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = llama_7b_config(num_hidden_layers=8)
+    L, B, S = cfg.num_hidden_layers, 4, 2048
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    step = TrainStep(model, _train_loss, opt)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    print(f"train model: Llama-2-7B width, {L} layers, "
+          f"{n_params / 1e9:.4f}B params bf16 (O2) on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+
+    compare_plain(torch, model, cfg, (batch[0][:1], batch[1][:1]))
+    n_tensors = len(list(model.parameters()))
+    per_step = {"rms_norm": 2 * L + 1, "paged_attention_decode": 0,
+                "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "rope": 2 * L,
+                "adamw": n_tensors}
+    if n_tensors != 9 * L + 3:
+        raise AssertionError(f"{n_tensors} parameter tensors, expected "
+                             f"{9 * L + 3}")
+    torch.cuda.reset_peak_memory_stats()
+    warm, timed = 2, 5
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch)            # ends in the loss's host read
+        times.append(time.perf_counter() - t0)
+        losses.append(step.last_loss)
+    counts = ops.launch_counts()
+    want = {k: (warm + timed) * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts}, expected "
+                             f"{want} ({per_step} per step)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    for p in model.parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError("a parameter went non-finite")
+    step_s = sum(times[warm:]) / timed
+    tok_s = B * S / step_s
+    flops = model.flops_per_token(S) * B * S
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train launches over {warm + timed} steps: {counts} "
+          f"(per step {per_step})")
+    print(f"train losses: {', '.join(f'{x:.6f}' for x in losses)}")
+    print(f"train step times ms: "
+          f"{', '.join(f'{1e3 * x:.2f}' for x in times)}")
+    print(f"[{card}] train step_ms={1e3 * step_s:.3f} "
+          f"tokens_per_s={tok_s:.1f} tflop_per_step={flops / 1e12:.3f} "
+          f"mfu={flops / step_s / BF16_FLOPS:.4f} (vs 989 TFLOP/s bf16) "
+          f"peak_mem_gb={peak_gb:.3f}")
+
+    profile_train_step(torch, step, batch, card)
+    return counts
+
+
+def profile_train_step(torch, step, batch, card):
+    """Where one training step's time goes: device time by kernel and the
+    device's busy share of the step's host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t, _ in kernels)
+    if busy_us == 0:
+        print("train step profile: the profiler saw no device time "
+              "(device busy share not measured)")
+        return
+    print(f"[{card}] train step profile: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f}% busy, "
+          f"{100 - 100 * busy_us / wall_us:.1f}% idle)")
+    for name, t, n in sorted(kernels, key=lambda k: -k[1])[:16]:
+        print(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
+              f"x{n:<6d} {name[:90]}")
+
+
 def _prompts(rng, vocab):
     """12 prompts of 32..512 tokens; requests 1 and 9 share a 256-token
     prefix (request 9 arrives later, after request 1's prefill
@@ -181,7 +695,7 @@ def _prompts(rng, vocab):
     return out
 
 
-def main_path(torch, card):
+def serving_path(torch, card):
     import numpy as np
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.models import (LlamaForCausalLM,
@@ -339,19 +853,45 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32 off for matmul and cuDNN (full fp32 products)")
-    rms, pa = {}, {}
+    rms, pa, flash, rope, adamw = {}, {}, {}, {}, {}
     check_rms_norm(torch, rms, (torch.float32, 8))
     check_paged_attention(torch, pa, 32)
-    counts = main_path(torch, card)
+    check_flash(torch, flash)
+    check_rope(torch, rope)
+    check_adamw(torch, adamw)
+    check_rms_norm_backward(torch)
+    serving = serving_path(torch, card)
+    torch.cuda.empty_cache()
+    print(f"after the serving path: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    train = train_path(torch, card)
+    counts = {k: serving[k] + train[k] for k in serving}
+    print(f"launches: serving {serving}; training {train}")
+    src = "paddle_tpu_torch/csrc/"
+    fa = "paddle_tpu/ops/pallas/flash_attention.py"
     kernels = [
-        dict(name="rms_norm", route="cuda",
-             source="paddle_tpu_torch/csrc/rms_norm.cu",
+        dict(name="rms_norm", route="cuda", source=src + "rms_norm.cu",
              replaces="paddle_tpu/ops/pallas/fused.py:58",
              launches=counts["rms_norm"], **rms),
         dict(name="paged_attention_decode", route="cuda",
-             source="paddle_tpu_torch/csrc/paged_attention.cu",
+             source=src + "paged_attention.cu",
              replaces="paddle_tpu/ops/pallas/paged_attention.py:226",
              launches=counts["paged_attention_decode"], **pa),
+        dict(name="flash_attention_fwd", route="cuda",
+             source=src + "flash_attention.cu", replaces=fa + ":104",
+             launches=counts["flash_attention_fwd"], **flash["fwd"]),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source=src + "flash_attention.cu", replaces=fa + ":138",
+             launches=counts["flash_attention_bwd_dq"], **flash["dq"]),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source=src + "flash_attention.cu", replaces=fa + ":165",
+             launches=counts["flash_attention_bwd_dkv"], **flash["dkv"]),
+        dict(name="rope", route="cuda", source=src + "rope.cu",
+             replaces="paddle_tpu/ops/pallas/fused.py:196",
+             launches=counts["rope"], **rope),
+        dict(name="adamw", route="cuda", source=src + "adamw.cu",
+             replaces="paddle_tpu/ops/pallas/fused.py:295",
+             launches=counts["adamw"], **adamw),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,10 @@ at import, so the CPU tests import everything without a toolkit.
 
 Slice 1 is the paged Llama serving path: ``serving.Server`` over
 ``serving.PagedEngine`` over ``models.LlamaForCausalLM``, with the
-RMSNorm and paged-attention decode kernels."""
+RMSNorm and paged-attention decode kernels. Slice 2 is the training
+step: ``jit.TrainStep`` with ``optimizer.AdamW`` after ``amp.decorate``
+over ``LlamaForCausalLM(ids, labels)``, with the flash attention
+(forward, dq, dkv), RoPE and AdamW kernels and RMSNorm's gradient."""
 from .device import resolve_device
 
 __all__ = ["resolve_device"]

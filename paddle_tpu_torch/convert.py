@@ -3,7 +3,9 @@
 The JAX ``nn.Linear`` stores its weight as (in, out); ``torch.nn.Linear``
 as (out, in). ``params_from_jax`` transposes every linear weight and
 passes the rest (embedding, norm weights) through. The RoPE tables are
-buffers the port computes itself, so they are not carried over."""
+buffers the port computes itself, so they are not carried over.
+``adamw_state_from_jax`` carries an AdamW state (moments, fp32 masters,
+step) the same way, for ``Optimizer.load_state``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -11,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "adamw_state_from_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
@@ -22,18 +24,38 @@ def _is_linear(name: str) -> bool:
     return name.endswith(_LINEAR_SUFFIXES) or name == "lm_head.weight"
 
 
+def _to_torch(name: str, arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":     # numpy's bf16 extension type
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    if _is_linear(name):
+        if t.ndim != 2:
+            raise ValueError(f"{name}: expected a 2-D linear weight, "
+                             f"got shape {tuple(t.shape)}")
+        t = t.t().contiguous()
+    return t
+
+
 def params_from_jax(named_numpy: Dict[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """``{jax named_parameters() name: numpy array}`` -> a state dict
     that ``LlamaForCausalLM.load_state_dict`` takes (CPU tensors; the
     load copies them onto the model's device)."""
-    out = {}
-    for name, arr in named_numpy.items():
-        t = torch.from_numpy(np.array(arr, copy=True))
-        if _is_linear(name):
-            if t.ndim != 2:
-                raise ValueError(f"{name}: expected a 2-D linear weight, "
-                                 f"got shape {tuple(t.shape)}")
-            t = t.t().contiguous()
-        out[name] = t
-    return out
+    return {name: _to_torch(name, arr) for name, arr in named_numpy.items()}
+
+
+def adamw_state_from_jax(functional_state: dict,
+                         param_names: Dict[str, str]) -> dict:
+    """A JAX ``Optimizer.functional_state()`` (arrays as numpy or jax)
+    -> ``{"step": int, "slots": {parameter name: {"moment1",
+    "moment2"[, "master"]: CPU tensor}}}``. ``param_names`` maps the JAX
+    optimizer's slot names to the model's ``named_parameters()`` names;
+    linear-weight states are transposed like the weights."""
+    slots = {}
+    for opt_name, s in functional_state["slots"].items():
+        name = param_names[opt_name]
+        slots[name] = {k: _to_torch(name, v) for k, v in s.items()}
+    return {"step": int(np.asarray(functional_state["step"])),
+            "slots": slots}

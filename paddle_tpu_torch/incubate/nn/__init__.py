@@ -1,0 +1,3 @@
+from .fused_ce import fused_linear_cross_entropy
+
+__all__ = ["fused_linear_cross_entropy"]

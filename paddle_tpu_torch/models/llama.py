@@ -1,24 +1,29 @@
-"""Llama-2 on the paged KV-cache path.
+"""Llama-2: the paged KV-cache path and the training forward.
 
-Counterpart of ``paddle_tpu/models/llama.py`` for serving: the config
-(serving fields only), the RoPE tables, and the attention / MLP /
-decoder layer / model / causal-LM modules on the cache path. RMSNorm
-runs the CUDA kernel on the GPU; the projections are ``nn.Linear``
-(``torch.matmul``), as the JAX package leaves them to XLA. Parameter
+Counterpart of ``paddle_tpu/models/llama.py``: the config (the serving
+and training fields), the RoPE tables, and the attention / MLP / decoder
+layer / model / causal-LM modules, on the cache path (serving) and on
+the no-cache path (training, with the fused head + cross-entropy).
+RMSNorm, RoPE and flash attention run the CUDA kernels on the GPU; the
+projections are ``nn.Linear`` (``torch.matmul``), as the JAX package
+leaves them to XLA. Parameter
 names match the JAX model's ``named_parameters()``, so
 ``convert.params_from_jax`` maps one onto the other."""
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..incubate.nn import fused_linear_cross_entropy
 from ..nn import RMSNorm
+from ..nn import functional as PF
+from ..ops.fused import fused_rope
 from .generation import cached_attention
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
@@ -36,7 +41,20 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    # Mistral-class sliding-window causal attention (None = full causal)
+    sliding_window: Optional[int] = None
+    # chunked fused lm-head + CE on the labels path (the (tokens, vocab)
+    # logits never exist)
+    fused_head_ce: bool = True
+    fused_head_ce_chunks: int = 16
     dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.sliding_window is not None and self.sliding_window <= 0:
+            raise ValueError(
+                f"sliding_window={self.sliding_window}; expected a "
+                "positive window size or None (disabled)")
 
     @property
     def head_dim(self) -> int:
@@ -70,9 +88,18 @@ def _rope_cache(config: LlamaConfig, device) -> Tuple[torch.Tensor,
     return torch.cos(emb), torch.sin(emb)
 
 
+def _apply_rope(q, k, cos, sin):
+    """q/k (b, s, h, d): neox rotate-half at positions 0..s-1 through the
+    fused RoPE op, with the tables cast to q's dtype (JAX
+    ``_apply_rope``)."""
+    s = q.shape[1]
+    return fused_rope(q, k, cos[:s].to(q.dtype), sin[:s].to(q.dtype))
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
+        self.sliding_window = config.sliding_window
         self.head_dim = config.head_dim
         h = config.hidden_size
         kv = config.num_key_value_heads * self.head_dim
@@ -82,11 +109,20 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, kv, **kw)
         self.o_proj = nn.Linear(h, h, **kw)
 
-    def forward(self, x, cos, sin, cache, pos, block_table):
+    def forward(self, x, cos, sin, cache=None, pos=None, block_table=None):
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, -1, self.head_dim)
         k = self.k_proj(x).view(b, s, -1, self.head_dim)
         v = self.v_proj(x).view(b, s, -1, self.head_dim)
+        if cache is None:
+            # training: causal flash attention over the whole sequence
+            q, k = _apply_rope(q, k, cos, sin)
+            out = PF.scaled_dot_product_attention(
+                q, k, v, is_causal=True, sliding_window=self.sliding_window)
+            return self.o_proj(out.reshape(b, s, -1))
+        if self.sliding_window is not None:
+            raise NotImplementedError(
+                "the paged cache path does not take sliding_window yet")
         k_arena, v_arena = cache
         out = cached_attention(q, k, v, k_arena, v_arena, pos,
                                scale=1.0 / math.sqrt(self.head_dim),
@@ -118,7 +154,7 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, cos, sin, cache, pos, block_table):
+    def forward(self, x, cos, sin, cache=None, pos=None, block_table=None):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
                                pos, block_table)
         return h + self.mlp(self.post_attention_layernorm(h))
@@ -135,15 +171,18 @@ class LlamaModel(nn.Module):
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
-    def forward(self, input_ids, cos, sin, cache, pos, block_table):
+    def forward(self, input_ids, cos, sin, cache=None, pos=None,
+                block_table=None):
         x = self.embed_tokens(input_ids)
-        for layer, layer_cache in zip(self.layers, cache):
+        caches = cache if cache is not None else [None] * len(self.layers)
+        for layer, layer_cache in zip(self.layers, caches):
             x = layer(x, cos, sin, layer_cache, pos, block_table)
         return self.norm(x)
 
 
 class LlamaForCausalLM(nn.Module):
-    """Causal LM on the paged cache path. Built directly on ``device``
+    """Causal LM: the paged cache path (serving) and the no-cache path
+    (training). Built directly on ``device``
     (default the GPU; ``device="cpu"`` must be asked for) with weights
     drawn from a ``torch.Generator`` seeded with ``seed`` on that
     device: linear and embedding weights N(0, 0.02), norm weights 1 —
@@ -159,8 +198,9 @@ class LlamaForCausalLM(nn.Module):
         # build on the meta device, then allocate once on the target:
         # a 7B model is never materialized on the host
         self.llama = LlamaModel(config, device="meta", dtype=dt)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
-                                 bias=False, device="meta", dtype=dt)
+        self.lm_head = None if config.tie_word_embeddings else nn.Linear(
+            config.hidden_size, config.vocab_size, bias=False,
+            device="meta", dtype=dt)
         self.to_empty(device=dev)
         self.init_weights(seed)
         cos, sin = _rope_cache(config, dev)
@@ -169,7 +209,15 @@ class LlamaForCausalLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.llama.embed_tokens.weight.device
+
+    @property
+    def head_weight(self) -> torch.Tensor:
+        """The (vocab, hidden) output projection: ``lm_head.weight``, or
+        the embedding when the head is tied to it."""
+        if self.lm_head is None:
+            return self.llama.embed_tokens.weight
+        return self.lm_head.weight
 
     @torch.no_grad()
     def init_weights(self, seed: int):
@@ -188,7 +236,7 @@ class LlamaForCausalLM(nn.Module):
         head_dim) (k, v) arena pair on the model's device; block 0 is
         the trash block. fp32 or bf16."""
         c = self.config
-        dt = dtype or self.lm_head.weight.dtype
+        dt = dtype or self.head_weight.dtype
         if dt not in (torch.float32, torch.bfloat16):
             raise TypeError(f"paged arenas are float32 or bfloat16, "
                             f"got {dt}")
@@ -197,12 +245,49 @@ class LlamaForCausalLM(nn.Module):
                  torch.zeros(shape, dtype=dt, device=self.device))
                 for _ in range(c.num_hidden_layers)]
 
-    def forward(self, input_ids, cache, pos, block_table):
-        """(b, s) token ids at per-row positions ``pos`` (b,) through the
-        paged ``cache`` (written in place) -> (b, s, vocab) logits."""
+    def forward(self, input_ids, labels=None, cache=None, pos=None,
+                block_table=None):
+        """With ``cache``: (b, s) token ids at per-row positions ``pos``
+        (b,) through the paged ``cache`` (written in place) -> (b, s,
+        vocab) logits. Without: the training forward over positions
+        0..s-1; with ``labels`` it returns ``(loss, None)`` through the
+        fused head + CE (``fused_head_ce``, the default) or ``(loss,
+        logits)`` with the plain head, and without labels the logits."""
         h = self.llama(input_ids, self.rope_cos, self.rope_sin, cache, pos,
                        block_table)
-        return self.lm_head(h)
+        c = self.config
+        if cache is None and labels is not None and c.fused_head_ce:
+            loss = fused_linear_cross_entropy(
+                h, self.head_weight, labels,
+                num_chunks=c.fused_head_ce_chunks)
+            return loss, None
+        logits = h @ self.head_weight.t() if self.lm_head is None \
+            else self.lm_head(h)
+        if cache is not None or labels is None:
+            return logits
+        return _cross_entropy(logits, labels), logits
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int) -> int:
+        """~6N + attention FLOPs per token (for MFU accounting), as the
+        JAX model counts them."""
+        c = self.config
+        return 6 * self.num_params() \
+            + 12 * c.num_hidden_layers * c.hidden_size * seq_len
+
+
+def _cross_entropy(logits, labels, ignore_index: int = -100):
+    """The JAX ``F.cross_entropy`` mean over tokens whose label is not
+    ``ignore_index``: log-softmax in the logits' dtype, the label's
+    log-prob, the sum over valid tokens over max(count, 1)."""
+    logits = logits.reshape(-1, logits.shape[-1])
+    labels = labels.reshape(-1).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    safe = labels.clamp(0, logits.shape[-1] - 1)
+    nll = -logp.gather(1, safe[:, None])[:, 0]
+    valid = labels != ignore_index
+    loss = torch.where(valid, nll, torch.zeros((), dtype=nll.dtype,
+                                               device=nll.device))
+    return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)

@@ -3,7 +3,8 @@
 Each wrapper runs its hand-written CUDA kernel on a CUDA tensor and its
 plain PyTorch version on a CPU tensor, and counts its kernel launches in
 a plain integer attribute (``rms_norm.launches``,
-``paged_attention_decode.launches``). There is no fallback: on a CUDA
+``flash_attention_fwd.launches``, ...; :func:`launch_counts` lists them
+all). There is no fallback: on a CUDA
 tensor the wrapper launches or raises.
 
 :func:`plain_versions` is the one explicit exception, for comparisons:
@@ -36,10 +37,18 @@ def plain_active() -> bool:
 
 
 def _wrappers():
-    from .fused import rms_norm
+    from .flash_attention import (flash_attention_bwd_dkv,
+                                  flash_attention_bwd_dq,
+                                  flash_attention_fwd)
+    from .fused import fused_adamw, fused_rope, rms_norm
     from .paged_attention import paged_attention_decode
     return {"rms_norm": rms_norm,
-            "paged_attention_decode": paged_attention_decode}
+            "paged_attention_decode": paged_attention_decode,
+            "flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "rope": fused_rope,
+            "adamw": fused_adamw}
 
 
 def reset_launch_counts():

@@ -28,6 +28,9 @@ BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = {
     "rms_norm": "rms_norm.cu",
     "paged_attention": "paged_attention.cu",
+    "flash_attention": "flash_attention.cu",
+    "rope": "rope.cu",
+    "adamw": "adamw.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

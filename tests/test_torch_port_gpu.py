@@ -7,7 +7,10 @@ only PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_port_gpu.py
 
 Kernels are held against their plain PyTorch versions on the same CUDA
-inputs; the tiny Llama on the GPU against the same model on the CPU."""
+inputs — the serving kernels (RMSNorm, paged-attention decode) and the
+training kernels (flash attention forward/dq/dkv, RoPE, AdamW, and the
+RMSNorm gradient); the tiny Llama on the GPU against the same model on
+the CPU, serving and training."""
 import math
 
 import numpy as np
@@ -151,3 +154,205 @@ def test_server_on_gpu_goes_through_kernels(dev):
         (2 * L + 1) * (eng.steps + eng.prefill_chunks)
     for a, b in zip(*results):
         np.testing.assert_array_equal(b, a)
+
+
+# -- training-step kernels ---------------------------------------------------
+
+FLASH_GPU_CASES = {
+    # name: (b, sq, sk, h, hk, d, causal, window)
+    "causal": (2, 256, 256, 8, 8, 128, True, None),
+    "gqa_ragged": (2, 200, 200, 8, 2, 64, True, None),
+    "window": (1, 256, 256, 4, 4, 128, True, 100),
+    "cross": (2, 128, 192, 4, 4, 64, False, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FLASH_GPU_CASES))
+def test_flash_kernels_match_plain(dev, name, dtype, monkeypatch):
+    """Forward (o, lse) and both backward kernels against their plain
+    versions on the same inputs (the backward pair is fed the kernel's o
+    and lse on both sides). fp32: o/lse 2e-5, grads 1e-4 (reassociated
+    sums). bf16, per element: the kernels round the probabilities to
+    bf16 before o = p·v and dv = pᵀ·do and ds before dq and dk, the
+    plain forward rounds the normalised probabilities (the JAX order)
+    and the plain backward only its outputs, so each element within
+    half a bf16 ulp of each side plus 7 standard deviations of that
+    operand rounding (``bf16_tolerance``); lse is fp32 on both sides
+    (1e-4)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    b, sq, sk, h, hk, d, causal, window = FLASH_GPU_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(sq + h)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    q, k, v = rnd(b, sq, h, d), rnd(b, sk, hk, d), rnd(b, sk, hk, d)
+    do = rnd(b, sq, h, d)
+    kw = dict(is_causal=causal, scale=1 / math.sqrt(d), window=window)
+    ops.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = ((do * o).float().sum(-1).transpose(1, 2)
+             - 0.1 * torch.ones(b, h, sq, device=dev)).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    assert ops.launch_counts()["flash_attention_bwd_dq"] == 1
+    assert ops.launch_counts()["flash_attention_bwd_dkv"] == 1
+    with ops.plain_versions():
+        po, plse = fa.flash_attention_fwd(q, k, v, **kw)
+        pq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        pk, pv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    fp32 = dtype == torch.float32
+    assert float((lse - plse).abs().max()) <= (2e-5 if fp32 else 1e-4)
+    pairs = ((o, po), (dq, pq), (dk, pk), (dv, pv))
+    if fp32:
+        for i, (got, want) in enumerate(pairs):
+            err = float((got - want).abs().max())
+            assert err <= (2e-5 if i == 0 else 1e-4), err
+        return
+    spread = fa.bf16_rounding_spread(q, k, v, do, lse, delta, **kw)
+    for i, ((got, want), sp) in enumerate(zip(pairs, spread)):
+        tol = fa.bf16_tolerance(got, want, sp, 2 if i == 0 else 1)
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+def test_flash_block_gradients_on_gpu(dev):
+    """The autograd Function on the card (kernels) against the same
+    Function under plain_versions, with an lse cotangent."""
+    from paddle_tpu_torch.ops.flash_attention import flash_block
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g, device=dev)
+               for _ in range(3))
+    wo = torch.randn(2, 128, 4, 64, generator=g, device=dev)
+    wl = torch.randn(2, 4, 128, generator=g, device=dev)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if plain:
+            with ops.plain_versions():
+                o, lse = flash_block(*leaves, is_causal=True)
+        else:
+            o, lse = flash_block(*leaves, is_causal=True)
+        ((o * wo).sum() + (lse * wl).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for a, b_ in zip(*grads):
+        assert float((a - b_).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_kernel_matches_plain(dev, dtype):
+    """Equal heads (one launch) and GQA (two), forward and the sin-negated
+    backward, with random tables (unequal halves). fp32 1e-6; bf16: the
+    kernel rounds once from fp32 where the plain version rounds each
+    product, within one bf16 ulp of the largest term."""
+    from paddle_tpu_torch.ops.fused import _rope_pair
+    g = torch.Generator(device=dev).manual_seed(6)
+    s, d = 64, 128
+    cos = torch.randn(s, d, generator=g, device=dev).to(dtype)
+    sin = torch.randn(s, d, generator=g, device=dev).to(dtype)
+    for hk, launches in ((8, 1), (2, 2)):
+        q = torch.randn(2, s, 8, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(2, s, hk, d, generator=g, device=dev).to(dtype)
+        for sign in (1.0, -1.0):
+            ops.reset_launch_counts()
+            got = _rope_pair(q, k, cos, sin, sign)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["rope"] == launches
+            with ops.plain_versions():
+                want = _rope_pair(q, k, cos, sin, sign)
+            for a, b_ in zip(got, want):
+                err = float((a.float() - b_.float()).abs().max())
+                tol = 1e-5 if dtype == torch.float32 else \
+                    2.0 ** -7 * 2 * float(q.float().abs().max()) \
+                    * float(cos.float().abs().max())
+                assert err <= tol, err
+
+
+@pytest.mark.parametrize("pdtype,gdtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_adamw_kernel_matches_plain(dev, pdtype, gdtype):
+    """In place, at a size with a tail (n % 8 != 0), step 7. m and v
+    within two fp32 ulps of their largest entry: the kernel's contracted
+    FMA rounds b1*m + (1-b1)*g once where the plain version rounds each
+    op, which moves a cancelling sum by its terms' ulp. p to 1e-8 (fp32)
+    or one bf16 ulp (plus one fp32 ulp of the largest entry, for p near
+    0 whose fp32 value the FMA moves across a bf16 rounding boundary)."""
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    g = torch.Generator(device=dev).manual_seed(7)
+    n = 1_000_003
+    p = (0.02 * torch.randn(n, generator=g, device=dev)).to(pdtype)
+    grad = torch.randn(n, generator=g, device=dev).to(gdtype)
+    m = 0.1 * torch.randn(n, generator=g, device=dev)
+    v = 0.01 * torch.rand(n, generator=g, device=dev)
+    hp = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.01, step=7)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    ops.reset_launch_counts()
+    fused_adamw(kp, grad, km, kv, **hp)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["adamw"] == 1
+    with ops.plain_versions():
+        fused_adamw(p, grad, m, v, **hp)
+    for got, want in ((km, m), (kv, v)):
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=2.0 ** -22 * float(want.abs().max()))
+    if pdtype == torch.float32:
+        torch.testing.assert_close(kp, p, rtol=0, atol=1e-8)
+    else:
+        torch.testing.assert_close(
+            kp.float(), p.float(), rtol=2.0 ** -8,
+            atol=2.0 ** -23 * float(p.float().abs().max()))
+
+
+def test_rms_norm_grad_kernel_path_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(64, 4096, generator=g, device=dev).bfloat16()
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).bfloat16()
+    ct = torch.randn(64, 4096, generator=g, device=dev).bfloat16()
+    grads = []
+    for plain in (False, True):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        if plain:
+            with ops.plain_versions():
+                out = rms_norm(xl, wl, 1e-5)
+        else:
+            out = rms_norm(xl, wl, 1e-5)
+        (out.float() * ct.float()).sum().backward()
+        grads.append((xl.grad, wl.grad))
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+def test_train_step_on_gpu_goes_through_kernels(dev):
+    """Three AdamW steps of the tiny Llama on the card and on the CPU
+    from the same weights: losses within 1e-4 (cuBLAS and the kernels
+    sum in other orders), and the per-step launch counts of the
+    training path."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    cpu, gpu = _tiny_pair(dev)
+    ids = np.random.RandomState(0).randint(0, 512, (2, 64)).astype(np.int32)
+    batch = (ids, np.roll(ids, -1, 1).astype(np.int32))
+    losses = []
+    for m in (cpu, gpu):
+        opt = AdamW(learning_rate=1e-4, parameters=m.parameters())
+        step = TrainStep(m, lambda mm, b: mm(*b)[0], opt)
+        ops.reset_launch_counts()
+        losses.append([float(step(batch)) for _ in range(3)])
+    counts = ops.launch_counts()
+    L = gpu.config.num_hidden_layers
+    n_params = len(list(gpu.parameters()))
+    assert counts == {"rms_norm": 3 * (2 * L + 1),
+                      "paged_attention_decode": 0,
+                      "flash_attention_fwd": 3 * L,
+                      "flash_attention_bwd_dq": 3 * L,
+                      "flash_attention_bwd_dkv": 3 * L,
+                      "rope": 3 * 2 * L, "adamw": 3 * n_params}
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)

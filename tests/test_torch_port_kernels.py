@@ -170,6 +170,11 @@ class TestDeviceAndImportRules:
             "import paddle_tpu_torch.serving, paddle_tpu_torch.models\n"
             "import paddle_tpu_torch.ops.fused\n"
             "import paddle_tpu_torch.ops.paged_attention\n"
+            "import paddle_tpu_torch.ops.flash_attention\n"
+            "import paddle_tpu_torch.nn.functional\n"
+            "import paddle_tpu_torch.incubate.nn\n"
+            "import paddle_tpu_torch.optimizer, paddle_tpu_torch.amp\n"
+            "import paddle_tpu_torch.jit\n"
             "from paddle_tpu_torch.ops import build\n"
             "assert not build._loaded, build._loaded\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -201,5 +206,7 @@ class TestDeviceAndImportRules:
 
     def test_launch_counters_reset(self):
         ops.reset_launch_counts()
-        assert ops.launch_counts() == {"rms_norm": 0,
-                                       "paged_attention_decode": 0}
+        assert ops.launch_counts() == {
+            "rms_norm": 0, "paged_attention_decode": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "rope": 0, "adamw": 0}
