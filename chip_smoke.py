@@ -15,10 +15,19 @@ Phases, each of which raises on failure (nothing is caught):
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
    published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
-   one sampled stream. Outputs, block accounting, exact launch counts,
-   one decode step's log-probs with the kernels against the plain
-   versions, and one profiled decode block.
-4. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
+   one sampled stream (threefry, as ``jax.random``). Outputs, block
+   accounting, exact launch counts, one decode step's log-probs with the
+   kernels against the plain versions, and one profiled decode block.
+4. The int8 serving path on the same model: ``PagedEngine(num_slots=32,
+   max_len=2048, kv_int8=True)``, whose 4097-block int8 arena (17.72 GB)
+   fits beside the fp32 weights where an fp32 arena (68.7 GB) would
+   not; 32 requests of 256-1744 prompt tokens, four sharing a prefix,
+   two sampled. Outputs, block accounting, exact launch counts, the
+   error bound, one decode step with all 32 slots at lengths over 1024
+   (kernels against plain versions), one profiled decode block, and how
+   far the greedy streams agree with an fp32 arena's (reported, not
+   gated: quantized logits may diverge within the bound).
+5. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
    O2 bf16, ``AdamW(lr=1e-4, weight_decay=0.01)`` with fp32 masters,
    ``TrainStep`` on a 4 x 2048 batch from ``np.random.RandomState(0)``
    (labels rolled by one, as bench.py): first, at batch 1, one forward
@@ -206,6 +215,89 @@ def check_paged_attention(torch, results, main_kvh):
                 results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by="bytes",
                                library_ms=None)
+
+
+def check_paged_attention_int8(torch, results):
+    """The int8 paged-decode kernel against its plain version (the
+    per-block loop of the JAX ``_int8_decode_fallback``): the main shape
+    of the int8 serving path (32 slots, h = kvh = 32, d 128, block 16,
+    every slot at length 2048: 128 table entries), GQA kvh = 8, bf16 q,
+    and a ragged case (lengths 1 and 17, trash entries, a dead row).
+    fp32 q: 1e-5 absolute (the JAX suite's pin; the online softmax sums
+    in another order). bf16 q: both sides compute in fp32 and round the
+    output once, so each element within 1e-5 plus one bf16 ulp of its
+    magnitude (2^-7 relative). No single PyTorch call computes this
+    function (library: none)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_attention_decode_int8, quantize_kv)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    d, bs, mb = 128, 16, 128
+    cases = [("main", 32, 32, [mb * bs] * 32, torch.float32),
+             ("gqa", 32, 8, [mb * bs] * 32, torch.float32),
+             ("bf16", 32, 32, [mb * bs] * 32, torch.bfloat16),
+             ("ragged", 8, 32, [1, 17, 1, 17, 300, 2048, 17, 5],
+              torch.float32)]
+    for name, S, kvh, lengths_h, dtype in cases:
+        h = 32
+        nb = 1 + S * mb
+        q = torch.randn(S, h, d, generator=gen, device="cuda").to(dtype)
+        kc, ks = quantize_kv(torch.randn(nb, bs, kvh, d, generator=gen,
+                                         device="cuda"))
+        vc, vs = quantize_kv(torch.randn(nb, bs, kvh, d, generator=gen,
+                                         device="cuda"))
+        table = torch.zeros(S, mb, dtype=torch.int32)
+        perm = (torch.randperm(nb - 1, generator=torch.Generator()
+                               .manual_seed(10)) + 1).tolist()
+        live = S - 1 if name == "ragged" else S    # ragged: last row dead
+        for r in range(live):
+            n = -(-lengths_h[r] // bs)
+            table[r, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+            perm = perm[n:]
+        table = table.cuda()
+        lengths = torch.tensor(lengths_h, dtype=torch.int32, device="cuda")
+        args = (q, kc, vc, ks, vs, table, lengths)
+        scale = 1.0 / math.sqrt(d)
+
+        def kern():
+            return paged_attention_decode_int8(*args, scale=scale)
+
+        def plain():
+            with ops.plain_versions():
+                return paged_attention_decode_int8(*args, scale=scale)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if dtype == torch.float32:
+            ok, tol_text = err <= 1e-5, "tol 1e-5"
+        else:
+            tol = 1e-5 + 2.0 ** -7 * torch.maximum(got.float().abs(),
+                                                   want.float().abs())
+            share = float((diff / tol).max())
+            ok = share <= 1.0
+            tol_text = (f"per-element tol 1e-5 + 2^-7 |o|, largest share "
+                        f"{share:.3f}")
+        if not ok or got.dtype != dtype:
+            raise AssertionError(f"paged_attention_decode_int8 {name}: max "
+                                 f"abs err {err} ({tol_text})")
+        ms = _time_ms(kern, iters=20)
+        plain_ms = _time_eager(plain, iters=3)
+        # bytes: the codes and scales of the blocks each slot reads, q, out
+        rows = sum(-(-L // bs) * bs for L in lengths_h)
+        nbytes = rows * kvh * (d + 4) * 2 + 2 * S * h * d * q.element_size()
+        bms, by = _bound_ms(nbytes)
+        print(f"paged_attention_decode_int8 {name} S={S} h={h} kvh={kvh} "
+              f"d={d} bs={bs} mb={mb} q {str(dtype)[6:]}: max_abs_err="
+              f"{err:.3e} ({tol_text}) kernel_ms={ms:.5f} plain_ms="
+              f"{plain_ms:.4f} library_ms=none bound_ms={bms:.6f} ({by}, "
+              f"{nbytes / 1e6:.1f} MB)")
+        if name == "main":
+            results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, library_ms=None)
+        del args, q, kc, vc, ks, vs, got, want
+        torch.cuda.empty_cache()
 
 
 def check_flash(torch, results):
@@ -606,9 +698,9 @@ def train_path(torch, card):
     compare_plain(torch, model, cfg, (batch[0][:1], batch[1][:1]))
     n_tensors = len(list(model.parameters()))
     per_step = {"rms_norm": 2 * L + 1, "paged_attention_decode": 0,
-                "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L, "rope": 2 * L,
-                "adamw": n_tensors}
+                "paged_attention_decode_int8": 0, "flash_attention_fwd": L,
+                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "rope": 2 * L, "adamw": n_tensors}
     if n_tensors != 9 * L + 3:
         raise AssertionError(f"{n_tensors} parameter tensors, expected "
                              f"{9 * L + 3}")
@@ -680,9 +772,11 @@ def profile_train_step(torch, step, batch, card):
 
 
 def _prompts(rng, vocab):
-    """12 prompts of 32..512 tokens; requests 1 and 9 share a 256-token
-    prefix (request 9 arrives later, after request 1's prefill
-    registered the prefix blocks)."""
+    """12 requests of 32..512 prompt tokens; requests 1 and 9 share a
+    256-token prefix (request 9 arrives at tick 4, after request 1's
+    prefill registered the prefix blocks); request 5 samples
+    (temperature 0.8, top-k 50, seed 7). Returns (prompt, max_new,
+    sampling kwargs, arrival tick) per request."""
     prefix = rng.randint(0, vocab, (256,))
     lens = [32, 288, 64, 96, 128, 160, 200, 300, 384, 356, 448, 512]
     news = [32, 40, 48, 56, 64, 32, 40, 48, 56, 64, 36, 44]
@@ -691,16 +785,94 @@ def _prompts(rng, vocab):
         p = rng.randint(0, vocab, (L,))
         if i in (1, 9):
             p[:256] = prefix
-        out.append((p.astype("int32"), mn))
+        kw = dict(temperature=0.8, top_k=50, seed=7) if i == 5 else {}
+        out.append((p.astype("int32"), mn, kw, 4 if i == 9 else 0))
     return out
+
+
+def _serve_checked(torch, srv, engine, reqs, vocab):
+    """Submit, serve until idle with the launch counters zeroed just
+    before and read just after, and check outputs, block accounting and
+    prefix reuse; returns (rids, results, launch counts, wall s)."""
+    import numpy as np
+    from paddle_tpu_torch import ops
+    rids = [srv.submit(p, max_new_tokens=mn, arrival_step=arr, **kw)
+            for p, mn, kw, arr in reqs]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = srv.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for rid, (p, mn, _, _) in zip(rids, reqs):
+        out = res[rid]
+        if len(out) != len(p) + mn or not np.array_equal(out[:len(p)], p):
+            raise AssertionError(f"request {rid}: bad output length/prompt")
+        gen = out[len(p):]
+        if gen.min() < 0 or gen.max() >= vocab:
+            raise AssertionError(f"request {rid}: token out of vocab")
+    engine.manager.assert_consistent()
+    if engine.manager._ref:
+        raise AssertionError(f"blocks leaked: {engine.manager._ref}")
+    if srv.stats()["prefix_cache_hit_rate"] <= 0:
+        raise AssertionError("the shared prefix was not reused")
+    return rids, res, counts, wall
+
+
+def _check_launches(engine, counts, kernel):
+    """Exact launch counts of a served run: the arena's decode
+    ``kernel`` once per layer and decode step, the other decode kernel
+    never, RMSNorm 2L + 1 times per decode step and prefill chunk."""
+    L = engine.backend.model.config.num_hidden_layers
+    want = {"rms_norm": (2 * L + 1) * (engine.steps + engine.prefill_chunks),
+            "paged_attention_decode": 0, "paged_attention_decode_int8": 0}
+    want[kernel] = L * engine.steps
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launch counts {got}, expected {want}")
+
+
+def _print_serving(card, label, st, extra=""):
+    print(f"[{card}] {label}decode_tokens_per_s="
+          f"{st['decode_tokens_per_sec']:.1f} "
+          f"tokens_per_s={st['tokens_per_sec']:.1f} "
+          f"ttft_p50_s={st['ttft_p50_s']:.4f} "
+          f"ttft_p95_s={st['ttft_p95_s']:.4f} "
+          f"decode_step_ms={st['decode_step_ms']:.3f} "
+          f"prefix_hit_rate={st['prefix_cache_hit_rate']:.4f} "
+          f"occupancy={st['slot_occupancy']:.4f}{extra}")
+
+
+def _check_step_logprobs(torch, model, engine, label):
+    """One decode step on the engine's armed slots, the kernels against
+    the plain versions on the same state (both write the same K/V into
+    the arena). 32 fp32 layers: the kernels' reassociated sums and
+    rsqrtf differ from the plain versions by a few ulp per layer, so
+    the log-probs are held to 2e-3."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models import decode_step_logprobs
+    s = engine._state
+    tbl = torch.where(s["live"][:, None], s["table"], 0)
+    step = (s["tok"][:, None], engine.backend.cache, s["pos"], tbl)
+    lp_kernel = decode_step_logprobs(model, *step)
+    with ops.plain_versions():
+        lp_plain = decode_step_logprobs(model, *step)
+    torch.cuda.synchronize()
+    err = _max_err(lp_kernel, lp_plain)
+    if not (torch.isfinite(lp_kernel).all() and err <= 2e-3):
+        raise AssertionError(f"{label}decode log-probs kernel vs plain: "
+                             f"{err}")
+    agree = int((lp_kernel.argmax(-1) == lp_plain.argmax(-1)).sum())
+    pos = s["pos"][s["live"]]
+    print(f"{label}decode step log-probs ({int(s['live'].sum())} slots, "
+          f"lengths {int(pos.min()) + 1}..{int(pos.max()) + 1}), kernels "
+          f"vs plain versions: max_abs_err={err:.3e} (tolerance 2e-3), "
+          f"argmax agree {agree}/{lp_kernel.shape[0]}")
 
 
 def serving_path(torch, card):
     import numpy as np
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.models import (LlamaForCausalLM,
-                                         decode_step_logprobs,
-                                         llama_7b_config)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
     from paddle_tpu_torch.serving import (PagedEngine, Request, Scheduler,
                                           Server)
     cfg = llama_7b_config()
@@ -716,50 +888,13 @@ def serving_path(torch, card):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     srv = Server(engine, Scheduler(prefill_token_budget=256))
     reqs = _prompts(np.random.RandomState(0), cfg.vocab_size)
-    rids = []
-    for i, (p, mn) in enumerate(reqs):
-        kw = dict(temperature=0.8, top_k=50, seed=7) if i == 5 else {}
-        rids.append(srv.submit(p, max_new_tokens=mn,
-                               arrival_step=4 if i == 9 else 0, **kw))
-
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = srv.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-
-    for rid, (p, mn) in zip(rids, reqs):
-        out = res[rid]
-        if len(out) != len(p) + mn or not np.array_equal(out[:len(p)], p):
-            raise AssertionError(f"request {rid}: bad output length/prompt")
-        gen = out[len(p):]
-        if gen.min() < 0 or gen.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {rid}: token out of vocab")
-    engine.manager.assert_consistent()
-    if engine.manager._ref:
-        raise AssertionError(f"blocks leaked: {engine.manager._ref}")
-    st = srv.stats()
-    L = cfg.num_hidden_layers
-    want_pa = L * engine.steps
-    want_rms = (2 * L + 1) * (engine.steps + engine.prefill_chunks)
-    if counts["paged_attention_decode"] != want_pa or \
-            counts["rms_norm"] != want_rms:
-        raise AssertionError(f"launch counts {counts}, expected "
-                             f"paged_attention_decode={want_pa} "
-                             f"rms_norm={want_rms}")
-    if st["prefix_cache_hit_rate"] <= 0:
-        raise AssertionError("the shared prefix was not reused")
+    rids, _, counts, wall = _serve_checked(torch, srv, engine, reqs,
+                                           cfg.vocab_size)
+    _check_launches(engine, counts, "paged_attention_decode")
     print(f"served {len(rids)} requests in {wall:.2f} s: "
           f"{engine.steps} decode steps, {engine.prefill_chunks} prefill "
           f"chunks, launches {counts}")
-    print(f"[{card}] decode_tokens_per_s={st['decode_tokens_per_sec']:.1f} "
-          f"tokens_per_s={st['tokens_per_sec']:.1f} "
-          f"ttft_p50_s={st['ttft_p50_s']:.4f} "
-          f"ttft_p95_s={st['ttft_p95_s']:.4f} "
-          f"decode_step_ms={st['decode_step_ms']:.3f} "
-          f"prefix_hit_rate={st['prefix_cache_hit_rate']:.4f} "
-          f"occupancy={st['slot_occupancy']:.4f}")
+    _print_serving(card, "", srv.stats())
 
     # one decode step, kernels vs plain versions, on the same state:
     # 8 fresh greedy requests prefilled and armed
@@ -771,39 +906,27 @@ def serving_path(torch, card):
                                                     (L0,)).astype("int32"),
                                  max_new_tokens=24))
     engine.prefill_tick(None)
-    s = engine._state
-    tbl = torch.where(s["live"][:, None], s["table"], 0)
-    step = (s["tok"][:, None], engine.backend.cache, s["pos"], tbl)
-    lp_kernel = decode_step_logprobs(model, *step)
-    with ops.plain_versions():
-        lp_plain = decode_step_logprobs(model, *step)
-    torch.cuda.synchronize()
-    err = _max_err(lp_kernel, lp_plain)
-    # 32 fp32 layers: the kernels' reassociated sums and rsqrtf differ
-    # from the plain versions by a few ulp per layer
-    if not (torch.isfinite(lp_kernel).all() and err <= 2e-3):
-        raise AssertionError(f"decode log-probs kernel vs plain: {err}")
-    agree = int((lp_kernel.argmax(-1) == lp_plain.argmax(-1)).sum())
-    print(f"decode step log-probs, kernels vs plain versions: "
-          f"max_abs_err={err:.3e} (tolerance 2e-3), argmax agree "
-          f"{agree}/8")
+    _check_step_logprobs(torch, model, engine, "")
     profile_decode_block(torch, engine, card)
-    return counts
+    return counts, model
 
 
 def profile_decode_block(torch, engine, card):
     """Where one decode block's time goes: device time by kernel name
-    and the device's busy share of the block's host wall time (8 live
-    slots, one block of ``decode_block`` steps ending in its host
+    and the device's busy share of the block's host wall time (every
+    live slot, one block of ``decode_block`` steps ending in its host
     sync). One unprofiled block runs first, for the wall time without
     the profiler's overhead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    live = int(engine._state["live"].sum())
+    arena = "int8" if getattr(engine, "kv_int8", False) else "fp32"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.step_block()
-    print(f"[{card}] unprofiled decode block of {engine.decode_block} "
-          f"steps, 8 live slots: {1e3 * (time.perf_counter() - t0):.3f} ms")
+    print(f"[{card}] unprofiled {arena} decode block of "
+          f"{engine.decode_block} steps, {live} live slots: "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -820,13 +943,130 @@ def profile_decode_block(torch, engine, card):
         print("decode block profile: the profiler saw no device time "
               "(device busy share not measured)")
         return
-    print(f"[{card}] decode block profile: wall {wall_us / 1e3:.3f} ms, "
+    print(f"[{card}] {arena} decode block profile ({live} live slots): "
+          f"wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f}% busy, "
           f"{100 - 100 * busy_us / wall_us:.1f}% idle)")
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
               f"x{n:<6d} {name[:90]}")
+
+
+def _int8_requests(rng, vocab):
+    """32 requests: request i has 256 + 48 i prompt tokens and
+    64 + 16 (i % 5) new tokens. Requests 3, 11, 19 and 27 share a
+    512-token prefix (request 3's 400-token prompt is its first 400
+    tokens); 11, 19 and 27 arrive at tick 4, after request 3's prefill
+    registered it. Requests 5 and 21 sample (temperature 0.8, top-k 50,
+    seeds 7 and 11; 21 also top-p 0.95). Returns (prompt, max_new,
+    sampling kwargs, arrival tick) per request."""
+    prefix = rng.randint(0, vocab, (512,))
+    out = []
+    for i in range(32):
+        L, mn = 256 + 48 * i, 64 + 16 * (i % 5)
+        p = rng.randint(0, vocab, (L,))
+        if i in (3, 11, 19, 27):
+            n = min(L, 512)
+            p[:n] = prefix[:n]
+        kw = {5: dict(temperature=0.8, top_k=50, seed=7),
+              21: dict(temperature=0.8, top_k=50, top_p=0.95, seed=11)
+              }.get(i, {})
+        out.append((p.astype("int32"), mn, kw,
+                    4 if i in (11, 19, 27) else 0))
+    return out
+
+
+def serving_int8_path(torch, card, model):
+    """Paged serving over the int8 KV arena at Llama-2-7B shape, full
+    depth, on the fp32 serving path's model (see the module
+    docstring). Returns the launch counts of the served requests."""
+    import numpy as np
+    from paddle_tpu_torch.serving import (PagedEngine, Request, Scheduler,
+                                          Server)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(num_slots=32, max_len=2048, decode_block=8, block_size=16,
+              prefill_chunk=128, device="cuda")
+    engine = PagedEngine(model, kv_int8=True, **kw)
+    arena = sum(t.numel() * t.element_size()
+                for layer in engine.backend.cache for t in layer)
+    fp32_arena = engine.num_kv_blocks * 16 * cfg.num_key_value_heads \
+        * cfg.head_dim * 4 * 2 * L
+    print(f"int8 engine: 32 slots, max_len 2048, decode_block 8, block 16, "
+          f"chunk 128, {engine.num_kv_blocks} arena blocks: int8 arena "
+          f"{arena / 1e9:.2f} GB (an fp32 arena would be "
+          f"{fp32_arena / 1e9:.2f} GB), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    srv = Server(engine, Scheduler(prefill_token_budget=512))
+    reqs = _int8_requests(np.random.RandomState(5), cfg.vocab_size)
+    rids, res, counts, wall = _serve_checked(torch, srv, engine, reqs,
+                                             cfg.vocab_size)
+    _check_launches(engine, counts, "paged_attention_decode_int8")
+    st = srv.stats()
+    bound = engine.kv_error_bound()
+    if not bound > 0:
+        raise AssertionError(f"kv_error_bound {bound}")
+    print(f"int8 served {len(rids)} requests in {wall:.2f} s: "
+          f"{engine.steps} decode steps, {engine.prefill_chunks} prefill "
+          f"chunks, launches {counts}")
+    _print_serving(card, "int8 ", st,
+                   f" kv_bytes_per_slot={st['kv_bytes_per_slot']} "
+                   f"kv_error_bound={bound:.6e} max_memory_allocated_gb="
+                   f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+
+    # one decode step with all 32 slots live at lengths 1009..1071,
+    # kernels vs plain versions: a shared 1008-token prefix (63 blocks,
+    # prefilled once) plus 1 + 2 i tokens of each request's own
+    rng = np.random.RandomState(6)
+    base = rng.randint(0, cfg.vocab_size, (1008,))
+    for i in range(32):
+        p = np.concatenate([base, rng.randint(0, cfg.vocab_size,
+                                              (1 + 2 * i,))])
+        engine.try_admit(Request(request_id=2000 + i,
+                                 prompt=p.astype("int32"),
+                                 max_new_tokens=24))
+        if i == 0:
+            engine.prefill_tick(None)         # registers the prefix
+    engine.prefill_tick(None)
+    s = engine._state
+    if int(s["live"].sum()) != 32 or int(s["pos"].min()) < 1008:
+        raise AssertionError("the log-prob check needs 32 live slots")
+    _check_step_logprobs(torch, model, engine, "int8 ")
+    profile_decode_block(torch, engine, card)
+
+    # greedy agreement with an fp32 arena on the same prompts (reported,
+    # not gated); the int8 arena is freed first, the fp32 one holds 16
+    # slots of 2048 tokens (34.4 GB beside the 27 GB of weights)
+    greedy = [i for i, r in enumerate(reqs) if not r[2]]
+    int8_out = {i: res[rids[i]] for i in greedy}
+    del engine, srv, s
+    torch.cuda.empty_cache()
+    fp_engine = PagedEngine(model, kv_int8=False, **dict(kw, num_slots=16))
+    fp_srv = Server(fp_engine, Scheduler(prefill_token_budget=512))
+    fp_reqs = [reqs[i] for i in greedy]
+    fp_rids, fp_res, _, fp_wall = _serve_checked(torch, fp_srv, fp_engine,
+                                                 fp_reqs, cfg.vocab_size)
+    same = total = prefix_sum = 0
+    identical = 0
+    for i, rid in zip(greedy, fp_rids):
+        p_len = len(reqs[i][0])
+        a, b = int8_out[i][p_len:], fp_res[rid][p_len:]
+        eq = a == b
+        same += int(eq.sum())
+        total += len(a)
+        first = int(np.argmin(eq)) if not eq.all() else len(a)
+        prefix_sum += first
+        identical += int(eq.all())
+    print(f"int8 vs fp32 arena greedy streams ({len(greedy)} requests, "
+          f"{fp_wall:.2f} s for the fp32 run): {identical} identical, "
+          f"token agreement {same / total:.4f}, mean agreeing prefix "
+          f"{prefix_sum / len(greedy):.1f} of "
+          f"{total / len(greedy):.1f} generated tokens (not gated)")
+    del fp_engine, fp_srv
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -853,20 +1093,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32 off for matmul and cuDNN (full fp32 products)")
-    rms, pa, flash, rope, adamw = {}, {}, {}, {}, {}
+    rms, pa, pa8, flash, rope, adamw = {}, {}, {}, {}, {}, {}
     check_rms_norm(torch, rms, (torch.float32, 8))
     check_paged_attention(torch, pa, 32)
+    check_paged_attention_int8(torch, pa8)
     check_flash(torch, flash)
     check_rope(torch, rope)
     check_adamw(torch, adamw)
     check_rms_norm_backward(torch)
-    serving = serving_path(torch, card)
+    serving, model = serving_path(torch, card)
     torch.cuda.empty_cache()
-    print(f"after the serving path: "
+    serving8 = serving_int8_path(torch, card, model)
+    del model
+    torch.cuda.empty_cache()
+    print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     train = train_path(torch, card)
-    counts = {k: serving[k] + train[k] for k in serving}
-    print(f"launches: serving {serving}; training {train}")
+    counts = {k: serving[k] + serving8[k] + train[k] for k in serving}
+    print(f"launches: serving {serving}; int8 serving {serving8}; "
+          f"training {train}")
     src = "paddle_tpu_torch/csrc/"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -877,6 +1122,10 @@ def main() -> int:
              source=src + "paged_attention.cu",
              replaces="paddle_tpu/ops/pallas/paged_attention.py:226",
              launches=counts["paged_attention_decode"], **pa),
+        dict(name="paged_attention_decode_int8", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="paddle_tpu/ops/pallas/paged_attention.py:236",
+             launches=counts["paged_attention_decode_int8"], **pa8),
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention.cu", replaces=fa + ":104",
              launches=counts["flash_attention_fwd"], **flash["fwd"]),

@@ -12,8 +12,10 @@ from typing import Optional
 
 import torch
 
-from ..ops.paged_attention import (dense_attention, paged_attention_decode,
-                                   paged_gather)
+from ..ops.paged_attention import (dense_attention, dequantize_kv,
+                                   paged_attention_decode,
+                                   paged_attention_decode_int8,
+                                   paged_gather, quantize_kv)
 
 __all__ = ["cached_attention", "decode_step_logprobs"]
 
@@ -26,7 +28,7 @@ def _rope_rows(x, c, sn):
 
 
 def cached_attention(q, k, v, k_arena, v_arena, pos, *, scale, cos, sin,
-                     block_table):
+                     block_table, kv_scales=None):
     """One paged-KV attention step, shared by prefill chunks (s > 1)
     and decode (s = 1).
 
@@ -37,7 +39,15 @@ def cached_attention(q, k, v, k_arena, v_arena, pos, *, scale, cos, sin,
     offset ``t % bs`` — positions past the table width go to the trash
     block 0 — and the read runs the paged-attention decode kernel for
     s = 1 or the gathered-dense sequence for a chunk. Returns the
-    (b, s, h, d) attention output; the arenas are updated in place."""
+    (b, s, h, d) attention output; the arenas are updated in place.
+
+    With ``kv_scales=(k_scales, v_scales)`` the arenas hold int8 codes
+    and the scales (num_blocks, block_size, kvh) fp32 absmaxes: k/v are
+    quantized per (position, kv head) vector and codes and scales are
+    written at the same (block, offset); s = 1 reads through the int8
+    decode kernel (dequant inside the read), a chunk dequantizes the
+    gathered table and runs the dense sequence (the JAX package's
+    ``generation.py:145-166``)."""
     b, s, h, d = q.shape
     dev = q.device
     steps = torch.arange(s, device=dev, dtype=torch.int32)
@@ -57,16 +67,34 @@ def cached_attention(q, k, v, k_arena, v_arena, pos, *, scale, cos, sin,
                                            blk_idx.clamp(0, mb - 1).long()))
     off = torch.where(oob, 0, tpos % bs_blk)
     blk, off = blk.long(), off.long()
+    lengths = pos.to(torch.int32) + s
+    if kv_scales is not None:                          # int8 arenas
+        k_scales, v_scales = kv_scales
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k_arena[blk, off] = kq
+        v_arena[blk, off] = vq
+        k_scales[blk, off] = ks
+        v_scales[blk, off] = vs
+        if s == 1:
+            out = paged_attention_decode_int8(
+                q[:, 0].contiguous(), k_arena, v_arena, k_scales, v_scales,
+                block_table, lengths, scale=scale)
+            return out[:, None].to(q.dtype)
+        kd = dequantize_kv(paged_gather(k_arena, block_table),
+                           paged_gather(k_scales, block_table))
+        vd = dequantize_kv(paged_gather(v_arena, block_table),
+                           paged_gather(v_scales, block_table))
+        return dense_attention(q, kd, vd, lengths, scale=scale)
     k_arena[blk, off] = k.to(k_arena.dtype)
     v_arena[blk, off] = v.to(v_arena.dtype)
     if s == 1:
         out = paged_attention_decode(q[:, 0].contiguous(), k_arena, v_arena,
-                                     block_table, (pos + 1).to(torch.int32),
-                                     scale=scale)
+                                     block_table, lengths, scale=scale)
         return out[:, None].to(q.dtype)
     return dense_attention(q, paged_gather(k_arena, block_table),
-                           paged_gather(v_arena, block_table),
-                           pos.to(torch.int32) + s, scale=scale)
+                           paged_gather(v_arena, block_table), lengths,
+                           scale=scale)
 
 
 @torch.inference_mode()

@@ -123,10 +123,11 @@ class LlamaAttention(nn.Module):
         if self.sliding_window is not None:
             raise NotImplementedError(
                 "the paged cache path does not take sliding_window yet")
-        k_arena, v_arena = cache
-        out = cached_attention(q, k, v, k_arena, v_arena, pos,
+        # (k, v) arenas, or int8 (k, v) codes + (k, v) scales
+        out = cached_attention(q, k, v, cache[0], cache[1], pos,
                                scale=1.0 / math.sqrt(self.head_dim),
-                               cos=cos, sin=sin, block_table=block_table)
+                               cos=cos, sin=sin, block_table=block_table,
+                               kv_scales=cache[2:] or None)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -230,17 +231,26 @@ class LlamaForCausalLM(nn.Module):
                 p.normal_(0.0, 0.02, generator=gen)
 
     def init_paged_kv_cache(self, num_blocks: int, block_size: int,
-                            dtype=None) -> List[Tuple[torch.Tensor,
-                                                      torch.Tensor]]:
+                            kv_int8: bool = False, dtype=None
+                            ) -> List[Tuple[torch.Tensor, ...]]:
         """Per layer a shared (num_blocks, block_size, kv_heads,
-        head_dim) (k, v) arena pair on the model's device; block 0 is
-        the trash block. fp32 or bf16."""
+        head_dim) (k, v) arena pair on the model's device, fp32 or bf16;
+        block 0 is the trash block. With ``kv_int8`` each layer is a
+        4-tuple: int8 k and v codes of that shape plus fp32 k and v
+        absmax scales (num_blocks, block_size, kv_heads)."""
         c = self.config
+        shape = (num_blocks, block_size, c.num_key_value_heads, c.head_dim)
+        if kv_int8:
+            def z(shp, dt):
+                return torch.zeros(shp, dtype=dt, device=self.device)
+            return [(z(shape, torch.int8), z(shape, torch.int8),
+                     z(shape[:-1], torch.float32),
+                     z(shape[:-1], torch.float32))
+                    for _ in range(c.num_hidden_layers)]
         dt = dtype or self.head_weight.dtype
         if dt not in (torch.float32, torch.bfloat16):
             raise TypeError(f"paged arenas are float32 or bfloat16, "
                             f"got {dt}")
-        shape = (num_blocks, block_size, c.num_key_value_heads, c.head_dim)
         return [(torch.zeros(shape, dtype=dt, device=self.device),
                  torch.zeros(shape, dtype=dt, device=self.device))
                 for _ in range(c.num_hidden_layers)]

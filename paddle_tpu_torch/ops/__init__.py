@@ -41,9 +41,11 @@ def _wrappers():
                                   flash_attention_bwd_dq,
                                   flash_attention_fwd)
     from .fused import fused_adamw, fused_rope, rms_norm
-    from .paged_attention import paged_attention_decode
+    from .paged_attention import (paged_attention_decode,
+                                  paged_attention_decode_int8)
     return {"rms_norm": rms_norm,
             "paged_attention_decode": paged_attention_decode,
+            "paged_attention_decode_int8": paged_attention_decode_int8,
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,

@@ -1,12 +1,16 @@
 """Paged-attention decode over a block-paged KV arena: the hand-written
 CUDA kernel ``csrc/paged_attention.cu`` and its plain PyTorch version.
 
-Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py`` (fp32/bf16
-arenas). Layouts match the JAX package: arenas
-``(num_blocks, block_size, kv_heads, head_dim)``, q ``(b, h, d)`` for
-decode and ``(b, s, h, d)`` otherwise, block tables ``(b, max_blocks)``
-int32, lengths ``(b,)`` int32. Block 0 is the trash block that dead
-slots point at."""
+Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``: the
+fp32/bf16 arenas and the int8 arena with its wire format (int8 codes
+per (position, kv head) vector against the vector's fp32 absmax, the
+EQuARX recipe of ``paddle_tpu/distributed/collectives/quantized.py``).
+Layouts match the JAX package: arenas
+``(num_blocks, block_size, kv_heads, head_dim)``, int8 scales
+``(num_blocks, block_size, kv_heads)``, q ``(b, h, d)`` for decode and
+``(b, s, h, d)`` otherwise, block tables ``(b, max_blocks)`` int32,
+lengths ``(b,)`` int32. Block 0 is the trash block that dead slots
+point at."""
 from __future__ import annotations
 
 import ctypes
@@ -16,11 +20,56 @@ import torch
 from . import build, plain_active
 
 __all__ = ["paged_gather", "paged_attention_reference",
-           "paged_attention_decode", "dense_attention"]
+           "paged_attention_decode", "dense_attention", "quantize_kv",
+           "dequantize_kv", "kv_int8_error_bound",
+           "paged_attention_int8_reference", "paged_attention_decode_int8"]
 
 NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_QMAX = 127.0
+# fl32(1/127): XLA compiles _dequantize's ``s / 127`` as ``s * (1/127)``
+# with the fp32 reciprocal; the port and its kernel do the same
+_INV127 = float(torch.tensor(1.0) / 127)
 _fn = None
+_fn_int8 = None
+
+
+# ---------------------------------------------------------------------------
+# int8 KV wire format
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x: torch.Tensor):
+    """(..., d) -> ((..., d) int8 codes, (...,) fp32 absmax scales): one
+    bucket per (position, kv head) vector. ``_quantize`` of
+    ``quantized.py:48-61`` as XLA compiles it: the scale is the raw
+    absmax, the code ``clip(round(x / denom * 127), -127, 127)`` with a
+    true division by the row's denominator (absmax, or 1 for a zero
+    row) and round-half-to-even — bit-identical to the JAX package on
+    the CPU."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1)
+    denom = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(xf / denom[..., None] * _QMAX).clamp_(-_QMAX, _QMAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`, fp32 out: ``_dequantize`` of
+    ``quantized.py:64-72`` as XLA compiles it — the +-127 codes give
+    +-absmax bit-exactly (constant vectors round-trip), any other code
+    ``q * (s * fl(1/127))``."""
+    qf = codes.float()
+    s = scales[..., None]
+    return torch.where(qf.abs() == _QMAX, torch.sign(qf) * s,
+                       qf * (s * _INV127))
+
+
+def kv_int8_error_bound(absmax):
+    """Worst-case elementwise |dequant - x| of the int8 KV arena: one
+    quantization, half a step, ``absmax / 127 / 2`` in fp32 (the JAX
+    ``kv_int8_error_bound``: ``int8_error_bound`` with one contributor
+    and no second phase)."""
+    return torch.as_tensor(absmax, dtype=torch.float32) / _QMAX / 2
 
 
 def paged_gather(arena: torch.Tensor,
@@ -61,6 +110,52 @@ def paged_attention_reference(q, k_arena, v_arena, block_table, lengths,
                            scale=scale)
 
 
+def paged_attention_int8_reference(q, k_codes, v_codes, k_scales,
+                                   v_scales, block_table, lengths, *,
+                                   scale):
+    """Dequant-then-dense oracle of the int8 arena: gather the whole
+    table, dequantize it, then :func:`dense_attention`. ``q`` is
+    (b, s, h, d)."""
+    kd = dequantize_kv(paged_gather(k_codes, block_table),
+                       paged_gather(k_scales, block_table))
+    vd = dequantize_kv(paged_gather(v_codes, block_table),
+                       paged_gather(v_scales, block_table))
+    return dense_attention(q, kd, vd, lengths, scale=scale)
+
+
+def _int8_decode_plain(q, k_codes, v_codes, k_scales, v_scales,
+                       block_table, lengths, *, scale):
+    """The plain version of the int8 decode kernel, the JAX package's
+    ``_int8_decode_fallback``: a loop over the table entries that
+    gathers and dequantizes ONE (b, bs, kvh, d) block at a time into the
+    online softmax (entries past a slot's length are masked, -1e30), so
+    no fp32 copy of the whole table ever exists."""
+    b, h, d = q.shape
+    _, bs, kvh, _ = k_codes.shape
+    mb = block_table.shape[1]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d).float()
+    tbl, lens = block_table.long(), lengths.long()
+    pos = torch.arange(bs, device=q.device)
+    m = torch.full((b, kvh, g, 1), NEG, device=q.device)
+    den = torch.zeros((b, kvh, g, 1), device=q.device)
+    acc = torch.zeros((b, kvh, g, d), device=q.device)
+    for j in range(mb):
+        blk = tbl[:, j]
+        k = dequantize_kv(k_codes[blk], k_scales[blk])     # (b, bs, kvh, d)
+        v = dequantize_kv(v_codes[blk], v_scales[blk])
+        s = torch.einsum("bkgd,btkd->bkgt", qg, k) * scale
+        valid = (j * bs + pos)[None, :] < lens[:, None]       # (b, bs)
+        s = s.masked_fill(~valid[:, None, None, :], NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bkgt,btkd->bkgd", p, v)
+        m = m_new
+    return (acc / den).reshape(b, h, d).to(q.dtype)
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -72,44 +167,52 @@ def _kernel():
     return _fn
 
 
-def _check(q, k_arena, v_arena, block_table, lengths):
+def _check(name, q, k, v, block_table, lengths, scales=()):
+    """What the kernel needs, or raise: q (b, h, d) fp32/bf16; (nb, bs,
+    kvh, d) arenas in q's dtype, or int8 codes with fp32 ``scales`` (k,
+    v) of (nb, bs, kvh); int32 table (b, mb) and lengths (b,); all
+    contiguous on q's device. One lane loads 16 bytes of a (position,
+    kv head) row, so a row must be a power of two of at most 32 lanes,
+    and the arenas 16-byte aligned."""
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged_attention_decode kernel takes "
-                        f"float32/bfloat16, got {q.dtype}")
-    if k_arena.dtype != q.dtype or v_arena.dtype != q.dtype:
-        raise TypeError("paged_attention_decode kernel needs q and both "
-                        f"arenas in one dtype, got {q.dtype}/"
-                        f"{k_arena.dtype}/{v_arena.dtype}")
+        raise TypeError(f"{name} kernel takes float32/bfloat16 q, got "
+                        f"{q.dtype}")
+    arena_dtype = torch.int8 if scales else q.dtype
+    if k.dtype != arena_dtype or v.dtype != arena_dtype:
+        raise TypeError(f"{name} kernel needs {arena_dtype} arenas for "
+                        f"{q.dtype} q, got {k.dtype}/{v.dtype}")
+    if any(sc.dtype != torch.float32 for sc in scales):
+        raise TypeError(f"{name} kernel needs float32 scales, got "
+                        f"{[sc.dtype for sc in scales]}")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_table and lengths must be int32")
-    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena),
-                    ("block_table", block_table), ("lengths", lengths)):
+    named = dict(zip(("k_scales", "v_scales"), scales), q=q, k=k, v=v,
+                 block_table=block_table, lengths=lengths)
+    for tname, t in named.items():
         if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+            raise ValueError(f"{tname} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_attention_decode kernel needs a "
-                             f"contiguous {name}")
+            raise ValueError(f"{name} kernel needs a contiguous {tname}")
     b, h, d = q.shape
-    nb, bs, kvh, d2 = k_arena.shape
-    if tuple(v_arena.shape) != tuple(k_arena.shape) or d2 != d:
-        raise ValueError(f"arena shapes {tuple(k_arena.shape)}/"
-                         f"{tuple(v_arena.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
+    nb, bs, kvh, d2 = k.shape
+    if tuple(v.shape) != tuple(k.shape) or d2 != d:
+        raise ValueError(f"arenas {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
+    if any(tuple(sc.shape) != (nb, bs, kvh) for sc in scales):
+        raise ValueError(f"scales {[tuple(sc.shape) for sc in scales]} do "
+                         f"not fit the code arenas {tuple(k.shape)}")
     if h % kvh:
         raise ValueError(f"h={h} is not a multiple of kv_heads={kvh}")
     if block_table.shape[0] != b or tuple(lengths.shape) != (b,):
         raise ValueError(f"block_table {tuple(block_table.shape)} / "
                          f"lengths {tuple(lengths.shape)} do not fit b={b}")
-    vec = 16 // q.element_size()
-    if d % vec or k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
-        raise ValueError(f"paged_attention_decode kernel needs "
-                         f"head_dim % {vec} == 0 and 16-byte aligned "
-                         "arenas")
-    g = h // kvh
-    smem = 4 * (2 * g * d + 2 * bs * d + g * bs + 3 * g)
-    if smem > 227 * 1024:
-        raise ValueError(f"paged_attention_decode kernel: {smem} bytes of "
-                         "shared memory exceed the 227 KB a CTA can use")
+    vec = 16 // k.element_size()
+    lanes = d // vec
+    if d % vec or lanes > 32 or lanes & (lanes - 1) \
+            or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name} kernel needs head_dim = {vec} x a power "
+                         f"of two up to 32 and 16-byte aligned arenas, got "
+                         f"head_dim {d}")
 
 
 def paged_attention_decode(q, k_arena, v_arena, block_table, lengths, *,
@@ -126,7 +229,8 @@ def paged_attention_decode(q, k_arena, v_arena, block_table, lengths, *,
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_attention_decode: no kernel for device "
                            f"{q.device}")
-    _check(q, k_arena, v_arena, block_table, lengths)
+    _check("paged_attention_decode", q, k_arena, v_arena,
+           block_table, lengths)
     b, h, d = q.shape
     _, bs, kvh, _ = k_arena.shape
     mb = block_table.shape[1]
@@ -146,3 +250,52 @@ def paged_attention_decode(q, k_arena, v_arena, block_table, lengths, *,
 
 
 paged_attention_decode.launches = 0
+
+
+def _kernel_int8():
+    global _fn_int8
+    if _fn_int8 is None:
+        fn = build.load("paged_attention").pt_paged_attention_decode_int8
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_int8 = fn
+    return _fn_int8
+
+
+def paged_attention_decode_int8(q, k_codes, v_codes, k_scales, v_scales,
+                                block_table, lengths, *, scale):
+    """One decode step (s = 1) against the int8 arena, the dequant
+    INSIDE the read: q (b, h, d) fp32/bf16, codes (nb, bs, kvh, d) int8,
+    scales (nb, bs, kvh) fp32, lengths (b,) = valid positions per slot.
+    A CPU tensor takes the plain version (the per-block loop of
+    ``_int8_decode_fallback``); a CUDA tensor launches the int8 entry of
+    ``csrc/paged_attention.cu`` or raises. Output in q's dtype."""
+    if q.device.type == "cpu" or plain_active():
+        return _int8_decode_plain(q, k_codes, v_codes, k_scales, v_scales,
+                                  block_table, lengths, scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_attention_decode_int8: no kernel for "
+                           f"device {q.device}")
+    _check("paged_attention_decode_int8", q, k_codes, v_codes,
+           block_table, lengths, scales=(k_scales, v_scales))
+    b, h, d = q.shape
+    _, bs, kvh, _ = k_codes.shape
+    mb = block_table.shape[1]
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    rc = _kernel_int8()(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_codes.data_ptr(),
+        v_codes.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
+        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
+        kvh, d, bs, mb, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_decode_int8 kernel launch "
+                           f"failed: CUDA error {rc}")
+    paged_attention_decode_int8.launches += 1
+    return out
+
+
+paged_attention_decode_int8.launches = 0

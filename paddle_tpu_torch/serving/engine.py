@@ -9,9 +9,9 @@ runs the block as one compiled ``lax.scan``; here it is a Python loop of
 until the block ends — the host syncs ONCE per block, as there. The
 JAX slot state is a pytree replaced by each program; here the state
 tensors are updated in place or rebound per step, which is PyTorch's
-idiom. ``jax.random`` keys become one ``torch.Generator`` per sampled
-request (Philox, not threefry: sampled streams do not match the JAX
-package bit for bit; greedy streams do)."""
+idiom. Sampling draws from threefry keys (``paddle_tpu_torch.random``)
+on the JAX key schedule, so seeded sampled streams match the JAX
+package token for token."""
 from __future__ import annotations
 
 import time
@@ -20,37 +20,38 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from .. import random as prng
+
 __all__ = ["slot_sample_logits", "init_slot_state", "run_decode_block",
            "ContinuousBatchingEngine"]
 
 
-def _gumbel(n: int, gen: torch.Generator, device) -> torch.Tensor:
-    u = torch.rand(n, generator=gen, device=device)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
-
-
 def slot_sample_logits(logits: torch.Tensor, temperature: torch.Tensor,
                        top_k: torch.Tensor, top_p: torch.Tensor,
-                       generators: Sequence[Optional[torch.Generator]]
-                       ) -> torch.Tensor:
+                       keys: Optional[torch.Tensor] = None,
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot sampling over (S, V) logits or log-probs: greedy rows
     (temperature <= 0) take argmax; sampled rows share ONE descending
     sort for both the top-k threshold and the top-p cutoff (the JAX
-    package's filter), then draw by Gumbel-max with the row's own
-    generator. ``generators[i]`` is None for a greedy row; when every
-    row is greedy the filter is skipped. Returns (S,) int32."""
+    package's filter), then draw ``jax.random.categorical`` with the
+    row's own (S, 2) threefry key. ``rows`` (int64 indices) names the
+    rows that may sample — only they run the filter and the draw, an
+    (n_sampled, V) block; None means every row. Without ``keys`` every
+    row is greedy. Returns (S,) int32."""
     logits = logits.float()
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    if all(g is None for g in generators):
+    if keys is None or (rows is not None and rows.numel() == 0):
         return greedy_tok
-    S, V = logits.shape
+    if rows is None:
+        rows = torch.arange(logits.shape[0], device=logits.device)
+    lg, temp = logits[rows], temperature[rows]
+    V = lg.shape[1]
     neg_inf = float("-inf")
-    greedy = temperature <= 0.0
-    t = torch.where(greedy, torch.ones_like(temperature), temperature)
-    scaled = logits / t[:, None]
+    greedy = temp <= 0.0
+    t = torch.where(greedy, torch.ones_like(temp), temp)
+    scaled = lg / t[:, None]
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
-    k = top_k.to(torch.int64).clamp(0, V)
+    k = top_k[rows].to(torch.int64).clamp(0, V)
     use_k = (k > 0) & (k < V)
     kth = torch.gather(sorted_desc, 1, (k - 1).clamp(min=0)[:, None])
     kth = torch.where(use_k[:, None], kth, neg_inf)
@@ -59,17 +60,16 @@ def slot_sample_logits(logits: torch.Tensor, temperature: torch.Tensor,
     # filtered row (kept prefix unchanged, dropped tail -> -inf)
     sorted_f = torch.where(sorted_desc < kth, neg_inf, sorted_desc)
     cum = torch.cumsum(torch.softmax(sorted_f, dim=-1), dim=-1)
-    cutoff_idx = (cum < top_p[:, None]).sum(dim=-1, keepdim=True) \
+    tp = top_p[rows]
+    cutoff_idx = (cum < tp[:, None]).sum(dim=-1, keepdim=True) \
         .clamp(0, V - 1)
     cutoff = torch.gather(sorted_f, 1, cutoff_idx)
-    cutoff = torch.where((top_p < 1.0)[:, None], cutoff, neg_inf)
+    cutoff = torch.where((tp < 1.0)[:, None], cutoff, neg_inf)
     filt = torch.where(filt < cutoff, neg_inf, filt)
-    noise = torch.zeros_like(filt)
-    for row, gen in enumerate(generators):
-        if gen is not None:
-            noise[row] = _gumbel(V, gen, logits.device)
-    sampled = torch.argmax(filt + noise, dim=-1).to(torch.int32)
-    return torch.where(greedy, greedy_tok, sampled)
+    drawn = prng.categorical(keys[rows], filt).to(torch.int32)
+    out = greedy_tok.clone()
+    out[rows] = torch.where(greedy, greedy_tok[rows], drawn)
+    return out
 
 
 def init_slot_state(num_slots: int, device) -> Dict[str, torch.Tensor]:
@@ -81,33 +81,48 @@ def init_slot_state(num_slots: int, device) -> Dict[str, torch.Tensor]:
 
     return {"tok": z(torch.int32), "pos": z(torch.int32),
             "live": z(torch.bool, False), "eos": z(torch.int32, -1),
-            "remaining": z(torch.int32), "temp": z(torch.float32),
-            "topk": z(torch.int32), "topp": z(torch.float32, 1.0)}
+            "remaining": z(torch.int32),
+            "key": torch.zeros((S, 2), dtype=torch.int64, device=device),
+            "temp": z(torch.float32), "topk": z(torch.int32),
+            "topp": z(torch.float32, 1.0)}
 
 
 def run_decode_block(step, state: Dict[str, torch.Tensor], block: int,
-                     generators: Sequence[Optional[torch.Generator]]):
+                     sampled_rows: Sequence[int] = ()):
     """The engine's decode block: ``block`` steps of forward -> per-slot
-    sampling -> eos/budget retirement, all on the device. ``step(tok,
-    pos, table)`` returns (S, V) log-probs. Dead slots' tables are
-    redirected to the trash block 0, so a retired slot whose blocks the
-    host has handed to another request never writes into them. Returns
-    the new state and the (block, S) token and start-of-step live
-    matrices (the host counts emissions from ``live``: an eos retirement
-    zeroes ``remaining``)."""
+    key split and sampling -> eos/budget retirement, all on the device.
+    ``step(tok, pos, table)`` returns (S, V) log-probs. Dead slots'
+    tables are redirected to the trash block 0, so a retired slot whose
+    blocks the host has handed to another request never writes into
+    them. ``sampled_rows``: the live slots that sample (the host knows
+    them at the block's start). Returns the new state and the (block, S)
+    token and start-of-step live matrices (the host counts emissions
+    from ``live``: an eos retirement zeroes ``remaining``).
+
+    Each step splits every slot's key, as the JAX block does, and draws
+    with the sub-keys. A block with no sampled row skips the split and
+    the draw: a greedy row's key is never consumed, and arming a slot
+    overwrites its key, so no sampled stream can tell."""
     toks, lives = [], []
+    rows = torch.tensor(list(sampled_rows), dtype=torch.int64,
+                        device=state["tok"].device) if sampled_rows else None
     for _ in range(block):
         live = state["live"]
         tbl = torch.where(live[:, None], state["table"], 0)
         logp = step(state["tok"][:, None], state["pos"], tbl)
+        if rows is None:
+            key, sub = state["key"], None
+        else:
+            sp = prng.split(state["key"])                  # (S, 2, 2)
+            key, sub = sp[:, 0], sp[:, 1]
         nxt = slot_sample_logits(logp, state["temp"], state["topk"],
-                                 state["topp"], generators)
+                                 state["topp"], sub, rows)
         hit = live & (state["eos"] >= 0) & (nxt == state["eos"])
         rem = torch.where(live, state["remaining"] - 1, state["remaining"])
         rem = torch.where(hit, 0, rem)
         state = dict(state, tok=torch.where(live, nxt, state["tok"]),
                      pos=state["pos"] + live.to(torch.int32),
-                     remaining=rem, live=live & (rem > 0))
+                     remaining=rem, key=key, live=live & (rem > 0))
         toks.append(nxt)
         lives.append(live)
     return state, torch.stack(toks), torch.stack(lives)
@@ -131,7 +146,6 @@ class _SlotRun:
     t_admit: float = 0.0
     t_done: float = 0.0
     block_ids: Optional[List[int]] = None
-    generator: Optional[torch.Generator] = None
     failure: Optional[str] = None
 
 
@@ -194,9 +208,11 @@ class ContinuousBatchingEngine:
                 f"({max_new_tokens}) exceeds the slot capacity "
                 f"({self.max_len}); raise max_len or shorten the request")
 
-    def _generators(self) -> List[Optional[torch.Generator]]:
-        return [None if r is None or i in self._prefill_slots
-                else r.generator for i, r in enumerate(self._slots)]
+    def _sampled_rows(self) -> List[int]:
+        """The armed slots whose request samples (temperature > 0)."""
+        return [i for i, r in enumerate(self._slots)
+                if r is not None and i not in self._prefill_slots
+                and r.request.temperature > 0.0]
 
     # -- decode ------------------------------------------------------------
     def step_block(self):
@@ -207,7 +223,7 @@ class ContinuousBatchingEngine:
             return
         t0 = time.perf_counter()
         self._state, toks, lives = self.backend.decode_block(
-            self._state, self._generators())
+            self._state, self._sampled_rows())
         B, S = toks.shape
         packed = torch.cat([toks.reshape(-1),
                             lives.to(torch.int32).reshape(-1),
@@ -253,7 +269,6 @@ class ContinuousBatchingEngine:
 
     def _retire(self, slot, run, now):
         run.t_done = now
-        run.generator = None
         self._finished.append(run)
         self._slots[slot] = None
 

@@ -6,12 +6,14 @@ Counterpart of ``paddle_tpu/serving/paging.py``. ``BlockManager`` is the
 same host logic (free list, refcounts, SHA1-chained prefix index with
 LRU retention of released registered blocks; block 0 is the trash
 block). ``PagedModelStepBackend`` owns the per-layer
-``(num_blocks, block_size, kvh, d)`` arenas on the device and runs the
-two programs of the paged engine: the decode block and the
-``(1, prefill_chunk)`` prefill chunk. ``PagedEngine`` admits requests
-(reserving blocks, reusing prefixes), streams prompts in chunks paced by
-the scheduler's token budget, arms slots and releases blocks at
-retirement."""
+``(num_blocks, block_size, kvh, d)`` arenas on the device — or, with
+``kv_int8``, int8 code arenas plus ``(num_blocks, block_size, kvh)``
+fp32 per-vector absmax scales (the EQuARX wire format; about 3.9x less
+KV memory at head_dim 128) — and runs the two programs of the paged
+engine: the decode block and the ``(1, prefill_chunk)`` prefill chunk.
+``PagedEngine`` admits requests (reserving blocks, reusing prefixes),
+streams prompts in chunks paced by the scheduler's token budget, arms
+slots and releases blocks at retirement."""
 from __future__ import annotations
 
 import hashlib
@@ -23,7 +25,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import random as prng
 from ..models.generation import decode_step_logprobs
+from ..ops.paged_attention import kv_int8_error_bound
+from ..utils.flags import env_flag, env_int
 from .engine import (ContinuousBatchingEngine, _SlotRun, init_slot_state,
                      run_decode_block, slot_sample_logits)
 
@@ -224,11 +229,12 @@ class PagedModelStepBackend:
     """The paged engine's two device programs over a live model: the
     decode block threads the per-slot block tables through the forward,
     and prefill is ONE fixed-shape ``(1, prefill_chunk)`` chunk. Owns
-    the per-layer arenas, which the forward updates in place."""
+    the per-layer arenas, which the forward updates in place: (k, v)
+    pairs, or (k codes, v codes, k scales, v scales) with ``kv_int8``."""
 
     def __init__(self, model, num_slots: int, max_len: int,
                  decode_block: int, block_size: int, num_blocks: int,
-                 prefill_chunk: int):
+                 prefill_chunk: int, kv_int8: bool = False):
         if max_len % block_size != 0:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
@@ -240,7 +246,9 @@ class PagedModelStepBackend:
         self.num_kv_blocks = num_blocks
         self.max_blocks = max_len // block_size
         self.prefill_chunk_len = prefill_chunk
-        self.cache = model.init_paged_kv_cache(num_blocks, block_size)
+        self.kv_int8 = bool(kv_int8)
+        self.cache = model.init_paged_kv_cache(num_blocks, block_size,
+                                               kv_int8=self.kv_int8)
 
     def init_state(self):
         state = init_slot_state(self.num_slots, self.device)
@@ -249,12 +257,19 @@ class PagedModelStepBackend:
                                      device=self.device)   # all-trash
         return state
 
+    def kv_bytes_per_slot(self) -> int:
+        """Device bytes of KV arena per slot (codes and scales under
+        the int8 arena): the shared arena over the slot count."""
+        total = sum(t.numel() * t.element_size()
+                    for layer in self.cache for t in layer)
+        return total // self.num_slots
+
     def _step(self, tok, pos, table):
         return decode_step_logprobs(self.model, tok, self.cache, pos, table)
 
-    def decode_block(self, state, generators):
+    def decode_block(self, state, sampled_rows):
         return run_decode_block(self._step, state, self.block_size,
-                                generators)
+                                sampled_rows)
 
     def prefill_chunk(self, ids: np.ndarray, table_row: np.ndarray,
                       start_pos: int, n_valid: int) -> torch.Tensor:
@@ -272,7 +287,7 @@ class PagedModelStepBackend:
 
 
 def _arm_fn(state, slot, table_row, tok0, pos0, rem0, eos0, temp0, topk0,
-            topp0):
+            topp0, key0):
     """Turn a slot live after its chunked prefill finished: the arena
     already holds the prompt's K/V, so arming is a state update in
     place."""
@@ -284,6 +299,7 @@ def _arm_fn(state, slot, table_row, tok0, pos0, rem0, eos0, temp0, topk0,
     state["temp"][slot] = temp0
     state["topk"][slot] = topk0
     state["topp"][slot] = topp0
+    state["key"][slot] = key0
     state["table"][slot] = torch.as_tensor(table_row,
                                            device=state["table"].device)
 
@@ -298,6 +314,8 @@ class _PrefillJob:
     prompt: np.ndarray
     done: int
     table_row: np.ndarray          # (max_blocks,) int32
+    key: torch.Tensor              # (2,) the slot's key once armed
+    sub: torch.Tensor              # (2,) the first token's sampling key
 
 
 class PagedEngine(ContinuousBatchingEngine):
@@ -311,26 +329,44 @@ class PagedEngine(ContinuousBatchingEngine):
       lands, with the first token sampled from that chunk.
     - prompts are unpadded: position 0 is token 0, which is what makes
       whole prefix blocks shareable across requests.
+    - ``kv_int8=True`` (or ``PT_SERVING_KV_INT8=1``) stores the arena as
+      int8 codes plus per-(position, kv head) fp32 absmax scales; the s=1
+      read dequantizes inside the int8 paged-decode kernel, and
+      :meth:`kv_error_bound` gives the worst-case dequantization error.
 
-    ``device`` must match the model's (default the GPU)."""
+    ``block_size`` and ``prefill_chunk`` resolve as in the JAX engine:
+    the argument, else ``PT_SERVING_BLOCK_SIZE`` /
+    ``PT_SERVING_PREFILL_CHUNK``, else 16 / twice the block size (there
+    is no autotune table). ``device`` must match the model's (default
+    the GPU)."""
 
     def __init__(self, model, num_slots: int = 4, max_len: int = 256,
-                 decode_block: int = 8, *, block_size: int = 16,
+                 decode_block: int = 8, *, block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
+                 kv_int8: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None, device=None):
         from ..device import resolve_device
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"model is on {model.device}, engine asked "
                              f"for {dev}")
+        if block_size is None:
+            block_size = env_int("PT_SERVING_BLOCK_SIZE", 0)
+            if block_size <= 0:
+                block_size = 16
         if num_blocks is None:
             # full dense capacity + trash by default
             num_blocks = 1 + num_slots * (max_len // block_size)
+        if kv_int8 is None:
+            kv_int8 = env_flag("PT_SERVING_KV_INT8")
         if prefill_chunk is None:
-            prefill_chunk = 2 * block_size
+            prefill_chunk = env_int("PT_SERVING_PREFILL_CHUNK",
+                                    2 * block_size)
         backend = PagedModelStepBackend(model, num_slots, max_len,
                                         decode_block, block_size,
-                                        num_blocks, prefill_chunk)
+                                        num_blocks, prefill_chunk,
+                                        bool(kv_int8))
+        self.kv_int8 = backend.kv_int8
         self.kv_block_size = block_size
         self.num_kv_blocks = num_blocks
         self.max_blocks = backend.max_blocks
@@ -340,7 +376,13 @@ class PagedEngine(ContinuousBatchingEngine):
 
     # -- lifecycle ---------------------------------------------------------
     def reset(self):
+        """Free every slot and block and zero the arena in place (the
+        JAX engine starts from a fresh zero arena), so
+        :meth:`kv_error_bound` sees only what was written since."""
         super().reset()
+        for layer in self.backend.cache:
+            for t in layer:
+                t.zero_()
         self.manager.reset()
         self._jobs: List[_PrefillJob] = []
         self.prompt_tokens = 0         # all prompt tokens admitted
@@ -355,6 +397,16 @@ class PagedEngine(ContinuousBatchingEngine):
         blocks instead of recomputed."""
         return self.shared_tokens / self.prompt_tokens \
             if self.prompt_tokens else 0.0
+
+    def kv_error_bound(self) -> float:
+        """Runtime worst-case |dequantized - fp32| over the int8 arena
+        (0.0 for an fp32/bf16 arena): the single-quantization bound from
+        the largest absmax scale the arena holds."""
+        if not self.kv_int8:
+            return 0.0
+        worst = max(float(s.max()) for layer in self.backend.cache
+                    for s in layer[2:])
+        return float(kv_int8_error_bound(worst))
 
     def blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
         # positions written: prompt [0, L) plus generated tokens at
@@ -389,18 +441,20 @@ class PagedEngine(ContinuousBatchingEngine):
         block_ids = shared + fresh
         table_row = np.zeros((self.max_blocks,), np.int32)
         table_row[:len(block_ids)] = block_ids
-        gen = None
-        if request.temperature > 0.0:
-            gen = torch.Generator(device=self.backend.device)
-            gen.manual_seed(int(request.seed))
-        run = _SlotRun(request, block_ids=block_ids, generator=gen)
+        # the JAX key schedule (generate()'s): PRNGKey(seed), split into
+        # the slot's key and the first token's sub-key. Two words on the
+        # host, then one copy to the device.
+        key, sub = prng.split(prng.prng_key(request.seed)) \
+            .to(self.backend.device)
+        run = _SlotRun(request, block_ids=block_ids)
         self._slots[slot] = run
         self._prefill_slots.add(slot)
         n_shared = len(shared) * self.kv_block_size
         self.prompt_tokens += L
         self.shared_tokens += n_shared
         self._jobs.append(_PrefillJob(run=run, slot=slot, prompt=prompt,
-                                      done=n_shared, table_row=table_row))
+                                      done=n_shared, table_row=table_row,
+                                      key=key, sub=sub))
         return True
 
     # -- chunked prefill ---------------------------------------------------
@@ -438,7 +492,7 @@ class PagedEngine(ContinuousBatchingEngine):
             logp, torch.tensor([req.temperature], device=dev),
             torch.tensor([req.top_k], device=dev),
             torch.tensor([req.top_p], device=dev),
-            [job.run.generator])[0])
+            job.sub[None] if req.temperature > 0.0 else None)[0])
         now = time.perf_counter()
         job.run.tokens = [tok0]
         job.run.t_admit = now               # TTFT timestamp
@@ -456,7 +510,7 @@ class PagedEngine(ContinuousBatchingEngine):
             return
         _arm_fn(self._state, job.slot, job.table_row, tok0, len(job.prompt),
                 rem0, -1 if eos is None else eos, req.temperature,
-                req.top_k, req.top_p)
+                req.top_k, req.top_p, job.key)
 
     def _retire(self, slot, run, now):
         super()._retire(slot, run, now)

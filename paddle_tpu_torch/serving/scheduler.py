@@ -18,8 +18,9 @@ __all__ = ["Request", "Scheduler"]
 @dataclass
 class Request:
     """One generation request. ``temperature <= 0`` decodes greedily;
-    a sampled request draws from its own ``torch.Generator`` seeded with
-    ``seed``. ``arrival_step``: the engine-block tick at which the
+    a sampled request draws from threefry keys split from
+    ``PRNGKey(seed)``, as in the JAX package. ``arrival_step``: the
+    engine-block tick at which the
     request becomes visible (deterministic staggered arrivals)."""
     request_id: int
     prompt: np.ndarray

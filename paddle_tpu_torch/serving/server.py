@@ -139,6 +139,7 @@ class Server:
         hit_rate = getattr(eng, "prefix_cache_hit_rate", None)
         if hit_rate is not None:               # paged engine extras
             out["prefix_cache_hit_rate"] = hit_rate()
+            out["kv_bytes_per_slot"] = eng.backend.kv_bytes_per_slot()
             out["prefill_chunks"] = eng.prefill_chunks
             out["prefill_s"] = eng.prefill_s
         return out

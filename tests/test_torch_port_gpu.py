@@ -7,10 +7,11 @@ only PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_port_gpu.py
 
 Kernels are held against their plain PyTorch versions on the same CUDA
-inputs — the serving kernels (RMSNorm, paged-attention decode) and the
-training kernels (flash attention forward/dq/dkv, RoPE, AdamW, and the
-RMSNorm gradient); the tiny Llama on the GPU against the same model on
-the CPU, serving and training."""
+inputs — the serving kernels (RMSNorm, paged-attention decode over the
+fp32/bf16 and the int8 arenas) and the training kernels (flash
+attention forward/dq/dkv, RoPE, AdamW, and the RMSNorm gradient); the
+tiny Llama on the GPU against the same model on the CPU, serving (both
+arenas) and training; threefry on the card against the CPU."""
 import math
 
 import numpy as np
@@ -22,7 +23,8 @@ from paddle_tpu_torch.models import (LlamaForCausalLM,
                                      decode_step_logprobs,
                                      llama_tiny_config)
 from paddle_tpu_torch.ops.fused import rms_norm, rms_norm_reference
-from paddle_tpu_torch.ops.paged_attention import paged_attention_decode
+from paddle_tpu_torch.ops.paged_attention import (
+    paged_attention_decode, paged_attention_decode_int8, quantize_kv)
 from paddle_tpu_torch.serving import PagedEngine, Scheduler, Server
 
 pytestmark = pytest.mark.cuda
@@ -103,6 +105,131 @@ def test_kernels_refuse_unsupported_inputs(dev):
                                scale=1.0)
     with pytest.raises(TypeError):
         paged_attention_decode(q, ka, va, table.long(), lengths, scale=1.0)
+    with pytest.raises(ValueError):     # a row of 24 lanes: no power of 2
+        paged_attention_decode(q[..., :96].contiguous(),
+                               ka[..., :96].contiguous(),
+                               va[..., :96].contiguous(), table, lengths,
+                               scale=1.0)
+
+
+def _int8_case(dev, b=4, h=32, kvh=8, d=128, bs=16, mb=8, full=False):
+    """Quantized random arenas; lengths 1, a partial block, a full table
+    and a dead row on the trash block (or every slot full)."""
+    g = torch.Generator(device=dev).manual_seed(100 + kvh)
+    nb = 1 + b * mb
+    q = torch.randn(b, h, d, generator=g, device=dev)
+    kc, ks = quantize_kv(torch.randn(nb, bs, kvh, d, generator=g,
+                                     device=dev))
+    vc, vs = quantize_kv(torch.randn(nb, bs, kvh, d, generator=g,
+                                     device=dev))
+    lengths = [mb * bs] * b if full else [1, bs + 3, mb * bs, 5][:b]
+    table = torch.zeros(b, mb, dtype=torch.int32)
+    perm = (torch.randperm(nb - 1) + 1).tolist()
+    for r in range(b if full else b - 1):
+        n = -(-lengths[r] // bs)
+        table[r, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    return (q, kc, vc, ks, vs, table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["ragged", "full"])
+@pytest.mark.parametrize("kvh", [32, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_int8_kernel_matches_plain(dev, kvh, dtype, full):
+    """fp32 q: 1e-5 (the online softmax in another order; the JAX suite
+    pins the same). bf16 q: both sides compute in fp32 and round the
+    output once, so each element within 1e-5 plus one bf16 ulp of its
+    magnitude (2^-7 relative)."""
+    q, *rest = _int8_case(dev, kvh=kvh, full=full)
+    q = q.to(dtype)
+    before = paged_attention_decode_int8.launches
+    got = paged_attention_decode_int8(q, *rest, scale=1 / math.sqrt(128))
+    torch.cuda.synchronize()
+    assert paged_attention_decode_int8.launches == before + 1
+    with ops.plain_versions():
+        want = paged_attention_decode_int8(q, *rest,
+                                           scale=1 / math.sqrt(128))
+    assert paged_attention_decode_int8.launches == before + 1
+    assert got.dtype == dtype
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5
+    else:
+        tol = 1e-5 + 2.0 ** -7 * torch.maximum(got.float().abs(),
+                                               want.float().abs())
+        assert bool((diff <= tol).all())
+
+
+@pytest.mark.parametrize("h,kvh,d,bs", [(4, 4, 32, 8), (8, 1, 16, 4),
+                                        (16, 2, 64, 16), (24, 4, 128, 16)],
+                         ids=["tiny", "d16-g8", "d64-g8", "g6"])
+@pytest.mark.parametrize("arena", ["float32", "bfloat16", "int8"])
+def test_paged_decode_kernel_lane_layouts(dev, h, kvh, d, bs, arena):
+    """The lane layouts beyond the serving shapes: a row of d / V lanes
+    (V = 4 fp32, 8 bf16, 16 int8 elements per 16-byte load) from 1 to
+    16 lanes, blocks narrower than one warp-wide load (rows past the
+    block are not read), and query groups of 6 and 8 heads split over
+    CTAs of up to 4. Tolerances as in the main-shape tests."""
+    if arena == "int8":
+        q, *rest = _int8_case(dev, h=h, kvh=kvh, d=d, bs=bs)
+        fn = paged_attention_decode_int8
+    else:
+        dtype = getattr(torch, arena)
+        q, *rest = _paged_case(dev, dtype, h=h, kvh=kvh, d=d, bs=bs)
+        fn = paged_attention_decode
+    got = fn(q, *rest, scale=1 / math.sqrt(d))
+    with ops.plain_versions():
+        want = fn(q, *rest, scale=1 / math.sqrt(d))
+    tol = 3e-2 if arena == "bfloat16" else 1e-5
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_int8_kernel_refuses_unsupported_inputs(dev):
+    q, kc, vc, ks, vs, table, lengths = _int8_case(dev)
+    scale = 1.0
+    with pytest.raises(TypeError):           # fp16 q
+        paged_attention_decode_int8(q.half(), kc, vc, ks, vs, table,
+                                    lengths, scale=scale)
+    with pytest.raises(TypeError):           # codes not int8
+        paged_attention_decode_int8(q, kc.float(), vc.float(), ks, vs,
+                                    table, lengths, scale=scale)
+    with pytest.raises(TypeError):           # bf16 scales
+        paged_attention_decode_int8(q, kc, vc, ks.bfloat16(), vs, table,
+                                    lengths, scale=scale)
+    with pytest.raises(TypeError):           # int64 table
+        paged_attention_decode_int8(q, kc, vc, ks, vs, table.long(),
+                                    lengths, scale=scale)
+    with pytest.raises(ValueError):          # scales of another shape
+        paged_attention_decode_int8(q, kc, vc, ks[:, :8], vs[:, :8], table,
+                                    lengths, scale=scale)
+    with pytest.raises(ValueError):          # non-contiguous q
+        paged_attention_decode_int8(q.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), kc, vc, ks, vs,
+                                    table, lengths, scale=scale)
+    with pytest.raises(ValueError):          # misaligned code arena
+        flat = torch.zeros(kc.numel() + 16, dtype=torch.int8, device=dev)
+        off = flat[1:1 + kc.numel()].view(kc.shape)
+        paged_attention_decode_int8(q, off, vc, ks, vs, table, lengths,
+                                    scale=scale)
+    with pytest.raises(ValueError):          # head_dim not a multiple of 16
+        paged_attention_decode_int8(q[..., :120].contiguous(),
+                                    kc[..., :120].contiguous(),
+                                    vc[..., :120].contiguous(), ks, vs,
+                                    table, lengths, scale=scale)
+
+
+def test_threefry_on_cuda_matches_cpu(dev):
+    from paddle_tpu_torch import random as prng
+    keys = prng.split(prng.prng_key(2 ** 31 - 1), 32)
+    for f in (lambda k: prng.split(k), lambda k: prng.random_bits(k, 4099),
+              lambda k: prng.uniform(k, 4099)):
+        torch.testing.assert_close(f(keys.to(dev)).cpu(), f(keys),
+                                   rtol=0, atol=0)
+    logits = torch.randn(32, 32000)
+    torch.testing.assert_close(
+        prng.categorical(keys.to(dev), logits.to(dev)).cpu(),
+        prng.categorical(keys, logits), rtol=0, atol=0)
 
 
 def _tiny_pair(dev):
@@ -132,7 +259,10 @@ def test_decode_step_gpu_matches_cpu(dev):
                                atol=1e-4)
 
 
-def test_server_on_gpu_goes_through_kernels(dev):
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["fp32", "int8"])
+def test_server_on_gpu_goes_through_kernels(dev, kv_int8):
+    """Greedy and one seeded sampled stream: the card's streams equal
+    the CPU's (sampling draws the same threefry bits on both)."""
     cpu, gpu = _tiny_pair(dev)
     rs = np.random.RandomState(0)
     reqs = [(rs.randint(0, 512, (L,)).astype(np.int32), n)
@@ -140,16 +270,23 @@ def test_server_on_gpu_goes_through_kernels(dev):
     results = []
     for m, device in ((cpu, "cpu"), (gpu, dev)):
         eng = PagedEngine(m, num_slots=2, max_len=64, decode_block=4,
-                          block_size=8, prefill_chunk=8, device=device)
+                          block_size=8, prefill_chunk=8, kv_int8=kv_int8,
+                          device=device)
         srv = Server(eng, Scheduler(prefill_token_budget=8))
-        rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+        rids = [srv.submit(p, max_new_tokens=n, **(
+            dict(temperature=0.8, top_k=20, seed=7) if i == 2 else {}))
+            for i, (p, n) in enumerate(reqs)]
         ops.reset_launch_counts()
         res = srv.run_until_idle()
         results.append([res[r] for r in rids])
         eng.manager.assert_consistent()
     counts = ops.launch_counts()
     L = gpu.config.num_hidden_layers
-    assert counts["paged_attention_decode"] == L * eng.steps > 0
+    pa = "paged_attention_decode_int8" if kv_int8 \
+        else "paged_attention_decode"
+    other = "paged_attention_decode" if kv_int8 \
+        else "paged_attention_decode_int8"
+    assert counts[pa] == L * eng.steps > 0 and counts[other] == 0
     assert counts["rms_norm"] == \
         (2 * L + 1) * (eng.steps + eng.prefill_chunks)
     for a, b in zip(*results):
@@ -351,6 +488,7 @@ def test_train_step_on_gpu_goes_through_kernels(dev):
     n_params = len(list(gpu.parameters()))
     assert counts == {"rms_norm": 3 * (2 * L + 1),
                       "paged_attention_decode": 0,
+                      "paged_attention_decode_int8": 0,
                       "flash_attention_fwd": 3 * L,
                       "flash_attention_bwd_dq": 3 * L,
                       "flash_attention_bwd_dkv": 3 * L,

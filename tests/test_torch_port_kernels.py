@@ -175,6 +175,7 @@ class TestDeviceAndImportRules:
             "import paddle_tpu_torch.incubate.nn\n"
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.amp\n"
             "import paddle_tpu_torch.jit\n"
+            "import paddle_tpu_torch.random, paddle_tpu_torch.utils.flags\n"
             "from paddle_tpu_torch.ops import build\n"
             "assert not build._loaded, build._loaded\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -208,5 +209,6 @@ class TestDeviceAndImportRules:
         ops.reset_launch_counts()
         assert ops.launch_counts() == {
             "rms_norm": 0, "paged_attention_decode": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0, "rope": 0, "adamw": 0}
+            "paged_attention_decode_int8": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "rope": 0, "adamw": 0}
