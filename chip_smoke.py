@@ -35,6 +35,14 @@ Phases, each of which raises on failure (nothing is caught):
    initial weights (loss and every parameter's gradient); then 2
    warm-up and 5 timed steps with exact launch counts per step and
    finite losses; last, one profiled step.
+6. The ERNIE-MoE training path (``bench_workloads.py`` ``ernie_moe``):
+   ``ernie_moe_base_config(expert_parallel=False)`` at full size, O2
+   bf16, ``AdamW(multi_precision=False)`` (bf16 moments), the forward
+   under ``auto_cast``, a 16 x 1024 batch: kernels vs plain versions at
+   batch 4 (loss and every gradient; the bf16 kernel run also with its
+   expert choices pinned to the plain run's), 2 warm-up and 8 timed
+   steps with exact launch counts per step (MoE gather 30, xent 1 + 1,
+   flash 12 each, AdamW 154), and one profiled step.
 
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -302,9 +310,10 @@ def check_paged_attention_int8(torch, results):
 
 def check_flash(torch, results):
     """The three flash kernels against their plain versions, at the
-    training path's shape (4, 2048, 32, 128) bf16 causal, a GQA kvh=8
-    case and an fp32 case at seq 512. The backward pair gets the
-    kernel's o and lse and the same delta on both sides.
+    Llama training path's shape (4, 2048, 32, 128) bf16 causal, a GQA
+    kvh=8 case, an fp32 case at seq 512, and the ERNIE-MoE path's shape
+    (16, 1024, 12, 64) bf16 causal. The backward pair gets the kernel's
+    o and lse and the same delta on both sides.
 
     Tolerances. fp32: o and lse 2e-5, gradients 1e-4 absolute (the same
     fp32 sums in another order). bf16, per element: the kernels round
@@ -321,12 +330,11 @@ def check_flash(torch, results):
     # the plain version's bf16 products sum in fp32 throughout
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    cases = [("main", 4, 2048, 32, 32, torch.bfloat16),
-             ("gqa", 4, 2048, 32, 8, torch.bfloat16),
-             ("fp32", 4, 512, 32, 32, torch.float32)]
-    for name, b, s, h, hk, dtype in cases:
-        d = 128
-
+    cases = [("main", 4, 2048, 32, 32, 128, torch.bfloat16),
+             ("gqa", 4, 2048, 32, 8, 128, torch.bfloat16),
+             ("fp32", 4, 512, 32, 32, 128, torch.float32),
+             ("ernie", 16, 1024, 12, 12, 64, torch.bfloat16)]
+    for name, b, s, h, hk, d, dtype in cases:
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(
                 dtype)
@@ -589,6 +597,183 @@ def check_rms_norm_backward(torch):
           f"in, dx out, y out)")
 
 
+def check_xent(torch, res_fwd, res_bwd):
+    """The softmax cross-entropy kernels against their plain versions
+    (the JAX scan route) on the same inputs: ERNIE-MoE's loss rows
+    (16384, 30522) fp32 (the main shape: the logits after the black
+    cast) and Llama-2's vocab (8192, 32000) in fp32 and bf16. Logits
+    2·N(0, 1), random labels, random per-row cotangents.
+
+    Tolerances: nll and lse 1e-5 absolute (fp32 sums of 30522 exps in
+    another order; lse ~ 12, whose ulp is 1e-6). dx per element within
+    8 fp32 ulps of the plain value (the same fp32 operations; expf
+    against torch's exp) or, in bf16, one bf16 ulp (2^-7 of the value:
+    both round an fp32 value once). Library: ``F.cross_entropy(...,
+    reduction="none")`` forward, and its backward (the gradient of that
+    call's output) for ``xent_bwd``."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.xent import xent_bwd, xent_fwd
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = [("ernie", 16384, 30522, torch.float32),
+             ("llama", 8192, 32000, torch.float32),
+             ("llama_bf16", 8192, 32000, torch.bfloat16)]
+    for name, n, v, dtype in cases:
+        x = (2 * torch.randn(n, v, generator=gen, device="cuda")).to(dtype)
+        labels = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        ga = torch.randn(n, generator=gen, device="cuda")
+        gb = torch.randn(n, generator=gen, device="cuda")
+        nll, lse = xent_fwd(x, labels)
+        dx = xent_bwd(x, labels, lse, ga, gb)
+        with ops.plain_versions():
+            pnll, plse = xent_fwd(x, labels)
+            pdx = xent_bwd(x, labels, lse, ga, gb)
+        torch.cuda.synchronize()
+        err_f = max(_max_err(nll, pnll), _max_err(lse, plse))
+        diff = (dx.float() - pdx.float()).abs()
+        err_b = float(diff.max())
+        rtol = 2.0 ** -20 if dtype == torch.float32 else 2.0 ** -7
+        share = float((diff / (rtol * pdx.float().abs() + 1e-30)).max())
+        del diff, pdx, pnll, plse
+        if not (err_f <= 1e-5 and share <= 1.0 and dx.dtype == dtype):
+            raise AssertionError(f"xent {name}: forward max abs err {err_f} "
+                                 f"(tol 1e-5), backward largest share of "
+                                 f"its per-element tol {share}")
+        ms_f = _time_ms(lambda: xent_fwd(x, labels), iters=20)
+        ms_b = _time_ms(lambda: xent_bwd(x, labels, lse, ga, gb), iters=20)
+
+        def plain_f():
+            with ops.plain_versions():
+                return xent_fwd(x, labels)
+
+        def plain_b():
+            with ops.plain_versions():
+                return xent_bwd(x, labels, lse, ga, gb)
+
+        pf_ms, pb_ms = _time_eager(plain_f, 3), _time_eager(plain_b, 3)
+        lab64 = labels.long()
+        lib_f = _time_eager(lambda: F.cross_entropy(x, lab64,
+                                                    reduction="none"), 10)
+        xr = x.detach().requires_grad_()
+        lo = F.cross_entropy(xr, lab64, reduction="none")
+        lib_b = _time_eager(lambda: torch.autograd.grad(
+            lo, xr, ga, retain_graph=True), 10)
+        del xr, lo
+        elt = x.element_size()
+        bf = _bound_ms(n * v * elt + 12 * n)
+        bb = _bound_ms(2 * n * v * elt + 16 * n)
+        print(f"xent {name} ({n}, {v}) {str(dtype)[6:]}: fwd max_abs_err="
+              f"{err_f:.3e} (tol 1e-5) kernel_ms={ms_f:.5f} plain_ms="
+              f"{pf_ms:.4f} library_ms={lib_f:.5f} bound_ms={bf[0]:.5f} "
+              f"({bf[1]}); bwd max_abs_err={err_b:.3e} (largest share of "
+              f"its per-element tol {share:.3f}) kernel_ms={ms_b:.5f} "
+              f"plain_ms={pb_ms:.4f} library_ms={lib_b:.5f} bound_ms="
+              f"{bb[0]:.5f} ({bb[1]})")
+        if name == "ernie":
+            res_fwd.update(max_abs_err=err_f, ms=ms_f, plain_ms=pf_ms,
+                           bound_ms=bf[0], bound_by=bf[1], library_ms=lib_f)
+            res_bwd.update(max_abs_err=err_b, ms=ms_b, plain_ms=pb_ms,
+                           bound_ms=bb[0], bound_by=bb[1], library_ms=lib_b)
+        del x, labels, ga, gb, nll, lse, dx
+        torch.cuda.empty_cache()
+    print("  (xent library: F.cross_entropy(reduction='none') and the "
+          "gradient of its output; plain: the JAX scan route's order)")
+
+
+def check_moe_gather(torch, results):
+    """The MoE row gather against its plain version at the dispatch
+    shape of the ERNIE-MoE phase: 40960 rows of a (16384, 768) source
+    (E·cap = 8 · 5120 slots from 16 x 1024 tokens), ~20% of the indices
+    out of range (the unfilled-slot sentinel T), fp32 (the main shape)
+    and bf16. The result must equal the plain version bit for bit (a
+    copy). Library: ``index_select`` on the clamped indices (the nearest
+    single call; it does not zero the out-of-range rows)."""
+    from paddle_tpu_torch.ops.moe_dispatch import (gather_rows_reference,
+                                                   moe_gather)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    t, d, m = 16384, 768, 40960
+    idx = torch.randint(0, t, (m,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx[torch.rand(m, generator=gen, device="cuda") < 0.2] = t
+    valid = int(((idx >= 0) & (idx < t)).sum())
+    safe = idx.long().clamp(0, t - 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+        want = gather_rows_reference(x, idx)
+        plain_ms = _time_ms(lambda: gather_rows_reference(x, idx))
+        lib_ms = _time_ms(lambda: x.index_select(0, safe))
+        elt = x.element_size()
+        bms, by = _bound_ms(valid * d * elt + m * d * elt + 4 * m)
+        got = moe_gather(x, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"moe_gather {dtype}: differs from the "
+                                 f"plain version")
+        ms = _time_ms(lambda: moe_gather(x, idx))
+        print(f"moe_gather {str(dtype)[6:]:8s}: m={m} of ({t}, {d}), "
+              f"{m - valid} out of range: bit-equal kernel_ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
+              f"(index_select, clamped) bound_ms={bms:.5f} ({by})")
+        if dtype == torch.float32:
+            results.update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        del x, want, got
+    torch.cuda.empty_cache()
+
+
+def check_adamw_bf16_moments(torch):
+    """AdamW with bf16 moments (``multi_precision=False`` on a bf16
+    model) on one ERNIE-MoE expert stack, 8 x 768 x 3072 = 18.9M bf16
+    elements, bf16 gradient, step 3, in place. Both sides compute in
+    fp32 and round p, m and v once, so each within one bf16 ulp (the
+    kernel's contracted FMA may move an fp32 result across a rounding
+    boundary) plus one fp32 ulp of the largest entry. Library:
+    ``torch._fused_adamw_`` on the same bf16 tensors."""
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n = 8 * 768 * 3072
+    p = (0.02 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
+    g = (1e-3 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
+    m = (1e-4 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
+    v = (1e-8 * torch.rand(n, generator=gen, device="cuda")).bfloat16()
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              step=3)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    fused_adamw(kp, g, km, kv, **hp)
+    with plain_versions():
+        fused_adamw(p, g, m, v, **hp)
+    torch.cuda.synchronize()
+    shares = []
+    for got, want in ((kp, p), (km, m), (kv, v)):
+        w = want.float()
+        tol = 2.0 ** -7 * w.abs() + 2.0 ** -23 * float(w.abs().max())
+        shares.append(float(((got.float() - w).abs() / tol).max()))
+    err = _max_err(kp, p)
+    if not max(shares) <= 1.0:
+        raise AssertionError(f"adamw bf16 moments: largest shares of the "
+                             f"per-element tol (p, m, v) {shares}")
+    ms = _time_eager(lambda: fused_adamw(kp, g, km, kv, **hp), iters=20)
+
+    def plain():
+        with plain_versions():
+            fused_adamw(p, g, m, v, **hp)
+
+    plain_ms = _time_eager(plain, iters=5)
+    steps = [torch.tensor(2.0, device="cuda")]
+    lib_ms = _time_eager(lambda: torch._fused_adamw_(
+        [kp], [g], [km], [kv], [], steps, lr=1e-4, beta1=0.9,
+        beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False), iters=20)
+    bms, by = _bound_ms(n * (2 + 2 + 2 + 2 + 2 + 2 + 2))
+    print(f"adamw n={n} bf16 p, g, m, v (multi_precision=False): "
+          f"max_abs_err p={err:.3e}, largest shares of the per-element tol "
+          f"(p, m, v) {', '.join(f'{x:.3f}' for x in shares)} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_ms:.4f} (torch._fused_adamw_) bound_ms={bms:.4f} ({by})")
+
+
 def _train_loss(model, batch):
     loss, _ = model(*batch)
     return loss
@@ -700,7 +885,8 @@ def train_path(torch, card):
     per_step = {"rms_norm": 2 * L + 1, "paged_attention_decode": 0,
                 "paged_attention_decode_int8": 0, "flash_attention_fwd": L,
                 "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
-                "rope": 2 * L, "adamw": n_tensors}
+                "rope": 2 * L, "adamw": n_tensors, "xent_fwd": 0,
+                "xent_bwd": 0, "moe_gather": 0}
     if n_tensors != 9 * L + 3:
         raise AssertionError(f"{n_tensors} parameter tensors, expected "
                              f"{9 * L + 3}")
@@ -742,7 +928,7 @@ def train_path(torch, card):
     return counts
 
 
-def profile_train_step(torch, step, batch, card):
+def profile_train_step(torch, step, batch, card, label="train"):
     """Where one training step's time goes: device time by kernel and the
     device's busy share of the step's host wall time."""
     from torch.autograd import DeviceType
@@ -759,16 +945,293 @@ def profile_train_step(torch, step, batch, card):
                and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in kernels)
     if busy_us == 0:
-        print("train step profile: the profiler saw no device time "
+        print(f"{label} step profile: the profiler saw no device time "
               "(device busy share not measured)")
         return
-    print(f"[{card}] train step profile: wall {wall_us / 1e3:.3f} ms, "
+    print(f"[{card}] {label} step profile: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f}% busy, "
           f"{100 - 100 * busy_us / wall_us:.1f}% idle)")
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:16]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
               f"x{n:<6d} {name[:90]}")
+    families = {}
+    for name, t, n in kernels:
+        fam = _kernel_family(name)
+        ms, launches = families.get(fam, (0.0, 0))
+        families[fam] = (ms + t / 1e3, launches + n)
+    print(f"  by family: " + "; ".join(
+        f"{fam} {ms:.3f} ms ({100 * 1e3 * ms / busy_us:.1f}%, x{n})"
+        for fam, (ms, n) in sorted(families.items(), key=lambda f: -f[1][0])))
+
+
+# device kernel name fragments -> family, for the profiles' breakdown
+_FAMILIES = (("flash_", "flash"), ("xent_", "xent"),
+             ("gather_rows", "moe_gather"), ("adamw_kernel", "adamw"),
+             ("rms_norm_kernel", "rms_norm"), ("rope_kernel", "rope"),
+             ("gemm", "GEMM"), ("nvjet", "GEMM"), ("xmma", "GEMM"))
+
+
+def _kernel_family(name: str) -> str:
+    for frag, fam in _FAMILIES:
+        if frag in name:
+            return fam
+    return "other (elementwise, copies, reductions)"
+
+
+def _ernie_loss(model, batch):
+    """The bench's ERNIE-MoE loss: the forward under ``auto_cast`` O2."""
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(dtype="bfloat16", level="O2"):
+        return model(*batch)[0]
+
+
+def _ernie_grads(torch, model, batch, plain, loss_fn, pin=None,
+                 pin_aux=True):
+    """(loss, {name: fp32 grad}, {MoE layer index: (T, k) routes}) of
+    one forward and backward, with the kernels or under
+    ``ops.plain_versions()``; no update. The routes are the experts the
+    router would pick, read from each gate's logits as the layer reads
+    them. With ``pin`` ({MoE layer index: (T, k) routes}, from another
+    run) every MoE layer routes by those instead of its own top-k, and
+    with ``pin_aux`` its GShard aux loss also counts each token's first
+    pinned expert as its top-1 (the argmax of the logits, which the
+    routes' first column equals in an unpinned run)."""
+    import contextlib
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    top_k, gshard_aux = moe._top_k, moe._gshard_aux
+    routes = {}
+
+    def recorder(i, k):
+        def hook(module, inputs, out):
+            routes[i] = top_k(out[0].detach().float(), k)[1]
+        return hook
+
+    hooks = [layer.mlp.gate.register_forward_hook(
+        recorder(i, layer.mlp.top_k))
+        for i, layer in enumerate(model.ernie.layers) if layer.use_moe]
+    if pin is not None:
+        # each MoE layer calls moe._gshard_aux (in its gate) and then
+        # moe._top_k (in _route) once, in layer order
+        tops = [pin[i] for i in sorted(pin)]
+        firsts = [r[:, 0] for r in tops]
+        moe._top_k = lambda x, k: (None, tops.pop(0))
+
+        def aux(lg):
+            # moe._gshard_aux with the top-1 experts given
+            e = lg.shape[-1]
+            ce = torch.nn.functional.one_hot(firsts.pop(0), e).to(
+                lg.dtype).mean(dim=0)
+            return (torch.softmax(lg, dim=-1).mean(dim=0) * ce).sum() * e
+
+        if pin_aux:
+            moe._gshard_aux = aux
+    model.zero_grad(set_to_none=True)
+    try:
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            loss = loss_fn(model, batch)
+            loss.backward()
+    finally:
+        moe._top_k, moe._gshard_aux = top_k, gshard_aux
+        for h in hooks:
+            h.remove()
+    if pin is not None and (tops or (pin_aux and firsts)):
+        raise AssertionError("pinned routes left unused")
+    out = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), out, routes
+
+
+def ernie_compare_plain(torch, model, cfg, b4):
+    """Kernels vs plain versions on the ERNIE-MoE phase's initial
+    weights, at batch 4 x 1024, forward and backward, no update. First
+    an fp32 copy of the weights (the bf16 values, exact in fp32) without
+    ``auto_cast``: the kernels and the plain versions differ only in the
+    order of fp32 sums (the gather is a copy), so the loss to 1e-4, every
+    gradient to 1e-3 relative (norm of the difference over the norm),
+    and the same expert routes. Then the bf16 model under ``auto_cast``
+    O2, held against that fp32 gradient. In bf16 the gate logits tie
+    often, so a last-bit difference upstream (the flash kernels round
+    at other sites than their plain versions) changes some tokens'
+    expert choices, in the routes and in the GShard aux loss's top-1
+    count, which is itself rounded to bf16. So the kernel run is made
+    three times. Free, it routes by its own logits: the tokens routed
+    differently from the plain run are counted per MoE layer, and its
+    loss is held within 2e-2 of the plain one. With the routes pinned
+    to the plain run's, and with the aux loss's top-1 pinned as well:
+    then every parameter's bf16 gradient with the kernels must be no
+    further from the fp32 one than 1.25 times the plain versions' is,
+    plus 1e-3, and the loss within 2e-2. The errors of the parameters
+    in front of a router (gate weight, ``ln_2``) are printed for all
+    three, to show which choices move them. A plain run pinned to its
+    own choices must reproduce the free plain run bit for bit (the
+    pinning changes nothing else)."""
+    from paddle_tpu_torch.models import ErnieMoEForCausalLM
+    ref = ErnieMoEForCausalLM(cfg, device="cuda", seed=0)
+    ref.load_state_dict({n: p.float() for n, p in
+                         model.state_dict().items()})
+    l32p, g32, r32p = _ernie_grads(torch, ref, b4, True, _train_loss)
+    l32k, g32k, r32k = _ernie_grads(torch, ref, b4, False, _train_loss)
+    del ref
+    rel32 = {n: _rel(g32k[n], g32[n]) for n in g32}
+    flips32 = sum(int((r32k[i] != r32p[i]).any(-1).sum()) for i in r32p)
+    del g32k
+    lp, gp, rp = _ernie_grads(torch, model, b4, True, _ernie_loss)
+    ep = {n: _rel(gp[n], g32[n]) for n in g32}
+    lpp, gpp, _ = _ernie_grads(torch, model, b4, True, _ernie_loss, pin=rp)
+    selfpin = lpp == lp and all(torch.equal(gpp[n], gp[n]) for n in gp)
+    del gp, gpp
+    errs, losses, bad = {}, {}, []
+    for run, pin, pin_aux in (("free", None, False),
+                              ("routes pinned", rp, False),
+                              ("routes and aux pinned", rp, True)):
+        losses[run], g, r = _ernie_grads(torch, model, b4, False,
+                                         _ernie_loss, pin, pin_aux)
+        errs[run] = {n: _rel(g[n], g32[n]) for n in g32}
+        bad += [(run, n) for n, x in g.items() if not torch.isfinite(x).all()]
+        if pin is None:
+            rf = r
+        del g
+    del g32
+    torch.cuda.empty_cache()
+    ek, lk = errs["routes and aux pinned"], losses["routes and aux pinned"]
+    flips = {i: int((rf[i] != rp[i]).any(-1).sum()) for i in rp}
+    vs32 = {i: (int((rf[i] != r32p[i]).any(-1).sum()),
+                int((rp[i] != r32p[i]).any(-1).sum())) for i in rp}
+
+    def stats(d):
+        worst = max(d, key=d.get)
+        return (f"max {d[worst]:.3e} ({worst}), median "
+                f"{sorted(d.values())[len(d) // 2]:.3e}")
+
+    router = sorted(f"ernie.layers.{i}.{x}" for i in rp
+                    for x in ("mlp.gate.gate.weight", "ln_2.weight",
+                              "ln_2.bias"))
+    ratio = {n: ek[n] / max(ep[n], 1e-12) for n in ek}
+    print(f"ernie batch-4 fp32 weights, kernels vs plain: loss {l32k:.6f} "
+          f"vs {l32p:.6f} (|diff| {abs(l32k - l32p):.3e}, tol 1e-4); grad "
+          f"relative error {stats(rel32)} (tol 1e-3); tokens routed "
+          f"differently {flips32} (tol 0)")
+    print(f"ernie batch-4 bf16 (O2) model, routes and aux top-1 pinned to "
+          f"the plain run's: loss kernels {lk:.6f} plain {lp:.6f} fp32 "
+          f"{l32p:.6f} (|kernels - plain| {abs(lk - lp):.3e}, tol 2e-2); "
+          f"grad error vs fp32: kernels {stats(ek)}; plain {stats(ep)}; "
+          f"ratio kernels/plain {stats(ratio)} (tol kernels <= 1.25 x "
+          f"plain + 1e-3); plain run pinned to its own choices "
+          f"bit-identical: {selfpin}")
+    print(f"ernie bf16 kernel runs, loss (|kernels - plain|, tol 2e-2): "
+          + ", ".join(f"{r} {x:.6f} ({abs(x - lp):.3e})"
+                      for r, x in losses.items())
+          + f"; tokens (of {b4[0].numel()}) routed differently by MoE "
+          f"layer: free kernels vs plain {flips}; (free kernels, plain) vs "
+          f"fp32 {vs32}")
+    print("ernie bf16 grad error vs fp32 of the parameters in front of a "
+          "router, kernels free / routes pinned / routes and aux pinned; "
+          "plain: " + ", ".join(
+              f"{n} " + " / ".join(f"{errs[r][n]:.3e}" for r in errs)
+              + f"; {ep[n]:.3e}" for n in router))
+    over = [n for n in ek if ek[n] > 1.25 * ep[n] + 1e-3]
+    if bad or abs(l32k - l32p) > 1e-4 or max(rel32.values()) > 1e-3 \
+            or flips32 or not selfpin or over \
+            or max(abs(x - lp) for x in losses.values()) > 2e-2:
+        raise AssertionError(f"ernie kernels vs plain: non-finite {bad}, "
+                             f"fp32 loss {l32k} vs {l32p}, fp32 route flips "
+                             f"{flips32}, self-pinned plain run identical "
+                             f"{selfpin}, bf16 losses {losses} vs plain "
+                             f"{lp}, over tolerance {over}")
+
+
+def ernie_moe_path(torch, card):
+    """The ERNIE-MoE training step (``bench_workloads.py`` ``ernie_moe``):
+    ``ernie_moe_base_config(expert_parallel=False)`` at full size (vocab
+    30522, hidden 768, 12 layers, 8 experts top-2 in every second layer)
+    on the card, random weights from seed 0, ``amp.decorate`` O2 bf16,
+    ``AdamW(lr=1e-4, weight_decay=0.01, multi_precision=False)`` (bf16
+    moments), the forward under ``auto_cast`` O2, one 16 x 1024 batch
+    from ``RandomState(0)`` with labels rolled by one (on the card the
+    loss and the MoE data movement always take their kernels). Kernels
+    vs plain versions first (batch 4), then 2 warm-up and 8 timed steps
+    with exact launch counts per step, and one profiled step. Returns
+    the launch counts of the 10 steps."""
+    import numpy as np
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (ErnieMoEForCausalLM,
+                                         ernie_moe_base_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ernie_moe_base_config(expert_parallel=False)
+    B, S = 16, 1024
+    t0 = time.perf_counter()
+    model = ErnieMoEForCausalLM(cfg, device="cuda", seed=0)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=False)
+    step = TrainStep(model, _ernie_loss, opt)
+    torch.cuda.synchronize()
+    n_params, active = model.num_params(), model.active_params()
+    print(f"ernie model: {n_params / 1e6:.2f}M params "
+          f"({active / 1e6:.2f}M active per token), bf16 (O2, "
+          f"LayerNorm fp32) on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+    batch = (torch.from_numpy(ids).cuda(),
+             torch.from_numpy(labels).cuda())
+    ernie_compare_plain(torch, model, cfg, (batch[0][:4], batch[1][:4]))
+
+    L = cfg.num_hidden_layers
+    n_moe = L // cfg.moe_every
+    # a dense block holds 12 tensors, an MoE block 13; wte, wpe, ln_f
+    n_tensors = len(list(model.parameters()))
+    if n_tensors != 12 * (L - n_moe) + 13 * n_moe + 4:
+        raise AssertionError(f"{n_tensors} parameter tensors, expected "
+                             f"{12 * (L - n_moe) + 13 * n_moe + 4}")
+    per_step = {"rms_norm": 0, "paged_attention_decode": 0,
+                "paged_attention_decode_int8": 0,
+                "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "rope": 0,
+                "adamw": n_tensors, "xent_fwd": 1, "xent_bwd": 1,
+                "moe_gather": 5 * n_moe}
+    torch.cuda.reset_peak_memory_stats()
+    warm, timed = 2, 8
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)                   # ends in the loss's host read
+        times.append(time.perf_counter() - t0)
+        losses.append(step.last_loss)
+    counts = ops.launch_counts()
+    want = {k: (warm + timed) * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"ernie launch counts {counts}, expected "
+                             f"{want} ({per_step} per step)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite ERNIE-MoE loss: {losses}")
+    for p in model.parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError("a parameter went non-finite")
+    moments = {s["moment1"].dtype for s in opt._slots.values()}
+    step_s = sum(times[warm:]) / timed
+    tokens = B * S
+    flops = 6 * active * tokens
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"ernie launches over {warm + timed} steps: {counts} "
+          f"(per step {per_step})")
+    print(f"ernie moment dtypes: {sorted(str(d) for d in moments)}")
+    print(f"ernie losses: {', '.join(f'{x:.6f}' for x in losses)}")
+    print(f"ernie step times ms: "
+          f"{', '.join(f'{1e3 * x:.2f}' for x in times)}")
+    print(f"[{card}] ernie step_ms={1e3 * step_s:.3f} "
+          f"tokens_per_s={tokens / step_s:.1f} "
+          f"tflop_per_step={flops / 1e12:.3f} (6 x active params x "
+          f"tokens) mfu={flops / step_s / BF16_FLOPS:.4f} (vs 989 "
+          f"TFLOP/s bf16) peak_mem_gb={peak_gb:.3f}")
+    profile_train_step(torch, step, batch, card, label="ernie")
+    return counts
 
 
 def _prompts(rng, vocab):
@@ -1094,6 +1557,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32 off for matmul and cuDNN (full fp32 products)")
     rms, pa, pa8, flash, rope, adamw = {}, {}, {}, {}, {}, {}
+    xent_f, xent_b, gather = {}, {}, {}
     check_rms_norm(torch, rms, (torch.float32, 8))
     check_paged_attention(torch, pa, 32)
     check_paged_attention_int8(torch, pa8)
@@ -1101,6 +1565,9 @@ def main() -> int:
     check_rope(torch, rope)
     check_adamw(torch, adamw)
     check_rms_norm_backward(torch)
+    check_xent(torch, xent_f, xent_b)
+    check_moe_gather(torch, gather)
+    check_adamw_bf16_moments(torch)
     serving, model = serving_path(torch, card)
     torch.cuda.empty_cache()
     serving8 = serving_int8_path(torch, card, model)
@@ -1109,9 +1576,12 @@ def main() -> int:
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     train = train_path(torch, card)
-    counts = {k: serving[k] + serving8[k] + train[k] for k in serving}
+    torch.cuda.empty_cache()
+    ernie = ernie_moe_path(torch, card)
+    counts = {k: serving[k] + serving8[k] + train[k] + ernie[k]
+              for k in serving}
     print(f"launches: serving {serving}; int8 serving {serving8}; "
-          f"training {train}")
+          f"training {train}; ernie-moe training {ernie}")
     src = "paddle_tpu_torch/csrc/"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -1141,6 +1611,15 @@ def main() -> int:
         dict(name="adamw", route="cuda", source=src + "adamw.cu",
              replaces="paddle_tpu/ops/pallas/fused.py:295",
              launches=counts["adamw"], **adamw),
+        dict(name="xent_fwd", route="cuda", source=src + "xent.cu",
+             replaces="paddle_tpu/ops/pallas/xent.py:127",
+             launches=counts["xent_fwd"], **xent_f),
+        dict(name="xent_bwd", route="cuda", source=src + "xent.cu",
+             replaces="paddle_tpu/ops/pallas/xent.py:139",
+             launches=counts["xent_bwd"], **xent_b),
+        dict(name="moe_gather", route="cuda", source=src + "moe_gather.cu",
+             replaces="paddle_tpu/ops/pallas/moe_dispatch.py:105",
+             launches=counts["moe_gather"], **gather),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,12 @@ Slice 1 is the paged Llama serving path: ``serving.Server`` over
 RMSNorm and paged-attention decode kernels. Slice 2 is the training
 step: ``jit.TrainStep`` with ``optimizer.AdamW`` after ``amp.decorate``
 over ``LlamaForCausalLM(ids, labels)``, with the flash attention
-(forward, dq, dkv), RoPE and AdamW kernels and RMSNorm's gradient."""
+(forward, dq, dkv), RoPE and AdamW kernels and RMSNorm's gradient.
+Slice 3 serves over the int8 KV arena (the int8 paged-decode kernel)
+with threefry sampling. Slice 4 is the ERNIE-MoE training step:
+``models.ErnieMoEForCausalLM`` under ``amp.auto_cast`` with AdamW over
+bf16 moments, with the MoE row-gather and fused softmax cross-entropy
+kernels."""
 from .device import resolve_device
 
 __all__ = ["resolve_device"]

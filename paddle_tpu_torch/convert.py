@@ -1,13 +1,17 @@
 """Weights from the JAX package into the port.
 
 The JAX ``nn.Linear`` stores its weight as (in, out); ``torch.nn.Linear``
-as (out, in). ``params_from_jax`` transposes every linear weight and
-passes the rest (embedding, norm weights) through. The RoPE tables are
+as (out, in). ``params_from_jax`` transposes every linear weight (Llama's
+projections and head; ERNIE-MoE's ``qkv_proj``, ``out_proj``, dense
+``mlp.N`` layers and MoE ``gate.gate``) and passes the rest (embeddings,
+norm weights and biases, and the MoE expert stacks ``w1``/``b1``/``w2``/
+``b2``, whose layout the port keeps) through. The RoPE tables are
 buffers the port computes itself, so they are not carried over.
 ``adamw_state_from_jax`` carries an AdamW state (moments, fp32 masters,
 step) the same way, for ``Optimizer.load_state``."""
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -17,11 +21,15 @@ __all__ = ["params_from_jax", "adamw_state_from_jax"]
 
 _LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                     "o_proj.weight", "gate_proj.weight", "up_proj.weight",
-                    "down_proj.weight")
+                    "down_proj.weight", "qkv_proj.weight", "out_proj.weight",
+                    "gate.gate.weight")
+# the Linear layers of an nn.Sequential FFN (ERNIE-MoE's dense blocks)
+_SEQUENTIAL_LINEAR = re.compile(r"\.mlp\.\d+\.weight$")
 
 
 def _is_linear(name: str) -> bool:
-    return name.endswith(_LINEAR_SUFFIXES) or name == "lm_head.weight"
+    return name.endswith(_LINEAR_SUFFIXES) or name == "lm_head.weight" \
+        or bool(_SEQUENTIAL_LINEAR.search(name))
 
 
 def _to_torch(name: str, arr) -> torch.Tensor:
@@ -41,7 +49,7 @@ def _to_torch(name: str, arr) -> torch.Tensor:
 def params_from_jax(named_numpy: Dict[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """``{jax named_parameters() name: numpy array}`` -> a state dict
-    that ``LlamaForCausalLM.load_state_dict`` takes (CPU tensors; the
+    that the port model's ``load_state_dict`` takes (CPU tensors; the
     load copies them onto the model's device)."""
     return {name: _to_torch(name, arr) for name, arr in named_numpy.items()}
 

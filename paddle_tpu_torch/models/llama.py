@@ -262,7 +262,10 @@ class LlamaForCausalLM(nn.Module):
         vocab) logits. Without: the training forward over positions
         0..s-1; with ``labels`` it returns ``(loss, None)`` through the
         fused head + CE (``fused_head_ce``, the default) or ``(loss,
-        logits)`` with the plain head, and without labels the logits."""
+        logits)`` with the plain head and ``nn.functional.cross_entropy``
+        (the xent kernels on the card; on the CPU their plain version
+        under ``PT_FUSION_PASSES=1``, as the JAX head),
+        and without labels the logits."""
         h = self.llama(input_ids, self.rope_cos, self.rope_sin, cache, pos,
                        block_table)
         c = self.config
@@ -275,7 +278,7 @@ class LlamaForCausalLM(nn.Module):
             else self.lm_head(h)
         if cache is not None or labels is None:
             return logits
-        return _cross_entropy(logits, labels), logits
+        return PF.cross_entropy(logits, labels), logits
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -287,17 +290,3 @@ class LlamaForCausalLM(nn.Module):
         return 6 * self.num_params() \
             + 12 * c.num_hidden_layers * c.hidden_size * seq_len
 
-
-def _cross_entropy(logits, labels, ignore_index: int = -100):
-    """The JAX ``F.cross_entropy`` mean over tokens whose label is not
-    ``ignore_index``: log-softmax in the logits' dtype, the label's
-    log-prob, the sum over valid tokens over max(count, 1)."""
-    logits = logits.reshape(-1, logits.shape[-1])
-    labels = labels.reshape(-1).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    safe = labels.clamp(0, logits.shape[-1] - 1)
-    nll = -logp.gather(1, safe[:, None])[:, 0]
-    valid = labels != ignore_index
-    loss = torch.where(valid, nll, torch.zeros((), dtype=nll.dtype,
-                                               device=nll.device))
-    return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)

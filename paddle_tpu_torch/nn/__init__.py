@@ -1,3 +1,4 @@
+from .common import Embedding, LayerNorm, Linear
 from .norm import RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["Embedding", "LayerNorm", "Linear", "RMSNorm"]

@@ -41,8 +41,10 @@ def _wrappers():
                                   flash_attention_bwd_dq,
                                   flash_attention_fwd)
     from .fused import fused_adamw, fused_rope, rms_norm
+    from .moe_dispatch import moe_gather
     from .paged_attention import (paged_attention_decode,
                                   paged_attention_decode_int8)
+    from .xent import xent_bwd, xent_fwd
     return {"rms_norm": rms_norm,
             "paged_attention_decode": paged_attention_decode,
             "paged_attention_decode_int8": paged_attention_decode_int8,
@@ -50,7 +52,10 @@ def _wrappers():
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "rope": fused_rope,
-            "adamw": fused_adamw}
+            "adamw": fused_adamw,
+            "xent_fwd": xent_fwd,
+            "xent_bwd": xent_bwd,
+            "moe_gather": moe_gather}
 
 
 def reset_launch_counts():

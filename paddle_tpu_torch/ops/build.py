@@ -31,6 +31,8 @@ KERNEL_SOURCES = {
     "flash_attention": "flash_attention.cu",
     "rope": "rope.cu",
     "adamw": "adamw.cu",
+    "xent": "xent.cu",
+    "moe_gather": "moe_gather.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

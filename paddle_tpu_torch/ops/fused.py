@@ -238,8 +238,9 @@ def adamw_reference(p, g, m, v, lr, beta1, beta2, eps, weight_decay, bc1,
     """The TPU ``_adamw_kernel`` arithmetic: every scalar an fp32 value
     (as in its SMEM block, so ``1 - beta1`` is taken in fp32), the bias
     corrections ``bc1 = 1 - beta1**step`` and ``bc2 = 1 - beta2**step``
-    given. Returns new ``(p, m, v)``: p in p's dtype, m and v fp32."""
-    pf, gf = p.float(), g.float()
+    given, m and v upcast to fp32 (as the TPU wrapper upcasts bf16
+    moments). Returns new ``(p, m, v)``: p in p's dtype, m and v fp32."""
+    pf, gf, m, v = p.float(), g.float(), m.float(), v.float()
     lr, beta1, beta2, eps, weight_decay, bc1, bc2 = (
         torch.tensor(x, dtype=torch.float32, device=p.device)
         for x in (lr, beta1, beta2, eps, weight_decay, bc1, bc2))
@@ -275,11 +276,13 @@ def fused_adamw(p, g, m, v, lr, beta1=0.9, beta2=0.999, eps=1e-8,
                 weight_decay=0.01, step=1):
     """One decoupled AdamW step, **in place**: p, m and v are
     overwritten (the JAX ``fused_adamw`` returns new arrays). m and v
-    are fp32; p is fp32 or bf16; g is fp32 or bf16 and is cast to fp32
-    in the kernel. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/adamw.cu`` or raises. The JAX wrapper skips its
-    kernel below 1024 elements for the same math in jnp; the port
-    launches for every size."""
+    are both fp32 or both bf16 (``multi_precision=False`` on a bf16
+    parameter); p is fp32 or bf16; g is fp32 or bf16 and is cast to fp32
+    in the kernel. The arithmetic is fp32 and each of p, m and v is
+    stored rounded once. A CPU tensor takes the plain version; a CUDA
+    tensor launches ``csrc/adamw.cu`` or raises. The JAX wrapper skips
+    its kernel below 1024 elements for the same math in jnp, in the
+    operands' dtypes; the port launches for every size."""
     bc1, bc2 = _bias_corrections(beta1, beta2, step)
     if p.device.type == "cpu" or plain_active():
         np_, nm, nv = adamw_reference(p, g, m, v, lr, beta1, beta2, eps,
@@ -289,18 +292,20 @@ def fused_adamw(p, g, m, v, lr, beta1=0.9, beta2=0.999, eps=1e-8,
         v.copy_(nv)
         return p, m, v
     _check_cuda("fused_adamw", p, g, m, v)
-    if m.dtype != torch.float32 or v.dtype != torch.float32:
-        raise TypeError("fused_adamw kernel needs float32 moments")
+    if m.dtype != v.dtype:
+        raise TypeError(f"fused_adamw: moments of two dtypes ({m.dtype}, "
+                        f"{v.dtype})")
     n = p.numel()
     if g.numel() != n or m.numel() != n or v.numel() != n:
         raise ValueError("fused_adamw: p, g, m and v differ in size")
     if n == 0:
         return p, m, v
     fn = _kernel("adamw", "pt_adamw",
-                 [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+                 [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
                  + [ctypes.c_longlong] + [ctypes.c_float] * 7
                  + [ctypes.c_void_p])
-    rc = fn(_DTYPE_CODE[p.dtype], _DTYPE_CODE[g.dtype], p.data_ptr(),
+    rc = fn(_DTYPE_CODE[p.dtype], _DTYPE_CODE[g.dtype],
+            _DTYPE_CODE[m.dtype], p.data_ptr(),
             g.data_ptr(), m.data_ptr(), v.data_ptr(), n, float(lr),
             float(beta1), float(beta2), float(eps), float(weight_decay),
             bc1, bc2, _stream(p))

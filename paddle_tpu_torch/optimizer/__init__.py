@@ -94,9 +94,12 @@ class Optimizer:
 
 class AdamW(Optimizer):
     """Decoupled AdamW through the fused update (one kernel launch per
-    parameter on the GPU). fp32 moments; with ``multi_precision`` a
-    bf16/fp16 parameter is updated through its fp32 master, which is
-    then copied back into the parameter."""
+    parameter on the GPU). Moments in the parameter's dtype unless
+    ``multi_precision`` keeps an fp32 master (then fp32 moments), as the
+    JAX ``Adam._init_slots``: a bf16 model with ``multi_precision=False``
+    carries bf16 moments. With ``multi_precision`` a bf16 parameter is
+    updated through its fp32 master, which is then copied back into the
+    parameter."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -108,12 +111,10 @@ class AdamW(Optimizer):
         self._eps = epsilon
 
     def _init_slots(self, p):
-        if p.dtype != torch.float32 and not self._multi_precision:
-            raise NotImplementedError(
-                f"AdamW on a {p.dtype} parameter needs multi_precision "
-                "(low-precision moments are not ported yet)")
-        return {"moment1": torch.zeros_like(p, dtype=torch.float32),
-                "moment2": torch.zeros_like(p, dtype=torch.float32)}
+        mdt = torch.float32 if (self._multi_precision
+                                or p.dtype == torch.float32) else p.dtype
+        return {"moment1": torch.zeros_like(p, dtype=mdt),
+                "moment2": torch.zeros_like(p, dtype=mdt)}
 
     def _apply(self, p, g, slots, lr, step):
         target = slots.get("master", p)

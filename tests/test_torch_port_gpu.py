@@ -9,9 +9,12 @@ only PyTorch is installed:
 Kernels are held against their plain PyTorch versions on the same CUDA
 inputs — the serving kernels (RMSNorm, paged-attention decode over the
 fp32/bf16 and the int8 arenas) and the training kernels (flash
-attention forward/dq/dkv, RoPE, AdamW, and the RMSNorm gradient); the
-tiny Llama on the GPU against the same model on the CPU, serving (both
-arenas) and training; threefry on the card against the CPU."""
+attention forward/dq/dkv, RoPE, AdamW, and the RMSNorm gradient), the
+ERNIE-MoE kernels (softmax cross-entropy forward and backward, the MoE
+row gather, AdamW over bf16 moments); the tiny Llama on the GPU against
+the same model on the CPU, serving (both arenas) and training, and the
+tiny ERNIE-MoE training step likewise; threefry on the card against the
+CPU."""
 import math
 
 import numpy as np
@@ -301,6 +304,7 @@ FLASH_GPU_CASES = {
     "gqa_ragged": (2, 200, 200, 8, 2, 64, True, None),
     "window": (1, 256, 256, 4, 4, 128, True, 100),
     "cross": (2, 128, 192, 4, 4, 64, False, None),
+    "ernie_d64": (2, 1024, 1024, 12, 12, 64, True, None),
 }
 
 
@@ -492,5 +496,190 @@ def test_train_step_on_gpu_goes_through_kernels(dev):
                       "flash_attention_fwd": 3 * L,
                       "flash_attention_bwd_dq": 3 * L,
                       "flash_attention_bwd_dkv": 3 * L,
-                      "rope": 3 * 2 * L, "adamw": 3 * n_params}
+                      "rope": 3 * 2 * L, "adamw": 3 * n_params,
+                      "xent_fwd": 0, "xent_bwd": 0, "moe_gather": 0}
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
+
+
+# -- ERNIE-MoE kernels ------------------------------------------------------
+
+XENT_GPU_CASES = [(64, 30522), (33, 32000), (40, 1000), (17, 777),
+                  (9, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v", XENT_GPU_CASES)
+def test_xent_kernels_match_plain(dev, n, v, dtype):
+    """Forward (nll, lse) within 1e-5 (fp32 sums of exps in another
+    order) and the backward per element within 8 fp32 ulps (fp32 dx:
+    the same operations, expf against torch's exp) or one bf16 ulp
+    (bf16 dx: both round an fp32 value once). Widths whose rows start
+    off a 16-byte boundary (30522, 777, 5), and the warp-per-row form
+    (V < 1024)."""
+    from paddle_tpu_torch.ops.xent import xent_bwd, xent_fwd
+    g = torch.Generator(device=dev).manual_seed(n + v)
+    x = (2 * torch.randn(n, v, generator=g, device=dev)).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=g, device=dev,
+                           dtype=torch.int32)
+    ga = torch.randn(n, generator=g, device=dev)
+    gb = torch.randn(n, generator=g, device=dev)
+    ops.reset_launch_counts()
+    nll, lse = xent_fwd(x, labels)
+    dx = xent_bwd(x, labels, lse, ga, gb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["xent_fwd"] == 1
+    assert ops.launch_counts()["xent_bwd"] == 1
+    with ops.plain_versions():
+        pnll, plse = xent_fwd(x, labels)
+        pdx = xent_bwd(x, labels, lse, ga, gb)
+    assert ops.launch_counts()["xent_fwd"] == 1
+    torch.testing.assert_close(nll, pnll, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+    assert dx.dtype == dtype
+    rtol = 2.0 ** -20 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(dx.float(), pdx.float(), rtol=rtol,
+                               atol=1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [768, 100, 3])
+@pytest.mark.parametrize("m", [203, 8, 6])
+def test_moe_gather_kernel_is_bit_equal_to_plain(dev, dtype, d, m):
+    """Out-of-range indices (-1, T, far past T) give zero rows; a row
+    of 100 fp32 / bf16 values is no multiple of 16 bytes (the
+    element-wise copy); m against the kernel's eight rows per CTA: a
+    ragged last CTA, one full CTA, one part-filled."""
+    from paddle_tpu_torch.ops.moe_dispatch import (gather_rows_reference,
+                                                   moe_gather)
+    g = torch.Generator(device=dev).manual_seed(d + m)
+    t = 50
+    x = torch.randn(t, d, generator=g, device=dev).to(dtype)
+    idx = torch.randint(-1, t + 2, (m,), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[5] = 10 ** 6
+    ops.reset_launch_counts()
+    got = moe_gather(x, idx)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_gather"] == 1
+    assert torch.equal(got, gather_rows_reference(x, idx))
+    assert not got[5].any()
+
+
+def test_gather_and_xent_never_fall_back(dev, monkeypatch):
+    """On a CUDA tensor ``gather_rows`` launches the kernel whatever the
+    JAX package's ``PT_MOE_GATHER`` says, and raises for a dtype the
+    kernel does not take; ``cross_entropy`` launches the xent kernels
+    without ``PT_FUSION_PASSES``."""
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.ops.moe_dispatch import gather_rows, moe_gather
+    monkeypatch.setenv("PT_MOE_GATHER", "jnp")
+    monkeypatch.delenv("PT_FUSION_PASSES", raising=False)
+    x = torch.randn(8, 16, device=dev)
+    idx = torch.tensor([0, 9, 3], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    gather_rows(x, idx)
+    assert ops.launch_counts()["moe_gather"] == 1
+    with pytest.raises(TypeError):
+        gather_rows(x.half(), idx)
+    with pytest.raises(TypeError):
+        moe_gather(x, idx.long())
+    logits = x.requires_grad_()
+    cross_entropy(logits, idx.new_tensor([1, 2, 3, 4, 5, 6, 7, 0])) \
+        .backward()
+    assert ops.launch_counts()["xent_fwd"] == 1
+    assert ops.launch_counts()["xent_bwd"] == 1
+
+
+def test_adamw_kernel_bf16_moments_match_plain(dev):
+    """bf16 p, g, m and v (``multi_precision=False`` on a bf16 model),
+    at a size with a tail, step 4: fp32 arithmetic on both sides, each
+    output rounded once to bf16, so p, m and v within one bf16 ulp (the
+    kernel's contracted FMA can move an fp32 result across a rounding
+    boundary), plus one fp32 ulp of the largest entry near 0."""
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    g = torch.Generator(device=dev).manual_seed(9)
+    n = 1_000_003
+    p = (0.02 * torch.randn(n, generator=g, device=dev)).bfloat16()
+    grad = torch.randn(n, generator=g, device=dev).bfloat16()
+    m = (0.1 * torch.randn(n, generator=g, device=dev)).bfloat16()
+    v = (0.01 * torch.rand(n, generator=g, device=dev)).bfloat16()
+    hp = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.01, step=4)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    ops.reset_launch_counts()
+    fused_adamw(kp, grad, km, kv, **hp)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["adamw"] == 1
+    with ops.plain_versions():
+        fused_adamw(p, grad, m, v, **hp)
+    for got, want in ((kp, p), (km, m), (kv, v)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=2.0 ** -7,
+            atol=2.0 ** -23 * float(want.float().abs().max()))
+
+
+def test_ernie_train_step_on_gpu_goes_through_kernels(dev, monkeypatch):
+    """Three fp32 AdamW steps of the tiny ERNIE-MoE on the card and on
+    the CPU from the same weights, with no environment knob set: losses
+    within 1e-4, and the per-step launch counts (5 gathers per MoE
+    layer, one xent forward and backward, flash per layer, AdamW per
+    tensor)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (ErnieMoEForCausalLM,
+                                         ernie_moe_tiny_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    monkeypatch.delenv("PT_FUSION_PASSES", raising=False)
+    cfg = ernie_moe_tiny_config(num_hidden_layers=4)
+    cpu = ErnieMoEForCausalLM(cfg, device="cpu", seed=0)
+    gpu = ErnieMoEForCausalLM(cfg, device=dev, seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = np.random.RandomState(0).randint(0, 512, (2, 64)).astype(np.int32)
+    batch = (ids, np.roll(ids, -1, 1).astype(np.int32))
+    losses = []
+    for m in (cpu, gpu):
+        opt = AdamW(learning_rate=1e-4, parameters=m.parameters())
+        step = TrainStep(m, lambda mm, b: mm(*b)[0], opt)
+        ops.reset_launch_counts()
+        losses.append([float(step(batch)) for _ in range(3)])
+    counts = ops.launch_counts()
+    L = cfg.num_hidden_layers
+    n_params = len(list(gpu.parameters()))
+    assert counts == {"rms_norm": 0, "paged_attention_decode": 0,
+                      "paged_attention_decode_int8": 0,
+                      "flash_attention_fwd": 3 * L,
+                      "flash_attention_bwd_dq": 3 * L,
+                      "flash_attention_bwd_dkv": 3 * L,
+                      "rope": 0, "adamw": 3 * n_params,
+                      "xent_fwd": 3, "xent_bwd": 3,
+                      "moe_gather": 3 * 5 * (L // cfg.moe_every)}
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
+
+
+@pytest.mark.parametrize("gate", ["gshard", "switch", "naive"])
+def test_moe_layer_gates_on_gpu_match_cpu(dev, gate):
+    """``MoELayer`` with each gate, fp32, capacity factor 0.75 (drops):
+    output, aux loss and gradients on the card (the gather kernel)
+    within 1e-4 of the same layer on the CPU (cuBLAS and the CPU sum in
+    other orders; the routes agree)."""
+    from paddle_tpu_torch.incubate.distributed.models import MoELayer
+    torch.manual_seed(0)
+    kw = dict(d_model=128, num_expert=4, d_hidden=64, top_k=2,
+              capacity_factor=0.75, gate=gate)
+    cpu = MoELayer(**kw, device="cpu")
+    gpu = MoELayer(**kw, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 16, 128)
+    results = []
+    for layer, d in ((cpu, "cpu"), (gpu, dev)):
+        xl = x.to(d).detach().requires_grad_()
+        ops.reset_launch_counts()
+        out = layer(xl)
+        loss = (out * out).sum() + (layer.l_aux if layer.l_aux is not None
+                                    else 0.0)
+        loss.backward()
+        results.append([out.detach().cpu(), xl.grad.cpu()]
+                       + [p.grad.cpu() for p in layer.parameters()])
+    assert ops.launch_counts()["moe_gather"] == 5
+    for a, b_ in zip(*results):
+        torch.testing.assert_close(b_, a, rtol=1e-4, atol=1e-4)

@@ -211,4 +211,5 @@ class TestDeviceAndImportRules:
             "rms_norm": 0, "paged_attention_decode": 0,
             "paged_attention_decode_int8": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "rope": 0, "adamw": 0}
+            "rope": 0, "adamw": 0, "xent_fwd": 0, "xent_bwd": 0,
+            "moe_gather": 0}
