@@ -11,7 +11,12 @@ Phases, each of which raises on failure (nothing is caught):
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: max abs error within the stated tolerance,
    and kernel / plain / library times beside the bound (the least time
-   the card could take for the same work).
+   the card could take for the same work). The decode-layer megakernel
+   at the megakernel phase's shapes (one Llama-2-7B layer; fp32 arena
+   at 8 slots, int8 arena at 32), also timed beside the unfused layer;
+   the residual RMSNorm at (8, 4096) fp32 and (8192, 4096) bf16, then
+   its entry point ``fused_rms_norm(residual=)`` driven along a
+   four-block residual stream, forward and backward.
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
    published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
@@ -27,7 +32,15 @@ Phases, each of which raises on failure (nothing is caught):
    (kernels against plain versions), one profiled decode block, and how
    far the greedy streams agree with an fp32 arena's (reported, not
    gated: quantized logits may diverge within the bound).
-5. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
+5. Megakernel decode serving on the same model: the engines of
+   phases 3 and 4 with ``megakernel=True`` (phase 4's engines freed
+   first) serve the same requests; exact launch counts (the megakernel
+   once per layer and decode step, the paged-decode kernels never),
+   ``megakernel_kernel_calls() == 32``, one decode step's log-probs
+   three ways (megakernel, unfused kernels, plain versions), one
+   profiled decode block, and decode step ms, decode tokens/s, the idle
+   share and greedy agreement beside the unfused engine's.
+6. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
    O2 bf16, ``AdamW(lr=1e-4, weight_decay=0.01)`` with fp32 masters,
    ``TrainStep`` on a 4 x 2048 batch from ``np.random.RandomState(0)``
    (labels rolled by one, as bench.py): first, at batch 1, one forward
@@ -35,7 +48,7 @@ Phases, each of which raises on failure (nothing is caught):
    initial weights (loss and every parameter's gradient); then 2
    warm-up and 5 timed steps with exact launch counts per step and
    finite losses; last, one profiled step.
-6. The ERNIE-MoE training path (``bench_workloads.py`` ``ernie_moe``):
+7. The ERNIE-MoE training path (``bench_workloads.py`` ``ernie_moe``):
    ``ernie_moe_base_config(expert_parallel=False)`` at full size, O2
    bf16, ``AdamW(multi_precision=False)`` (bf16 moments), the forward
    under ``auto_cast``, a 16 x 1024 batch: kernels vs plain versions at
@@ -774,6 +787,252 @@ def check_adamw_bf16_moments(torch):
           f"{lib_ms:.4f} (torch._fused_adamw_) bound_ms={bms:.4f} ({by})")
 
 
+def _decode_layer_tol(d, ff):
+    """Absolute tolerance on a decode layer's output, megakernel against
+    its plain version, for unit-scale inputs and weights of nn.Linear's
+    init (every intermediate O(1)): the five products sum up to
+    K = max(d, ff) fp32 terms in another order than cuBLAS, each
+    reassociation moving a sum by about u sqrt(K) of its terms' scale
+    (u = 2^-24); attention, both RMSNorms and the residuals add a few
+    ulp. 8 u sqrt(K) per product covers the tail over every output: at
+    Llama-2-7B width (K = 11008) 2.5e-4."""
+    return 5 * 8 * 2.0 ** -24 * math.sqrt(max(d, ff))
+
+
+def _device_ms(torch, fn, name=None, iters=10):
+    """Device time of one call of ``fn`` from the profiler over ``iters``
+    calls: of the kernel whose name contains ``name`` (one launch), or
+    of every device event of the call (the host's dispatch left out);
+    None when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count
+              and (name is None or name in e.key)]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        return None
+    if name is not None:
+        return total / sum(e.count for e in events) / 1e3
+    return total / iters / 1e3
+
+
+def check_decode_layer(torch, res_fp32, res_int8):
+    """The decode-layer megakernel against its plain version at the
+    megakernel serving phase's shapes: one Llama-2-7B layer
+    (``LlamaDecoderLayer`` on the card with nn.Linear's default init,
+    norm weights 1 + 0.1 N(0, 1)), x ~ N(0, 1). fp32 arena: S = 8,
+    block 16, 64 table entries, lengths 1 (one row), 16 (a block
+    boundary), 100, 1024 (the full table), 513, 250, 33, and one slot
+    at position 1030, past the table: its write goes to the trash block
+    and its read covers the whole table. int8 arena: S = 32, 128
+    entries, lengths 1025 + 32 i. Held: the output within
+    ``_decode_layer_tol`` of the plain version, the arena the prologue
+    writes equal to the plain version's outside the trash block. Times:
+    the wrapper (torch prologue + one cooperative launch; CUDA events,
+    and its device time from the profiler) and the megakernel alone
+    (profiler), the plain version, and the unfused layer on the same
+    inputs (the port's route without the megakernel: RMSNorm and
+    paged-decode kernels, cuBLAS products; events and device time). No
+    single PyTorch call computes this function (library: none)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models.llama import (LlamaDecoderLayer,
+                                               _rope_cache, llama_7b_config)
+    from paddle_tpu_torch.ops.decode_layer import (DecodeLayerScratch,
+                                                   decode_layer)
+    from paddle_tpu_torch.ops.paged_attention import quantize_kv
+    cfg = llama_7b_config()
+    torch.manual_seed(11)          # nn.Linear's init uses the global one
+    layer = LlamaDecoderLayer(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with torch.no_grad():
+        for norm in (layer.input_layernorm, layer.post_attention_layernorm):
+            norm.weight.add_(0.1 * torch.randn(cfg.hidden_size,
+                                               generator=gen,
+                                               device="cuda"))
+    cos, sin = _rope_cache(cfg, "cuda")
+    wts = layer._decode_layer_weights()
+    d, ff, h = cfg.hidden_size, cfg.intermediate_size, \
+        cfg.num_attention_heads
+    kvh, dh, eps = cfg.num_key_value_heads, cfg.head_dim, cfg.rms_norm_eps
+    tol = _decode_layer_tol(d, ff)
+    bs = 16
+    cases = [("fp32", "paged", 64, [1, 16, 100, 1024, 513, 250, 33, 1031],
+              res_fp32),
+             ("int8", "paged_int8", 128, [1025 + 32 * i for i in range(32)],
+              res_int8)]
+    for label, mode, mb, lengths, results in cases:
+        S = len(lengths)
+        nb = 1 + S * mb
+        pos = torch.tensor([L - 1 for L in lengths], dtype=torch.int32,
+                           device="cuda")
+        table = torch.zeros(S, mb, dtype=torch.int32)
+        perm = (torch.randperm(nb - 1, generator=torch.Generator()
+                               .manual_seed(13)) + 1).tolist()
+        for r, L in enumerate(lengths):
+            n = min(-(-L // bs), mb)
+            table[r, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+            perm = perm[n:]
+        table = table.cuda()
+        shape = (nb, bs, kvh, dh)
+        if mode == "paged_int8":
+            cache = [*quantize_kv(torch.randn(shape, generator=gen,
+                                              device="cuda")),
+                     *quantize_kv(torch.randn(shape, generator=gen,
+                                              device="cuda"))]
+            cache = [cache[0], cache[2], cache[1], cache[3]]
+        else:
+            cache = [torch.randn(shape, generator=gen, device="cuda")
+                     for _ in range(2)]
+        copies = [[c.clone() for c in cache] for _ in range(3)]
+        del cache
+        x = torch.randn(S, 1, d, generator=gen, device="cuda")
+        fixed = (x, cos, sin, eps, eps, pos, table)
+        scratch = DecodeLayerScratch()
+
+        def kern():
+            return decode_layer(mode, *fixed, *copies[0], *wts,
+                                scratch=scratch)[0]
+
+        def plain():
+            with ops.plain_versions():
+                return decode_layer(mode, *fixed, *copies[1], *wts)[0]
+
+        def unfused():
+            return layer(x, cos, sin, tuple(copies[2]), pos, table)
+
+        with torch.inference_mode():
+            got, want, unf = kern(), plain(), unfused()
+            torch.cuda.synchronize()
+            err, err_unf = _max_err(got, want), _max_err(unf, want)
+            if not (torch.isfinite(got).all() and err <= tol
+                    and err_unf <= tol):
+                raise AssertionError(
+                    f"decode_layer {label}: max abs err {err} (unfused "
+                    f"{err_unf}), tolerance {tol}")
+            for a, b in zip(copies[0], copies[1]):
+                if not torch.equal(a[1:], b[1:]):
+                    raise AssertionError(f"decode_layer {label}: the "
+                                         "prologue's arena write differs")
+            ms = _time_eager(kern, iters=20)
+            kernel_ms = _device_ms(torch, kern, "decode_layer_kernel")
+            dev_ms = _device_ms(torch, kern)
+            plain_ms = _time_eager(plain, iters=3)
+            unfused_ms = _time_eager(unfused, iters=20)
+            unfused_dev_ms = _device_ms(torch, unfused)
+        elt = 1 if mode == "paged_int8" else 4
+        row_bytes = kvh * (dh * elt + (4 if mode == "paged_int8" else 0))
+        rows_read = sum(min(-(-L // bs), mb) * bs for L in lengths)
+        w_bytes = sum(w.numel() * 4 for w in wts)
+        nbytes = w_bytes + 2 * rows_read * row_bytes + 2 * S * row_bytes \
+            + 2 * S * d * 4
+        flops = 2 * S * sum(w.numel() for w in wts if w.dim() == 2) \
+            + 4 * h * dh * sum(min(L, mb * bs) for L in lengths)
+        bms, by = _bound_ms(nbytes, flops, FP32_FLOPS)
+        kms, dms, udms = ("not measured" if v is None else f"{v:.4f}"
+                          for v in (kernel_ms, dev_ms, unfused_dev_ms))
+        print(f"decode_layer {label} S={S} d={d} h={h} kvh={kvh} ff={ff} "
+              f"bs={bs} mb={mb} lengths {min(lengths)}..{max(lengths)}: "
+              f"max_abs_err={err:.3e} (unfused layer {err_unf:.3e}; tol "
+              f"{tol:.3e}) ms={ms:.4f} (wrapper: prologue + 1 launch; "
+              f"device {dms}) megakernel_ms={kms} plain_ms={plain_ms:.4f} "
+              f"unfused_layer_ms={unfused_ms:.4f} (device {udms}) "
+              f"library_ms=none bound_ms={bms:.4f} ({by}, "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, library_ms=None,
+                       megakernel_ms=kernel_ms, device_ms=dev_ms,
+                       unfused_layer_ms=unfused_ms,
+                       unfused_layer_device_ms=unfused_dev_ms)
+        del copies, got, want, unf, scratch
+        torch.cuda.empty_cache()
+    del layer, wts
+    torch.cuda.empty_cache()
+
+
+def check_rms_norm_residual(torch, results):
+    """The residual RMSNorm kernel against its plain version (``_rms_ref``
+    with a residual) at (8, 4096) fp32 and (8192, 4096) bf16: the sum
+    x + r bit-equal (both round one fp32 sum to x's dtype), the normed
+    output within RMSNorm's tolerances (fp32 1e-5; bf16
+    ``RMS_BF16_TOL``). Bound: bytes, x, r, out and the sum once each
+    and the weight. No single PyTorch call computes both outputs
+    (library: none)."""
+    from paddle_tpu_torch.ops.fused import (rms_norm_residual,
+                                            rms_norm_residual_reference)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    h, eps = 4096, 1e-5
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: RMS_BF16_TOL}
+    for dtype, rows in ((torch.float32, 8), (torch.bfloat16, 8192)):
+        x = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+        r = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+             ).to(dtype)
+        out, total = rms_norm_residual(x, r, w, eps)
+        want, want_total = rms_norm_residual_reference(x, r, w, eps)
+        torch.cuda.synchronize()
+        err = _max_err(out, want)
+        atol, rtol = tol[dtype]
+        if not (torch.equal(total, want_total) and torch.allclose(
+                out.float(), want.float(), atol=atol, rtol=rtol)):
+            raise AssertionError(
+                f"rms_norm_residual {dtype} rows={rows}: max abs err {err},"
+                f" sum equal {torch.equal(total, want_total)}")
+        ms = _time_ms(lambda: rms_norm_residual(x, r, w, eps))
+        plain_ms = _time_ms(lambda: rms_norm_residual_reference(x, r, w,
+                                                                eps))
+        nbytes = 4 * rows * h * x.element_size() + h * w.element_size()
+        bms, by = _bound_ms(nbytes)
+        print(f"rms_norm_residual {str(dtype)[6:]:8s} rows={rows:4d} h={h}: "
+              f"max_abs_err={err:.3e} (sum bit-equal) kernel_ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} library_ms=none "
+              f"bound_ms={bms:.6f} ({by})")
+        if (dtype, rows) == (torch.float32, 8):
+            results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def rms_residual_entry(torch):
+    """The residual RMSNorm's entry point as a caller uses it:
+    ``fused_rms_norm(x, w, eps, residual=r)`` along a pre-norm residual
+    stream of four blocks at (8192, 4096) bf16 (the training step's
+    rows and width), forward and backward, counters zeroed just before
+    and read just after: four launches (the backward is the torch VJP
+    of the plain version, as JAX's). Returns the launch counts."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.fused import fused_rms_norm
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    hidden = torch.randn(8192, 4096, generator=gen, device="cuda",
+                         dtype=torch.bfloat16).requires_grad_()
+    ws = [(1 + 0.1 * torch.randn(4096, generator=gen, device="cuda"))
+          .bfloat16().requires_grad_() for _ in range(4)]
+    ops.reset_launch_counts()
+    stream, delta = hidden, torch.zeros_like(hidden)
+    for w in ws:
+        normed, stream = fused_rms_norm(delta, w, 1e-5, residual=stream)
+        delta = normed * 0.5
+    loss = delta.float().square().mean()
+    loss.backward()
+    loss = loss.detach()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    grads = [hidden.grad] + [w.grad for w in ws]
+    if counts["rms_norm_residual"] != 4 or not all(
+            g is not None and bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"residual entry point: launches {counts}, "
+                             f"finite grads {[g is not None for g in grads]}")
+    print(f"fused_rms_norm(residual=) entry point, 4 blocks of (8192, 4096) "
+          f"bf16 fwd + bwd: loss {loss.item():.6f}, launches "
+          f"rms_norm_residual={counts['rms_norm_residual']}")
+    return counts
+
+
 def _train_loss(model, batch):
     loss, _ = model(*batch)
     return loss
@@ -886,7 +1145,8 @@ def train_path(torch, card):
                 "paged_attention_decode_int8": 0, "flash_attention_fwd": L,
                 "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
                 "rope": 2 * L, "adamw": n_tensors, "xent_fwd": 0,
-                "xent_bwd": 0, "moe_gather": 0}
+                "xent_bwd": 0, "moe_gather": 0, "rms_norm_residual": 0,
+                "decode_layer": 0, "decode_layer_int8": 0}
     if n_tensors != 9 * L + 3:
         raise AssertionError(f"{n_tensors} parameter tensors, expected "
                              f"{9 * L + 3}")
@@ -1193,7 +1453,8 @@ def ernie_moe_path(torch, card):
                 "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "rope": 0,
                 "adamw": n_tensors, "xent_fwd": 1, "xent_bwd": 1,
-                "moe_gather": 5 * n_moe}
+                "moe_gather": 5 * n_moe, "rms_norm_residual": 0,
+                "decode_layer": 0, "decode_layer_int8": 0}
     torch.cuda.reset_peak_memory_stats()
     warm, timed = 2, 8
     ops.reset_launch_counts()
@@ -1283,16 +1544,29 @@ def _serve_checked(torch, srv, engine, reqs, vocab):
 
 
 def _check_launches(engine, counts, kernel):
-    """Exact launch counts of a served run: the arena's decode
-    ``kernel`` once per layer and decode step, the other decode kernel
-    never, RMSNorm 2L + 1 times per decode step and prefill chunk."""
+    """Exact launch counts of a served run: ``kernel`` (the arena's
+    paged-decode kernel, or the megakernel entry with the megakernel
+    on) once per layer and decode step, the other decode kernels never
+    (prefill chunks read through the gathered-dense sequence); RMSNorm
+    2L + 1 times per prefill chunk and per unfused decode step, once
+    (the final norm) per megakernel decode step. With the megakernel,
+    every layer of the last step went through it."""
     L = engine.backend.model.config.num_hidden_layers
-    want = {"rms_norm": (2 * L + 1) * (engine.steps + engine.prefill_chunks),
-            "paged_attention_decode": 0, "paged_attention_decode_int8": 0}
+    mega = engine.megakernel()
+    want = {k: 0 for k in ("paged_attention_decode",
+                           "paged_attention_decode_int8", "decode_layer",
+                           "decode_layer_int8")}
+    want["rms_norm"] = (2 * L + 1) * engine.prefill_chunks \
+        + (1 if mega else 2 * L + 1) * engine.steps
     want[kernel] = L * engine.steps
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"launch counts {got}, expected {want}")
+    if mega and not (engine.megakernel_rewrites()
+                     == engine.megakernel_kernel_calls() == L):
+        raise AssertionError(
+            f"megakernel routing: {engine.megakernel_rewrites()} rewrites, "
+            f"{engine.megakernel_kernel_calls()} kernel calls for {L} layers")
 
 
 def _print_serving(card, label, st, extra=""):
@@ -1306,38 +1580,53 @@ def _print_serving(card, label, st, extra=""):
           f"occupancy={st['slot_occupancy']:.4f}{extra}")
 
 
-def _check_step_logprobs(torch, model, engine, label):
+def _check_step_logprobs(torch, model, engine, label, megakernel=False):
     """One decode step on the engine's armed slots, the kernels against
     the plain versions on the same state (both write the same K/V into
     the arena). 32 fp32 layers: the kernels' reassociated sums and
     rsqrtf differ from the plain versions by a few ulp per layer, so
-    the log-probs are held to 2e-3."""
+    the log-probs are held to 2e-3. With ``megakernel`` three ways: the
+    fused decode layer (one megakernel launch per layer), the unfused
+    kernels and the plain versions, each pair within 2e-3."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.models import decode_step_logprobs
+    from paddle_tpu_torch.ops.decode_layer import FusedDecode
     s = engine._state
     tbl = torch.where(s["live"][:, None], s["table"], 0)
     step = (s["tok"][:, None], engine.backend.cache, s["pos"], tbl)
-    lp_kernel = decode_step_logprobs(model, *step)
+    runs = {}
+    if megakernel:
+        fused = FusedDecode()
+        runs["megakernel"] = decode_step_logprobs(model, *step,
+                                                  fused_decode=fused)
+        L = model.config.num_hidden_layers
+        if fused.kernel_calls != L:
+            raise AssertionError(f"{label}log-prob check: {fused.kernel_calls}"
+                                 f" megakernel launches for {L} layers")
+    runs["kernels"] = decode_step_logprobs(model, *step)
     with ops.plain_versions():
-        lp_plain = decode_step_logprobs(model, *step)
+        runs["plain"] = decode_step_logprobs(model, *step)
     torch.cuda.synchronize()
-    err = _max_err(lp_kernel, lp_plain)
-    if not (torch.isfinite(lp_kernel).all() and err <= 2e-3):
-        raise AssertionError(f"{label}decode log-probs kernel vs plain: "
-                             f"{err}")
-    agree = int((lp_kernel.argmax(-1) == lp_plain.argmax(-1)).sum())
+    names = list(runs)
+    errs = {f"{a} vs {b}": _max_err(runs[a], runs[b])
+            for i, a in enumerate(names) for b in names[i + 1:]}
+    if not (all(torch.isfinite(v).all() for v in runs.values())
+            and max(errs.values()) <= 2e-3):
+        raise AssertionError(f"{label}decode log-probs: {errs}")
+    first, plain = runs[names[0]], runs["plain"]
+    agree = int((first.argmax(-1) == plain.argmax(-1)).sum())
     pos = s["pos"][s["live"]]
     print(f"{label}decode step log-probs ({int(s['live'].sum())} slots, "
-          f"lengths {int(pos.min()) + 1}..{int(pos.max()) + 1}), kernels "
-          f"vs plain versions: max_abs_err={err:.3e} (tolerance 2e-3), "
-          f"argmax agree {agree}/{lp_kernel.shape[0]}")
+          f"lengths {int(pos.min()) + 1}..{int(pos.max()) + 1}): "
+          + ", ".join(f"{k} max_abs_err={v:.3e}" for k, v in errs.items())
+          + f" (tolerance 2e-3), argmax {names[0]} vs plain agree "
+          f"{agree}/{first.shape[0]}")
 
 
 def serving_path(torch, card):
     import numpy as np
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
-    from paddle_tpu_torch.serving import (PagedEngine, Request, Scheduler,
-                                          Server)
+    from paddle_tpu_torch.serving import PagedEngine, Scheduler, Server
     cfg = llama_7b_config()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
@@ -1351,16 +1640,27 @@ def serving_path(torch, card):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     srv = Server(engine, Scheduler(prefill_token_budget=256))
     reqs = _prompts(np.random.RandomState(0), cfg.vocab_size)
-    rids, _, counts, wall = _serve_checked(torch, srv, engine, reqs,
-                                           cfg.vocab_size)
+    rids, res, counts, wall = _serve_checked(torch, srv, engine, reqs,
+                                             cfg.vocab_size)
     _check_launches(engine, counts, "paged_attention_decode")
     print(f"served {len(rids)} requests in {wall:.2f} s: "
           f"{engine.steps} decode steps, {engine.prefill_chunks} prefill "
           f"chunks, launches {counts}")
-    _print_serving(card, "", srv.stats())
+    st = srv.stats()
+    _print_serving(card, "", st)
 
-    # one decode step, kernels vs plain versions, on the same state:
-    # 8 fresh greedy requests prefilled and armed
+    _arm_fp32_check(engine, cfg)
+    _check_step_logprobs(torch, model, engine, "")
+    idle = profile_decode_block(torch, engine, card)
+    greedy = {i: res[rid] for i, rid in enumerate(rids) if not reqs[i][2]}
+    return counts, model, dict(stats=st, idle=idle, greedy=greedy)
+
+
+def _arm_fp32_check(engine, cfg):
+    """Arm 8 fresh greedy requests (prompts of 40 + 37 i tokens) for the
+    one-step log-prob check."""
+    import numpy as np
+    from paddle_tpu_torch.serving import Request
     rng = np.random.RandomState(1)
     for i in range(8):
         L0 = 40 + 37 * i
@@ -1369,9 +1669,28 @@ def serving_path(torch, card):
                                                     (L0,)).astype("int32"),
                                  max_new_tokens=24))
     engine.prefill_tick(None)
-    _check_step_logprobs(torch, model, engine, "")
-    profile_decode_block(torch, engine, card)
-    return counts, model
+
+
+def _arm_int8_check(engine, cfg):
+    """Arm all 32 slots at lengths 1009..1071 for the one-step log-prob
+    check: a shared 1008-token prefix (63 blocks, prefilled once) plus
+    1 + 2 i tokens of each request's own."""
+    import numpy as np
+    from paddle_tpu_torch.serving import Request
+    rng = np.random.RandomState(6)
+    base = rng.randint(0, cfg.vocab_size, (1008,))
+    for i in range(32):
+        p = np.concatenate([base, rng.randint(0, cfg.vocab_size,
+                                              (1 + 2 * i,))])
+        engine.try_admit(Request(request_id=2000 + i,
+                                 prompt=p.astype("int32"),
+                                 max_new_tokens=24))
+        if i == 0:
+            engine.prefill_tick(None)         # registers the prefix
+    engine.prefill_tick(None)
+    s = engine._state
+    if int(s["live"].sum()) != 32 or int(s["pos"].min()) < 1008:
+        raise AssertionError("the log-prob check needs 32 live slots")
 
 
 def profile_decode_block(torch, engine, card):
@@ -1379,11 +1698,14 @@ def profile_decode_block(torch, engine, card):
     and the device's busy share of the block's host wall time (every
     live slot, one block of ``decode_block`` steps ending in its host
     sync). One unprofiled block runs first, for the wall time without
-    the profiler's overhead."""
+    the profiler's overhead. Returns the idle share (None when the
+    profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     live = int(engine._state["live"].sum())
     arena = "int8" if getattr(engine, "kv_int8", False) else "fp32"
+    if engine.megakernel():
+        arena = "megakernel " + arena
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.step_block()
@@ -1405,7 +1727,7 @@ def profile_decode_block(torch, engine, card):
     if busy_us == 0:
         print("decode block profile: the profiler saw no device time "
               "(device busy share not measured)")
-        return
+        return None
     print(f"[{card}] {arena} decode block profile ({live} live slots): "
           f"wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms "
@@ -1414,6 +1736,7 @@ def profile_decode_block(torch, engine, card):
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
               f"x{n:<6d} {name[:90]}")
+    return 1 - busy_us / wall_us
 
 
 def _int8_requests(rng, vocab):
@@ -1445,8 +1768,7 @@ def serving_int8_path(torch, card, model):
     depth, on the fp32 serving path's model (see the module
     docstring). Returns the launch counts of the served requests."""
     import numpy as np
-    from paddle_tpu_torch.serving import (PagedEngine, Request, Scheduler,
-                                          Server)
+    from paddle_tpu_torch.serving import PagedEngine, Scheduler, Server
     cfg = model.config
     L = cfg.num_hidden_layers
     torch.cuda.reset_peak_memory_stats()
@@ -1480,31 +1802,17 @@ def serving_int8_path(torch, card, model):
                    f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
     # one decode step with all 32 slots live at lengths 1009..1071,
-    # kernels vs plain versions: a shared 1008-token prefix (63 blocks,
-    # prefilled once) plus 1 + 2 i tokens of each request's own
-    rng = np.random.RandomState(6)
-    base = rng.randint(0, cfg.vocab_size, (1008,))
-    for i in range(32):
-        p = np.concatenate([base, rng.randint(0, cfg.vocab_size,
-                                              (1 + 2 * i,))])
-        engine.try_admit(Request(request_id=2000 + i,
-                                 prompt=p.astype("int32"),
-                                 max_new_tokens=24))
-        if i == 0:
-            engine.prefill_tick(None)         # registers the prefix
-    engine.prefill_tick(None)
-    s = engine._state
-    if int(s["live"].sum()) != 32 or int(s["pos"].min()) < 1008:
-        raise AssertionError("the log-prob check needs 32 live slots")
+    # kernels vs plain versions
+    _arm_int8_check(engine, cfg)
     _check_step_logprobs(torch, model, engine, "int8 ")
-    profile_decode_block(torch, engine, card)
+    idle = profile_decode_block(torch, engine, card)
 
     # greedy agreement with an fp32 arena on the same prompts (reported,
     # not gated); the int8 arena is freed first, the fp32 one holds 16
     # slots of 2048 tokens (34.4 GB beside the 27 GB of weights)
     greedy = [i for i, r in enumerate(reqs) if not r[2]]
     int8_out = {i: res[rids[i]] for i in greedy}
-    del engine, srv, s
+    del engine, srv
     torch.cuda.empty_cache()
     fp_engine = PagedEngine(model, kv_int8=False, **dict(kw, num_slots=16))
     fp_srv = Server(fp_engine, Scheduler(prefill_token_budget=512))
@@ -1529,7 +1837,75 @@ def serving_int8_path(torch, card, model):
           f"{total / len(greedy):.1f} generated tokens (not gated)")
     del fp_engine, fp_srv
     torch.cuda.empty_cache()
-    return counts
+    return counts, dict(stats=st, idle=idle, greedy=int8_out)
+
+
+def serving_megakernel_path(torch, card, model, refs):
+    """Megakernel decode serving on the fp32 serving path's model: the
+    fp32 engine of phase 3 and the int8 engine of phase 4 with
+    ``megakernel=True``, serving the same requests. Exact launch counts,
+    the routing counters, one decode step's log-probs three ways, one
+    profiled decode block; decode step ms, decode tokens/s and the idle
+    share beside the unfused engine's (``refs``, from phases 3 and 4 of
+    this run), and how far the greedy streams agree with it (reported,
+    not gated: sums in another order may flip a near tie at 32
+    layers). Returns the launch counts of both served runs."""
+    import numpy as np
+    from paddle_tpu_torch.serving import PagedEngine, Scheduler, Server
+    cfg = model.config
+    runs = [("fp32", "decode_layer", 256, _prompts, 0, _arm_fp32_check,
+             dict(num_slots=8, max_len=1024, prefill_chunk=32)),
+            ("int8", "decode_layer_int8", 512, _int8_requests, 5,
+             _arm_int8_check,
+             dict(num_slots=32, max_len=2048, prefill_chunk=128,
+                  kv_int8=True))]
+    total = None
+    for label, kernel, budget, make_reqs, seed, arm, kw in runs:
+        engine = PagedEngine(model, decode_block=8, block_size=16,
+                             megakernel=True, device="cuda", **kw)
+        if not engine.megakernel():
+            raise AssertionError("megakernel=True did not arm the engine")
+        srv = Server(engine, Scheduler(prefill_token_budget=budget))
+        reqs = make_reqs(np.random.RandomState(seed), cfg.vocab_size)
+        rids, res, counts, wall = _serve_checked(torch, srv, engine, reqs,
+                                                 cfg.vocab_size)
+        _check_launches(engine, counts, kernel)
+        st = srv.stats()
+        ref = refs[label]
+        print(f"megakernel {label} served {len(rids)} requests in {wall:.2f}"
+              f" s: {engine.steps} decode steps, {engine.prefill_chunks} "
+              f"prefill chunks, megakernel_rewrites="
+              f"{engine.megakernel_rewrites()} megakernel_kernel_calls="
+              f"{engine.megakernel_kernel_calls()}, launches {counts}")
+        _print_serving(card, f"megakernel {label} ", st)
+        _print_serving(card, f"unfused {label} (same run) ", ref["stats"])
+        same = total_tok = identical = 0
+        for i, out in ref["greedy"].items():
+            p_len = len(reqs[i][0])
+            eq = res[rids[i]][p_len:] == out[p_len:]
+            same += int(eq.sum())
+            total_tok += len(eq)
+            identical += int(eq.all())
+        print(f"megakernel {label} vs unfused greedy streams "
+              f"({len(ref['greedy'])} requests): {identical} identical, "
+              f"token agreement {same / total_tok:.4f} (not gated)")
+        arm(engine, cfg)
+        _check_step_logprobs(torch, model, engine, f"megakernel {label} ",
+                             megakernel=True)
+        idle = profile_decode_block(torch, engine, card)
+        rst = ref["stats"]
+        idles = ["not measured" if v is None else f"{100 * v:.1f}%"
+                 for v in (idle, ref["idle"])]
+        print(f"[{card}] {label} decode, megakernel vs unfused: step "
+              f"{st['decode_step_ms']:.3f} vs {rst['decode_step_ms']:.3f} ms, "
+              f"decode tokens/s {st['decode_tokens_per_sec']:.1f} vs "
+              f"{rst['decode_tokens_per_sec']:.1f}, device idle {idles[0]} "
+              f"vs {idles[1]}")
+        total = counts if total is None else {
+            k: total[k] + counts[k] for k in total}
+        del engine, srv
+        torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -1558,6 +1934,7 @@ def main() -> int:
     print("tf32 off for matmul and cuDNN (full fp32 products)")
     rms, pa, pa8, flash, rope, adamw = {}, {}, {}, {}, {}, {}
     xent_f, xent_b, gather = {}, {}, {}
+    rms_res, mega, mega8 = {}, {}, {}
     check_rms_norm(torch, rms, (torch.float32, 8))
     check_paged_attention(torch, pa, 32)
     check_paged_attention_int8(torch, pa8)
@@ -1568,9 +1945,15 @@ def main() -> int:
     check_xent(torch, xent_f, xent_b)
     check_moe_gather(torch, gather)
     check_adamw_bf16_moments(torch)
-    serving, model = serving_path(torch, card)
+    check_rms_norm_residual(torch, rms_res)
+    check_decode_layer(torch, mega, mega8)
+    residual = rms_residual_entry(torch)
     torch.cuda.empty_cache()
-    serving8 = serving_int8_path(torch, card, model)
+    serving, model, ref = serving_path(torch, card)
+    torch.cuda.empty_cache()
+    serving8, ref8 = serving_int8_path(torch, card, model)
+    megakernel = serving_megakernel_path(torch, card, model,
+                                         {"fp32": ref, "int8": ref8})
     del model
     torch.cuda.empty_cache()
     print(f"after the serving paths: "
@@ -1578,10 +1961,12 @@ def main() -> int:
     train = train_path(torch, card)
     torch.cuda.empty_cache()
     ernie = ernie_moe_path(torch, card)
-    counts = {k: serving[k] + serving8[k] + train[k] + ernie[k]
-              for k in serving}
-    print(f"launches: serving {serving}; int8 serving {serving8}; "
-          f"training {train}; ernie-moe training {ernie}")
+    paths = dict(residual=residual, serving=serving, int8_serving=serving8,
+                 megakernel_serving=megakernel, training=train,
+                 ernie_moe_training=ernie)
+    counts = {k: sum(c[k] for c in paths.values()) for k in serving}
+    print("launches: " + "; ".join(f"{name} {c}"
+                                   for name, c in paths.items()))
     src = "paddle_tpu_torch/csrc/"
     fa = "paddle_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -1620,7 +2005,22 @@ def main() -> int:
         dict(name="moe_gather", route="cuda", source=src + "moe_gather.cu",
              replaces="paddle_tpu/ops/pallas/moe_dispatch.py:105",
              launches=counts["moe_gather"], **gather),
+        dict(name="rms_norm_residual", route="cuda",
+             source=src + "rms_norm.cu",
+             replaces="paddle_tpu/ops/pallas/fused.py:65",
+             launches=counts["rms_norm_residual"], **rms_res),
+        dict(name="decode_layer", route="cuda",
+             source=src + "decode_layer.cu",
+             replaces="paddle_tpu/ops/pallas/decode_layer.py:278",
+             launches=counts["decode_layer"], **mega),
+        dict(name="decode_layer_int8", route="cuda",
+             source=src + "decode_layer.cu",
+             replaces="paddle_tpu/ops/pallas/decode_layer.py:278",
+             launches=counts["decode_layer_int8"], **mega8),
     ]
+    unused = [k["name"] for k in kernels if not k["launches"] > 0]
+    if unused:
+        raise AssertionError(f"kernels no path launched: {unused}")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

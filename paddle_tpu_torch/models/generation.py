@@ -15,7 +15,7 @@ import torch
 from ..ops.paged_attention import (dense_attention, dequantize_kv,
                                    paged_attention_decode,
                                    paged_attention_decode_int8,
-                                   paged_gather, quantize_kv)
+                                   paged_gather, write_paged_kv)
 
 __all__ = ["cached_attention", "decode_step_logprobs"]
 
@@ -57,25 +57,11 @@ def cached_attention(q, k, v, k_arena, v_arena, pos, *, scale, cos, sin,
     sn = sin[positions].to(q.dtype)
     q, k = _rope_rows(q, c, sn), _rope_rows(k, c, sn)
 
-    bs_blk, mb = k_arena.shape[1], block_table.shape[1]
-    blk_idx = torch.div(tpos, bs_blk, rounding_mode="floor")
-    # chunk pad columns and dead slots can aim past the table width:
-    # those writes go to the trash block 0, never out of bounds or into
-    # another slot's blocks
-    oob = blk_idx >= mb
-    blk = torch.where(oob, 0, torch.gather(block_table, 1,
-                                           blk_idx.clamp(0, mb - 1).long()))
-    off = torch.where(oob, 0, tpos % bs_blk)
-    blk, off = blk.long(), off.long()
+    cache = (k_arena, v_arena) + tuple(kv_scales or ())
+    write_paged_kv(cache, k, v, tpos, block_table)
     lengths = pos.to(torch.int32) + s
     if kv_scales is not None:                          # int8 arenas
         k_scales, v_scales = kv_scales
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
-        k_arena[blk, off] = kq
-        v_arena[blk, off] = vq
-        k_scales[blk, off] = ks
-        v_scales[blk, off] = vs
         if s == 1:
             out = paged_attention_decode_int8(
                 q[:, 0].contiguous(), k_arena, v_arena, k_scales, v_scales,
@@ -86,8 +72,6 @@ def cached_attention(q, k, v, k_arena, v_arena, pos, *, scale, cos, sin,
         vd = dequantize_kv(paged_gather(v_arena, block_table),
                            paged_gather(v_scales, block_table))
         return dense_attention(q, kd, vd, lengths, scale=scale)
-    k_arena[blk, off] = k.to(k_arena.dtype)
-    v_arena[blk, off] = v.to(v_arena.dtype)
     if s == 1:
         out = paged_attention_decode(q[:, 0].contiguous(), k_arena, v_arena,
                                      block_table, lengths, scale=scale)
@@ -99,11 +83,18 @@ def cached_attention(q, k, v, k_arena, v_arena, pos, *, scale, cos, sin,
 
 @torch.inference_mode()
 def decode_step_logprobs(model, ids, cache, pos, block_table,
-                         last_index: Optional[int] = None) -> torch.Tensor:
+                         last_index: Optional[int] = None,
+                         fused_decode=None) -> torch.Tensor:
     """The decode step's log-prob head: forward the (b, s) token block
     at per-row positions ``pos`` through the paged cache and return the
     fp32 log-softmax of the logits at the last column (or at
-    ``last_index``, the last real token of a right-padded chunk)."""
-    logits = model(ids, cache=cache, pos=pos, block_table=block_table)
+    ``last_index``, the last real token of a right-padded chunk). With
+    ``fused_decode`` (``ops.decode_layer.FusedDecode``) each decode
+    layer goes through the fused decode-layer call; its counts are
+    those of this step."""
+    if fused_decode is not None:
+        fused_decode.begin()
+    logits = model(ids, cache=cache, pos=pos, block_table=block_table,
+                   fused_decode=fused_decode)
     lv = logits[:, -1 if last_index is None else last_index]
     return torch.log_softmax(lv.float(), dim=-1)

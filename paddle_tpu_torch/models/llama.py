@@ -23,6 +23,8 @@ from ..device import resolve_device
 from ..incubate.nn import fused_linear_cross_entropy
 from ..nn import RMSNorm
 from ..nn import functional as PF
+from ..ops import plain_active
+from ..ops.decode_layer import decode_layer, kernel_viable
 from ..ops.fused import fused_rope
 from .generation import cached_attention
 
@@ -155,10 +157,60 @@ class LlamaDecoderLayer(nn.Module):
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, cos, sin, cache=None, pos=None, block_table=None):
+    def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
+                fused_decode=None):
+        """The layer; with a ``FusedDecode`` request
+        (``ops.decode_layer``) the slot-pool decode shape goes through
+        the fused decode-layer call instead (:meth:`_fused_decode`)."""
+        if fused_decode is not None and self._fusable(x, cache, pos,
+                                                      block_table):
+            return self._fused_decode(x, cos, sin, cache, pos, block_table,
+                                      fused_decode)
+        return self._decode_forward(x, cos, sin, cache, pos, block_table)
+
+    def _decode_forward(self, x, cos, sin, cache, pos, block_table):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
                                pos, block_table)
         return h + self.mlp(self.post_attention_layernorm(h))
+
+    def _fusable(self, x, cache, pos, block_table) -> bool:
+        """Whether this call is the slot-pool decode shape the fused
+        layer covers (the JAX ``_markable``): s == 1, per-row positions,
+        a block table, no sliding window. Prefill chunks (s > 1) stay
+        unfused."""
+        return (cache is not None and block_table is not None
+                and x.shape[1] == 1 and pos is not None and pos.dim() == 1
+                and self.self_attn.sliding_window is None)
+
+    def _decode_layer_weights(self):
+        """The fused call's weights in ``ops.decode_layer.WEIGHT_NAMES``
+        order, as ``nn.Linear`` stores them (out, in)."""
+        a, m = self.self_attn, self.mlp
+        return (self.input_layernorm.weight, a.q_proj.weight,
+                a.k_proj.weight, a.v_proj.weight, a.o_proj.weight,
+                self.post_attention_layernorm.weight, m.gate_proj.weight,
+                m.up_proj.weight, m.down_proj.weight)
+
+    def _fused_decode(self, x, cos, sin, cache, pos, block_table, fused):
+        """The fused decode-layer route (JAX ``_marked_decode`` and the
+        call the fusion pass splices). A CUDA call the card's kernel
+        takes launches the megakernel once (``kernel_calls`` counts it);
+        any other (the CPU, or a shape ``kernel_viable`` refuses) runs
+        the unfused math, as the JAX engine runs its captured jaxpr
+        where its kernel is not viable. Either way ``rewrites`` counts
+        the layer."""
+        fused.rewrites += 1
+        mode = "paged_int8" if len(cache) == 4 else "paged"
+        wts = self._decode_layer_weights()
+        if x.device.type == "cuda" and kernel_viable(mode, x, cache, wts):
+            out = decode_layer(
+                mode, x, cos, sin, self.input_layernorm.eps,
+                self.post_attention_layernorm.eps, pos, block_table,
+                *cache, *wts, scratch=fused.scratch)[0]
+            if not plain_active():
+                fused.kernel_calls += 1
+            return out
+        return self._decode_forward(x, cos, sin, cache, pos, block_table)
 
 
 class LlamaModel(nn.Module):
@@ -173,11 +225,12 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
     def forward(self, input_ids, cos, sin, cache=None, pos=None,
-                block_table=None):
+                block_table=None, fused_decode=None):
         x = self.embed_tokens(input_ids)
         caches = cache if cache is not None else [None] * len(self.layers)
         for layer, layer_cache in zip(self.layers, caches):
-            x = layer(x, cos, sin, layer_cache, pos, block_table)
+            x = layer(x, cos, sin, layer_cache, pos, block_table,
+                      fused_decode)
         return self.norm(x)
 
 
@@ -256,7 +309,7 @@ class LlamaForCausalLM(nn.Module):
                 for _ in range(c.num_hidden_layers)]
 
     def forward(self, input_ids, labels=None, cache=None, pos=None,
-                block_table=None):
+                block_table=None, fused_decode=None):
         """With ``cache``: (b, s) token ids at per-row positions ``pos``
         (b,) through the paged ``cache`` (written in place) -> (b, s,
         vocab) logits. Without: the training forward over positions
@@ -265,9 +318,11 @@ class LlamaForCausalLM(nn.Module):
         logits)`` with the plain head and ``nn.functional.cross_entropy``
         (the xent kernels on the card; on the CPU their plain version
         under ``PT_FUSION_PASSES=1``, as the JAX head),
-        and without labels the logits."""
+        and without labels the logits. ``fused_decode``
+        (``ops.decode_layer.FusedDecode``) routes each decode layer of an
+        s = 1 cache step through the fused decode-layer call."""
         h = self.llama(input_ids, self.rope_cos, self.rope_sin, cache, pos,
-                       block_table)
+                       block_table, fused_decode)
         c = self.config
         if cache is None and labels is not None and c.fused_head_ce:
             loss = fused_linear_cross_entropy(

@@ -37,10 +37,11 @@ def plain_active() -> bool:
 
 
 def _wrappers():
+    from .decode_layer import decode_layer, decode_layer_int8
     from .flash_attention import (flash_attention_bwd_dkv,
                                   flash_attention_bwd_dq,
                                   flash_attention_fwd)
-    from .fused import fused_adamw, fused_rope, rms_norm
+    from .fused import fused_adamw, fused_rope, rms_norm, rms_norm_residual
     from .moe_dispatch import moe_gather
     from .paged_attention import (paged_attention_decode,
                                   paged_attention_decode_int8)
@@ -55,7 +56,10 @@ def _wrappers():
             "adamw": fused_adamw,
             "xent_fwd": xent_fwd,
             "xent_bwd": xent_bwd,
-            "moe_gather": moe_gather}
+            "moe_gather": moe_gather,
+            "rms_norm_residual": rms_norm_residual,
+            "decode_layer": decode_layer,
+            "decode_layer_int8": decode_layer_int8}
 
 
 def reset_launch_counts():

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), loaded with ``ctypes``. Libraries land in
 ``paddle_tpu_torch/_build/`` under a name that carries a digest of the
-source, so an edited kernel is rebuilt and an unchanged one is reused.
+source and of the ``csrc/*.cuh`` headers it includes, so an edited
+kernel or header is rebuilt and an unchanged one is reused.
 Nothing here runs at import: the first CUDA launch of a wrapper calls
 :func:`load`, and ``chip_smoke.py`` calls :func:`build` up front to
 compile every source in parallel."""
@@ -13,10 +14,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 __all__ = ["KERNEL_SOURCES", "build", "load", "nvcc_path"]
 
@@ -33,6 +35,7 @@ KERNEL_SOURCES = {
     "adamw": "adamw.cu",
     "xent": "xent.cu",
     "moe_gather": "moe_gather.cu",
+    "decode_layer": "decode_layer.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,11 +59,31 @@ def nvcc_path() -> str:
         "port's CUDA kernels are built from csrc/ at first CUDA use")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """The source of kernel ``name`` and every ``csrc/`` header it
+    includes, directly or through another header."""
+    seen, todo = [], [CSRC / KERNEL_SOURCES[name]]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())
+                 if (CSRC / inc).exists()]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC / KERNEL_SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """The library's path, named by a digest of the source, the headers
+    it includes and the flags: an edited header rebuilds every source
+    that includes it."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None,

@@ -3,8 +3,10 @@
 plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/fused.py``: ``fused_rms_norm``
-without ``residual`` (the TPU ``_rms_kernel``), ``fused_rope``
-(``_rope_kernel``) and ``fused_adamw`` (``_adamw_kernel``)."""
+without ``residual`` (the TPU ``_rms_kernel``; :func:`rms_norm`) and
+with it (``_rms_res_kernel``; :func:`rms_norm_residual`),
+``fused_rope`` (``_rope_kernel``) and ``fused_adamw``
+(``_adamw_kernel``)."""
 from __future__ import annotations
 
 import ctypes
@@ -14,7 +16,8 @@ import torch
 
 from . import build, plain_active
 
-__all__ = ["rms_norm", "rms_norm_reference", "fused_rope",
+__all__ = ["rms_norm", "rms_norm_reference", "rms_norm_residual",
+           "rms_norm_residual_reference", "fused_rms_norm", "fused_rope",
            "rope_reference", "fused_adamw", "adamw_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,20 +66,28 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
+def _check_rms(name, x, weight, *more):
+    """What the RMSNorm kernels need, or raise: CUDA fp32/bf16 tensors,
+    a (h,) weight in x's dtype, h a multiple of the 16-byte vector
+    width. Returns h."""
+    _check_cuda(name, x, weight, *more)
+    h = x.shape[-1]
+    if weight.dtype != x.dtype or tuple(weight.shape) != (h,):
+        raise ValueError(
+            f"{name}: weight must be ({h},) {x.dtype}, got "
+            f"{tuple(weight.shape)} {weight.dtype}")
+    vec = 16 // x.element_size()
+    if h % vec:
+        raise ValueError(f"{name} kernel needs h % {vec} == 0 (h={h})")
+    return h
+
+
 def _rms_norm_forward(x, weight, eps):
     """The forward alone: the plain version for a CPU tensor, else the
     ``csrc/rms_norm.cu`` launch (or a raise)."""
     if x.device.type == "cpu" or plain_active():
         return rms_norm_reference(x, weight, eps)
-    _check_cuda("rms_norm", x, weight)
-    h = x.shape[-1]
-    if weight.dtype != x.dtype or tuple(weight.shape) != (h,):
-        raise ValueError(
-            f"rms_norm: weight must be ({h},) {x.dtype}, got "
-            f"{tuple(weight.shape)} {weight.dtype}")
-    vec = 16 // x.element_size()
-    if h % vec:
-        raise ValueError(f"rms_norm kernel needs h % {vec} == 0 (h={h})")
+    h = _check_rms("rms_norm", x, weight)
     out = torch.empty_like(x)
     rows = x.numel() // h
     if rows == 0:
@@ -130,6 +141,91 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 
 rms_norm.launches = 0
+
+
+def rms_norm_residual_reference(x, residual, weight, eps):
+    """``_rms_ref`` with a residual: s = x + residual in x's dtype, then
+    :func:`rms_norm_reference` of s. Returns ``(normed, s)``."""
+    s = x + residual
+    return rms_norm_reference(s, weight, eps), s
+
+
+def _rms_norm_residual_forward(x, residual, weight, eps):
+    """The forward alone: the plain version for a CPU tensor, else one
+    launch of the residual entry of ``csrc/rms_norm.cu`` (or a raise)."""
+    if x.device.type == "cpu" or plain_active():
+        return rms_norm_residual_reference(x, residual, weight, eps)
+    h = _check_rms("rms_norm_residual", x, weight, residual)
+    if residual.shape != x.shape or residual.dtype != x.dtype:
+        raise ValueError(
+            f"rms_norm_residual: residual must be {tuple(x.shape)} "
+            f"{x.dtype}, got {tuple(residual.shape)} {residual.dtype}")
+    out, total = torch.empty_like(x), torch.empty_like(x)
+    rows = x.numel() // h
+    if rows == 0:
+        return out, total
+    fn = _kernel("rms_norm", "pt_rms_norm_residual",
+                 [ctypes.c_int] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p])
+    rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), residual.data_ptr(),
+            weight.data_ptr(), out.data_ptr(), total.data_ptr(), rows, h,
+            float(eps), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"rms_norm_residual kernel launch failed: CUDA "
+                           f"error {rc}")
+    rms_norm_residual.launches += 1
+    return out, total
+
+
+class _RMSNormResidual(torch.autograd.Function):
+    """Forward: the kernel. Backward: the torch VJP of
+    :func:`rms_norm_residual_reference` for both outputs' cotangents —
+    the JAX residual ``custom_vjp`` backward is the VJP of ``_rms_ref``
+    (fused.py:149-153)."""
+
+    @staticmethod
+    def forward(ctx, x, residual, weight, eps):
+        ctx.save_for_backward(x, residual, weight)
+        ctx.eps = eps
+        return _rms_norm_residual_forward(x, residual, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g_out, g_sum):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad)]
+            outs = rms_norm_residual_reference(*leaves, ctx.eps)
+            wrt = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wrt, (g_out, g_sum)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in leaves) + (None,)
+
+
+def rms_norm_residual(x, residual, weight, eps):
+    """``(rms(x + residual) * weight, x + residual)`` over the last axis,
+    the sum in x's dtype, differentiable in x, residual and weight. A CPU
+    tensor takes the plain version; a CUDA tensor launches the residual
+    entry of ``csrc/rms_norm.cu`` (one pass writes both outputs) or
+    raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, residual, weight)):
+        return _RMSNormResidual.apply(x, residual, weight, eps)
+    return _rms_norm_residual_forward(x, residual, weight, eps)
+
+
+rms_norm_residual.launches = 0
+
+
+def fused_rms_norm(x, weight, eps: float = 1e-6, residual=None):
+    """RMSNorm, optionally fused with a residual add: the JAX
+    ``fused_rms_norm`` contract. Without ``residual``, :func:`rms_norm`;
+    with it, ``(normed(x + residual) * weight, x + residual)`` through
+    :func:`rms_norm_residual`."""
+    if residual is None:
+        return rms_norm(x, weight, eps)
+    return rms_norm_residual(x, residual, weight, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ import torch
 
 from . import build, plain_active
 
-__all__ = ["paged_gather", "paged_attention_reference",
+__all__ = ["paged_gather", "write_paged_kv", "paged_attention_reference",
            "paged_attention_decode", "dense_attention", "quantize_kv",
            "dequantize_kv", "kv_int8_error_bound",
            "paged_attention_int8_reference", "paged_attention_decode_int8"]
@@ -70,6 +70,34 @@ def kv_int8_error_bound(absmax):
     ``kv_int8_error_bound``: ``int8_error_bound`` with one contributor
     and no second phase)."""
     return torch.as_tensor(absmax, dtype=torch.float32) / _QMAX / 2
+
+
+def write_paged_kv(cache, k, v, tpos, block_table):
+    """Write k/v (b, s, kvh, d) at the (b, s) int32 timeline positions
+    ``tpos`` into the arena, in place: row r's position t goes to block
+    ``block_table[r, t // bs]`` at offset ``t % bs``; positions past the
+    table width (chunk pad columns, dead slots) go to the trash block 0
+    at offset 0, never out of bounds or into another slot's blocks.
+    ``cache`` is (k, v) arenas, written in their dtype, or int8 (k
+    codes, v codes, k scales, v scales), written with
+    :func:`quantize_kv`'s codes and absmax scales."""
+    bs, mb = cache[0].shape[1], block_table.shape[1]
+    blk_idx = torch.div(tpos, bs, rounding_mode="floor")
+    oob = blk_idx >= mb
+    blk = torch.where(oob, 0, torch.gather(block_table, 1,
+                                           blk_idx.clamp(0, mb - 1).long()))
+    off = torch.where(oob, 0, tpos % bs)
+    blk, off = blk.long(), off.long()
+    if len(cache) == 4:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache[0][blk, off] = kq
+        cache[1][blk, off] = vq
+        cache[2][blk, off] = ks
+        cache[3][blk, off] = vs
+    else:
+        cache[0][blk, off] = k.to(cache[0].dtype)
+        cache[1][blk, off] = v.to(cache[1].dtype)
 
 
 def paged_gather(arena: torch.Tensor,

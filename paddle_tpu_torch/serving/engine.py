@@ -191,6 +191,25 @@ class ContinuousBatchingEngine:
         return self.decode_tokens / self.slot_steps if self.slot_steps \
             else 0.0
 
+    def megakernel(self) -> bool:
+        """Whether decode steps route their layers through the fused
+        decode-layer call (``megakernel=`` / ``PT_SERVING_MEGAKERNEL``)."""
+        return getattr(self.backend, "fused_decode", None) is not None
+
+    def megakernel_rewrites(self) -> int:
+        """Decode layers routed through the fused call in the last decode
+        step (the layer count; 0 before the first step or with the
+        megakernel off)."""
+        fused = getattr(self.backend, "fused_decode", None)
+        return fused.rewrites if fused is not None else 0
+
+    def megakernel_kernel_calls(self) -> int:
+        """Of those, the layers that launched the megakernel: all of
+        them on the card for a shape its kernel takes, 0 on the CPU (as
+        the JAX engine gives 0 off the TPU)."""
+        fused = getattr(self.backend, "fused_decode", None)
+        return fused.kernel_calls if fused is not None else 0
+
     def live_runs(self):
         return [(i, r) for i, r in enumerate(self._slots) if r is not None]
 

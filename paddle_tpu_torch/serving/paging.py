@@ -27,8 +27,9 @@ import torch
 
 from .. import random as prng
 from ..models.generation import decode_step_logprobs
+from ..ops.decode_layer import FusedDecode
 from ..ops.paged_attention import kv_int8_error_bound
-from ..utils.flags import env_flag, env_int
+from ..utils.flags import env_bool, env_flag, env_int
 from .engine import (ContinuousBatchingEngine, _SlotRun, init_slot_state,
                      run_decode_block, slot_sample_logits)
 
@@ -230,11 +231,15 @@ class PagedModelStepBackend:
     decode block threads the per-slot block tables through the forward,
     and prefill is ONE fixed-shape ``(1, prefill_chunk)`` chunk. Owns
     the per-layer arenas, which the forward updates in place: (k, v)
-    pairs, or (k codes, v codes, k scales, v scales) with ``kv_int8``."""
+    pairs, or (k codes, v codes, k scales, v scales) with ``kv_int8``.
+    With ``megakernel`` every decode step routes each decode layer
+    through the fused decode-layer call (``fused_decode``, which owns
+    the megakernel's scratch)."""
 
     def __init__(self, model, num_slots: int, max_len: int,
                  decode_block: int, block_size: int, num_blocks: int,
-                 prefill_chunk: int, kv_int8: bool = False):
+                 prefill_chunk: int, kv_int8: bool = False,
+                 megakernel: bool = False):
         if max_len % block_size != 0:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
@@ -249,6 +254,7 @@ class PagedModelStepBackend:
         self.kv_int8 = bool(kv_int8)
         self.cache = model.init_paged_kv_cache(num_blocks, block_size,
                                                kv_int8=self.kv_int8)
+        self.fused_decode = FusedDecode() if megakernel else None
 
     def init_state(self):
         state = init_slot_state(self.num_slots, self.device)
@@ -265,7 +271,15 @@ class PagedModelStepBackend:
         return total // self.num_slots
 
     def _step(self, tok, pos, table):
-        return decode_step_logprobs(self.model, tok, self.cache, pos, table)
+        logp = decode_step_logprobs(self.model, tok, self.cache, pos, table,
+                                    fused_decode=self.fused_decode)
+        if self.fused_decode is not None and self.fused_decode.rewrites == 0:
+            raise RuntimeError(
+                "megakernel decode requested but no decode layer went "
+                "through the fused call — the model must route its decode "
+                "layers (see models/llama.py LlamaDecoderLayer."
+                "_fused_decode)")
+        return logp
 
     def decode_block(self, state, sampled_rows):
         return run_decode_block(self._step, state, self.block_size,
@@ -333,6 +347,11 @@ class PagedEngine(ContinuousBatchingEngine):
       int8 codes plus per-(position, kv head) fp32 absmax scales; the s=1
       read dequantizes inside the int8 paged-decode kernel, and
       :meth:`kv_error_bound` gives the worst-case dequantization error.
+    - ``megakernel=True`` (or ``PT_SERVING_MEGAKERNEL=1``) runs each
+      decode layer of a decode step as one launch of the decode-layer
+      megakernel (``ops/decode_layer.py``) where the card's kernel takes
+      it; :meth:`megakernel_rewrites` and
+      :meth:`megakernel_kernel_calls` report the last step's routing.
 
     ``block_size`` and ``prefill_chunk`` resolve as in the JAX engine:
     the argument, else ``PT_SERVING_BLOCK_SIZE`` /
@@ -344,7 +363,8 @@ class PagedEngine(ContinuousBatchingEngine):
                  decode_block: int = 8, *, block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  kv_int8: Optional[bool] = None,
-                 prefill_chunk: Optional[int] = None, device=None):
+                 prefill_chunk: Optional[int] = None,
+                 megakernel: Optional[bool] = None, device=None):
         from ..device import resolve_device
         dev = resolve_device(device)
         if model.device != dev:
@@ -362,10 +382,12 @@ class PagedEngine(ContinuousBatchingEngine):
         if prefill_chunk is None:
             prefill_chunk = env_int("PT_SERVING_PREFILL_CHUNK",
                                     2 * block_size)
+        if megakernel is None:
+            megakernel = env_bool("PT_SERVING_MEGAKERNEL")
         backend = PagedModelStepBackend(model, num_slots, max_len,
                                         decode_block, block_size,
                                         num_blocks, prefill_chunk,
-                                        bool(kv_int8))
+                                        bool(kv_int8), bool(megakernel))
         self.kv_int8 = backend.kv_int8
         self.kv_block_size = block_size
         self.num_kv_blocks = num_blocks

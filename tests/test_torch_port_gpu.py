@@ -497,7 +497,9 @@ def test_train_step_on_gpu_goes_through_kernels(dev):
                       "flash_attention_bwd_dq": 3 * L,
                       "flash_attention_bwd_dkv": 3 * L,
                       "rope": 3 * 2 * L, "adamw": 3 * n_params,
-                      "xent_fwd": 0, "xent_bwd": 0, "moe_gather": 0}
+                      "xent_fwd": 0, "xent_bwd": 0, "moe_gather": 0,
+                      "rms_norm_residual": 0, "decode_layer": 0,
+                      "decode_layer_int8": 0}
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
 
 
@@ -652,7 +654,9 @@ def test_ernie_train_step_on_gpu_goes_through_kernels(dev, monkeypatch):
                       "flash_attention_bwd_dkv": 3 * L,
                       "rope": 0, "adamw": 3 * n_params,
                       "xent_fwd": 3, "xent_bwd": 3,
-                      "moe_gather": 3 * 5 * (L // cfg.moe_every)}
+                      "moe_gather": 3 * 5 * (L // cfg.moe_every),
+                      "rms_norm_residual": 0, "decode_layer": 0,
+                      "decode_layer_int8": 0}
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
 
 
@@ -683,3 +687,191 @@ def test_moe_layer_gates_on_gpu_match_cpu(dev, gate):
     assert ops.launch_counts()["moe_gather"] == 5
     for a, b_ in zip(*results):
         torch.testing.assert_close(b_, a, rtol=1e-4, atol=1e-4)
+
+
+# -- the decode-layer megakernel and the residual RMSNorm --------------------
+
+def _megakernel_tol(d, ff):
+    """Absolute tolerance on a decode layer's output for unit-scale
+    inputs and weights scaled by 1/sqrt(fan-in) (every intermediate is
+    then O(1)): the five products sum up to K = max(d, ff) fp32 terms in
+    another order than cuBLAS, each reassociation moving a sum by about
+    u * sqrt(K) of its terms' scale (u = 2^-24), and the attention, both
+    RMSNorms and the residuals add a few ulp; 8 u sqrt(K) per product
+    covers the tail over every output."""
+    return 5 * 8 * 2.0 ** -24 * math.sqrt(max(d, ff))
+
+
+def _megakernel_case(dev, mode, S, d=256, h=4, kvh=2, dh=64, ff=688,
+                     bs=16, mb=8):
+    """A decode layer's inputs at S slots: weights (out, in) scaled by
+    1/sqrt(fan-in); write positions cycling through length 1, a length
+    on a block boundary, a partial block, and a position past the table
+    (routed to the trash block; its read covers the whole table)."""
+    from paddle_tpu_torch.ops.decode_layer import WEIGHT_NAMES
+    g = torch.Generator(device=dev).manual_seed(S)
+    nb = 1 + S * mb
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=g, device=dev)
+
+    x = rnd(S, 1, d)
+    shapes = {"ln1": (d,), "wq": (h * dh, d), "wk": (kvh * dh, d),
+              "wv": (kvh * dh, d), "wo": (d, h * dh), "ln2": (d,),
+              "wg": (ff, d), "wu": (ff, d), "wd": (d, ff)}
+    wts = [1 + rnd(*shapes[n], s=0.1) if n.startswith("ln")
+           else rnd(*shapes[n], s=shapes[n][1] ** -0.5)
+           for n in WEIGHT_NAMES]
+    cos = torch.cos(rnd(2 * mb * bs, dh))
+    sin = torch.sin(rnd(2 * mb * bs, dh))
+    pattern = [0, bs - 1, 2 * bs + 5, mb * bs + 3, 3 * bs, bs]
+    pos = [pattern[i % len(pattern)] for i in range(S)]
+    table = torch.zeros(S, mb, dtype=torch.int32)
+    perm = (torch.randperm(nb - 1, generator=torch.Generator()
+                           .manual_seed(S)) + 1).tolist()
+    for r, p in enumerate(pos):
+        n = min(-(-(p + 1) // bs), mb)
+        table[r, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    if mode == "paged_int8":
+        kc, ks = quantize_kv(rnd(nb, bs, kvh, dh))
+        vc, vs = quantize_kv(rnd(nb, bs, kvh, dh))
+        cache = [kc, vc, ks, vs]
+    else:
+        cache = [rnd(nb, bs, kvh, dh), rnd(nb, bs, kvh, dh)]
+    return (x, cos, sin, 1e-5, 1e-6,
+            torch.tensor(pos, dtype=torch.int32, device=dev),
+            table.to(dev)), cache, wts
+
+
+@pytest.mark.parametrize("S", [1, 3, 8, 32])
+@pytest.mark.parametrize("mode", ["paged", "paged_int8"])
+def test_decode_layer_kernel_matches_plain(dev, mode, S):
+    from paddle_tpu_torch.ops.decode_layer import decode_layer
+    fixed, cache, wts = _megakernel_case(dev, mode, S)
+    c_kern = [c.clone() for c in cache]
+    c_plain = [c.clone() for c in cache]
+    ops.reset_launch_counts()
+    got = decode_layer(mode, *fixed, *c_kern, *wts)[0]
+    torch.cuda.synchronize()
+    name = "decode_layer_int8" if mode == "paged_int8" else "decode_layer"
+    other = "decode_layer" if mode == "paged_int8" else "decode_layer_int8"
+    assert ops.launch_counts()[name] == 1
+    assert ops.launch_counts()[other] == 0
+    with ops.plain_versions():
+        want = decode_layer(mode, *fixed, *c_plain, *wts)[0]
+    assert ops.launch_counts()[name] == 1
+    assert got.shape == want.shape == fixed[0].shape
+    err = float((got - want).abs().max())
+    assert err <= _megakernel_tol(256, 688), err
+    # the prologue writes the same k and v as the plain version (the
+    # same torch ops); block 0 is the trash block
+    for a, b in zip(c_kern, c_plain):
+        torch.testing.assert_close(a[1:], b[1:], rtol=0, atol=0)
+
+
+def test_decode_layer_refuses_and_never_falls_back(dev):
+    """On a CUDA tensor the wrapper launches or raises: a shape, dtype
+    or layout the kernel does not take is an error, never the plain
+    version."""
+    from paddle_tpu_torch.ops.decode_layer import decode_layer
+    ops.reset_launch_counts()
+    fixed, cache, wts = _megakernel_case(dev, "paged", 3)
+    with pytest.raises(ValueError, match="float32"):
+        decode_layer("paged", fixed[0].to(torch.bfloat16), *fixed[1:],
+                     *cache, *wts)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_layer("paged", *fixed, *cache, wts[0], wts[1].t().contiguous()
+                     .t(), *wts[2:])
+    with pytest.raises(TypeError, match="int32"):
+        decode_layer("paged", *fixed[:5], fixed[5].long(), fixed[6], *cache,
+                     *wts)
+    big, cache, wts = _megakernel_case(dev, "paged", 33)
+    with pytest.raises(ValueError, match="33 slots"):
+        decode_layer("paged", *big, *cache, *wts)
+    assert ops.launch_counts()["decode_layer"] == 0
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["fp32", "int8"])
+def test_megakernel_engine_matches_unfused_on_gpu(dev, kv_int8):
+    """The tiny engine's greedy streams through the megakernel equal the
+    unfused kernels' on the card; every decode step launches it once per
+    layer and no paged-decode kernel."""
+    _, gpu = _tiny_pair(dev)
+    rs = np.random.RandomState(1)
+    reqs = [(rs.randint(0, 512, (L,)).astype(np.int32), n)
+            for L, n in ((5, 6), (9, 4), (12, 7), (5, 5), (9, 6))]
+    results, counts = [], []
+    for mk in (False, True):
+        eng = PagedEngine(gpu, num_slots=2, max_len=64, decode_block=4,
+                          block_size=8, prefill_chunk=8, kv_int8=kv_int8,
+                          megakernel=mk, device=dev)
+        srv = Server(eng, Scheduler(prefill_token_budget=8))
+        rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+        ops.reset_launch_counts()
+        res = srv.run_until_idle()
+        counts.append(ops.launch_counts())
+        results.append([res[r] for r in rids])
+        eng.manager.assert_consistent()
+    L = gpu.config.num_hidden_layers
+    name = "decode_layer_int8" if kv_int8 else "decode_layer"
+    got = counts[1]
+    assert got[name] == L * eng.steps > 0
+    assert got["paged_attention_decode"] == 0
+    assert got["paged_attention_decode_int8"] == 0
+    assert got["rms_norm"] == (2 * L + 1) * eng.prefill_chunks + eng.steps
+    assert eng.megakernel_rewrites() == eng.megakernel_kernel_calls() == L
+    assert counts[0]["decode_layer"] == counts[0]["decode_layer_int8"] == 0
+    for a, b in zip(*results):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_megakernel_engine_reports_an_unviable_shape(dev):
+    """33 slots are more than the kernel takes: every layer still goes
+    through the fused route (rewrites == L) but runs the unfused
+    kernels, and megakernel_kernel_calls() says so."""
+    _, gpu = _tiny_pair(dev)
+    eng = PagedEngine(gpu, num_slots=33, max_len=32, decode_block=2,
+                      block_size=8, prefill_chunk=8, megakernel=True,
+                      device=dev)
+    srv = Server(eng, Scheduler(prefill_token_budget=64))
+    srv.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=3)
+    ops.reset_launch_counts()
+    srv.run_until_idle()
+    L = gpu.config.num_hidden_layers
+    assert eng.megakernel_rewrites() == L
+    assert eng.megakernel_kernel_calls() == 0
+    assert ops.launch_counts()["decode_layer"] == 0
+    assert ops.launch_counts()["paged_attention_decode"] == L * eng.steps
+
+
+@pytest.mark.parametrize("rows", [8, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_residual_kernel_matches_plain(dev, dtype, rows):
+    from paddle_tpu_torch.ops.fused import (rms_norm_residual,
+                                            rms_norm_residual_reference)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows, 4096, generator=g, device=dev).to(dtype)
+    r = torch.randn(rows, 4096, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(dtype)
+    ops.reset_launch_counts()
+    out, s = rms_norm_residual(x, r, w, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rms_norm_residual"] == 1
+    want_out, want_s = rms_norm_residual_reference(x, r, w, 1e-5)
+    torch.testing.assert_close(s, want_s, rtol=0, atol=0)
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 \
+        else (1e-6, 1.01 * 2.0 ** -6)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=rtol)
+    # the gradient: the kernel forward, the plain version's VJP
+    xs, rs_, ws = (t.float().requires_grad_() for t in (x, r, w))
+    o, s2 = rms_norm_residual(xs, rs_, ws, 1e-5)
+    (o.square().sum() + s2.sum()).backward()
+    assert ops.launch_counts()["rms_norm_residual"] == 2
+    xp, rp, wp = (t.float().requires_grad_() for t in (x, r, w))
+    with ops.plain_versions():
+        o, s2 = rms_norm_residual(xp, rp, wp, 1e-5)
+    (o.square().sum() + s2.sum()).backward()
+    for a, b in ((xs, xp), (rs_, rp), (ws, wp)):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)

@@ -171,6 +171,7 @@ class TestDeviceAndImportRules:
             "import paddle_tpu_torch.ops.fused\n"
             "import paddle_tpu_torch.ops.paged_attention\n"
             "import paddle_tpu_torch.ops.flash_attention\n"
+            "import paddle_tpu_torch.ops.decode_layer\n"
             "import paddle_tpu_torch.nn.functional\n"
             "import paddle_tpu_torch.incubate.nn\n"
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.amp\n"
@@ -212,4 +213,5 @@ class TestDeviceAndImportRules:
             "paged_attention_decode_int8": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "rope": 0, "adamw": 0, "xent_fwd": 0, "xent_bwd": 0,
-            "moe_gather": 0}
+            "moe_gather": 0, "rms_norm_residual": 0, "decode_layer": 0,
+            "decode_layer_int8": 0}
