@@ -7,7 +7,9 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. Card, torch and CUDA versions; build every kernel from ``csrc/`` with
    ``nvcc`` (one process per source, all started together), printing the
-   build seconds and the ptxas register/shared-memory report.
+   build seconds and the ptxas register/shared-memory report; the bf16
+   flash kernels' SASS must hold wgmma (``HGMMA``) and TMA (``UTMALDG``)
+   instructions.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: max abs error within the stated tolerance,
    and kernel / plain / library times beside the bound (the least time
@@ -65,6 +67,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -130,6 +133,19 @@ def _card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_dkv_sm90<128>`` from its Itanium-mangled symbol: the last
+    <length><name> component, with a leading int template argument."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = mangled
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        n = int(digits)
+        name, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    arg = re.match(r"ILi(\d+)E", rest)
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -140,6 +156,32 @@ def _max_err(a, b) -> float:
 # one bf16 ulp of the normalised value (2^-7 of it at most), carried
 # through the weight; then each side rounds its product (2^-8 each).
 RMS_BF16_TOL = (1e-6, 1.01 * 2.0 ** -6)
+
+
+def check_flash_sass():
+    """The bf16 flash kernels as built: every instance of the forward, dq
+    and dkv (head dims 64 and 128) issues wgmma (``HGMMA``) and TMA loads
+    (``UTMALDG``), counted in the SASS that ``cuobjdump`` prints of the
+    library."""
+    import os
+    import re
+    from paddle_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(build.lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"flash_(fwd|dq|dkv)_sm90ILi(\d+)",
+                      part.split("\n", 1)[0])
+        if m:
+            found[f"{m.group(1)}<{m.group(2)}>"] = (part.count("HGMMA"),
+                                                    part.count("UTMALDG"))
+    print("flash bf16 kernels in SASS (HGMMA, UTMALDG instructions): "
+          + ", ".join(f"{k} {h}/{u}" for k, (h, u) in sorted(found.items())))
+    if len(found) != 6 or not all(h and u for h, u in found.values()):
+        raise AssertionError(f"flash bf16 kernels without wgmma or TMA: "
+                             f"{found}")
 
 
 def check_rms_norm(torch, results, main_shape):
@@ -336,7 +378,12 @@ def check_flash(torch, results):
     but its outputs. So |kernel - plain| <= half a bf16 ulp of each
     side plus 7 standard deviations of those operands' rounding
     (``bf16_tolerance``; a kv or q tile left out moves an element by
-    several times that); lse is fp32 on both sides (1e-4)."""
+    several times that); lse is fp32 on both sides (1e-4).
+
+    Beside each time: the achieved TFLOP/s, the share of the bound
+    (bound / kernel) and the ratio to the library call; the main shape's
+    times go into the kernels line, the ERNIE shape's into
+    ``results["ernie"]``."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -427,13 +474,15 @@ def check_flash(torch, results):
         lib_b = _time_eager(lambda: torch.autograd.grad(
             lo, (qt, kt, vt), dot, retain_graph=True))
         del lo, qt, kt, vt
+        flops = {"fwd": 4 * d * pairs, "dq": 6 * d * pairs,
+                 "dkv": 8 * d * pairs}
         bounds = {
-            "fwd": _bound_ms(io + b * s * h * (d * elt + 4), 4 * d * pairs,
+            "fwd": _bound_ms(io + b * s * h * (d * elt + 4), flops["fwd"],
                              peak),
             "dq": _bound_ms(io + b * s * h * (2 * d * elt + 8),
-                            6 * d * pairs, peak),
+                            flops["dq"], peak),
             "dkv": _bound_ms(io + b * s * h * (d * elt + 8)
-                             + 2 * b * s * hk * d * elt, 8 * d * pairs,
+                             + 2 * b * s * hk * d * elt, flops["dkv"],
                              peak)}
         print(f"flash {name} b={b} s={s} h={h} kvh={hk} d={d} "
               f"{str(dtype)[6:]} causal: max_abs_err {tol_text}")
@@ -442,16 +491,21 @@ def check_flash(torch, results):
                                       ("dkv", ms_dkv, plain_b, lib_b)):
             bms, by = bounds[kname]
             print(f"  flash_{kname}: kernel_ms={ms:.4f} plain_ms={plain:.4f}"
-                  f" library_ms={lib:.4f} bound_ms={bms:.4f} ({by})")
+                  f" library_ms={lib:.4f} bound_ms={bms:.4f} ({by}) "
+                  f"tflops={flops[kname] / ms / 1e9:.1f} "
+                  f"bound_share={bms / ms:.3f} vs_library={ms / lib:.2f}x")
+            err = errs["o"] if kname == "fwd" else \
+                errs["dq"] if kname == "dq" else max(errs["dk"], errs["dv"])
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                       bound_by=by, library_ms=lib)
             if name == "main":
-                err = errs["o"] if kname == "fwd" else \
-                    errs["dq"] if kname == "dq" else max(errs["dk"],
-                                                         errs["dv"])
-                results[kname] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain, bound_ms=bms,
-                                      bound_by=by, library_ms=lib)
-        print(f"  (plain_ms of dq and dkv: the whole plain backward; "
-              f"library_ms of dq and dkv: the library's whole backward)")
+                results[kname] = row
+            elif name == "ernie":
+                results.setdefault("ernie", {})[kname] = row
+        print(f"  dq + dkv: kernel_ms={ms_dq + ms_dkv:.4f} "
+              f"vs_library={(ms_dq + ms_dkv) / lib_b:.2f}x; plain_ms of dq "
+              f"and dkv: the whole plain backward; library_ms of dq and "
+              f"dkv: the library's whole backward")
         del q, k, v, do, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
@@ -1925,9 +1979,15 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(build.KERNEL_SOURCES))})")
     for name, text in sorted(logs.items()):
+        kernel = ""
         for line in text.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = _kernel_name(entry.group(1))
             if "registers" in line or "smem" in line or "spill" in line:
-                print(f"  [{name}] {line.strip()}")
+                print(f"  [{name}] {kernel}: {line.strip()}")
+
+    check_flash_sass()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1939,6 +1999,8 @@ def main() -> int:
     check_paged_attention(torch, pa, 32)
     check_paged_attention_int8(torch, pa8)
     check_flash(torch, flash)
+    print("flash at ERNIE's shape (16, 1024, 12, 64): "
+          + json.dumps(flash["ernie"]))
     check_rope(torch, rope)
     check_adamw(torch, adamw)
     check_rms_norm_backward(torch)

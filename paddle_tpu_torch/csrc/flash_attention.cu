@@ -15,42 +15,42 @@
 // here.
 //
 // Layout: q/o/dq (b, sq, h, d), k/v/dk/dv (b, sk, hk, d) contiguous — the
-// public bshd layout, read with a row stride, so no transposes and no
-// head_dim padding (the TPU's (bh, s, 128) lse broadcast and its 128-lane
-// padding are gone). lse and delta are (b, h, sq) fp32. GQA: q head i
-// reads kv head i / (h / hk); K/V are never repeated.
+// public bshd layout, so no transposes. lse and delta are (b, h, sq)
+// fp32. GQA: q head i reads kv head i / (h / hk); K/V are never repeated.
 //
 // What changes from the TPU: the TPU grid ran in order and each program
 // held whole (s, d) K/V in VMEM. Here blocks run in parallel with at most
-// 227 KB of shared memory, so every kernel stages 64-row tiles:
-//   fwd  one CTA per (q tile of 64, batch·head); loops over K/V tiles.
+// 227 KB of shared memory, so every kernel streams tiles:
+//   fwd  one CTA per (q tile, batch·head); loops over K/V tiles.
 //   dq   one CTA per (q tile, batch·head); loops over K/V tiles.
 //   dkv  one CTA per (k tile, batch·KV head); loops over the rep q heads
 //        of its group and over the q tiles, so dk/dv are summed over the
-//        group in registers and written once: the TPU's (b, h, sk, d)
-//        fp32 temporaries and its group sum never exist.
+//        group in registers and written once: no atomics, deterministic,
+//        and the TPU's (b, h, sk, d) fp32 temporaries never exist.
 // Causal: the tile loops stop at the diagonal tile; a window starts them
 // at the band. Tiles past the band are never visited, which gives the
-// same result as masking them (their p is exactly 0). Causal alignment is
-// top-left (qpos >= kpos), as `_band_mask`; the wrapper only lets causal
-// calls with sq == sk through, where both alignments agree.
+// same result as masking them (their p is exactly 0); masks are applied
+// only on tiles that cross the diagonal, the window's edge or the ragged
+// end. Causal alignment is top-left (qpos >= kpos), as `_band_mask`; the
+// wrapper only lets causal calls with sq == sk through, where both
+// alignments agree.
 //
 // Bound: operations (137 GFLOP for a causal forward at b=4, s=2048,
-// h=32, d=128 against 989 TFLOP/s bf16). Two simple versions, chosen by
-// dtype:
-//   fp32  256 threads, each owning a 4x4 patch of the 64x64 score tile
-//         and a 4 x d/16 patch of the output: scalar fp32 FMAs out of
-//         shared memory (rows padded to d+1 floats so that the patch
-//         reads are free of bank conflicts), full fp32 products as the
-//         TPU kernels' fp32 path.
-//   bf16  the same tiles on the tensor cores through nvcuda::wmma
-//         (mma.sync, bf16 operands, fp32 accumulation), see below.
-// Neither uses wgmma, TMA or warp specialisation yet: that is later work.
+// h=32, d=128 against 989 TFLOP/s bf16; the backward 2.5x that). Two
+// versions, chosen by dtype:
+//   fp32  simple scalar kernels (64x64 tiles, 256 threads each owning a
+//         4x4 patch of the scores): full fp32 products as the TPU
+//         kernels' fp32 path. Training runs bf16, so no main path runs
+//         them.
+//   bf16  the main path, built for this card's tensor cores (below):
+//         wgmma products, a TMA-fed ring of tiles, accumulators in
+//         registers, one producer warp and two consumer warpgroups.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,36 +94,35 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// without short-circuits, so an unrolled loop over it does not branch
 __device__ __forceinline__ bool keep(int qpos, int kpos, int sq, int sk,
                                      int causal, int window) {
-  bool k = qpos < sq && kpos < sk;
-  if (causal) k = k && qpos >= kpos;
-  if (window > 0) k = k && (qpos - kpos) < window;
-  return k;
+  return (qpos < sq) & (kpos < sk) & (!causal | (qpos >= kpos)) &
+         ((window <= 0) | (qpos - kpos < window));
 }
 
-// k tiles [*begin, *end) that q tile qt sees
-__device__ __forceinline__ void k_range(int qt, int sk, int causal,
-                                        int window, int* begin, int* end) {
-  const int q0 = qt * kTile;
-  int e = (sk + kTile - 1) / kTile;
+// key tiles [*begin, *end) of width bn that the q rows [q0, q0 + bm) see
+__device__ __forceinline__ void k_range(int q0, int bm, int bn, int sk,
+                                        int causal, int window, int* begin,
+                                        int* end) {
+  int e = (sk + bn - 1) / bn;
   int b = 0;
-  if (causal) e = min(e, (q0 + kTile - 1) / kTile + 1);
+  if (causal) e = min(e, (q0 + bm - 1) / bn + 1);
   if (window > 0) {
     const int kmin = q0 - window + 1;
-    b = kmin > 0 ? kmin / kTile : 0;
+    b = kmin > 0 ? kmin / bn : 0;
   }
   *begin = b;
   *end = e;
 }
 
-// q tiles [*begin, *end) that see k tile kt
-__device__ __forceinline__ void q_range(int kt, int sq, int causal,
-                                        int window, int* begin, int* end) {
-  const int k0 = kt * kTile;
-  int b = 0, e = (sq + kTile - 1) / kTile;
-  if (causal) b = k0 / kTile;
-  if (window > 0) e = min(e, (k0 + kTile - 1 + window - 1) / kTile + 1);
+// q tiles [*begin, *end) of width bq that see the keys [k0, k0 + bk)
+__device__ __forceinline__ void q_range(int k0, int bk, int bq, int sq,
+                                        int causal, int window, int* begin,
+                                        int* end) {
+  int b = 0, e = (sq + bq - 1) / bq;
+  if (causal) b = k0 / bq;
+  if (window > 0) e = min(e, (k0 + bk - 1 + window - 1) / bq + 1);
   *begin = b;
   *end = e;
 }
@@ -159,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kMaxCols; ++j) acc[i][j] = 0.f;
   }
   int kt0, kt1;
-  k_range(qt, sk, causal, window, &kt0, &kt1);
+  k_range(q0, kTile, kTile, sk, causal, window, &kt0, &kt1);
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();                   // kv_s / p_s readers are done
@@ -277,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kMaxCols; ++j) acc[i][j] = 0.f;
   }
   int kt0, kt1;
-  k_range(qt, sk, causal, window, &kt0, &kt1);
+  k_range(q0, kTile, kTile, sk, causal, window, &kt0, &kt1);
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
@@ -384,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kMaxCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
   int qt0, qt1;
-  q_range(kt, sq, causal, window, &qt0, &qt1);
+  q_range(k0, kTile, kTile, sq, causal, window, &qt0, &qt1);
   for (int g = 0; g < rep; ++g) {
     const int hh = kh * rep + g;
     const size_t qoff = (size_t)b * sq * qrs + (size_t)hh * d;
@@ -474,387 +473,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16: the same three kernels on the tensor cores (nvcuda::wmma, bf16
-// m16n16k16 with fp32 accumulation). 128 threads = 4 warps per CTA; warp
-// w owns rows [16w, 16w + 16) of its 64-row tile in every product and in
-// the softmax, so the phases inside a tile need only __syncwarp; the CTA
-// syncs only around the shared K/V (or Q/dO) tile loads. Tiles stay bf16
-// in shared memory (rows padded by 8 elements); scores, the dP tile and
-// the O accumulator are fp32. The probabilities (and ds in the backward)
-// are rounded to bf16 before the products they feed, as the TPU kernels'
-// MXU products of bf16 operands are; their sums stay fp32. Two CTAs fit
-// on an SM.
-// ---------------------------------------------------------------------------
-
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragBt = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragB = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-constexpr int kWThreads = 128;  // 4 warps
-constexpr int kSF = kTile + 4;  // pitch of a 64x64 fp32 tile
-constexpr int kSB = kTile + 8;  // pitch of a 64x64 bf16 tile
-
-// rows [row0, row0 + 64) of a (seq, d) bf16 slice with row stride `rs`
-// into smem with pitch d + 8, 16-byte copies; rows past `rows` are zero
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
-                                          size_t rs, int row0, int rows,
-                                          int d) {
-  const int cpr = d / 8, pitch = d + 8;
-  for (int e = threadIdx.x; e < kTile * cpr; e += blockDim.x) {
-    const int r = e / cpr, c = (e - r * cpr) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * pitch + c) = val;
-  }
-}
-
-// out(16w.., 64 cols) = A(16w.., :kdim) · B(64 rows, :kdim)ᵀ, fp32 into smem
-__device__ __forceinline__ void warp_abt(float* out, const bf16* a,
-                                         const bf16* b, int ld, int kdim,
-                                         int warp) {
-  for (int j = 0; j < kTile / 16; ++j) {
-    FragC c;
-    wm::fill_fragment(c, 0.f);
-    for (int kk = 0; kk < kdim / 16; ++kk) {
-      FragA fa;
-      FragBt fb;
-      wm::load_matrix_sync(fa, a + warp * 16 * ld + kk * 16, ld);
-      wm::load_matrix_sync(fb, b + j * 16 * ld + kk * 16, ld);
-      wm::mma_sync(c, fa, fb, c);
-    }
-    wm::store_matrix_sync(out + warp * 16 * kSF + j * 16, c, kSF,
-                          wm::mem_row_major);
-  }
-}
-
-// 8 fp32 values -> 8 bf16 in one 16-byte store
-__device__ __forceinline__ void store8_bf16(bf16* dst, const float* v) {
-  uint4 raw;
-  bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(v[i]);
-  *reinterpret_cast<uint4*>(dst) = raw;
-}
-
-// each lane writes side of one staged fp32 row (pitch d + 4) to global bf16
-__device__ __forceinline__ void write_rows(bf16* dst, size_t rs,
-                                           const float* st, int row0,
-                                           int rows, int d, float mul_row) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = warp * 16 + (lane >> 1), c0 = (lane & 1) * (d / 2);
-  if (row0 + r >= rows) return;
-  for (int c = c0; c < c0 + d / 2; c += 8) {
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = st[r * (d + 4) + c + i] * mul_row;
-    store8_bf16(dst + (size_t)(row0 + r) * rs + c, v);
-  }
-}
-
-// the warp's 16 rows of d/16 accumulators into fp32 staging (pitch d + 4)
-__device__ __forceinline__ void stage_rows(float* st,
-                                           const FragC (&acc)[kMaxCols],
-                                           int d, int warp) {
-#pragma unroll
-  for (int j = 0; j < kMaxCols; ++j)
-    if (j < d / 16)
-      wm::store_matrix_sync(st + warp * 16 * (d + 4) + j * 16, acc[j], d + 4,
-                            wm::mem_row_major);
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kWThreads, 2)
-    flash_fwd_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                   float* __restrict__ lse, int h, int hk, int sq, int sk,
-                   int d, float scale, int causal, int window) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = d + 8, lo = d + 4, nd = d / 16;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kTile * ld;
-  bf16* v_s = k_s + kTile * ld;
-  float* s_s = reinterpret_cast<float*>(v_s + kTile * ld);   // 64 x kSF
-  bf16* p_s = reinterpret_cast<bf16*>(s_s + kTile * kSF);    // 64 x kSB
-  float* o_s = reinterpret_cast<float*>(p_s + kTile * kSB);  // 64 x lo
-  float* m_s = o_s + kTile * lo;
-  float* l_s = m_s + kTile;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = warp * 16 + (lane >> 1), side = lane & 1;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // long causal rows first
-  const int q0 = qt * kTile, qpos = q0 + r;
-  const int bh = blockIdx.y, b = bh / h, hh = bh % h, kh = hh / (h / hk);
-  const size_t qrs = (size_t)h * d, krs = (size_t)hk * d;
-  const size_t qoff = (size_t)b * sq * qrs + (size_t)hh * d;
-  const bf16* kb = k + (size_t)b * sk * krs + (size_t)kh * d;
-  const bf16* vb = v + (size_t)b * sk * krs + (size_t)kh * d;
-
-  copy_tile(q_s, q + qoff, qrs, q0, sq, d);
-  for (int e = threadIdx.x; e < kTile * lo; e += kWThreads) o_s[e] = 0.f;
-  if (threadIdx.x < kTile) {
-    m_s[threadIdx.x] = -CUDART_INF_F;
-    l_s[threadIdx.x] = 0.f;
-  }
-  int kt0, kt1;
-  k_range(qt, sk, causal, window, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                   // K/V readers are done
-    copy_tile(k_s, kb, krs, k0, sk, d);
-    copy_tile(v_s, vb, krs, k0, sk, d);
-    __syncthreads();
-    warp_abt(s_s, q_s, k_s, ld, d, warp);
-    __syncwarp();
-    float sv[32], mx = -CUDART_INF_F;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = side * 32 + c;
-      float x = s_s[r * kSF + col] * scale;
-      if (!keep(qpos, k0 + col, sq, sk, causal, window)) x = -CUDART_INF_F;
-      sv[c] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_old = m_s[r];
-    const float m_new = fmaxf(m_old, mx);
-    const bool neg = m_new == -CUDART_INF_F;
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = neg ? 0.f : expf(sv[c] - m_new);
-      p_s[r * kSB + side * 32 + c] = __float2bfloat16(p);
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = neg ? 1.f : expf(m_old - m_new);
-    for (int c = side * (d / 2); c < (side + 1) * (d / 2); ++c)
-      o_s[r * lo + c] *= alpha;
-    __syncwarp();                      // both lanes of the row read m_s
-    if (side == 0) {
-      m_s[r] = m_new;
-      l_s[r] = l_s[r] * alpha + sum;
-    }
-    __syncwarp();
-    for (int j = 0; j < nd; ++j) {
-      FragC c;
-      float* op = o_s + warp * 16 * lo + j * 16;
-      wm::load_matrix_sync(c, op, lo, wm::mem_row_major);
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wm::load_matrix_sync(fa, p_s + warp * 16 * kSB + kk * 16, kSB);
-        wm::load_matrix_sync(fb, v_s + kk * 16 * ld + j * 16, ld);
-        wm::mma_sync(c, fa, fb, c);
-      }
-      wm::store_matrix_sync(op, c, lo, wm::mem_row_major);
-    }
-  }
-  __syncwarp();
-  const float lsafe = fmaxf(l_s[r], 1e-30f);
-  write_rows(o + qoff, qrs, o_s, q0, sq, d, 1.f / lsafe);
-  if (side == 0 && qpos < sq)
-    lse[(size_t)bh * sq + qpos] = m_s[r] + logf(lsafe);
-}
-
-__global__ void __launch_bounds__(kWThreads, 2)
-    flash_bwd_dq_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dq,
-                      int h, int hk, int sq, int sk, int d, float scale,
-                      int causal, int window) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = d + 8, nd = d / 16;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kTile * ld;
-  bf16* k_s = do_s + kTile * ld;
-  bf16* v_s = k_s + kTile * ld;
-  float* f_s = reinterpret_cast<float*>(v_s + kTile * ld);   // 64 x kSF
-  bf16* ds_s = reinterpret_cast<bf16*>(f_s + kTile * kSF);   // 64 x kSB
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = warp * 16 + (lane >> 1), side = lane & 1;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kTile, qpos = q0 + r;
-  const int bh = blockIdx.y, b = bh / h, hh = bh % h, kh = hh / (h / hk);
-  const size_t qrs = (size_t)h * d, krs = (size_t)hk * d;
-  const size_t qoff = (size_t)b * sq * qrs + (size_t)hh * d;
-  const bf16* kb = k + (size_t)b * sk * krs + (size_t)kh * d;
-  const bf16* vb = v + (size_t)b * sk * krs + (size_t)kh * d;
-
-  copy_tile(q_s, q + qoff, qrs, q0, sq, d);
-  copy_tile(do_s, dout + qoff, qrs, q0, sq, d);
-  const float lse_r = qpos < sq ? lse[(size_t)bh * sq + qpos] : 0.f;
-  const float delta_r = qpos < sq ? delta[(size_t)bh * sq + qpos] : 0.f;
-  FragC acc[kMaxCols];
-#pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) wm::fill_fragment(acc[j], 0.f);
-  int kt0, kt1;
-  k_range(qt, sk, causal, window, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    copy_tile(k_s, kb, krs, k0, sk, d);
-    copy_tile(v_s, vb, krs, k0, sk, d);
-    __syncthreads();
-    warp_abt(f_s, q_s, k_s, ld, d, warp);             // s = q·kᵀ
-    __syncwarp();
-    float pv[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = side * 32 + c;
-      pv[c] = keep(qpos, k0 + col, sq, sk, causal, window)
-                  ? expf(f_s[r * kSF + col] * scale - lse_r)
-                  : 0.f;
-    }
-    __syncwarp();
-    warp_abt(f_s, do_s, v_s, ld, d, warp);            // dp = do·vᵀ
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = side * 32 + c;
-      ds_s[r * kSB + col] = __float2bfloat16(
-          pv[c] * (f_s[r * kSF + col] - delta_r) * scale);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) {
-      if (j >= nd) break;
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wm::load_matrix_sync(fa, ds_s + warp * 16 * kSB + kk * 16, kSB);
-        wm::load_matrix_sync(fb, k_s + kk * 16 * ld + j * 16, ld);
-        wm::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-  }
-  __syncthreads();                     // q_s/do_s become the staging rows
-  float* st = reinterpret_cast<float*>(q_s);          // 64 x (d + 4)
-  stage_rows(st, acc, d, warp);
-  write_rows(dq + qoff, qrs, st, q0, sq, d, 1.f);
-}
-
-__global__ void __launch_bounds__(kWThreads, 2)
-    flash_bwd_dkv_wmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int h, int hk, int sq, int sk,
-                       int d, float scale, int causal, int window) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = d + 8, nd = d / 16;
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kTile * ld;
-  bf16* q_s = v_s + kTile * ld;
-  bf16* do_s = q_s + kTile * ld;
-  float* f_s = reinterpret_cast<float*>(do_s + kTile * ld);  // 64 x kSF
-  bf16* pt_s = reinterpret_cast<bf16*>(f_s + kTile * kSF);   // pᵀ, 64 x kSB
-  bf16* dst_s = pt_s + kTile * kSB;                          // dsᵀ
-  float* lse_s = reinterpret_cast<float*>(dst_s + kTile * kSB);
-  float* delta_s = lse_s + kTile;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = warp * 16 + (lane >> 1), side = lane & 1;
-  const int kt = blockIdx.x;           // early k tiles see the most q rows
-  const int k0 = kt * kTile, kpos = k0 + r;
-  const int bkh = blockIdx.y, b = bkh / hk, kh = bkh % hk;
-  const int rep = h / hk;
-  const size_t qrs = (size_t)h * d, krs = (size_t)hk * d;
-  const size_t koff = (size_t)b * sk * krs + (size_t)kh * d;
-
-  copy_tile(k_s, k + koff, krs, k0, sk, d);
-  copy_tile(v_s, v + koff, krs, k0, sk, d);
-  FragC dk_acc[kMaxCols], dv_acc[kMaxCols];
-#pragma unroll
-  for (int j = 0; j < kMaxCols; ++j) {
-    wm::fill_fragment(dk_acc[j], 0.f);
-    wm::fill_fragment(dv_acc[j], 0.f);
-  }
-  int qt0, qt1;
-  q_range(kt, sq, causal, window, &qt0, &qt1);
-  for (int g = 0; g < rep; ++g) {
-    const int hh = kh * rep + g;
-    const size_t qoff = (size_t)b * sq * qrs + (size_t)hh * d;
-    const float* lb = lse + ((size_t)b * h + hh) * sq;
-    const float* db = delta + ((size_t)b * h + hh) * sq;
-    for (int qt = qt0; qt < qt1; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();
-      copy_tile(q_s, q + qoff, qrs, q0, sq, d);
-      copy_tile(do_s, dout + qoff, qrs, q0, sq, d);
-      if (threadIdx.x < kTile) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < sq ? lb[row] : 0.f;
-        delta_s[threadIdx.x] = row < sq ? db[row] : 0.f;
-      }
-      __syncthreads();
-      warp_abt(f_s, k_s, q_s, ld, d, warp);           // sᵀ = k·qᵀ
-      __syncwarp();
-      float pv[32];
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int col = side * 32 + c;
-        pv[c] = keep(q0 + col, kpos, sq, sk, causal, window)
-                    ? expf(f_s[r * kSF + col] * scale - lse_s[col])
-                    : 0.f;
-        pt_s[r * kSB + col] = __float2bfloat16(pv[c]);
-      }
-      __syncwarp();
-      warp_abt(f_s, v_s, do_s, ld, d, warp);          // dpᵀ = v·doᵀ
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int col = side * 32 + c;
-        dst_s[r * kSB + col] = __float2bfloat16(
-            pv[c] * (f_s[r * kSF + col] - delta_s[col]) * scale);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kMaxCols; ++j) {
-        if (j >= nd) break;
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-          FragA fa;
-          FragB fb;
-          wm::load_matrix_sync(fa, pt_s + warp * 16 * kSB + kk * 16, kSB);
-          wm::load_matrix_sync(fb, do_s + kk * 16 * ld + j * 16, ld);
-          wm::mma_sync(dv_acc[j], fa, fb, dv_acc[j]);
-          wm::load_matrix_sync(fa, dst_s + warp * 16 * kSB + kk * 16, kSB);
-          wm::load_matrix_sync(fb, q_s + kk * 16 * ld + j * 16, ld);
-          wm::mma_sync(dk_acc[j], fa, fb, dk_acc[j]);
-        }
-      }
-    }
-  }
-  float* st = reinterpret_cast<float*>(q_s);          // 64 x (d + 4)
-  __syncthreads();                     // q_s/do_s become the staging rows
-  stage_rows(st, dk_acc, d, warp);
-  write_rows(dk + koff, krs, st, k0, sk, d, 1.f);
-  __syncwarp();                        // the warp's rows were read
-  stage_rows(st, dv_acc, d, warp);
-  write_rows(dv + koff, krs, st, k0, sk, d, 1.f);
-}
-
-size_t wmma_fwd_bytes(int d) {
-  return 3 * 2 * (size_t)kTile * (d + 8) + 4 * (size_t)kTile * kSF +
-         2 * (size_t)kTile * kSB + 4 * (size_t)kTile * (d + 4) +
-         2 * 4 * kTile;
-}
-size_t wmma_dq_bytes(int d) {
-  return 4 * 2 * (size_t)kTile * (d + 8) + 4 * (size_t)kTile * kSF +
-         2 * (size_t)kTile * kSB;
-}
-size_t wmma_dkv_bytes(int d) {
-  return 4 * 2 * (size_t)kTile * (d + 8) + 4 * (size_t)kTile * kSF +
-         2 * 2 * (size_t)kTile * kSB + 2 * 4 * kTile;
-}
 
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
@@ -914,34 +532,661 @@ int bwd_dkv_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores.
+//
+// fwd and dq: 288 threads per CTA. Warpgroups 0 and 1 consume (each owns
+// 64 rows of the CTA's 128 q rows in every product); warp 8 produces: it
+// keeps a ring of K/V stages filled with TMA (128-byte swizzled boxes of
+// 64 columns, completion on mbarriers: `full` when a stage has landed,
+// `empty` when all 256 consumer threads are done with it), so the next
+// tiles load while the tensor cores work on this one. Nine warps on an
+// SM put three on one of its four register partitions, which caps every
+// thread at 168 registers (ptxas compiles the consumers to that budget
+// whatever setmaxnreg would hand them), enough for S, O and P at d = 128.
+// dkv needs more (dK and dV alone are 128 registers a thread at d = 128):
+// one warpgroup of 64 keys per CTA, two CTAs per SM, 255 registers, and
+// its warp 0 issues the TMA loads a stage ahead (see flash_dkv_sm90).
+//
+// Every product is a wgmma m64nNk16 with fp32 accumulators in registers:
+// S = Q·Kᵀ (and dP = dO·Vᵀ, their transposes in dkv) from two shared-
+// memory descriptors (K-major); the probabilities p (ds in the backward)
+// are rounded to bf16 in registers, where the accumulator's layout is
+// already the register A operand's, and multiply V (dO, Q, K) read as an
+// MN-major descriptor of the same swizzled tile. The softmax runs on the
+// accumulator registers: a row lives in one quad of lanes (two shuffles
+// per reduction), exp2 (one MUFU instruction) with log2(e) folded into
+// the scale, masks applied without branches and only on tiles that need
+// them. O, dQ, dK and dV stay in registers for the whole loop and are
+// written once.
+//
+// Rounding sites are the PR 2 kernels': p and ds rounded to bf16 before
+// the products they feed, every sum in fp32. Head dims other than 64 and
+// 128 run as the next of them (DP): TMA fills the columns past d with
+// zeros, so they add nothing to S and dP, and the stores skip them.
+// Tiles: fwd 128 q x 128 keys, dq 128 q x 64 keys, dkv 64 keys x 64 q.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int kConsumers = 256;  // two consumer warpgroups
+constexpr int kThreadsH = 288;   // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// no pair of [qlo, qhi] x [klo, khi] is masked
+__device__ __forceinline__ bool full_tile(int qlo, int qhi, int klo, int khi,
+                                          int sq, int sk, int causal,
+                                          int window) {
+  if (qhi >= sq || khi >= sk) return false;
+  if (causal && khi > qlo) return false;
+  if (window > 0 && qhi - klo >= window) return false;
+  return true;
+}
+
+// descriptor of k step kk (16 columns) of rows [r0, r0 + 64) of a K-major
+// tile of `rows` rows at `t`, stored as 64-column boxes of rows x 128 B
+__device__ __forceinline__ uint64_t kmajor(uint32_t t, int rows, int r0,
+                                           int kk) {
+  return desc_sw128(t + (kk >> 2) * rows * 128 + r0 * 128 + (kk & 3) * 32,
+                    16);
+}
+
+// descriptor of k step kk (16 rows) of a tile of `rows` rows at `t` read
+// MN-major (its columns are the product's N)
+__device__ __forceinline__ uint64_t mnmajor(uint32_t t, int rows, int kk) {
+  return desc_sw128(t + kk * 2048, rows * 128);
+}
+
+// rows [row0, row0 + rows) of one head, all DP columns, as DP / 64 boxes
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int nbox, int rows,
+                                          int head, int row0, int batch) {
+  for (int c = 0; c < nbox; ++c)
+    tma_load_4d(dst + c * rows * 128, map, bar, c * 64, head, row0, batch);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int acc) {
+  if constexpr (N == 128) wgmma_ss_n128(d, a, b, acc);
+  else wgmma_ss_n64(d, a, b, acc);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 128) wgmma_rs_n128(d, a, b, 1);
+  else wgmma_rs_n64(d, a, b, 1);
+}
+
+// accumulator columns [16kk, 16kk + 16) as the bf16 A fragment of k step kk
+template <int N>
+__device__ __forceinline__ void to_a_frag(uint32_t (&a)[4],
+                                          const float (&s)[N], int kk) {
+  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// the thread's two rows (tensor rows row[0], row[1]) of a (64 x DP)
+// accumulator, times mul, to bf16 rows of a bshd tensor (row stride rs
+// elements); rows at or past `rows` and columns at or past d are skipped
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* dst, size_t rs,
+                                           const float (&acc)[DP / 2],
+                                           const int (&row)[2], int rows,
+                                           int d, const float (&mul)[2]) {
+  const int cq = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= rows) continue;
+    bf16* out = dst + (size_t)row[r] * rs;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < d)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + cq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul[r],
+                                  acc[4 * j + 2 * r + 1] * mul[r]);
+  }
+}
+
+// Ring depths in stages (K/V tiles; Q/dO tiles in dkv, sized so that two
+// CTAs fit on an SM).
+__host__ __device__ constexpr int fwd_stages(int dp) {
+  return dp == 128 ? 3 : 5;
+}
+__host__ __device__ constexpr int dq_stages(int dp) {
+  return dp == 128 ? 4 : 8;
+}
+__host__ __device__ constexpr int dkv_stages(int dp) {
+  return dp == 128 ? 2 : 4;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsH, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   bf16* __restrict__ o, float* __restrict__ lse, int h,
+                   int hk, int sq, int sk, int d, float scale, int causal,
+                   int window) {
+  constexpr int BM = 128, BN = 128, NB = DP / 64, S = fwd_stages(DP);
+  constexpr uint32_t kQBytes = BM * DP * 2, kKBytes = BN * DP * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + kQBytes;
+  const uint32_t v_s = k_s + S * kKBytes;
+  // K is released when S = Q·Kᵀ is done, V when P·V is
+  const uint32_t q_bar = v_s + S * kKBytes;
+  const uint32_t fullk = q_bar + 8, fullv = fullk + 8 * S,
+                 emptyk = fullv + 8 * S, emptyv = emptyk + 8 * S;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // long causal rows first
+  const int q0 = qt * BM;
+  const int bh = blockIdx.y, b = bh / h, hh = bh % h, kh = hh / (h / hk);
+  int kt0, kt1;
+  k_range(q0, BM, BN, sk, causal, window, &kt0, &kt1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(fullk + 8 * s, 1);
+      mbar_init(fullv + 8 * s, 1);
+      mbar_init(emptyk + 8 * s, kConsumers);
+      mbar_init(emptyv + 8 * s, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform for the compiler (as CUTLASS computes it)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    // ---- producer ----
+    if (threadIdx.x != kConsumers) return;
+    mbar_arrive_expect_tx(q_bar, kQBytes);
+    load_rows(q_s, &tq, q_bar, NB, BM, hh, q0, b);
+    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+      const int st = i % S, use = i / S;
+      if (use > 0) mbar_wait(emptyk + 8 * st, (use - 1) & 1);
+      mbar_arrive_expect_tx(fullk + 8 * st, kKBytes);
+      load_rows(k_s + st * kKBytes, &tk, fullk + 8 * st, NB, BN, kh,
+                kt * BN, b);
+      if (use > 0) mbar_wait(emptyv + 8 * st, (use - 1) & 1);
+      mbar_arrive_expect_tx(fullv + 8 * st, kKBytes);
+      load_rows(v_s + st * kKBytes, &tv, fullv + 8 * st, NB, BN, kh,
+                kt * BN, b);
+    }
+  } else {
+    // ---- consumers ----
+    const int wg = role, warp = (threadIdx.x >> 5) & 3,
+              lane = threadIdx.x & 31;
+    const int row0 = 64 * wg + 16 * warp + (lane >> 2);  // + 8 for e & 2
+    const int cq = 2 * (lane & 3);
+    const float sl2 = scale * kLog2e;
+    float oacc[DP / 2];
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) oacc[e] = 0.f;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+    mbar_wait(q_bar, 0);
+    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+      const int st = i % S;
+      const uint32_t par = (i / S) & 1;
+      const int k0 = kt * BN;
+      const uint32_t kst = k_s + st * kKBytes, vst = v_s + st * kKBytes;
+      float s[BN / 2];
+      mbar_wait(fullk + 8 * st, par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        mma_ss<BN>(s, kmajor(q_s, BM, 64 * wg, kk), kmajor(kst, BN, 0, kk),
+                   kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(emptyk + 8 * st);
+      const bool full = full_tile(q0, q0 + BM - 1, k0, k0 + BN - 1, sq, sk,
+                                  causal, window);
+      // an unmasked tile with a positive scale takes the row max of the
+      // raw scores and folds the scale into the exponent's FFMA; other
+      // tiles scale first, then mask to -inf
+      const bool fast = full && sl2 > 0.f;
+      const float mul = fast ? sl2 : 1.f;
+      if (!fast) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) s[e] *= sl2;
+      }
+      if (!full) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e)
+          s[e] = keep(q0 + row0 + 4 * (e & 2), k0 + 8 * (e >> 2) + cq + (e & 1),
+                      sq, sk, causal, window)
+                     ? s[e]
+                     : -CUDART_INF_F;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx * mul);
+        // the `neg` guard: a row masked so far keeps p = 0 (2^-inf); its
+        // l and o are 0, so alpha's value does not matter there
+        const float mref = m_new == -CUDART_INF_F ? 0.f : m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = ex2(fmaf(s[4 * j + 2 * r + c], mul, -mref));
+            s[4 * j + 2 * r + c] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        alpha[r] = ex2(m[r] - mref);
+        l[r] = l[r] * alpha[r] + sum;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e) oacc[e] *= alpha[(e >> 1) & 1];
+      uint32_t pf[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) to_a_frag(pf[kk], s, kk);
+      mbar_wait(fullv + 8 * st, par);
+      fence_regs(oacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        mma_rs<DP>(oacc, pf[kk], mnmajor(vst, BN, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      mbar_arrive(emptyv + 8 * st);
+    }
+    const int rows[2] = {q0 + row0, q0 + row0 + 8};
+    float inv[2];
+    float* lb = lse + (size_t)bh * sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lsafe = fmaxf(l[r], 1e-30f);
+      inv[r] = 1.f / lsafe;
+      if ((lane & 3) == 0 && rows[r] < sq)
+        lb[rows[r]] = m[r] * kLn2 + logf(lsafe);
+    }
+    store_rows<DP>(o + ((size_t)b * sq * h + hh) * d, (size_t)h * d, oacc,
+                   rows, sq, d, inv);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsH, 1)
+    flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  int h, int hk, int sq, int sk, int d, float scale,
+                  int causal, int window) {
+  constexpr int BM = 128, BN = 64, NB = DP / 64, S = dq_stages(DP);
+  constexpr uint32_t kQBytes = BM * DP * 2, kKBytes = BN * DP * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kQBytes;
+  const uint32_t k_s = do_s + kQBytes;
+  const uint32_t v_s = k_s + S * kKBytes;
+  const uint32_t res_bar = v_s + S * kKBytes;
+  const uint32_t full = res_bar + 8, empty = full + 8 * S;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qt * BM;
+  const int bh = blockIdx.y, b = bh / h, hh = bh % h, kh = hh / (h / hk);
+  int kt0, kt1;
+  k_range(q0, BM, BN, sk, causal, window, &kt0, &kt1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform for the compiler (as CUTLASS computes it)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    if (threadIdx.x != kConsumers) return;
+    mbar_arrive_expect_tx(res_bar, 2 * kQBytes);
+    load_rows(q_s, &tq, res_bar, NB, BM, hh, q0, b);
+    load_rows(do_s, &tdo, res_bar, NB, BM, hh, q0, b);
+    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+      const int st = i % S, use = i / S;
+      if (use > 0) mbar_wait(empty + 8 * st, (use - 1) & 1);
+      mbar_arrive_expect_tx(full + 8 * st, 2 * kKBytes);
+      load_rows(k_s + st * kKBytes, &tk, full + 8 * st, NB, BN, kh, kt * BN,
+                b);
+      load_rows(v_s + st * kKBytes, &tv, full + 8 * st, NB, BN, kh, kt * BN,
+                b);
+    }
+  } else {
+    const int wg = role, warp = (threadIdx.x >> 5) & 3,
+              lane = threadIdx.x & 31;
+    const int row0 = 64 * wg + 16 * warp + (lane >> 2);
+    const int cq = 2 * (lane & 3);
+    const float sl2 = scale * kLog2e;
+    const int rows[2] = {q0 + row0, q0 + row0 + 8};
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = rows[r] < sq;
+      lse2[r] = in ? lse[(size_t)bh * sq + rows[r]] * kLog2e : 0.f;
+      dl[r] = in ? delta[(size_t)bh * sq + rows[r]] : 0.f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
+    mbar_wait(res_bar, 0);
+    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+      const int st = i % S;
+      const int k0 = kt * BN;
+      const uint32_t kst = k_s + st * kKBytes, vst = v_s + st * kKBytes;
+      float s[BN / 2], dp[BN / 2];
+      mbar_wait(full + 8 * st, (i / S) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        mma_ss<BN>(s, kmajor(q_s, BM, 64 * wg, kk), kmajor(kst, BN, 0, kk),
+                   kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        mma_ss<BN>(dp, kmajor(do_s, BM, 64 * wg, kk), kmajor(vst, BN, 0, kk),
+                   kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      const bool whole = full_tile(q0, q0 + BM - 1, k0, k0 + BN - 1, sq, sk,
+                                   causal, window);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        s[e] = ex2(fmaf(s[e], sl2, -lse2[(e >> 1) & 1]));
+      if (!whole) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e)
+          s[e] = keep(rows[(e >> 1) & 1], k0 + 8 * (e >> 2) + cq + (e & 1),
+                      sq, sk, causal, window)
+                     ? s[e]
+                     : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]) * scale;
+      uint32_t df[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) to_a_frag(df[kk], dp, kk);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        mma_rs<DP>(acc, df[kk], mnmajor(kst, BN, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty + 8 * st);
+    }
+    const float one[2] = {1.f, 1.f};
+    store_rows<DP>(dq + ((size_t)b * sq * h + hh) * d, (size_t)h * d, acc,
+                   rows, sq, d, one);
+  }
+}
+
+// dkv runs one warpgroup a CTA and two CTAs an SM: eight warps an SM
+// leave each thread 255 registers (dK and dV alone hold DP of them),
+// where the layout of fwd and dq caps every thread at 168. Warp 0 issues
+// the TMA loads a stage ahead and writes the stage's lse and delta.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+    flash_dkv_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int h, int hk, int sq, int sk,
+                   int d, float scale, int causal, int window) {
+  constexpr int BK = 64, BQ = 64, NB = DP / 64, S = dkv_stages(DP);
+  constexpr uint32_t kKBytes = BK * DP * 2, kQBytes = BQ * DP * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t v_s = k_s + kKBytes;
+  const uint32_t q_s = v_s + kKBytes;
+  const uint32_t do_s = q_s + S * kQBytes;
+  const uint32_t stats = do_s + S * kQBytes;  // lse·log2(e), delta per stage
+  const uint32_t res_bar = stats + S * 2 * BQ * 4;
+  const uint32_t full = res_bar + 8, empty = full + 8 * S;
+  float* stats_p = reinterpret_cast<float*>(smem_raw + (stats -
+                                                        smem_u32(smem_raw)));
+
+  const int kt = blockIdx.x;           // early k tiles see the most q rows
+  const int k0 = kt * BK;
+  const int bkh = blockIdx.y, b = bkh / hk, kh = bkh % hk;
+  const int rep = h / hk;
+  int qt0, qt1;
+  q_range(k0, BK, BQ, sq, causal, window, &qt0, &qt1);
+  const int nq = qt1 - qt0, total = rep * nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);   // expect_tx + warp 0's stats
+      mbar_init(empty + 8 * s, 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // warp 0: the loads of stage j (q tile j % nq of head j / nq)
+  auto issue = [&](int j) {
+    const int hh = kh * rep + j / nq, q0 = (qt0 + j % nq) * BQ;
+    const int st = j % S;
+    if (j >= S) mbar_wait(empty + 8 * st, (j / S - 1) & 1);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(full + 8 * st, 2 * kQBytes);
+      load_rows(q_s + st * kQBytes, &tq, full + 8 * st, NB, BQ, hh, q0, b);
+      load_rows(do_s + st * kQBytes, &tdo, full + 8 * st, NB, BQ, hh, q0, b);
+    }
+    const size_t at = ((size_t)b * h + hh) * sq;
+    float* ls = stats_p + st * 2 * BQ;
+    for (int r = lane; r < BQ; r += 32) {
+      const bool in = q0 + r < sq;
+      ls[r] = in ? lse[at + q0 + r] * kLog2e : 0.f;
+      ls[BQ + r] = in ? delta[at + q0 + r] : 0.f;
+    }
+    mbar_arrive(full + 8 * st);
+  };
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(res_bar, 2 * kKBytes);
+      load_rows(k_s, &tk, res_bar, NB, BK, kh, k0, b);
+      load_rows(v_s, &tv, res_bar, NB, BK, kh, k0, b);
+    }
+    for (int j = 0; j < S - 1 && j < total; ++j) issue(j);
+  }
+
+  const int row0 = 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const float sl2 = scale * kLog2e;
+  const int rows[2] = {k0 + row0, k0 + row0 + 8};
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) dka[e] = dva[e] = 0.f;
+  mbar_wait(res_bar, 0);
+  for (int i = 0; i < total; ++i) {
+    if (warp == 0 && i + S - 1 < total) issue(i + S - 1);
+    const int q0 = (qt0 + i % nq) * BQ;
+    const int st = i % S;
+    const uint32_t qst = q_s + st * kQBytes, dost = do_s + st * kQBytes;
+    const float* ls = stats_p + st * 2 * BQ;
+    float s[BQ / 2], dp[BQ / 2];   // sᵀ, dpᵀ: rows keys, columns q
+    mbar_wait(full + 8 * st, (i / S) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_ss<BQ>(s, kmajor(k_s, BK, 0, kk), kmajor(qst, BQ, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_ss<BQ>(dp, kmajor(v_s, BK, 0, kk), kmajor(dost, BQ, 0, kk),
+                 kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const bool whole = full_tile(q0, q0 + BQ - 1, k0, k0 + BK - 1, sq, sk,
+                                 causal, window);
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e)
+      s[e] = ex2(fmaf(s[e], sl2, -ls[8 * (e >> 2) + cq + (e & 1)]));
+    if (!whole) {
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e)
+        s[e] = keep(q0 + 8 * (e >> 2) + cq + (e & 1), rows[(e >> 1) & 1], sq,
+                    sk, causal, window)
+                   ? s[e]
+                   : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e)
+      dp[e] = s[e] * (dp[e] - ls[BQ + 8 * (e >> 2) + cq + (e & 1)]) * scale;
+    uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      to_a_frag(pf[kk], s, kk);
+      to_a_frag(df[kk], dp, kk);
+    }
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      mma_rs<DP>(dva, pf[kk], mnmajor(dost, BQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      mma_rs<DP>(dka, df[kk], mnmajor(qst, BQ, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    mbar_arrive(empty + 8 * st);
+  }
+  const float one[2] = {1.f, 1.f};
+  const size_t koff = ((size_t)b * sk * hk + kh) * d;
+  store_rows<DP>(dk + koff, (size_t)hk * d, dka, rows, sk, d, one);
+  store_rows<DP>(dv + koff, (size_t)hk * d, dva, rows, sk, d, one);
+}
+
+template <int DP>
+size_t fwd_smem() {
+  return 1024 + 128 * DP * 2 + 2 * fwd_stages(DP) * 128 * DP * 2 +
+         8 * (1 + 4 * fwd_stages(DP));
+}
+template <int DP>
+size_t dq_smem() {
+  return 1024 + 2 * 128 * DP * 2 + 2 * dq_stages(DP) * 64 * DP * 2 +
+         8 * (1 + 2 * dq_stages(DP));
+}
+template <int DP>
+size_t dkv_smem() {
+  return 1024 + 2 * 64 * DP * 2 +
+         dkv_stages(DP) * (2 * 64 * DP * 2 + 2 * 64 * 4) +
+         8 * (1 + 2 * dkv_stages(DP));
+}
+
+template <int DP>
+int fwd_sm90(const void* q, const void* k, const void* v, void* o,
+             void* lse, int b, int h, int hk, int sq, int sk, int d,
+             float scale, int causal, int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = bshd_map(&tq, q, b, sq, h, d, 128);
+  if (!err) err = bshd_map(&tk, k, b, sk, hk, d, 128);
+  if (!err) err = bshd_map(&tv, v, b, sk, hk, d, 128);
+  if (!err) err = set_smem(flash_fwd_sm90<DP>, fwd_smem<DP>());
+  if (err) return err;
+  dim3 grid((sq + 127) / 128, b * h);
+  flash_fwd_sm90<DP><<<grid, kThreadsH, fwd_smem<DP>(), stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), h, hk,
+      sq, sk, d, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, void* dq, int b, int h,
+            int hk, int sq, int sk, int d, float scale, int causal,
+            int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = bshd_map(&tq, q, b, sq, h, d, 128);
+  if (!err) err = bshd_map(&tdo, dout, b, sq, h, d, 128);
+  if (!err) err = bshd_map(&tk, k, b, sk, hk, d, 64);
+  if (!err) err = bshd_map(&tv, v, b, sk, hk, d, 64);
+  if (!err) err = set_smem(flash_dq_sm90<DP>, dq_smem<DP>());
+  if (err) return err;
+  dim3 grid((sq + 127) / 128, b * h);
+  flash_dq_sm90<DP><<<grid, kThreadsH, dq_smem<DP>(), stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), h, hk, sq,
+      sk, d, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dk, void* dv, int b,
+             int h, int hk, int sq, int sk, int d, float scale, int causal,
+             int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = bshd_map(&tq, q, b, sq, h, d, 64);
+  if (!err) err = bshd_map(&tdo, dout, b, sq, h, d, 64);
+  if (!err) err = bshd_map(&tk, k, b, sk, hk, d, 64);
+  if (!err) err = bshd_map(&tv, v, b, sk, hk, d, 64);
+  if (!err) err = set_smem(flash_dkv_sm90<DP>, dkv_smem<DP>());
+  if (err) return err;
+  dim3 grid((sk + 63) / 64, b * hk);
+  flash_dkv_sm90<DP><<<grid, 128, dkv_smem<DP>(), stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), h, hk, sq, sk, d, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+// head dims up to 64 run as 64, the others as 128 (zero-filled columns)
 int fwd_bf16(const void* q, const void* k, const void* v, void* o,
              void* lse, int b, int h, int hk, int sq, int sk, int d,
              float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = wmma_fwd_bytes(d);
-  int err = set_smem(flash_fwd_wmma, smem);
-  if (err) return err;
-  dim3 grid((sq + kTile - 1) / kTile, b * h);
-  flash_fwd_wmma<<<grid, kWThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), h, hk, sq, sk, d, scale, causal, window);
-  return (int)cudaGetLastError();
+  return d <= 64 ? fwd_sm90<64>(q, k, v, o, lse, b, h, hk, sq, sk, d, scale,
+                                causal, window, stream)
+                 : fwd_sm90<128>(q, k, v, o, lse, b, h, hk, sq, sk, d,
+                                 scale, causal, window, stream);
 }
 
 int bwd_dq_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dq, int b, int h, int hk, int sq, int sk, int d,
                 float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = wmma_dq_bytes(d);
-  int err = set_smem(flash_bwd_dq_wmma, smem);
-  if (err) return err;
-  dim3 grid((sq + kTile - 1) / kTile, b * h);
-  flash_bwd_dq_wmma<<<grid, kWThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), h, hk, sq, sk, d, scale, causal, window);
-  return (int)cudaGetLastError();
+  return d <= 64 ? dq_sm90<64>(q, k, v, dout, lse, delta, dq, b, h, hk, sq,
+                               sk, d, scale, causal, window, stream)
+                 : dq_sm90<128>(q, k, v, dout, lse, delta, dq, b, h, hk, sq,
+                                sk, d, scale, causal, window, stream);
 }
 
 int bwd_dkv_bf16(const void* q, const void* k, const void* v,
@@ -949,18 +1194,13 @@ int bwd_dkv_bf16(const void* q, const void* k, const void* v,
                  void* dk, void* dv, int b, int h, int hk, int sq, int sk,
                  int d, float scale, int causal, int window,
                  cudaStream_t stream) {
-  const size_t smem = wmma_dkv_bytes(d);
-  int err = set_smem(flash_bwd_dkv_wmma, smem);
-  if (err) return err;
-  dim3 grid((sk + kTile - 1) / kTile, b * hk);
-  flash_bwd_dkv_wmma<<<grid, kWThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, hk, sq, sk, d,
-      scale, causal, window);
-  return (int)cudaGetLastError();
+  return d <= 64 ? dkv_sm90<64>(q, k, v, dout, lse, delta, dk, dv, b, h, hk,
+                                sq, sk, d, scale, causal, window, stream)
+                 : dkv_sm90<128>(q, k, v, dout, lse, delta, dk, dv, b, h,
+                                 hk, sq, sk, d, scale, causal, window,
+                                 stream);
 }
+
 
 }  // namespace
 

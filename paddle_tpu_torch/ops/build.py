@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
-__all__ = ["KERNEL_SOURCES", "build", "load", "nvcc_path"]
+__all__ = ["KERNEL_SOURCES", "build", "lib_path", "load", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -76,7 +76,7 @@ def _sources(name: str) -> List[Path]:
     return seen
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     """The library's path, named by a digest of the source, the headers
     it includes and the flags: an edited header rebuilds every source
     that includes it."""
@@ -97,7 +97,7 @@ def build(names: Optional[Iterable[str]] = None,
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -127,7 +127,7 @@ def load(name: str) -> ctypes.CDLL:
     needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = _lib_path(name)
+        path = lib_path(name)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))

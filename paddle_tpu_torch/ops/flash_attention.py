@@ -13,7 +13,10 @@ keys and implies causal, as in the JAX package.
 On the TPU the JAX ``sdpa`` sends equal heads to jax's library flash
 kernel and GQA or a window to splash; the repo's own kernel is its third
 choice. Here the hand-written kernel serves every unmasked, dropout-free
-call: there is no library route."""
+call: there is no library route. bf16 runs the Hopper kernels (wgmma
+products fed by a TMA ring, accumulators in registers; head dims up to
+64 run as 64, the others as 128 with TMA's zero fill), fp32 the scalar
+ones."""
 from __future__ import annotations
 
 import ctypes
@@ -248,7 +251,8 @@ def _launch(name, wrapper, q, *ptrs_and_args):
 
 def flash_attention_fwd(q, k, v, *, is_causal=False, scale, window=None):
     """Forward: ``(o, lse)``. A CPU tensor takes the plain version; a
-    CUDA tensor launches ``flash_fwd_kernel`` or raises."""
+    CUDA tensor launches the forward kernel (``flash_fwd_sm90`` in bf16,
+    ``flash_fwd_kernel`` in fp32) or raises."""
     if q.device.type == "cpu" or plain_active():
         return flash_attention_reference(q, k, v, is_causal, scale, window)
     _check("flash_attention_fwd", q, k, v)
@@ -266,7 +270,8 @@ def flash_attention_fwd(q, k, v, *, is_causal=False, scale, window=None):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, is_causal=False,
                            scale, window=None):
     """dq from the saved lse and delta. A CPU tensor takes the plain
-    version; a CUDA tensor launches ``flash_bwd_dq_kernel`` or raises."""
+    version; a CUDA tensor launches the dq kernel (``flash_dq_sm90`` in
+    bf16, ``flash_bwd_dq_kernel`` in fp32) or raises."""
     if q.device.type == "cpu" or plain_active():
         return flash_attention_bwd_reference(
             q, k, v, do, lse, delta, is_causal=is_causal, scale=scale,
@@ -285,8 +290,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, is_causal=False,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, is_causal=False,
                             scale, window=None):
     """(dk, dv), summed over each kv head's group of q heads. A CPU
-    tensor takes the plain version; a CUDA tensor launches
-    ``flash_bwd_dkv_kernel`` or raises."""
+    tensor takes the plain version; a CUDA tensor launches the dkv
+    kernel (``flash_dkv_sm90`` in bf16, ``flash_bwd_dkv_kernel`` in
+    fp32) or raises."""
     if q.device.type == "cpu" or plain_active():
         return flash_attention_bwd_reference(
             q, k, v, do, lse, delta, is_causal=is_causal, scale=scale,

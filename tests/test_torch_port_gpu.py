@@ -305,6 +305,14 @@ FLASH_GPU_CASES = {
     "window": (1, 256, 256, 4, 4, 128, True, 100),
     "cross": (2, 128, 192, 4, 4, 64, False, None),
     "ernie_d64": (2, 1024, 1024, 12, 12, 64, True, None),
+    # the bf16 kernels' edges: a length that is not a multiple of their
+    # 128-row tiles, head dims padded to 64 and 128, GQA with rep 4 and a
+    # window across two 128-key tiles, a long causal row
+    "ragged300": (2, 300, 300, 4, 4, 128, True, None),
+    "d32": (2, 256, 256, 4, 4, 32, True, None),
+    "d96": (2, 256, 256, 4, 4, 96, True, None),
+    "gqa4_window": (1, 512, 512, 8, 2, 128, True, 200),
+    "long_causal": (1, 4096, 4096, 4, 4, 128, True, None),
 }
 
 
@@ -361,6 +369,34 @@ def test_flash_kernels_match_plain(dev, name, dtype, monkeypatch):
         tol = fa.bf16_tolerance(got, want, sp, 2 if i == 0 else 1)
         diff = (got.float() - want.float()).abs()
         assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+@pytest.mark.parametrize("name", ["gqa4_window", "ernie_d64", "d96"])
+def test_flash_kernels_are_deterministic(dev, name):
+    """Two calls of each bf16 kernel on the same inputs give bit-identical
+    outputs: dk and dv are summed over the group in registers, with no
+    atomics, so the order of every sum is fixed."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    b, sq, sk, h, hk, d, causal, window = FLASH_GPU_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(sq + d)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v = rnd(b, sq, h, d), rnd(b, sk, hk, d), rnd(b, sk, hk, d)
+    do = rnd(b, sq, h, d)
+    kw = dict(is_causal=causal, scale=1 / math.sqrt(d), window=window)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do * o).float().sum(-1).transpose(1, 2).contiguous()
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        runs.append((o, lse, dq, dk, dv))
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
 
 
 def test_flash_block_gradients_on_gpu(dev):

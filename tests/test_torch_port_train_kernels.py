@@ -85,25 +85,27 @@ def _masked_scores(q, k, v, is_causal, scale, window):
     return s, kr, vr
 
 
-def _kernel_order_fwd(q, k, v, *, is_causal, scale, window, skip_tile=None):
-    """o as the bf16 forward kernel rounds it: per 64-key tile, p =
-    exp(s - running max) in fp32, rounded to bf16 for the PV product,
-    the row sum kept in fp32; o divided by it and rounded once."""
+def _kernel_order_fwd(q, k, v, *, is_causal, scale, window, tile=64,
+                      skip_tile=None):
+    """o as a bf16 forward kernel with ``tile``-key tiles rounds it: per
+    tile, p = exp(s - running max) in fp32, rounded to bf16 for the PV
+    product, the row sum kept in fp32; o divided by it and rounded once.
+    (The PR 2 kernels ran 64-key tiles, the wgmma kernels run 128.)"""
     s, _, vr = _masked_scores(q, k, v, is_causal, scale, window)
     b, h, sq, sk = s.shape
     m = torch.full((b, h, sq), float("-inf"))
     row_sum = torch.zeros(b, h, sq)
     acc = torch.zeros(b, h, sq, q.shape[3])
-    for t in range(0, sk, 64):
-        if t // 64 == skip_tile:
+    for t in range(0, sk, tile):
+        if t // tile == skip_tile:
             continue
-        st = s[..., t:t + 64]
+        st = s[..., t:t + tile]
         m_new = torch.maximum(m, st.amax(-1))
         neg = m_new == float("-inf")
         p = torch.where(neg[..., None], 0.0, torch.exp(st - m_new[..., None]))
         alpha = torch.where(neg, 1.0, torch.exp(m - m_new))
         pv = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(),
-                          vr[:, t:t + 64].float())
+                          vr[:, t:t + tile].float())
         acc = acc * alpha[..., None] + pv
         row_sum = row_sum * alpha + p.sum(-1)
         m = m_new
@@ -111,9 +113,12 @@ def _kernel_order_fwd(q, k, v, *, is_causal, scale, window, skip_tile=None):
     return o.transpose(1, 2).to(q.dtype)
 
 
-def _kernel_order_bwd(q, k, v, do, lse, delta, *, is_causal, scale, window):
+def _kernel_order_bwd(q, k, v, do, lse, delta, *, is_causal, scale, window,
+                      tile=64):
     """dq, dk, dv as the bf16 backward kernels round them: p and ds in
-    fp32, rounded to bf16 for the products, fp32 sums rounded once."""
+    fp32, rounded to bf16 for the products; dq summed in fp32 over
+    ``tile``-key tiles and dk, dv over ``tile``-row q tiles (both kernel
+    designs stream 64-wide tiles), rounded once."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     s, kr, vr = _masked_scores(q, k, v, is_causal, scale, window)
@@ -121,9 +126,15 @@ def _kernel_order_bwd(q, k, v, do, lse, delta, *, is_causal, scale, window):
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vr.float())
     ds = (p * (dp - delta[..., None]) * scale).bfloat16().float()
     p = p.bfloat16().float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dq = sum(torch.einsum("bhqk,bkhd->bqhd", ds[..., t:t + tile],
+                          kr[:, t:t + tile].float())
+             for t in range(0, sk, tile))
+    dk = sum(torch.einsum("bhqk,bqhd->bkhd", ds[:, :, t:t + tile],
+                          q[:, t:t + tile].float())
+             for t in range(0, sq, tile))
+    dv = sum(torch.einsum("bhqk,bqhd->bkhd", p[:, :, t:t + tile],
+                          do[:, t:t + tile].float())
+             for t in range(0, sq, tile))
     dk = dk.reshape(b, sk, hk, h // hk, d).sum(3)
     dv = dv.reshape(b, sk, hk, h // hk, d).sum(3)
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
@@ -161,22 +172,29 @@ class TestFlashAttention:
                 np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                            atol=1e-4)
 
-    @pytest.mark.parametrize("name", ["causal", "gqa", "window16"])
-    def test_bf16_tolerance_covers_the_kernels_rounding(self, name):
+    @pytest.mark.parametrize("name,tile", [
+        pytest.param(n, t, id=n if t == 64 else f"{n}-tile{t}")
+        for t in (64, 128) for n in ("causal", "gqa", "window16")])
+    def test_bf16_tolerance_covers_the_kernels_rounding(self, name, tile):
         """The per-element bf16 tolerance that holds the CUDA kernels
         against their plain versions on the card: the kernels' rounding
-        sites, emulated here in torch (64-key tiles with a running max,
-        the unnormalised probabilities rounded to bf16 before the PV
+        sites, emulated here in torch (``tile``-key tiles with a running
+        max: 64 for the PR 2 kernels, 128 for the wgmma forward; the
+        unnormalised probabilities rounded to bf16 before the PV
         product, ds and p rounded before the backward's products, fp32
-        sums), stay within it of the plain versions; the same emulation
-        with one kv tile left out of the forward does not."""
+        sums over 64-wide tiles), stay within it of the plain versions;
+        the same emulation with one kv tile left out of the forward does
+        not. At tile 128 the sequence is 300, so the running max spans
+        three tiles and a ragged end."""
         c = FLASH_CASES[name]
+        if tile == 128:
+            c = dict(c, s=300)
         q, k, v, do, _ = (_t(a).to(torch.bfloat16)
                           for a in _flash_inputs(c, seed=7))
         kw = dict(is_causal=c["causal"], scale=1.0 / np.sqrt(c["d"]),
                   window=c["window"])
         po, lse = tfa.flash_attention_reference(q, k, v, **kw)
-        o = _kernel_order_fwd(q, k, v, **kw)
+        o = _kernel_order_fwd(q, k, v, tile=tile, **kw)
         delta = ((do * o).float().sum(-1).transpose(1, 2)
                  - 0.1).contiguous()
         plain = (po,) + tfa.flash_attention_bwd_reference(
@@ -187,8 +205,8 @@ class TestFlashAttention:
             tol = tfa.bf16_tolerance(g, w, sp, 2 if i == 0 else 1)
             diff = (g.float() - w.float()).abs()
             assert bool((diff <= tol).all()), (i, float((diff / tol).max()))
-        if c["s"] > 64:
-            short = _kernel_order_fwd(q, k, v, skip_tile=1, **kw)
+        if c["s"] > tile:
+            short = _kernel_order_fwd(q, k, v, tile=tile, skip_tile=1, **kw)
             tol = tfa.bf16_tolerance(short, po, spread[0], 2)
             assert not bool(((short.float() - po.float()).abs()
                              <= tol).all())
