@@ -9,13 +9,15 @@ Phases, each of which raises on failure (nothing is caught):
    ``nvcc`` (one process per source, all started together), printing the
    build seconds and the ptxas register/shared-memory report; the bf16
    flash kernels' SASS must hold wgmma (``HGMMA``) and TMA (``UTMALDG``)
-   instructions.
+   instructions, the decode-layer megakernel's TF32 wgmma.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: max abs error within the stated tolerance,
-   and kernel / plain / library times beside the bound (the least time
-   the card could take for the same work). The decode-layer megakernel
-   at the megakernel phase's shapes (one Llama-2-7B layer; fp32 arena
-   at 8 slots, int8 arena at 32), also timed beside the unfused layer;
+   two calls bit-identical where the kernel promises it, and kernel /
+   plain / library times beside the bound (the least time the card could
+   take for the same work). The decode-layer megakernel at the
+   megakernel phase's shapes (one Llama-2-7B layer; fp32 arena at 8
+   slots, int8 arena at 32), also timed beside the unfused layer, alone
+   against its own bound, and per phase (its %globaltimer stamps);
    the residual RMSNorm at (8, 4096) fp32 and (8192, 4096) bf16, then
    its entry point ``fused_rms_norm(residual=)`` driven along a
    four-block residual stream, forward and backward.
@@ -184,6 +186,32 @@ def check_flash_sass():
                              f"{found}")
 
 
+def check_megakernel_sass():
+    """The decode-layer megakernel as built: both instances (fp32 and
+    int8 arenas) run their products on the tensor cores as TF32 wgmma
+    (``HGMMA`` instructions with ``TF32`` operands in the SASS that
+    ``cuobjdump`` prints of the library), for each of the four slot
+    widths (N = 8, 16, 24, 32)."""
+    import os
+    from paddle_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(build.lib_path("decode_layer"))],
+                          capture_output=True, text=True, check=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        head = part.split("\n", 1)[0]
+        if "decode_layer_kernel" in head:
+            kv = "int8" if "Int8KV" in head else "fp32"
+            shapes = set(re.findall(r"HGMMA\.64x(\d+)x8\.F32\.TF32", part))
+            found[kv] = sorted(int(n) for n in shapes)
+    print("decode_layer megakernel in SASS (HGMMA TF32 shapes 64xNx8): "
+          + ", ".join(f"{k} N={v}" for k, v in sorted(found.items())))
+    if found != {"fp32": [8, 16, 24, 32], "int8": [8, 16, 24, 32]}:
+        raise AssertionError(f"megakernel without TF32 wgmma products: "
+                             f"{found}")
+
+
 def check_rms_norm(torch, results, main_shape):
     from paddle_tpu_torch.ops.fused import rms_norm, rms_norm_reference
     import torch.nn.functional as F
@@ -261,6 +289,9 @@ def check_paged_attention(torch, results, main_kvh):
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = _max_err(got, want)
+            if not torch.equal(kern(), got):
+                raise AssertionError(f"paged_attention_decode {dtype} "
+                                     f"kvh={kvh}: two calls differ")
             if not (err <= tol[dtype]):
                 raise AssertionError(f"paged_attention_decode {dtype} "
                                      f"kvh={kvh}: max abs err {err}")
@@ -331,6 +362,9 @@ def check_paged_attention_int8(torch, results):
 
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        if not torch.equal(kern(), got):
+            raise AssertionError(f"paged_attention_decode_int8 {name}: two "
+                                 f"calls differ")
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         if dtype == torch.float32:
@@ -888,7 +922,11 @@ def check_decode_layer(torch, res_fp32, res_int8):
     and its read covers the whole table. int8 arena: S = 32, 128
     entries, lengths 1025 + 32 i. Held: the output within
     ``_decode_layer_tol`` of the plain version, the arena the prologue
-    writes equal to the plain version's outside the trash block. Times:
+    writes equal to the plain version's outside the trash block, two
+    calls bit-identical (the kernel's split-K sums and table-walk merges
+    run in fixed orders). Printed: the megakernel alone against its own
+    bound (the weights it reads, the KV, its inputs and outputs and its
+    scratch, written once), the phases' microseconds, the host plan. Times:
     the wrapper (torch prologue + one cooperative launch; CUDA events,
     and its device time from the profiler) and the megakernel alone
     (profiler), the plain version, and the unfused layer on the same
@@ -898,8 +936,10 @@ def check_decode_layer(torch, res_fp32, res_int8):
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.models.llama import (LlamaDecoderLayer,
                                                _rope_cache, llama_7b_config)
-    from paddle_tpu_torch.ops.decode_layer import (DecodeLayerScratch,
-                                                   decode_layer)
+    from paddle_tpu_torch.ops.decode_layer import (BAND_ROWS,
+                                                   DecodeLayerScratch, _grid,
+                                                   decode_layer, layer_plan,
+                                                   phase_us)
     from paddle_tpu_torch.ops.paged_attention import quantize_kv
     cfg = llama_7b_config()
     torch.manual_seed(11)          # nn.Linear's init uses the global one
@@ -974,12 +1014,29 @@ def check_decode_layer(torch, res_fp32, res_int8):
                 if not torch.equal(a[1:], b[1:]):
                     raise AssertionError(f"decode_layer {label}: the "
                                          "prologue's arena write differs")
+            # fixed reduction orders: a second call (the same arena write)
+            # gives the same bits
+            if not torch.equal(kern(), got):
+                raise AssertionError(f"decode_layer {label}: two calls "
+                                     "differ")
             ms = _time_eager(kern, iters=20)
             kernel_ms = _device_ms(torch, kern, "decode_layer_kernel")
             dev_ms = _device_ms(torch, kern)
             plain_ms = _time_eager(plain, iters=3)
             unfused_ms = _time_eager(unfused, iters=20)
             unfused_dev_ms = _device_ms(torch, unfused)
+            # per-phase microseconds from the kernel's %globaltimer
+            # stamps (thread 0 of CTA 0 after each grid barrier), the
+            # median of 9 launches
+            stamps = torch.zeros(6, dtype=torch.int64, device="cuda")
+            runs = []
+            for _ in range(9):
+                decode_layer(mode, *fixed, *copies[0], *wts,
+                             scratch=scratch, stamps=stamps)
+                torch.cuda.synchronize()
+                runs.append(phase_us(stamps))
+            phases = {k: sorted(r[k] for r in runs)[len(runs) // 2]
+                      for k in runs[0]}
         elt = 1 if mode == "paged_int8" else 4
         row_bytes = kvh * (dh * elt + (4 if mode == "paged_int8" else 0))
         rows_read = sum(min(-(-L // bs), mb) * bs for L in lengths)
@@ -989,6 +1046,19 @@ def check_decode_layer(torch, res_fp32, res_int8):
         flops = 2 * S * sum(w.numel() for w in wts if w.dim() == 2) \
             + 4 * h * dh * sum(min(L, mb * bs) for L in lengths)
         bms, by = _bound_ms(nbytes, flops, FP32_FLOPS)
+        # the megakernel alone: the weights it reads (wq, wo, ln2, wg, wu,
+        # wd), the KV, x, r1, cos, sin and out, and its scratch written
+        # once (q, attn, h1, act, the partial sums of its plan)
+        plan = layer_plan(S, d, h, dh, ff, mb, _grid(mode, S, dh, x.device))
+        part = sum(plan[i] * plan[i + 1] * S * BAND_ROWS
+                   for i in range(0, 12, 3)) + S * h * plan[13] * (dh + 2)
+        k_bytes = 4 * sum(w.numel() for w in (wts[1], wts[4], wts[5],
+                                                wts[6], wts[7], wts[8])) \
+            + 2 * rows_read * row_bytes + 4 * (3 * S * d + 2 * S * dh) \
+            + 4 * (2 * S * h * dh + S * d + S * ff + part)
+        k_flops = 2 * S * sum(wts[i].numel() for i in (1, 4, 6, 7, 8)) \
+            + 4 * h * dh * sum(min(L, mb * bs) for L in lengths)
+        kbms, kby = _bound_ms(k_bytes, k_flops, FP32_FLOPS)
         kms, dms, udms = ("not measured" if v is None else f"{v:.4f}"
                           for v in (kernel_ms, dev_ms, unfused_dev_ms))
         print(f"decode_layer {label} S={S} d={d} h={h} kvh={kvh} ff={ff} "
@@ -999,9 +1069,21 @@ def check_decode_layer(torch, res_fp32, res_int8):
               f"unfused_layer_ms={unfused_ms:.4f} (device {udms}) "
               f"library_ms=none bound_ms={bms:.4f} ({by}, "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        share = "not measured" if kernel_ms is None \
+            else f"{kbms / kernel_ms:.3f}"
+        print(f"decode_layer {label} megakernel alone: {kms} ms against "
+              f"its bound {kbms:.4f} ms ({kby}, {k_bytes / 1e6:.1f} MB, "
+              f"{k_flops / 1e9:.2f} GFLOP; share {share}); the wrapper's "
+              f"device time {dms} ms against the unfused layer's {udms} "
+              f"ms and the layer bound {bms:.4f} ms; plan {plan}")
+        print(f"decode_layer {label} phases (us, median of 9 launches): "
+              + " ".join(f"{k.split()[0]}={v:.2f}" for k, v in
+                         phases.items())
+              + f" total={sum(phases.values()):.2f}")
         results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=None,
                        megakernel_ms=kernel_ms, device_ms=dev_ms,
+                       megakernel_bound_ms=kbms, phases_us=phases,
                        unfused_layer_ms=unfused_ms,
                        unfused_layer_device_ms=unfused_dev_ms)
         del copies, got, want, unf, scratch
@@ -1988,6 +2070,7 @@ def main() -> int:
                 print(f"  [{name}] {kernel}: {line.strip()}")
 
     check_flash_sass()
+    check_megakernel_sass()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,25 +1,37 @@
 // The paged-attention decode body (s = 1) shared by
-// csrc/paged_attention.cu (one CTA per work item) and csrc/decode_layer.cu
+// csrc/paged_attention.cu (one CTA per work unit) and csrc/decode_layer.cu
 // (the decode-layer megakernel's attention phase, a grid-stride loop over
-// the same work items), so both routes run one arithmetic.
+// the same work units), so both routes run one arithmetic.
 //
 // A work item is one (slot, kv head) and up to G of that kv head's
-// g = h / kvh query heads. Its four warps take the table entries
-// round-robin (warp w: entries w, w + 4, ...) and stream them from HBM
-// straight into registers, with no CTA barrier in the loop: one
-// (position, kv head) row of d elements is d / V lanes wide (V = the
-// elements in 16 bytes: 4 fp32, 8 bf16 or 16 int8 codes), so one 16-byte
-// load per lane covers 32 / (d / V) rows, and each lane walks the rows
-// tl, tl + 32 / (d / V), ... of a block. A lane folds its rows into its
-// own online softmax per query head (running max and normalizer, the
-// accumulator of its V dims): the update of `_online_update`
-// (paddle_tpu/ops/pallas/paged_attention.py:175-192) over up to kRows
-// rows at a time, each row's score reduced over its d / V lanes with
-// shuffles. Rows at or past the length do not enter the softmax (the TPU
-// kernel's -1e30 score gives them probability 0); entries at or past
-// ceil(length / block_size) are not read. At the end the partial states
-// merge, each rescaled by exp(m_i - max): across a warp's row groups with
-// shuffles, across the warps in shared memory. The output is acc / l.
+// g = h / kvh query heads. Its table walk is split into `nc` chunks of
+// `ce` table entries (the split table walk): a work unit is one (item,
+// chunk), so a long table spreads over many CTAs and no single ragged row
+// sets the time. The plan (ce, nc) comes from the table width and the
+// item count on the host, never from the lengths: a chunk at or past a
+// row's ceil(length / block_size) entries exits at once (the plan is
+// `split_plan` of ops/paged_attention.py).
+//
+// A unit's four warps take its entries round-robin (warp w: entries
+// jb + w, jb + w + 4, ...) and stream them from HBM straight into
+// registers, with no CTA barrier in the loop: one (position, kv head) row
+// of d elements is d / V lanes wide (V = the elements in 16 bytes: 4
+// fp32, 8 bf16 or 16 int8 codes), so one 16-byte load per lane covers
+// 32 / (d / V) rows, and each lane walks the rows tl, tl + 32 / (d / V),
+// ... of a block. A lane folds its rows into its own online softmax per
+// query head (running max and normalizer, the accumulator of its V dims):
+// the update of `_online_update` (paddle_tpu/ops/pallas/paged_attention.py
+// :175-192) over up to kRows rows at a time, each row's score reduced over
+// its d / V lanes with shuffles. Rows at or past the length do not enter
+// the softmax (the TPU kernel's -1e30 score gives them probability 0).
+// Then the partial states merge, each rescaled by exp(m_i - max): across
+// a warp's row groups with shuffles, across the warps in shared memory.
+// With one chunk the output is acc / l at once. With more, each unit
+// leaves its (m, l, acc) in scratch, takes a ticket (an integer atomic
+// per item), and the unit that takes the last ticket merges the item's
+// chunks in chunk order, the same rescaled sum, writes acc / l and resets
+// the ticket to 0 for the next launch. The merge order is fixed, so two
+// launches give bit-identical outputs; no float atomics.
 //
 // How a 16-byte K/V vector reaches fp32 is a policy: `DenseKV` converts
 // fp32/bf16 arena elements, `Int8KV` dequantizes 16 int8 codes of a row
@@ -67,6 +79,7 @@ __device__ __forceinline__ uint4 load16(const void* p) {
 template <typename T>
 struct DenseKV {
   static constexpr int V = 16 / sizeof(T);
+  static constexpr bool kInt8 = false;
   struct Vec {
     uint4 raw;
   };
@@ -94,6 +107,7 @@ struct DenseKV {
 // where(|q| == 127, sign(q) * s, q * (s * fl(1/127))), s >= 0.
 struct Int8KV {
   static constexpr int V = 16;
+  static constexpr bool kInt8 = true;
   struct Vec {
     uint4 raw;
     float s;
@@ -135,25 +149,63 @@ struct QPlain {
   }
 };
 
-// Shared memory one work item needs: the warps' accumulators (kWarps, G,
-// d) and their (max, normalizer) pairs (kWarps, G, 2).
+// Shared memory one work unit needs: the warps' accumulators (kWarps, G,
+// d), their (max, normalizer) pairs (kWarps, G, 2), the merge flag and
+// the unit's query rows (G, d), first; a multiple of 4 floats.
 template <int G>
 __host__ __device__ constexpr size_t item_smem_floats(int d) {
-  return (size_t)kWarps * G * d + (size_t)kWarps * G * 2;
+  return (size_t)G * d + (size_t)kWarps * G * d + (size_t)kWarps * G * 2 + 4;
 }
 
-// Work item `item` = (slot, kv head, head chunk) of a (b, h, d) query
-// block, out (b, h, d) in T. `lengths` (b,) counts each slot's valid
-// positions; `table` is the (b, mb) int32 block table. `smem` holds
-// item_smem_floats<G>(d) floats; all kThreads threads of the CTA call
-// this together, and it ends in a barrier, so the caller may start the
-// next item at once.
-template <typename T, typename KV, int G, typename QLoad>
+// The kThreads threads that run a work unit: a whole CTA (barrier
+// __syncthreads), or with `id` > 0 the id-th group of kThreads threads of
+// a larger CTA, synchronised by named barrier `id`.
+struct UnitThreads {
+  int id;
+  __device__ __forceinline__ int tid() const {
+    return id ? threadIdx.x - (id - 1) * kThreads : threadIdx.x;
+  }
+  __device__ __forceinline__ void sync() const {
+    if (id)
+      asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kThreads));
+    else
+      __syncthreads();
+  }
+};
+
+// Scratch of one unit's partial state: G heads of (acc[d], m, l).
+template <int G>
+__host__ __device__ constexpr size_t unit_part_floats(int d) {
+  return (size_t)G * (d + 2);
+}
+
+// The split of a table walk: `nc` chunks of `ce` entries. `part` holds
+// unit_part_floats<G>(d) floats per (item, chunk) and `tickets` one int
+// per item, zero before the launch (the merging unit leaves it zero);
+// both are unused when nc == 1.
+struct Split {
+  int ce, nc;
+  float* part;
+  int* tickets;
+};
+
+// Work unit (item, chunk) of a (b, h, d) query block, item = (slot, kv
+// head, head chunk), out (b, h, d) in T. `lengths` (b,) counts each
+// slot's valid positions; `table` is the (b, mb) int32 block table.
+// `smem` holds item_smem_floats<G>(d) floats; the kThreads threads of
+// `threads` call this together, and it ends in their barrier, so the
+// caller may start the next unit at once. R rows of K and V are in flight
+// per lane. The unit's query rows are read once (`qload`, one element a
+// thread) into shared memory, where every lane of a row position finds
+// its V elements.
+template <typename T, typename KV, int G, int R = kRows, typename QLoad>
 __device__ __forceinline__ void decode_item(
-    int item, const QLoad& qload, const KV& kv, const int* table,
-    const int* lengths, T* out, int h, int kvh, int d, int bs, int mb,
-    float scale, float* smem) {
+    int item, int chunk, const Split& split, const QLoad& qload,
+    const KV& kv, const int* table, const int* lengths, T* out, int h,
+    int kvh, int d, int bs, int mb, float scale, float* smem,
+    UnitThreads threads = {0}) {
   constexpr int V = KV::V;
+  const int tid = threads.tid();
   const int g = h / kvh;
   const int chunks = (g + G - 1) / G;
   const int hc = item % chunks;
@@ -161,146 +213,200 @@ __device__ __forceinline__ void decode_item(
   const int slot = item / (chunks * kvh);
   const int h0 = kh * g + hc * G;          // the item's first query head
   const int ng = min(G, g - hc * G);       // the query heads it computes
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
   const int lpp = d / V;                   // lanes per row (power of two)
   const int ppw = 32 / lpp;                // rows per warp-wide load
   const int c = lane % lpp, tl = lane / lpp;
   const int npl = (bs + ppw - 1) / ppw;    // rows per lane per block
 
-  float qr[G][V], acc[G][V], m[G], l[G];
-#pragma unroll
-  for (int hh = 0; hh < G; ++hh) {
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      qr[hh][e] = hh < ng ? qload(slot, h0 + hh, c * V + e, h, d) : 0.f;
-      acc[hh][e] = 0.f;
-    }
-    m[hh] = kNeg;
-    l[hh] = 0.f;
-  }
-
   const int length = lengths[slot];
   const int nblk = min((length + bs - 1) / bs, mb);
-  const int* trow = table + (size_t)slot * mb;
-  int next = warp < nblk ? trow[warp] : 0;
-  for (int j = warp; j < nblk; j += kWarps) {
-    const size_t blk = (size_t)next;
-    if (j + kWarps < nblk) next = trow[j + kWarps];
-    for (int i0 = 0; i0 < npl; i0 += kRows) {
-      typename KV::Vec kx[kRows] = {}, vx[kRows] = {};
-      bool valid[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int t = (i0 + i) * ppw + tl;
-        valid[i] = i0 + i < npl && t < bs && j * bs + t < length;
-        if (i0 + i < npl && t < bs) {
-          const size_t row = (blk * bs + t) * kvh + kh;
-          kx[i] = kv.load_k(row, d, c);
-          vx[i] = kv.load_v(row, d, c);
-        }
-      }
-      // scores; i0 + i < npl is the same on every lane of the warp
-      float s[kRows][G];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (i0 + i >= npl) continue;
-        float kf[V];
-        KV::expand(kx[i], kf);
-#pragma unroll
-        for (int hh = 0; hh < G; ++hh) {
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < V; ++e) dot += qr[hh][e] * kf[e];
-          for (int o = lpp >> 1; o > 0; o >>= 1)
-            dot += __shfl_xor_sync(kFull, dot, o);
-          s[i][hh] = dot * scale;
-        }
-      }
-      // online-softmax fold of this lane's rows
-      float p[kRows][G];
-#pragma unroll
-      for (int hh = 0; hh < G; ++hh) {
-        float mx = m[hh];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          if (valid[i]) mx = fmaxf(mx, s[i][hh]);
-        const float corr = expf(m[hh] - mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          p[i][hh] = valid[i] ? expf(s[i][hh] - mx) : 0.f;
-          sum += p[i][hh];
-        }
-        l[hh] = l[hh] * corr + sum;
-        m[hh] = mx;
-#pragma unroll
-        for (int e = 0; e < V; ++e) acc[hh][e] *= corr;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (!valid[i]) continue;
-        float vf[V];
-        KV::expand(vx[i], vf);
-#pragma unroll
-        for (int hh = 0; hh < G; ++hh)
-#pragma unroll
-          for (int e = 0; e < V; ++e) acc[hh][e] += p[i][hh] * vf[e];
-      }
-    }
-  }
+  const int jb = chunk * split.ce;
+  const int je = min(jb + split.ce, nblk);
+  // chunk 0 always runs (an empty row leaves m = -1e30, l = 0)
+  const bool empty = chunk > 0 && jb >= nblk;
+  float* q_s = smem;                            // (G, d)
+  float* acc_s = q_s + G * d;                   // (kWarps, G, d)
+  float* ml_s = acc_s + (size_t)kWarps * G * d;  // (kWarps, G, 2)
+  int* last_unit = reinterpret_cast<int*>(ml_s + kWarps * G * 2);
+  float* part = split.nc > 1 ? split.part + ((size_t)item * split.nc +
+                                             chunk) * unit_part_floats<G>(d)
+                             : nullptr;
 
-  // merge the warp's row groups (lanes c, c + lpp, ...): rescale each to
-  // the warp's max, then sum
-#pragma unroll
-  for (int hh = 0; hh < G; ++hh) {
-    float mw = m[hh];
-    for (int o = lpp; o < 32; o <<= 1)
-      mw = fmaxf(mw, __shfl_xor_sync(kFull, mw, o));
-    const float w = expf(m[hh] - mw);
-    float lw = l[hh] * w;
-    for (int o = lpp; o < 32; o <<= 1) lw += __shfl_xor_sync(kFull, lw, o);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      float a = acc[hh][e] * w;
-      for (int o = lpp; o < 32; o <<= 1) a += __shfl_xor_sync(kFull, a, o);
-      acc[hh][e] = a;
-    }
-    m[hh] = mw;
-    l[hh] = lw;
-  }
-  // merge the warps in shared memory
-  float* acc_s = smem;                          // (kWarps, G, d)
-  float* ml_s = smem + (size_t)kWarps * G * d;  // (kWarps, G, 2)
-  if (tl == 0) {
-#pragma unroll
-    for (int hh = 0; hh < G; ++hh)
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        acc_s[(warp * G + hh) * d + c * V + e] = acc[hh][e];
-  }
-  if (lane == 0) {
+  if (!empty) {
+    for (int e = tid; e < ng * d; e += kThreads)
+      q_s[e] = qload(slot, h0 + e / d, e % d, h, d);
+    threads.sync();
+    float qr[G][V], acc[G][V], m[G], l[G];
 #pragma unroll
     for (int hh = 0; hh < G; ++hh) {
-      ml_s[(warp * G + hh) * 2] = m[hh];
-      ml_s[(warp * G + hh) * 2 + 1] = l[hh];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        qr[hh][e] = hh < ng ? q_s[hh * d + c * V + e] : 0.f;
+        acc[hh][e] = 0.f;
+      }
+      m[hh] = kNeg;
+      l[hh] = 0.f;
+    }
+
+    const int* trow = table + (size_t)slot * mb;
+    int next = jb + warp < je ? trow[jb + warp] : 0;
+    for (int j = jb + warp; j < je; j += kWarps) {
+      const size_t blk = (size_t)next;
+      if (j + kWarps < je) next = trow[j + kWarps];
+      for (int i0 = 0; i0 < npl; i0 += R) {
+        typename KV::Vec kx[R] = {}, vx[R] = {};
+        bool valid[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int t = (i0 + i) * ppw + tl;
+          valid[i] = i0 + i < npl && t < bs && j * bs + t < length;
+          if (i0 + i < npl && t < bs) {
+            const size_t row = (blk * bs + t) * kvh + kh;
+            kx[i] = kv.load_k(row, d, c);
+            vx[i] = kv.load_v(row, d, c);
+          }
+        }
+        // scores; i0 + i < npl is the same on every lane of the warp
+        float s[R][G];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (i0 + i >= npl) continue;
+          float kf[V];
+          KV::expand(kx[i], kf);
+#pragma unroll
+          for (int hh = 0; hh < G; ++hh) {
+            float dot = 0.f;
+#pragma unroll
+            for (int e = 0; e < V; ++e) dot += qr[hh][e] * kf[e];
+            for (int o = lpp >> 1; o > 0; o >>= 1)
+              dot += __shfl_xor_sync(kFull, dot, o);
+            s[i][hh] = dot * scale;
+          }
+        }
+        // online-softmax fold of this lane's rows
+        float p[R][G];
+#pragma unroll
+        for (int hh = 0; hh < G; ++hh) {
+          float mx = m[hh];
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            if (valid[i]) mx = fmaxf(mx, s[i][hh]);
+          const float corr = expf(m[hh] - mx);
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            p[i][hh] = valid[i] ? expf(s[i][hh] - mx) : 0.f;
+            sum += p[i][hh];
+          }
+          l[hh] = l[hh] * corr + sum;
+          m[hh] = mx;
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[hh][e] *= corr;
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (!valid[i]) continue;
+          float vf[V];
+          KV::expand(vx[i], vf);
+#pragma unroll
+          for (int hh = 0; hh < G; ++hh)
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[hh][e] += p[i][hh] * vf[e];
+        }
+      }
+    }
+
+    // merge the warp's row groups (lanes c, c + lpp, ...): rescale each
+    // to the warp's max, then sum
+#pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+      float mw = m[hh];
+      for (int o = lpp; o < 32; o <<= 1)
+        mw = fmaxf(mw, __shfl_xor_sync(kFull, mw, o));
+      const float w = expf(m[hh] - mw);
+      float lw = l[hh] * w;
+      for (int o = lpp; o < 32; o <<= 1) lw += __shfl_xor_sync(kFull, lw, o);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float a = acc[hh][e] * w;
+        for (int o = lpp; o < 32; o <<= 1) a += __shfl_xor_sync(kFull, a, o);
+        acc[hh][e] = a;
+      }
+      m[hh] = mw;
+      l[hh] = lw;
+    }
+    // merge the warps in shared memory
+    if (tl == 0) {
+#pragma unroll
+      for (int hh = 0; hh < G; ++hh)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          acc_s[(warp * G + hh) * d + c * V + e] = acc[hh][e];
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int hh = 0; hh < G; ++hh) {
+        ml_s[(warp * G + hh) * 2] = m[hh];
+        ml_s[(warp * G + hh) * 2 + 1] = l[hh];
+      }
+    }
+    threads.sync();
+    for (int e = tid; e < ng * d; e += kThreads) {
+      const int hh = e / d, i = e - hh * d;
+      float mx = kNeg;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        mx = fmaxf(mx, ml_s[(w * G + hh) * 2]);
+      float lt = 0.f, a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(ml_s[(w * G + hh) * 2] - mx);
+        lt += f * ml_s[(w * G + hh) * 2 + 1];
+        a += f * acc_s[(w * G + hh) * d + i];
+      }
+      if (split.nc == 1) {
+        out[((size_t)slot * h + h0 + hh) * d + i] = from_f32<T>(a / lt);
+      } else {
+        part[hh * (d + 2) + i] = a;
+        if (i == 0) {
+          part[hh * (d + 2) + d] = mx;
+          part[hh * (d + 2) + d + 1] = lt;
+        }
+      }
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < ng * d; e += kThreads) {
-    const int hh = e / d, i = e - hh * d;
-    float mx = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ml_s[(w * G + hh) * 2]);
-    float lt = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(ml_s[(w * G + hh) * 2] - mx);
-      lt += f * ml_s[(w * G + hh) * 2 + 1];
-      a += f * acc_s[(w * G + hh) * d + i];
+  if (split.nc > 1) {
+    // the ticket: the unit that finishes an item's walk last merges it
+    __threadfence();
+    threads.sync();
+    if (tid == 0)
+      *last_unit = atomicAdd(split.tickets + item, 1) == split.nc - 1;
+    threads.sync();
+    if (*last_unit) {
+      __threadfence();
+      const float* ip = split.part + (size_t)item * split.nc *
+                                         unit_part_floats<G>(d);
+      const int nv = max(1, min(split.nc, (nblk + split.ce - 1) / split.ce));
+      for (int e = tid; e < ng * d; e += kThreads) {
+        const int hh = e / d, i = e - hh * d;
+        float mx = kNeg;
+        for (int u = 0; u < nv; ++u)
+          mx = fmaxf(mx, __ldcg(ip + u * unit_part_floats<G>(d) +
+                                hh * (d + 2) + d));
+        float lt = 0.f, a = 0.f;
+        for (int u = 0; u < nv; ++u) {
+          const float* pu = ip + u * unit_part_floats<G>(d) + hh * (d + 2);
+          const float f = expf(__ldcg(pu + d) - mx);
+          lt += f * __ldcg(pu + d + 1);
+          a += f * __ldcg(pu + i);
+        }
+        out[((size_t)slot * h + h0 + hh) * d + i] = from_f32<T>(a / lt);
+      }
+      if (tid == 0) split.tickets[item] = 0;
     }
-    out[((size_t)slot * h + h0 + hh) * d + i] = from_f32<T>(a / lt);
   }
-  __syncthreads();
+  threads.sync();
 }
 
 }  // namespace pt_paged

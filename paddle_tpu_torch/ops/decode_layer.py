@@ -26,11 +26,12 @@ import torch
 from . import build, plain_active
 from .fused import _rot, rms_norm_reference
 from .paged_attention import (_int8_decode_plain, paged_attention_reference,
-                              write_paged_kv)
+                              split_plan, write_paged_kv)
 
 __all__ = ["ARG_LAYOUT", "WEIGHT_NAMES", "N_WEIGHTS", "N_CACHE", "MAX_SLOTS",
            "split_args", "decode_layer_reference", "kernel_viable", "decode_layer", "decode_layer_int8",
-           "DecodeLayerScratch", "FusedDecode"]
+           "DecodeLayerScratch", "FusedDecode", "PHASES", "phase_us",
+           "BAND_ROWS", "product_plan", "layer_plan"]
 
 ARG_LAYOUT = ("x", "cos", "sin", "eps1", "eps2", "pos", "aux",
               "*cache", "*weights")
@@ -38,8 +39,18 @@ WEIGHT_NAMES = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd")
 N_WEIGHTS = len(WEIGHT_NAMES)
 N_CACHE = {"dense": 2, "paged": 2, "paged_int8": 4}
 N_FIXED = 7          # x, cos, sin, eps1, eps2, pos, aux
-# slots the kernel takes: one fp32 partial sum per slot per lane
+# slots the kernel takes: four tensor-core tiles of 8 slots
 MAX_SLOTS = 32
+# weight rows of one split-K work item of the megakernel (64 of the gate
+# and 64 of the up product for the paired one)
+BAND_ROWS = 128
+# an item's fixed cost (staging, partial sums, ticket) in K columns, for
+# the plan's cost model
+_ITEM_COST = 64
+# attention units of the megakernel's split table walk per CTA: each CTA
+# runs two at a time
+WALK_UNITS_PER_CTA = 2
+_grids = {}
 # the (S, d) products read weight rows in 16-byte vectors, the attention
 # phase one head row in at most 32 lanes of 16 bytes
 _VEC_ELEMS = {"paged": 4, "paged_int8": 16}
@@ -159,13 +170,67 @@ def kernel_viable(mode, x, cache, weights, window=None) -> bool:
     return _refusal(mode, x, cache, tuple(weights), window) is None
 
 
+def product_plan(n_out: int, k: int, grid: int, pair: bool = False):
+    """(bands, ks, kslice): the split-K plan of one megakernel product of
+    ``n_out`` output rows over ``k`` input columns on ``grid`` CTAs.
+    Items are bands of :data:`BAND_ROWS` rows (``pair``: half as many
+    output columns, gate and up rows together) times ``ks`` K-slices of
+    ``kslice`` columns, a multiple of 32 (the last slice may be
+    shorter). The plan fills the card, at least ``grid`` items where
+    there are enough columns, and among those takes the ``ks`` (1-64)
+    whose items end soonest: whole waves times (``kslice`` + an item's
+    fixed cost); the fewest slices on a tie."""
+    bands = -(-n_out // (BAND_ROWS // 2 if pair else BAND_ROWS))
+    best = None
+    for split in range(1, 65):
+        kslice = -(-(-(-k // split)) // 32) * 32     # ceil(k / split), 32s
+        ks = -(-k // kslice)
+        items = bands * ks
+        cost = (items < grid, -(-items // grid) * (kslice + _ITEM_COST)
+                if items >= grid else -items)
+        if best is None or cost < best[0]:
+            best = (cost, (bands, ks, kslice))
+    return best[1]
+
+
+def layer_plan(S, d, h, dh, ff, mb, grid):
+    """The host plan of one megakernel launch on ``grid`` CTAs, the
+    kernel's 14 plan ints: (bands, ks, kslice) of the q, o, gate/up and
+    down products, then the attention walk's (ce, nc), chunks enough to
+    bring the S * h items up to the two units each CTA runs at once
+    (handed out by a counter, so short and long units balance)."""
+    hd = h * dh
+    plan = [*product_plan(hd, d, grid), *product_plan(d, hd, grid),
+            *product_plan(ff, d, grid, pair=True), *product_plan(d, ff, grid)]
+    return plan + list(split_plan(S * h, mb, WALK_UNITS_PER_CTA * grid))
+
+
+def _scratch_sizes(S, d, h, dh, ff, plan):
+    """Float counts of the scratch regions q, attn, h1, act, sq and the
+    partial sums (each a multiple of 4 floats, so every region starts
+    16-byte aligned), and the tickets' int count (the attention unit
+    counter, then one per band or attention item)."""
+    hd = h * dh
+    prods = [plan[i:i + 3] for i in range(0, 12, 3)]
+    items = S * h
+    part = max([b * ks * S * BAND_ROWS for b, ks, _ in prods]
+               + [items * plan[13] * (dh + 2)])
+    sizes = [S * hd, S * hd, S * d, S * ff, prods[1][0] * S, part]
+    return [-(-n // 4) * 4 for n in sizes], 1 + max(
+        [b for b, _, _ in prods] + [items])
+
+
 class DecodeLayerScratch:
-    """The megakernel's device scratch, q, attention, h1 and the MLP
-    activation of S rows (a few hundred KB at 7B width): one fp32 buffer
-    kept across calls and grown when a call needs more."""
+    """The megakernel's device scratch: q, attention, h1, the MLP
+    activation and the products' partial sums of S rows (a few MB at 7B
+    width) in one fp32 buffer, and the per-band tickets of its split-K
+    reductions and table-walk merges (zeroed once: the kernel leaves them
+    zero). Both are kept across calls and grown when a call needs
+    more."""
 
     def __init__(self):
         self._buf = None
+        self._tickets = None
 
     def get(self, numel: int, device) -> torch.Tensor:
         buf = self._buf
@@ -173,6 +238,13 @@ class DecodeLayerScratch:
             buf = self._buf = torch.empty(numel, dtype=torch.float32,
                                           device=device)
         return buf
+
+    def tickets(self, n: int, device) -> torch.Tensor:
+        t = self._tickets
+        if t is None or t.numel() < n or t.device != device:
+            t = self._tickets = torch.zeros(n, dtype=torch.int32,
+                                            device=device)
+        return t
 
 
 class FusedDecode:
@@ -199,25 +271,50 @@ def _kernel(mode):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(build.load("decode_layer"), name)
-        # x, cos, sin; the cache; table, lengths; the seven weights the
-        # kernel reads (wk and wv are the prologue's); scratch, out
-        n_ptr = 3 + N_CACHE[mode] + 2 + 7 + 2
-        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_float] * 3 \
+        # x, r1, cos, sin; the cache; table, lengths; the six weights the
+        # kernel reads (ln1, wk and wv are the prologue's)
+        n_ptr = 4 + N_CACHE[mode] + 2 + 6
+        fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_float] * 2 \
             + [ctypes.c_void_p] * n_ptr \
+            + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)] \
+            + [ctypes.c_void_p] * 3 \
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
+def _grid(mode, S, dh, device) -> int:
+    """The CTAs of one cooperative launch (occupancy x SMs), which the
+    host plan is made for; cached per device and shape."""
+    key = (device.index, mode, S, dh)
+    if key not in _grids:
+        fn = _fns.get("pt_decode_layer_grid")
+        if fn is None:
+            fn = build.load("decode_layer").pt_decode_layer_grid
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            _fns["pt_decode_layer_grid"] = fn
+        grid = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(S, dh, int(mode == "paged_int8"), ctypes.byref(grid))
+        if rc != 0:
+            raise RuntimeError(f"decode_layer kernel: no grid for {S} slots "
+                               f"(CUDA error {rc})")
+        _grids[key] = grid.value
+    return _grids[key]
+
+
 def _launch(mode, x, cos, sin, eps1, eps2, pos, table, cache, wts,
-            scratch):
+            scratch, stamps):
     """The prologue in torch, then one cooperative launch of
     ``csrc/decode_layer.cu``. Prologue (JAX's ``:382-409``): RMSNorm #1
-    in fp32, the k and v products (``torch.matmul``, outside the kernel
-    as in JAX), RoPE on k at each row's position, trash-block routing of
-    out-of-range positions, the arena write (``quantize_kv`` for
-    int8)."""
+    in fp32 (its output r1 is also the q product's input), the k and v
+    products (``torch.matmul``, outside the kernel as in JAX), RoPE on k
+    at each row's position, trash-block routing of out-of-range
+    positions, the arena write (``quantize_kv`` for int8). The host plan
+    (:func:`layer_plan`) depends on the shapes alone: nothing is read
+    back from the device."""
     reason = _refusal(mode, x, cache, wts, None)
     if reason is not None:
         raise ValueError(f"decode_layer kernel refuses {reason}")
@@ -251,17 +348,22 @@ def _launch(mode, x, cos, sin, eps1, eps2, pos, table, cache, wts,
     k = k * c[:, None] + _rot(k) * sn[:, None]
     write_paged_kv(cache, k[:, None], v[:, None], pos[:, None], table)
     lengths = pos + 1
-    buf = scratch.get(S * (2 * hd + d + ff), x.device)
+    h = hd // dh
+    plan = layer_plan(S, d, h, dh, ff, mb, _grid(mode, S, dh, x.device))
+    sizes, n_tickets = _scratch_sizes(S, d, h, dh, ff, plan)
+    buf = scratch.get(sum(sizes), x.device)
+    regions = [buf.data_ptr() + 4 * sum(sizes[:i]) for i in range(6)]
     out = torch.empty_like(x)
     grid = ctypes.c_int(0)
     rc = _kernel(mode)(
-        S, d, hd // dh, kvh, dh, ff, bs, mb, float(eps1), float(eps2),
-        1.0 / math.sqrt(dh), x2.data_ptr(), c.data_ptr(), sn.data_ptr(),
+        S, d, h, kvh, dh, ff, bs, mb, float(eps2), 1.0 / math.sqrt(dh),
+        x2.data_ptr(), r1.data_ptr(), c.data_ptr(), sn.data_ptr(),
         *[t.data_ptr() for t in cache], table.data_ptr(),
         lengths.data_ptr(),
-        *[w.data_ptr() for w in (ln1, wq, wo, ln2, wg, wu, wd)],
-        buf.data_ptr(),
-        out.data_ptr(), ctypes.byref(grid),
+        *[w.data_ptr() for w in (wq, wo, ln2, wg, wu, wd)],
+        (ctypes.c_int * 14)(*plan), (ctypes.c_void_p * 6)(*regions),
+        scratch.tickets(n_tickets, x.device).data_ptr(), out.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), ctypes.byref(grid),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_layer kernel launch failed: CUDA error "
@@ -270,7 +372,7 @@ def _launch(mode, x, cos, sin, eps1, eps2, pos, table, cache, wts,
 
 
 def decode_layer(mode, x, cos, sin, eps1, eps2, pos, table, *rest,
-                 scratch=None):
+                 scratch=None, stamps=None):
     """One Llama decode layer for S slots at s = 1: mode ``paged`` (fp32
     arena) or ``paged_int8``, arguments in :data:`ARG_LAYOUT` order with
     the weights as ``nn.Linear`` stores them, (out, in) — taken without a
@@ -282,7 +384,12 @@ def decode_layer(mode, x, cos, sin, eps1, eps2, pos, table, *rest,
     torch prologue and launches ``csrc/decode_layer.cu`` once, or
     raises: a shape the kernel does not take (:func:`kernel_viable`) is
     a ValueError, a failed launch a RuntimeError. ``scratch`` is a
-    :class:`DecodeLayerScratch` to reuse (a fresh one otherwise)."""
+    :class:`DecodeLayerScratch` to reuse (a fresh one otherwise).
+    ``stamps``, for measurement only, is an int64 CUDA tensor of 6 that
+    the kernel fills with ``%globaltimer`` nanoseconds: at entry, after
+    each of phases A-D's grid barriers and after a barrier at the end
+    (:func:`phase_us` turns them into each phase's microseconds); the
+    serving path passes none."""
     _, cache, wts = split_args(mode, (None,) * N_FIXED + tuple(rest))
     if x.device.type == "cpu" or plain_active():
         lin = (1, 2, 3, 4, 6, 7, 8)
@@ -292,8 +399,13 @@ def decode_layer(mode, x, cos, sin, eps1, eps2, pos, table, *rest,
                                       table, *cache, *wts_in_out)
     if x.device.type != "cuda":
         raise RuntimeError(f"decode_layer: no kernel for device {x.device}")
+    if stamps is not None and (stamps.device != x.device
+                               or stamps.dtype != torch.int64
+                               or stamps.numel() != 6):
+        raise ValueError("decode_layer: stamps must be an int64 tensor of "
+                         "6 on x's device")
     out = _launch(mode, x, cos, sin, eps1, eps2, pos, table, cache, wts,
-                  scratch or DecodeLayerScratch())
+                  scratch or DecodeLayerScratch(), stamps)
     if mode == "paged_int8":
         decode_layer_int8.launches += 1
     else:
@@ -302,11 +414,20 @@ def decode_layer(mode, x, cos, sin, eps1, eps2, pos, table, *rest,
 
 
 def decode_layer_int8(x, cos, sin, eps1, eps2, pos, table, *rest,
-                      scratch=None):
+                      scratch=None, stamps=None):
     """:func:`decode_layer` over the int8 arena (mode ``paged_int8``);
     its launches count here."""
     return decode_layer("paged_int8", x, cos, sin, eps1, eps2, pos, table,
-                        *rest, scratch=scratch)
+                        *rest, scratch=scratch, stamps=stamps)
+
+
+PHASES = ("A q", "B attention", "C o", "D gate/up", "E down")
+
+
+def phase_us(stamps) -> dict:
+    """{phase: microseconds} from a launch's 6 ``stamps``."""
+    t = [int(v) for v in stamps.tolist()]
+    return {name: (t[i + 1] - t[i]) / 1e3 for i, name in enumerate(PHASES)}
 
 
 decode_layer.launches = 0

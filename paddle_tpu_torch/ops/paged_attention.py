@@ -22,7 +22,8 @@ from . import build, plain_active
 __all__ = ["paged_gather", "write_paged_kv", "paged_attention_reference",
            "paged_attention_decode", "dense_attention", "quantize_kv",
            "dequantize_kv", "kv_int8_error_bound",
-           "paged_attention_int8_reference", "paged_attention_decode_int8"]
+           "paged_attention_int8_reference", "paged_attention_decode_int8",
+           "split_plan", "walk_plan", "heads_per_item"]
 
 NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,6 +33,16 @@ _QMAX = 127.0
 _INV127 = float(torch.tensor(1.0) / 127)
 _fn = None
 _fn_int8 = None
+# the split table walk: at least KV_WARPS table entries a chunk (one per
+# warp of a work unit)
+KV_WARPS = 4
+# per device: the zeroed per-item tickets of the split walk's merge (the
+# merging unit leaves its ticket zero, so the buffer stays zero between
+# launches; launches on one device share it, in stream order)
+_tickets = {}
+# per (device, q dtype, arena, g, d): the CTAs of the kernel instance
+# that fit on the card at once
+_slots = {}
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +195,93 @@ def _int8_decode_plain(q, k_codes, v_codes, k_scales, v_scales,
     return (acc / den).reshape(b, h, d).to(q.dtype)
 
 
+def split_plan(items: int, mb: int, target: int):
+    """(ce, nc): the split of every work item's table walk into ``nc``
+    chunks of ``ce`` entries of a table ``mb`` entries wide, as many
+    chunks as bring ``items`` items up to ``target`` work units, at most
+    one per :data:`KV_WARPS` entries. A function of the shapes alone:
+    nothing reads the lengths, so the launch needs no host sync. Chunk
+    c covers entries ``[c * ce, min((c + 1) * ce, mb))``; a chunk at or
+    past a row's ``ceil(length / block_size)`` entries exits at once."""
+    n = -(-target // items) if items > 0 else 1
+    n = max(1, min(n, -(-mb // KV_WARPS)))
+    ce = max(1, -(-mb // n))
+    return ce, max(1, -(-mb // ce))
+
+
+def heads_per_item(g: int) -> int:
+    """Query heads of one GQA group that one work item computes: the
+    kernel's instances take 1, 2 or 4."""
+    return g if g in (1, 2) else 4
+
+
+def _resident_ctas(q, int8, g, d):
+    """CTAs of the kernel instance for this call that fit on the card at
+    once (occupancy x SMs), cached."""
+    dev = q.device
+    key = (dev.index, q.dtype, int8, g, d)
+    if key not in _slots:
+        fn = build.load("paged_attention").pt_paged_attention_occupancy
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = fn(_DTYPE_CODE[q.dtype], int(int8), g, d,
+                    ctypes.byref(per_sm))
+        if rc != 0:
+            raise RuntimeError(f"paged decode kernel: occupancy query "
+                               f"failed: CUDA error {rc}")
+        _slots[key] = per_sm.value * torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _slots[key]
+
+
+def walk_plan(items: int, mb: int, slots: int):
+    """(ce, nc) of a standalone launch of ``items`` work items on a card
+    that holds ``slots`` of its CTAs at once: one chunk when the items
+    already fill half of the slots (a split would only queue units
+    behind each other), else :func:`split_plan` up to the slots."""
+    if 2 * items >= slots:
+        return max(mb, 1), 1
+    return split_plan(items, mb, slots)
+
+
+def _split_args(q, int8, b, h, kvh, d, mb):
+    """(ce, nc, part, tickets) of a standalone launch (:func:`walk_plan`);
+    with more than one chunk, the partial states ``(items, nc, heads,
+    d + 2)`` fp32, fresh per call (stream-ordered), and the device's
+    zeroed tickets, one per item (else None, None)."""
+    g = h // kvh
+    heads = heads_per_item(g)
+    items = b * kvh * -(-g // heads)
+    ce, nc = walk_plan(items, mb, _resident_ctas(q, int8, g, d))
+    if nc == 1:
+        return ce, nc, None, None
+    part = torch.empty(items * nc * heads * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    key = (q.device.type, q.device.index)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < items:
+        tickets = torch.zeros(max(items, 4096), dtype=torch.int32,
+                              device=q.device)
+        # a buffer made during a CUDA graph capture lives in the graph's
+        # pool: the graph zeroes it on each replay, and it is not kept
+        if not torch.cuda.is_current_stream_capturing():
+            _tickets[key] = tickets
+    return ce, nc, part, tickets
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("paged_attention").pt_paged_attention_decode
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -249,7 +341,10 @@ def paged_attention_decode(q, k_arena, v_arena, block_table, lengths, *,
     the block table; lengths (b,) = valid positions per slot, the
     just-written current token included. A CPU tensor takes the plain
     version (the gathered-dense reference); a CUDA tensor launches
-    ``csrc/paged_attention.cu`` or raises."""
+    ``csrc/paged_attention.cu`` once or raises. When the work items fill
+    less than half of the card (:func:`walk_plan`), the launch splits
+    each item's table walk into chunks and merges them in chunk order
+    in the same launch."""
     if q.device.type == "cpu" or plain_active():
         return paged_attention_reference(q[:, None], k_arena, v_arena,
                                          block_table, lengths,
@@ -265,10 +360,11 @@ def paged_attention_decode(q, k_arena, v_arena, block_table, lengths, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    ce, nc, part, tickets = _split_args(q, False, b, h, kvh, d, mb)
     rc = _kernel()(_DTYPE_CODE[q.dtype], q.data_ptr(), k_arena.data_ptr(),
                    v_arena.data_ptr(), block_table.data_ptr(),
                    lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, bs,
-                   mb, float(scale),
+                   mb, float(scale), ce, nc, _ptr(part), _ptr(tickets),
                    torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -285,7 +381,8 @@ def _kernel_int8():
     if _fn_int8 is None:
         fn = build.load("paged_attention").pt_paged_attention_decode_int8
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         _fn_int8 = fn
     return _fn_int8
@@ -298,7 +395,8 @@ def paged_attention_decode_int8(q, k_codes, v_codes, k_scales, v_scales,
     scales (nb, bs, kvh) fp32, lengths (b,) = valid positions per slot.
     A CPU tensor takes the plain version (the per-block loop of
     ``_int8_decode_fallback``); a CUDA tensor launches the int8 entry of
-    ``csrc/paged_attention.cu`` or raises. Output in q's dtype."""
+    ``csrc/paged_attention.cu`` once or raises, the walk split as in
+    :func:`paged_attention_decode`. Output in q's dtype."""
     if q.device.type == "cpu" or plain_active():
         return _int8_decode_plain(q, k_codes, v_codes, k_scales, v_scales,
                                   block_table, lengths, scale=scale)
@@ -313,11 +411,12 @@ def paged_attention_decode_int8(q, k_codes, v_codes, k_scales, v_scales,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    ce, nc, part, tickets = _split_args(q, True, b, h, kvh, d, mb)
     rc = _kernel_int8()(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_codes.data_ptr(),
         v_codes.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-        kvh, d, bs, mb, float(scale),
+        kvh, d, bs, mb, float(scale), ce, nc, _ptr(part), _ptr(tickets),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_decode_int8 kernel launch "

@@ -94,6 +94,69 @@ def test_paged_attention_kernel_matches_plain(dev, kvh, dtype):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+def _walk_plan(q, int8, kvh, mb):
+    """The (ce, nc) split of the standalone paged-decode launch for q on
+    this card."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        _resident_ctas, heads_per_item, walk_plan)
+    b, h, d = q.shape
+    g = h // kvh
+    items = b * kvh * -(-g // heads_per_item(g))
+    return walk_plan(items, mb, _resident_ctas(q, int8, g, d))
+
+
+@pytest.mark.parametrize("arena", ["float32", "bfloat16", "int8"])
+def test_paged_decode_split_walk_chunk_boundaries(dev, arena):
+    """GQA (8 kv heads of 32) with lengths on the split walk's chunk
+    boundaries: a chunk's last row, the next chunk's first, a whole
+    table, one entry past a chunk, a length past the table and length
+    1; the kernel against its plain version (tolerances of the main
+    tests) and two launches bit-identical (fixed merge order)."""
+    b, h, kvh, d, bs, mb = 8, 32, 8, 128, 16, 64
+    dtype = torch.float32 if arena == "int8" else getattr(torch, arena)
+    ce, nc = _walk_plan(torch.empty(b, h, d, dtype=dtype, device=dev),
+                        arena == "int8", kvh, mb)
+    assert nc > 1
+    span = ce * bs
+    lengths = [span, span + 1, mb * bs, 2 * span - 1, mb * bs + 40, 1,
+               span - 1, bs * (ce + 1)]
+    g = torch.Generator(device=dev).manual_seed(7)
+    nb = 1 + b * mb
+    table = torch.zeros(b, mb, dtype=torch.int32)
+    perm = (torch.randperm(nb - 1, generator=torch.Generator()
+                           .manual_seed(7)) + 1).tolist()
+    for r, L in enumerate(lengths):
+        n = min(-(-L // bs), mb)
+        table[r, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    table = table.to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = 1 / math.sqrt(d)
+    if arena == "int8":
+        q = torch.randn(b, h, d, generator=g, device=dev)
+        kc, ks = quantize_kv(torch.randn(nb, bs, kvh, d, generator=g,
+                                         device=dev))
+        vc, vs = quantize_kv(torch.randn(nb, bs, kvh, d, generator=g,
+                                         device=dev))
+        fn, args, tol = paged_attention_decode_int8, \
+            (q, kc, vc, ks, vs, table, lens), 1e-5
+    else:
+        q, ka, va = (torch.randn(*shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, h, d), (nb, bs, kvh, d),
+                                   (nb, bs, kvh, d)))
+        fn, args = paged_attention_decode, (q, ka, va, table, lens)
+        tol = 1e-5 if dtype == torch.float32 else 3e-2
+    before = fn.launches
+    got = fn(*args, scale=scale)
+    again = fn(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    with ops.plain_versions():
+        want = fn(*args, scale=scale)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
 def test_kernels_refuse_unsupported_inputs(dev):
     x = torch.randn(4, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -804,6 +867,45 @@ def test_decode_layer_kernel_matches_plain(dev, mode, S):
     # same torch ops); block 0 is the trash block
     for a, b in zip(c_kern, c_plain):
         torch.testing.assert_close(a[1:], b[1:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["paged", "paged_int8"])
+def test_decode_layer_kernel_at_7b_width(dev, mode):
+    """One Llama-2-7B-width layer (d 4096, 32 heads of 128, ff 11008) at
+    32 slots: the split-K plan's full slices and the tensor-core
+    products at the serving width, within the same tolerance rule, and
+    two launches bit-identical."""
+    from paddle_tpu_torch.ops.decode_layer import decode_layer
+    d, ff = 4096, 11008
+    fixed, cache, wts = _megakernel_case(dev, mode, 32, d=d, h=32, kvh=32,
+                                         dh=128, ff=ff, mb=4)
+    c_kern = [c.clone() for c in cache]
+    c_plain = [c.clone() for c in cache]
+    got = decode_layer(mode, *fixed, *c_kern, *wts)[0]
+    again = decode_layer(mode, *fixed, *c_kern, *wts)[0]
+    with ops.plain_versions():
+        want = decode_layer(mode, *fixed, *c_plain, *wts)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = float((got - want).abs().max())
+    assert err <= _megakernel_tol(d, ff), err
+
+
+@pytest.mark.parametrize("mode", ["paged", "paged_int8"])
+def test_decode_layer_kernel_is_deterministic(dev, mode):
+    """Two launches on the same inputs give the same bits: the split-K
+    sums and the table-walk merges run in fixed orders, with no float
+    atomics."""
+    from paddle_tpu_torch.ops.decode_layer import (DecodeLayerScratch,
+                                                   decode_layer)
+    for S in (3, 32):
+        fixed, cache, wts = _megakernel_case(dev, mode, S)
+        scratch = DecodeLayerScratch()
+        outs = [decode_layer(mode, *fixed, *cache, *wts,
+                             scratch=scratch)[0] for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert torch.equal(outs[0], outs[2])
 
 
 def test_decode_layer_refuses_and_never_falls_back(dev):
