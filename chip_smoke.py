@@ -24,26 +24,35 @@ Phases, each of which raises on failure (nothing is caught):
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
    published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
-   one sampled stream (threefry, as ``jax.random``). Outputs, block
-   accounting, exact launch counts, one decode step's log-probs with the
-   kernels against the plain versions, and one profiled decode block.
+   one sampled stream (threefry, as ``jax.random``). The engine captures
+   its decode block and its prefill chunk as one CUDA graph each when it
+   is built and replays them: both compile counts must be 1 after the
+   stream, and the capture seconds and each graph pool's bytes are
+   printed. Outputs, block accounting, exact launch counts (each replay
+   adds the launches its graph captured), one decode step's log-probs
+   with the kernels against the plain versions, and one profiled
+   (replayed) decode block with RMSNorm's kernel time inside it; the
+   kernels the profiler saw the device run in one replay must be, kernel
+   by kernel, the launches the graph captured.
 4. The int8 serving path on the same model: ``PagedEngine(num_slots=32,
    max_len=2048, kv_int8=True)``, whose 4097-block int8 arena (17.72 GB)
    fits beside the fp32 weights where an fp32 arena (68.7 GB) would
    not; 32 requests of 256-1744 prompt tokens, four sharing a prefix,
    two sampled. Outputs, block accounting, exact launch counts, the
-   error bound, one decode step with all 32 slots at lengths over 1024
-   (kernels against plain versions), one profiled decode block, and how
-   far the greedy streams agree with an fp32 arena's (reported, not
-   gated: quantized logits may diverge within the bound).
+   error bound, both compile counts 1, one decode step with all 32 slots
+   at lengths over 1024 (kernels against plain versions), one profiled
+   decode block, and how far the greedy streams agree with an fp32
+   arena's (reported, not gated: quantized logits may diverge within
+   the bound).
 5. Megakernel decode serving on the same model: the engines of
    phases 3 and 4 with ``megakernel=True`` (phase 4's engines freed
    first) serve the same requests; exact launch counts (the megakernel
    once per layer and decode step, the paged-decode kernels never),
-   ``megakernel_kernel_calls() == 32``, one decode step's log-probs
-   three ways (megakernel, unfused kernels, plain versions), one
-   profiled decode block, and decode step ms, decode tokens/s, the idle
-   share and greedy agreement beside the unfused engine's.
+   ``megakernel_kernel_calls() == 32``, both compile counts 1, greedy
+   streams token-identical to the unfused engine's of phases 3 and 4,
+   one decode step's log-probs three ways (megakernel, unfused kernels,
+   plain versions), one profiled decode block, and decode step ms,
+   decode tokens/s and the idle share beside the unfused engine's.
 6. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
    O2 bf16, ``AdamW(lr=1e-4, weight_decay=0.01)`` with fp32 masters,
    ``TrainStep`` on a 4 x 2048 batch from ``np.random.RandomState(0)``
@@ -1685,8 +1694,11 @@ def _check_launches(engine, counts, kernel):
     on) once per layer and decode step, the other decode kernels never
     (prefill chunks read through the gathered-dense sequence); RMSNorm
     2L + 1 times per prefill chunk and per unfused decode step, once
-    (the final norm) per megakernel decode step. With the megakernel,
-    every layer of the last step went through it."""
+    (the final norm) per megakernel decode step. The steps and chunks
+    are graph replays: each adds the launches its graph captured
+    (``serving.graphs``), so the formulas count launches the device ran.
+    With the megakernel, every layer of the last step went through
+    it."""
     L = engine.backend.model.config.num_hidden_layers
     mega = engine.megakernel()
     want = {k: 0 for k in ("paged_attention_decode",
@@ -1703,6 +1715,23 @@ def _check_launches(engine, counts, kernel):
         raise AssertionError(
             f"megakernel routing: {engine.megakernel_rewrites()} rewrites, "
             f"{engine.megakernel_kernel_calls()} kernel calls for {L} layers")
+
+
+def _check_graphs(engine, label):
+    """Both serving programs captured exactly once, when the engine was
+    built, and replayed over every served stream since; prints each
+    capture's seconds (warm-up and capture) and the bytes its graph's
+    memory pool reserved."""
+    counts = (engine.decode_compile_count(), engine.prefill_compile_count())
+    if counts != (1, 1):
+        raise AssertionError(f"{label}compile counts (decode, prefill) "
+                             f"{counts}, expected (1, 1)")
+    b = engine.backend
+    progs = (("decode block", b.decode_program),
+             ("prefill chunk", b.prefill_program))
+    print(f"{label}graphs: " + "; ".join(
+        f"{name} captured once in {p.capture_s:.3f} s, pool "
+        f"{p.graph_bytes / 2**20:.1f} MiB" for name, p in progs))
 
 
 def _print_serving(card, label, st, extra=""):
@@ -1779,6 +1808,7 @@ def serving_path(torch, card):
     rids, res, counts, wall = _serve_checked(torch, srv, engine, reqs,
                                              cfg.vocab_size)
     _check_launches(engine, counts, "paged_attention_decode")
+    _check_graphs(engine, "")
     print(f"served {len(rids)} requests in {wall:.2f} s: "
           f"{engine.steps} decode steps, {engine.prefill_chunks} prefill "
           f"chunks, launches {counts}")
@@ -1829,15 +1859,73 @@ def _arm_int8_check(engine, cfg):
         raise AssertionError("the log-prob check needs 32 live slots")
 
 
+# the symbol of each decode-path kernel in the profiler's names, by the
+# wrapper that counts its launches
+_PATH_KERNELS = {
+    "rms_norm": ("rms_norm_kernel<", ", false>"),
+    "paged_attention_decode": ("paged_decode_kernel<", "DenseKV"),
+    "paged_attention_decode_int8": ("paged_decode_kernel<", "Int8KV"),
+    "decode_layer": ("decode_layer_kernel<", "DenseKV"),
+    "decode_layer_int8": ("decode_layer_kernel<", "Int8KV"),
+}
+
+
+def _profile_block(torch, engine):
+    """One decode block (one replay of its graph) under the profiler,
+    between two margins in the same session. The profiler converts the
+    device's clock to the host's, and the offset drifts over a process's
+    life (by milliseconds after a few minutes on the H100): it drops the
+    device records it places outside the session, and places a block's
+    first kernels before the host call that launched them. So a block
+    runs first to take the loss at the start, and a 50 ms wait follows
+    the read block; the read block's records are found on the device's
+    own timeline, between the first block's host read (its one copy to
+    the host) and its own. Returns its host wall us and its device
+    events as (name, us, count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.step_block()
+        t0 = time.perf_counter()
+        engine.step_block()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+        time.sleep(0.05)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    reads = [k for k, e in enumerate(events)
+             if e.name.startswith("Memcpy DtoH")]
+    if len(reads) != 2:
+        raise AssertionError(f"two profiled decode blocks made {len(reads)} "
+                             f"copies to the host, not one each")
+    kernels = {}
+    for e in events[reads[0] + 1:reads[1] + 1]:
+        t, n = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    return wall_us, [(name, t, n) for name, (t, n) in kernels.items()
+                     if t > 0]
+
+
+def _path_counts(kernels):
+    """Launches of each decode-path kernel among the profiled events."""
+    return {w: sum(n for name, _, n in kernels
+                   if all(part in name for part in parts))
+            for w, parts in _PATH_KERNELS.items()}
+
+
 def profile_decode_block(torch, engine, card):
     """Where one decode block's time goes: device time by kernel name
     and the device's busy share of the block's host wall time (every
-    live slot, one block of ``decode_block`` steps ending in its host
-    sync). One unprofiled block runs first, for the wall time without
-    the profiler's overhead. Returns the idle share (None when the
-    profiler saw no device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    live slot, one replay of the block's CUDA graph ending in its host
+    sync), and the RMSNorm kernel's time inside it. One unprofiled
+    block runs first, for the wall time without the profiler's
+    overhead; the profiled block is the second of its session
+    (:func:`_profile_block`), so three blocks of work must be armed.
+    The decode-path kernels the profiler saw the device run in the
+    replay must equal the launches the graph captured, kernel by kernel
+    (the launch counts only add the captured launches at each replay;
+    this observes them). Returns the idle share."""
     live = int(engine._state["live"].sum())
     arena = "int8" if getattr(engine, "kv_int8", False) else "fp32"
     if engine.megakernel():
@@ -1848,22 +1936,12 @@ def profile_decode_block(torch, engine, card):
     print(f"[{card}] unprofiled {arena} decode block of "
           f"{engine.decode_block} steps, {live} live slots: "
           f"{1e3 * (time.perf_counter() - t0):.3f} ms")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.step_block()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    # device-side events only (kernels, copies); CPU ops such as aten::mm
-    # also report the device time of the kernels they launched
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    wall_us, kernels = _profile_block(torch, engine)
     busy_us = sum(t for _, t, _ in kernels)
     if busy_us == 0:
-        print("decode block profile: the profiler saw no device time "
-              "(device busy share not measured)")
-        return None
+        raise AssertionError("decode block profile: the profiler saw no "
+                             "device time, so the replayed kernels are "
+                             "not observed")
     print(f"[{card}] {arena} decode block profile ({live} live slots): "
           f"wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms "
@@ -1872,6 +1950,24 @@ def profile_decode_block(torch, engine, card):
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
               f"x{n:<6d} {name[:90]}")
+    rms = [(t, n) for name, t, n in kernels if "rms_norm_kernel" in name]
+    if rms:
+        t, n = sum(r[0] for r in rms), sum(r[1] for r in rms)
+        print(f"[{card}] {arena} RMSNorm kernel inside the replayed block: "
+              f"{n} launches, {t / n:.3f} us each (profiler)")
+    captured = engine.backend.decode_program._launches
+    unknown = set(captured) - set(_PATH_KERNELS)
+    if unknown:
+        raise AssertionError(f"decode graph launches {sorted(unknown)}, "
+                             f"which the profile check cannot name")
+    want = {w: captured.get(w, 0) for w in _PATH_KERNELS}
+    seen = _path_counts(kernels)
+    if seen != want:
+        raise AssertionError(f"{arena} replayed decode block ran {seen} "
+                             f"(profiler), its graph captured {want}")
+    print(f"[{card}] {arena} replayed block ran the captured launches "
+          f"(profiler): " + ", ".join(f"{w} {n}" for w, n in want.items()
+                                      if n))
     return 1 - busy_us / wall_us
 
 
@@ -1925,6 +2021,7 @@ def serving_int8_path(torch, card, model):
     rids, res, counts, wall = _serve_checked(torch, srv, engine, reqs,
                                              cfg.vocab_size)
     _check_launches(engine, counts, "paged_attention_decode_int8")
+    _check_graphs(engine, "int8 ")
     st = srv.stats()
     bound = engine.kv_error_bound()
     if not bound > 0:
@@ -1955,6 +2052,7 @@ def serving_int8_path(torch, card, model):
     fp_reqs = [reqs[i] for i in greedy]
     fp_rids, fp_res, _, fp_wall = _serve_checked(torch, fp_srv, fp_engine,
                                                  fp_reqs, cfg.vocab_size)
+    _check_graphs(fp_engine, "fp32 16-slot ")
     same = total = prefix_sum = 0
     identical = 0
     for i, rid in zip(greedy, fp_rids):
@@ -1983,9 +2081,8 @@ def serving_megakernel_path(torch, card, model, refs):
     the routing counters, one decode step's log-probs three ways, one
     profiled decode block; decode step ms, decode tokens/s and the idle
     share beside the unfused engine's (``refs``, from phases 3 and 4 of
-    this run), and how far the greedy streams agree with it (reported,
-    not gated: sums in another order may flip a near tie at 32
-    layers). Returns the launch counts of both served runs."""
+    this run), and its greedy streams, which must be token-identical
+    to it. Returns the launch counts of both served runs."""
     import numpy as np
     from paddle_tpu_torch.serving import PagedEngine, Scheduler, Server
     cfg = model.config
@@ -2006,6 +2103,7 @@ def serving_megakernel_path(torch, card, model, refs):
         rids, res, counts, wall = _serve_checked(torch, srv, engine, reqs,
                                                  cfg.vocab_size)
         _check_launches(engine, counts, kernel)
+        _check_graphs(engine, f"megakernel {label} ")
         st = srv.stats()
         ref = refs[label]
         print(f"megakernel {label} served {len(rids)} requests in {wall:.2f}"
@@ -2024,19 +2122,20 @@ def serving_megakernel_path(torch, card, model, refs):
             identical += int(eq.all())
         print(f"megakernel {label} vs unfused greedy streams "
               f"({len(ref['greedy'])} requests): {identical} identical, "
-              f"token agreement {same / total_tok:.4f} (not gated)")
+              f"token agreement {same / total_tok:.4f}")
+        if identical != len(ref["greedy"]):
+            raise AssertionError(f"megakernel {label}: greedy streams "
+                                 "differ from the unfused engine's")
         arm(engine, cfg)
         _check_step_logprobs(torch, model, engine, f"megakernel {label} ",
                              megakernel=True)
         idle = profile_decode_block(torch, engine, card)
         rst = ref["stats"]
-        idles = ["not measured" if v is None else f"{100 * v:.1f}%"
-                 for v in (idle, ref["idle"])]
         print(f"[{card}] {label} decode, megakernel vs unfused: step "
               f"{st['decode_step_ms']:.3f} vs {rst['decode_step_ms']:.3f} ms, "
               f"decode tokens/s {st['decode_tokens_per_sec']:.1f} vs "
-              f"{rst['decode_tokens_per_sec']:.1f}, device idle {idles[0]} "
-              f"vs {idles[1]}")
+              f"{rst['decode_tokens_per_sec']:.1f}, device idle "
+              f"{100 * idle:.1f}% vs {100 * ref['idle']:.1f}%")
         total = counts if total is None else {
             k: total[k] + counts[k] for k in total}
         del engine, srv

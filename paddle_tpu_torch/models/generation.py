@@ -8,8 +8,6 @@ returns a new cache; here the arena is updated in place (no copy of a
 multi-GB arena per step), and everything else is the same sequence."""
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from ..ops.paged_attention import (dense_attention, dequantize_kv,
@@ -83,12 +81,15 @@ def cached_attention(q, k, v, k_arena, v_arena, pos, *, scale, cos, sin,
 
 @torch.inference_mode()
 def decode_step_logprobs(model, ids, cache, pos, block_table,
-                         last_index: Optional[int] = None,
+                         last_index=None,
                          fused_decode=None) -> torch.Tensor:
     """The decode step's log-prob head: forward the (b, s) token block
     at per-row positions ``pos`` through the paged cache and return the
     fp32 log-softmax of the logits at the last column (or at
-    ``last_index``, the last real token of a right-padded chunk). With
+    ``last_index``, the last real token of a right-padded chunk: an int,
+    or a (b,) integer tensor on the device, taken by a gather; a device
+    index keeps host values out of the step, so a CUDA graph can capture
+    it). With
     ``fused_decode`` (``ops.decode_layer.FusedDecode``) each decode
     layer goes through the fused decode-layer call; its counts are
     those of this step."""
@@ -96,5 +97,10 @@ def decode_step_logprobs(model, ids, cache, pos, block_table,
         fused_decode.begin()
     logits = model(ids, cache=cache, pos=pos, block_table=block_table,
                    fused_decode=fused_decode)
-    lv = logits[:, -1 if last_index is None else last_index]
+    if last_index is None:
+        lv = logits[:, -1]
+    else:
+        b, _, v = logits.shape
+        idx = torch.as_tensor(last_index, device=logits.device).long()
+        lv = logits.gather(1, idx.view(-1, 1, 1).expand(b, 1, v))[:, 0]
     return torch.log_softmax(lv.float(), dim=-1)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import contextlib
 
 __all__ = ["plain_versions", "plain_active", "reset_launch_counts",
-           "launch_counts"]
+           "launch_counts", "add_launch_counts"]
 
 _plain_depth = 0
 
@@ -69,3 +69,11 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def add_launch_counts(deltas: dict):
+    """Add ``{name: n}`` to the wrappers' counts: a replayed CUDA graph
+    adds the launches it captured (``serving.graphs``)."""
+    wrappers = _wrappers()
+    for name, n in deltas.items():
+        wrappers[name].launches += n

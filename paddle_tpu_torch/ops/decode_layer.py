@@ -225,16 +225,28 @@ class DecodeLayerScratch:
     activation and the products' partial sums of S rows (a few MB at 7B
     width) in one fp32 buffer, and the per-band tickets of its split-K
     reductions and table-walk merges (zeroed once: the kernel leaves them
-    zero). Both are kept across calls and grown when a call needs
-    more."""
+    zero). Both are kept across calls and grown when a call needs more,
+    but never during a CUDA graph capture: a buffer made there would
+    live in the graph's memory pool, so the caller runs the call once
+    before capturing it (``serving.graphs``), and a capture that would
+    grow one raises."""
 
     def __init__(self):
         self._buf = None
         self._tickets = None
 
+    @staticmethod
+    def _refuse_in_capture(what):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"decode_layer: the megakernel's {what} would be made "
+                "during a CUDA graph capture; run the call once before "
+                "capturing it")
+
     def get(self, numel: int, device) -> torch.Tensor:
         buf = self._buf
         if buf is None or buf.numel() < numel or buf.device != device:
+            self._refuse_in_capture("scratch")
             buf = self._buf = torch.empty(numel, dtype=torch.float32,
                                           device=device)
         return buf
@@ -242,6 +254,7 @@ class DecodeLayerScratch:
     def tickets(self, n: int, device) -> torch.Tensor:
         t = self._tickets
         if t is None or t.numel() < n or t.device != device:
+            self._refuse_in_capture("tickets")
             t = self._tickets = torch.zeros(n, dtype=torch.int32,
                                             device=device)
         return t

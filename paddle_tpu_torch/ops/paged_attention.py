@@ -38,7 +38,9 @@ _fn_int8 = None
 KV_WARPS = 4
 # per device: the zeroed per-item tickets of the split walk's merge (the
 # merging unit leaves its ticket zero, so the buffer stays zero between
-# launches; launches on one device share it, in stream order)
+# launches; launches on one device share it, in stream order). A CUDA
+# graph captured on a buffer holds it (ticket_buffers), so a larger call
+# may replace it here.
 _tickets = {}
 # per (device, q dtype, arena, g, d): the CTAs of the kernel instance
 # that fit on the card at once
@@ -269,6 +271,12 @@ def _split_args(q, int8, b, h, kvh, d, mb):
         if not torch.cuda.is_current_stream_capturing():
             _tickets[key] = tickets
     return ce, nc, part, tickets
+
+
+def ticket_buffers() -> tuple:
+    """The shared ticket buffers as they stand: a captured graph keeps
+    them alive for as long as it may launch on them."""
+    return tuple(_tickets.values())
 
 
 def _ptr(t):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 __all__ = ["prng_key", "split", "random_bits", "uniform", "gumbel",
@@ -105,9 +106,12 @@ def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
     bits = random_bits(keys, shape)
     one = 0x3F800000                          # the bits of 1.0f
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # the bounds and their span in fp32 on the host, passed as scalars
+    # (exact in fp32): no device tensor and no host-to-device copy, so a
+    # CUDA graph can capture the draw
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp_min(floats * float(span) + float(lo), float(lo))
 
 
 def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:

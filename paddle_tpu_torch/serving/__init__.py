@@ -1,10 +1,12 @@
 """Paged continuous-batching serving: ``Server`` over ``PagedEngine``."""
-from .engine import (ContinuousBatchingEngine, init_slot_state,
-                     run_decode_block, slot_sample_logits)
+from .engine import (ContinuousBatchingEngine, free_slot_state,
+                     init_slot_state, run_decode_block, slot_sample_logits)
+from .graphs import CapturedProgram
 from .paging import BlockManager, PagedEngine, PagedModelStepBackend
 from .scheduler import Request, Scheduler
 from .server import Server
 
-__all__ = ["BlockManager", "ContinuousBatchingEngine", "PagedEngine",
-           "PagedModelStepBackend", "Request", "Scheduler", "Server",
-           "init_slot_state", "run_decode_block", "slot_sample_logits"]
+__all__ = ["BlockManager", "CapturedProgram", "ContinuousBatchingEngine",
+           "PagedEngine", "PagedModelStepBackend", "Request", "Scheduler",
+           "Server", "free_slot_state", "init_slot_state", "run_decode_block",
+           "slot_sample_logits"]

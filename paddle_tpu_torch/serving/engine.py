@@ -4,54 +4,52 @@ whose per-slot state lives on the device.
 Counterpart of ``paddle_tpu/serving/engine.py``: per-slot sampling, the
 slot state, the decode block and the host logic of
 ``ContinuousBatchingEngine`` that the paged engine uses. The JAX engine
-runs the block as one compiled ``lax.scan``; here it is a Python loop of
-``decode_block`` steps over device tensors that never reads the device
-until the block ends — the host syncs ONCE per block, as there. The
-JAX slot state is a pytree replaced by each program; here the state
-tensors are updated in place or rebound per step, which is PyTorch's
-idiom. Sampling draws from threefry keys (``paddle_tpu_torch.random``)
-on the JAX key schedule, so seeded sampled streams match the JAX
-package token for token."""
+compiles the block as one ``lax.scan`` program; here the block is a
+Python loop of ``decode_block`` steps over device tensors, which the
+paged backend captures as one CUDA graph on the card and replays
+(``serving.graphs``), and runs eagerly on the CPU. The host syncs ONCE
+per block, as there. The JAX slot state is a pytree replaced by each
+program; here it is one dict of tensors that every block and every
+arm, cancel and reset updates in place, so the graph reads and writes
+the same memory on every replay. Sampling draws from threefry keys
+(``paddle_tpu_torch.random``) on the JAX key schedule, so seeded sampled
+streams match the JAX package token for token."""
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import torch
 
 from .. import random as prng
 
-__all__ = ["slot_sample_logits", "init_slot_state", "run_decode_block",
-           "ContinuousBatchingEngine"]
+__all__ = ["slot_sample_logits", "init_slot_state", "free_slot_state",
+           "run_decode_block", "ContinuousBatchingEngine"]
 
 
 def slot_sample_logits(logits: torch.Tensor, temperature: torch.Tensor,
                        top_k: torch.Tensor, top_p: torch.Tensor,
-                       keys: Optional[torch.Tensor] = None,
-                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       keys: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot sampling over (S, V) logits or log-probs: greedy rows
-    (temperature <= 0) take argmax; sampled rows share ONE descending
-    sort for both the top-k threshold and the top-p cutoff (the JAX
-    package's filter), then draw ``jax.random.categorical`` with the
-    row's own (S, 2) threefry key. ``rows`` (int64 indices) names the
-    rows that may sample — only they run the filter and the draw, an
-    (n_sampled, V) block; None means every row. Without ``keys`` every
-    row is greedy. Returns (S,) int32."""
+    (temperature <= 0) take argmax; every row runs ONE descending sort
+    for both the top-k threshold and the top-p cutoff (the JAX
+    package's filter) and draws ``jax.random.categorical`` with its own
+    (S, 2) threefry key, and ``where`` keeps the greedy rows' argmax, as
+    the JAX function does: the work depends on the shapes alone, not on
+    which rows sample. Without ``keys`` every row is greedy. Returns
+    (S,) int32."""
     logits = logits.float()
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    if keys is None or (rows is not None and rows.numel() == 0):
+    if keys is None:
         return greedy_tok
-    if rows is None:
-        rows = torch.arange(logits.shape[0], device=logits.device)
-    lg, temp = logits[rows], temperature[rows]
-    V = lg.shape[1]
+    V = logits.shape[1]
     neg_inf = float("-inf")
-    greedy = temp <= 0.0
-    t = torch.where(greedy, torch.ones_like(temp), temp)
-    scaled = lg / t[:, None]
+    greedy = temperature <= 0.0
+    t = torch.where(greedy, torch.ones_like(temperature), temperature)
+    scaled = logits / t[:, None]
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
-    k = top_k[rows].to(torch.int64).clamp(0, V)
+    k = top_k.to(torch.int64).clamp(0, V)
     use_k = (k > 0) & (k < V)
     kth = torch.gather(sorted_desc, 1, (k - 1).clamp(min=0)[:, None])
     kth = torch.where(use_k[:, None], kth, neg_inf)
@@ -60,72 +58,75 @@ def slot_sample_logits(logits: torch.Tensor, temperature: torch.Tensor,
     # filtered row (kept prefix unchanged, dropped tail -> -inf)
     sorted_f = torch.where(sorted_desc < kth, neg_inf, sorted_desc)
     cum = torch.cumsum(torch.softmax(sorted_f, dim=-1), dim=-1)
-    tp = top_p[rows]
-    cutoff_idx = (cum < tp[:, None]).sum(dim=-1, keepdim=True) \
+    cutoff_idx = (cum < top_p[:, None]).sum(dim=-1, keepdim=True) \
         .clamp(0, V - 1)
     cutoff = torch.gather(sorted_f, 1, cutoff_idx)
-    cutoff = torch.where((tp < 1.0)[:, None], cutoff, neg_inf)
+    cutoff = torch.where((top_p < 1.0)[:, None], cutoff, neg_inf)
     filt = torch.where(filt < cutoff, neg_inf, filt)
-    drawn = prng.categorical(keys[rows], filt).to(torch.int32)
-    out = greedy_tok.clone()
-    out[rows] = torch.where(greedy, greedy_tok[rows], drawn)
-    return out
+    drawn = prng.categorical(keys, filt).to(torch.int32)
+    return torch.where(greedy, greedy_tok, drawn)
+
+
+# name: (dtype, value of a free slot); "key" is (S, 2) uint32 words
+_SLOT_FIELDS = {"tok": (torch.int32, 0), "pos": (torch.int32, 0),
+                "live": (torch.bool, False), "eos": (torch.int32, -1),
+                "remaining": (torch.int32, 0), "key": (torch.int64, 0),
+                "temp": (torch.float32, 0.0), "topk": (torch.int32, 0),
+                "topp": (torch.float32, 1.0)}
 
 
 def init_slot_state(num_slots: int, device) -> Dict[str, torch.Tensor]:
     """Fresh all-slots-free state on ``device``."""
-    S = num_slots
-
-    def z(dtype, fill=0):
-        return torch.full((S,), fill, dtype=dtype, device=device)
-
-    return {"tok": z(torch.int32), "pos": z(torch.int32),
-            "live": z(torch.bool, False), "eos": z(torch.int32, -1),
-            "remaining": z(torch.int32),
-            "key": torch.zeros((S, 2), dtype=torch.int64, device=device),
-            "temp": z(torch.float32), "topk": z(torch.int32),
-            "topp": z(torch.float32, 1.0)}
+    return {name: torch.full((num_slots, 2) if name == "key"
+                             else (num_slots,), fill, dtype=dtype,
+                             device=device)
+            for name, (dtype, fill) in _SLOT_FIELDS.items()}
 
 
-def run_decode_block(step, state: Dict[str, torch.Tensor], block: int,
-                     sampled_rows: Sequence[int] = ()):
-    """The engine's decode block: ``block`` steps of forward -> per-slot
-    key split and sampling -> eos/budget retirement, all on the device.
-    ``step(tok, pos, table)`` returns (S, V) log-probs. Dead slots'
-    tables are redirected to the trash block 0, so a retired slot whose
-    blocks the host has handed to another request never writes into
-    them. ``sampled_rows``: the live slots that sample (the host knows
-    them at the block's start). Returns the new state and the (block, S)
-    token and start-of-step live matrices (the host counts emissions
-    from ``live``: an eos retirement zeroes ``remaining``).
+def free_slot_state(state: Dict[str, torch.Tensor]):
+    """Free every slot of ``state`` in place (its tensors keep their
+    memory, which a captured decode block reads)."""
+    for name, (_, fill) in _SLOT_FIELDS.items():
+        state[name].fill_(fill)
 
-    Each step splits every slot's key, as the JAX block does, and draws
-    with the sub-keys. A block with no sampled row skips the split and
-    the draw: a greedy row's key is never consumed, and arming a slot
-    overwrites its key, so no sampled stream can tell."""
-    toks, lives = [], []
-    rows = torch.tensor(list(sampled_rows), dtype=torch.int64,
-                        device=state["tok"].device) if sampled_rows else None
-    for _ in range(block):
-        live = state["live"]
-        tbl = torch.where(live[:, None], state["table"], 0)
-        logp = step(state["tok"][:, None], state["pos"], tbl)
-        if rows is None:
-            key, sub = state["key"], None
-        else:
-            sp = prng.split(state["key"])                  # (S, 2, 2)
-            key, sub = sp[:, 0], sp[:, 1]
-        nxt = slot_sample_logits(logp, state["temp"], state["topk"],
-                                 state["topp"], sub, rows)
-        hit = live & (state["eos"] >= 0) & (nxt == state["eos"])
-        rem = torch.where(live, state["remaining"] - 1, state["remaining"])
+
+def run_decode_block(step, state: Dict[str, torch.Tensor],
+                     out: torch.Tensor):
+    """The engine's decode block (``build_slot_block_fn``): ``block``
+    steps of per-slot key split -> forward -> per-slot sampling ->
+    eos/budget retirement, all on the device. ``step(tok, pos, table)``
+    returns (S, V) log-probs. Dead slots' tables are redirected to the
+    trash block 0, so a retired slot whose blocks the host has handed to
+    another request never writes into them.
+
+    As in JAX, every step splits every slot's key and samples every row:
+    the work depends on the engine's shapes alone (one captured graph
+    serves any traffic), and the keys follow the JAX schedule. ``state``
+    is updated in place at the block's end. ``out`` is the static
+    (2 * block + 1, S) int32 output: rows [0, block) the tokens, rows
+    [block, 2 * block) the start-of-step live masks (the host counts
+    emissions from ``live``: an eos retirement zeroes ``remaining``),
+    the last row the remaining counters after the block."""
+    block = (out.shape[0] - 1) // 2
+    st = dict(state)
+    for i in range(block):
+        live = st["live"]
+        tbl = torch.where(live[:, None], st["table"], 0)
+        logp = step(st["tok"][:, None], st["pos"], tbl)
+        sp = prng.split(st["key"])                         # (S, 2, 2)
+        nxt = slot_sample_logits(logp, st["temp"], st["topk"], st["topp"],
+                                 sp[:, 1])
+        hit = live & (st["eos"] >= 0) & (nxt == st["eos"])
+        rem = torch.where(live, st["remaining"] - 1, st["remaining"])
         rem = torch.where(hit, 0, rem)
-        state = dict(state, tok=torch.where(live, nxt, state["tok"]),
-                     pos=state["pos"] + live.to(torch.int32),
-                     remaining=rem, key=key, live=live & (rem > 0))
-        toks.append(nxt)
-        lives.append(live)
-    return state, torch.stack(toks), torch.stack(lives)
+        out[i].copy_(nxt)
+        out[block + i].copy_(live)
+        st = dict(st, tok=torch.where(live, nxt, st["tok"]),
+                  pos=st["pos"] + live.to(torch.int32),
+                  remaining=rem, key=sp[:, 0], live=live & (rem > 0))
+    for name in ("tok", "pos", "remaining", "key", "live"):
+        state[name].copy_(st[name])
+    out[2 * block].copy_(state["remaining"])
 
 
 def _cancel_fn(state: Dict[str, torch.Tensor], slot: int):
@@ -164,8 +165,9 @@ class ContinuousBatchingEngine:
 
     # -- lifecycle ---------------------------------------------------------
     def reset(self):
-        """Free every slot and zero the counters."""
-        self._state = self.backend.init_state()
+        """Free every slot (the state tensors in place) and zero the
+        counters."""
+        self._state = self.backend.reset_state()
         self._slots: List[Optional[_SlotRun]] = [None] * self.num_slots
         self._prefill_slots: set = set()
         self._finished: List[_SlotRun] = []
@@ -198,15 +200,18 @@ class ContinuousBatchingEngine:
 
     def megakernel_rewrites(self) -> int:
         """Decode layers routed through the fused call in the last decode
-        step (the layer count; 0 before the first step or with the
-        megakernel off)."""
+        step the Python code ran (the layer count; 0 before the first
+        step or with the megakernel off). On the card that step is the
+        decode graph's capture, and every replay repeats its routing:
+        the replays' own launches are in ``ops.launch_counts()``."""
         fused = getattr(self.backend, "fused_decode", None)
         return fused.rewrites if fused is not None else 0
 
     def megakernel_kernel_calls(self) -> int:
         """Of those, the layers that launched the megakernel: all of
-        them on the card for a shape its kernel takes, 0 on the CPU (as
-        the JAX engine gives 0 off the TPU)."""
+        them on the card for a shape its kernel takes (the captured
+        step's, as above), 0 on the CPU (as the JAX engine gives 0 off
+        the TPU)."""
         fused = getattr(self.backend, "fused_decode", None)
         return fused.kernel_calls if fused is not None else 0
 
@@ -227,29 +232,26 @@ class ContinuousBatchingEngine:
                 f"({max_new_tokens}) exceeds the slot capacity "
                 f"({self.max_len}); raise max_len or shorten the request")
 
-    def _sampled_rows(self) -> List[int]:
-        """The armed slots whose request samples (temperature > 0)."""
-        return [i for i, r in enumerate(self._slots)
-                if r is not None and i not in self._prefill_slots
-                and r.request.temperature > 0.0]
+    def decode_compile_count(self) -> int:
+        """Captures of the decode block program: 1 on the card over any
+        stream (one CUDA graph per engine shape), 0 on the CPU, where the
+        block runs eagerly (the JAX engine's trace count)."""
+        return self.backend.decode_program.captures
 
     # -- decode ------------------------------------------------------------
     def step_block(self):
         """Run one decode block over the pool, then sync ONCE: pull the
-        token matrix, the live masks and the remaining counters, credit
-        each live slot its emitted tokens, retire finished slots."""
+        block's static output (token matrix, live masks, remaining
+        counters), credit each live slot its emitted tokens, retire
+        finished slots."""
         if not self.has_decoding():
             return
         t0 = time.perf_counter()
-        self._state, toks, lives = self.backend.decode_block(
-            self._state, self._sampled_rows())
-        B, S = toks.shape
-        packed = torch.cat([toks.reshape(-1),
-                            lives.to(torch.int32).reshape(-1),
-                            self._state["remaining"]]).cpu().numpy()
-        toks_np = packed[:B * S].reshape(B, S)
-        lives_np = packed[B * S:2 * B * S].reshape(B, S).astype(bool)
-        rem_np = packed[2 * B * S:]
+        packed = self.backend.decode_block().cpu().numpy()
+        B, S = self.decode_block, self.num_slots
+        toks_np = packed[:B]
+        lives_np = packed[B:2 * B].astype(bool)
+        rem_np = packed[2 * B]
         self.decode_s += time.perf_counter() - t0
         self.steps += B
         self.slot_steps += B * S

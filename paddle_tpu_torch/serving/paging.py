@@ -10,7 +10,8 @@ block). ``PagedModelStepBackend`` owns the per-layer
 ``kv_int8``, int8 code arenas plus ``(num_blocks, block_size, kvh)``
 fp32 per-vector absmax scales (the EQuARX wire format; about 3.9x less
 KV memory at head_dim 128) — and runs the two programs of the paged
-engine: the decode block and the ``(1, prefill_chunk)`` prefill chunk.
+engine: the decode block and the ``(1, prefill_chunk)`` prefill chunk,
+each captured once as a CUDA graph on the card (``serving.graphs``).
 ``PagedEngine`` admits requests (reserving blocks, reusing prefixes),
 streams prompts in chunks paced by the scheduler's token budget, arms
 slots and releases blocks at retirement."""
@@ -30,8 +31,9 @@ from ..models.generation import decode_step_logprobs
 from ..ops.decode_layer import FusedDecode
 from ..ops.paged_attention import kv_int8_error_bound
 from ..utils.flags import env_bool, env_flag, env_int
-from .engine import (ContinuousBatchingEngine, _SlotRun, init_slot_state,
-                     run_decode_block, slot_sample_logits)
+from .engine import (ContinuousBatchingEngine, _SlotRun, free_slot_state,
+                     init_slot_state, run_decode_block, slot_sample_logits)
+from .graphs import CapturedProgram
 
 __all__ = ["BlockManager", "PagedModelStepBackend", "PagedEngine"]
 
@@ -229,12 +231,22 @@ class BlockManager:
 class PagedModelStepBackend:
     """The paged engine's two device programs over a live model: the
     decode block threads the per-slot block tables through the forward,
-    and prefill is ONE fixed-shape ``(1, prefill_chunk)`` chunk. Owns
-    the per-layer arenas, which the forward updates in place: (k, v)
-    pairs, or (k codes, v codes, k scales, v scales) with ``kv_int8``.
-    With ``megakernel`` every decode step routes each decode layer
-    through the fused decode-layer call (``fused_decode``, which owns
-    the megakernel's scratch)."""
+    and prefill is ONE fixed-shape ``(1, prefill_chunk)`` chunk that also
+    samples the request's candidate first token. Owns the per-layer
+    arenas, which the forward updates in place: (k, v) pairs, or (k
+    codes, v codes, k scales, v scales) with ``kv_int8``. With
+    ``megakernel`` every decode step routes each decode layer through
+    the fused decode-layer call (``fused_decode``, which owns the
+    megakernel's scratch).
+
+    Both programs work on static tensors the backend owns: the slot
+    ``state``, the block's output and the chunk's inputs and output.
+    On the card each is captured once, here at construction while every
+    slot is free, so the warm-up's arena writes land in the trash block
+    0 (``decode_program``, ``prefill_program``); on the CPU each call
+    runs the same function eagerly. The prefill chunk stays unfused
+    under ``megakernel``, as in JAX
+    (``paddle_tpu/serving/paging.py:452-454``)."""
 
     def __init__(self, model, num_slots: int, max_len: int,
                  decode_block: int, block_size: int, num_blocks: int,
@@ -244,24 +256,47 @@ class PagedModelStepBackend:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
         self.model = model
-        self.device = model.device
+        self.device = dev = model.device
         self.num_slots, self.max_len = num_slots, max_len
         self.block_size = decode_block
         self.kv_block_size = block_size
         self.num_kv_blocks = num_blocks
-        self.max_blocks = max_len // block_size
+        self.max_blocks = mb = max_len // block_size
         self.prefill_chunk_len = prefill_chunk
         self.kv_int8 = bool(kv_int8)
         self.cache = model.init_paged_kv_cache(num_blocks, block_size,
                                                kv_int8=self.kv_int8)
         self.fused_decode = FusedDecode() if megakernel else None
+        self.state = init_slot_state(num_slots, dev)
+        self.state["table"] = torch.zeros((num_slots, mb), dtype=torch.int32,
+                                          device=dev)       # all-trash
+        self._block_out = torch.zeros((2 * decode_block + 1, num_slots),
+                                      dtype=torch.int32, device=dev)
+        # the chunk's inputs in one int32 buffer, filled by one copy, as
+        # named slices: ids, the table row, (start position, last real
+        # column, top-k), then (temperature, top-p) as fp32 bits; the
+        # sampling key (a device tensor already) and the candidate token
+        C = prefill_chunk
+        self._chunk_fields = dict(
+            ids=slice(0, C), table=slice(C, C + mb),
+            ints=slice(C + mb, C + mb + 3),
+            floats=slice(C + mb + 3, C + mb + 5))
+        self._chunk_args = torch.zeros(C + mb + 5, dtype=torch.int32,
+                                       device=dev)
+        self._chunk_key = torch.zeros(2, dtype=torch.int64, device=dev)
+        self._chunk_tok = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.decode_program = CapturedProgram(self._run_block, dev)
+        self.prefill_program = CapturedProgram(self._run_chunk, dev)
+        self.decode_program.capture()
+        self.prefill_program.capture()
+        self.reset_state()
 
-    def init_state(self):
-        state = init_slot_state(self.num_slots, self.device)
-        state["table"] = torch.zeros((self.num_slots, self.max_blocks),
-                                     dtype=torch.int32,
-                                     device=self.device)   # all-trash
-        return state
+    def reset_state(self):
+        """Free every slot in place (all-trash tables); returns the
+        state dict the decode block reads."""
+        free_slot_state(self.state)
+        self.state["table"].zero_()
+        return self.state
 
     def kv_bytes_per_slot(self) -> int:
         """Device bytes of KV arena per slot (codes and scales under
@@ -281,23 +316,50 @@ class PagedModelStepBackend:
                 "_fused_decode)")
         return logp
 
-    def decode_block(self, state, sampled_rows):
-        return run_decode_block(self._step, state, self.block_size,
-                                sampled_rows)
+    def _run_block(self):
+        run_decode_block(self._step, self.state, self._block_out)
+
+    def decode_block(self) -> torch.Tensor:
+        """Run one decode block over ``state`` (in place); returns the
+        static (2 * block + 1, S) int32 output of
+        :func:`~.engine.run_decode_block`, valid until the next block."""
+        self.decode_program()
+        return self._block_out
+
+    def _run_chunk(self):
+        args, f = self._chunk_args, self._chunk_fields
+        start, last, topk = args[f["ints"]].split(1)
+        temp, topp = args[f["floats"]].view(torch.float32).split(1)
+        logp = decode_step_logprobs(self.model, args[f["ids"]].view(1, -1),
+                                    self.cache, start,
+                                    args[f["table"]].view(1, -1),
+                                    last_index=last)
+        self._chunk_tok.copy_(slot_sample_logits(
+            logp, temp, topk, topp, self._chunk_key[None]))
 
     def prefill_chunk(self, ids: np.ndarray, table_row: np.ndarray,
-                      start_pos: int, n_valid: int) -> torch.Tensor:
+                      start_pos: int, n_valid: int, key: torch.Tensor,
+                      temperature: float, top_k: int,
+                      top_p: float) -> torch.Tensor:
         """One right-padded (1, prefill_chunk) token window written into
-        the arena through the request's table row; returns the (1, V)
-        log-probs at the last real column. Pad columns carry junk K/V
-        that decode overwrites before it can be attended; writes past
-        the table width land in the trash block."""
-        dev = self.device
-        return decode_step_logprobs(
-            self.model, torch.as_tensor(ids, device=dev), self.cache,
-            torch.tensor([start_pos], dtype=torch.int32, device=dev),
-            torch.as_tensor(table_row[None], device=dev),
-            last_index=n_valid - 1)
+        the arena through the request's table row, and the candidate
+        first token sampled from its last real column with the request's
+        ``key`` (2,), temperature, top-k and top-p (``chunk_fn``). Pad
+        columns carry junk K/V that decode overwrites before it can be
+        attended; writes past the table width land in the trash block.
+        Returns the static (1,) int32 token on the device, valid until
+        the next chunk."""
+        f = self._chunk_fields
+        host = np.empty(self._chunk_args.numel(), np.int32)
+        host[f["ids"]] = ids.reshape(-1)
+        host[f["table"]] = table_row
+        host[f["ints"]] = (start_pos, n_valid - 1, top_k)
+        host[f["floats"]] = np.array([temperature, top_p],
+                                     np.float32).view(np.int32)
+        self._chunk_args.copy_(torch.from_numpy(host))
+        self._chunk_key.copy_(key)
+        self.prefill_program()
+        return self._chunk_tok
 
 
 def _arm_fn(state, slot, table_row, tok0, pos0, rem0, eos0, temp0, topk0,
@@ -351,7 +413,13 @@ class PagedEngine(ContinuousBatchingEngine):
       decode layer of a decode step as one launch of the decode-layer
       megakernel (``ops/decode_layer.py``) where the card's kernel takes
       it; :meth:`megakernel_rewrites` and
-      :meth:`megakernel_kernel_calls` report the last step's routing.
+      :meth:`megakernel_kernel_calls` report the routing of the last
+      step the Python code ran (on the card, the captured one).
+    - on the card the decode block and the prefill chunk are each ONE
+      CUDA graph, captured when the engine is built and replayed from
+      then on (:meth:`decode_compile_count` and
+      :meth:`prefill_compile_count` give 1 over any stream); on the CPU
+      the same functions run eagerly and both counts are 0.
 
     ``block_size`` and ``prefill_chunk`` resolve as in the JAX engine:
     the argument, else ``PT_SERVING_BLOCK_SIZE`` /
@@ -414,6 +482,11 @@ class PagedEngine(ContinuousBatchingEngine):
         self.prefill_s = 0.0           # host wall in prefill_tick
 
     # -- introspection -----------------------------------------------------
+    def prefill_compile_count(self) -> int:
+        """Captures of the prefill chunk program: 1 on the card over any
+        stream, 0 on the CPU (the JAX engine's trace count)."""
+        return self.backend.prefill_program.captures
+
     def prefix_cache_hit_rate(self) -> float:
         """Fraction of admitted prompt tokens served from shared prefix
         blocks instead of recomputed."""
@@ -495,26 +568,23 @@ class PagedEngine(ContinuousBatchingEngine):
             n = min(C, L - job.done)
             ids = np.zeros((1, C), np.int32)
             ids[0, :n] = job.prompt[job.done:job.done + n]
-            logp = self.backend.prefill_chunk(ids, job.table_row,
-                                              job.done, n)
+            req = job.run.request
+            tok0 = self.backend.prefill_chunk(
+                ids, job.table_row, job.done, n, job.sub, req.temperature,
+                req.top_k, req.top_p)
             job.done += n
             spent += n
             self.prefill_chunks += 1
             self.prefilled_tokens += n
             if job.done >= L:
                 self._jobs.pop(0)
-                self._finish_prefill(job, logp)
+                # the one host read of a prefill, on its last chunk
+                self._finish_prefill(job, int(tok0))
         self.prefill_s += time.perf_counter() - t0
         return spent
 
-    def _finish_prefill(self, job: _PrefillJob, logp: torch.Tensor):
+    def _finish_prefill(self, job: _PrefillJob, tok0: int):
         req = job.run.request
-        dev = self.backend.device
-        tok0 = int(slot_sample_logits(
-            logp, torch.tensor([req.temperature], device=dev),
-            torch.tensor([req.top_k], device=dev),
-            torch.tensor([req.top_p], device=dev),
-            job.sub[None] if req.temperature > 0.0 else None)[0])
         now = time.perf_counter()
         job.run.tokens = [tok0]
         job.run.t_admit = now               # TTFT timestamp

@@ -1013,3 +1013,154 @@ def test_rms_norm_residual_kernel_matches_plain(dev, dtype, rows):
     (o.square().sum() + s2.sum()).backward()
     for a, b in ((xs, xp), (rs_, rp), (ws, wp)):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+# -- the paged engine's programs as CUDA graphs -------------------------------
+
+def _graph_reqs(seed):
+    """Five ragged requests, one sampled (its own seed)."""
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, 512, (L,)).astype(np.int32),
+             dict(max_new_tokens=n, **(dict(temperature=0.8, top_k=20,
+                                            top_p=0.95, seed=7)
+                                       if i == 2 else {})))
+            for i, (L, n) in enumerate(((5, 9), (9, 14), (12, 16), (5, 5),
+                                        (19, 12)))]
+
+
+@pytest.mark.parametrize("megakernel", [False, True], ids=["unfused", "mega"])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["fp32", "int8"])
+def test_replayed_block_matches_uncaptured_block(dev, kv_int8, megakernel):
+    """One replay of the captured decode block against the same Python
+    block run eagerly on clones of the state and the arena: the same
+    tokens, live masks and state, and the same arena bytes."""
+    from paddle_tpu_torch.ops.decode_layer import FusedDecode
+    from paddle_tpu_torch.serving import run_decode_block
+    _, gpu = _tiny_pair(dev)
+    eng = PagedEngine(gpu, num_slots=3, max_len=64, decode_block=4,
+                      block_size=8, prefill_chunk=8, kv_int8=kv_int8,
+                      megakernel=megakernel, device=dev)
+    srv = Server(eng, Scheduler(prefill_token_budget=8))
+    for p, kw in _graph_reqs(2):
+        srv.submit(p, **kw)
+    srv.run_until_idle(max_ticks=4)
+    live = eng._state["live"]
+    assert int(live.sum()) == 2 and (eng._state["temp"][live] > 0).any()
+    state = {k: v.clone() for k, v in eng._state.items()}
+    cache = [tuple(t.clone() for t in layer) for layer in eng.backend.cache]
+    fused = FusedDecode() if megakernel else None
+    out = torch.zeros_like(eng.backend._block_out)
+
+    def step(tok, pos, table):
+        return decode_step_logprobs(gpu, tok, cache, pos, table,
+                                    fused_decode=fused)
+
+    run_decode_block(step, state, out)
+    got = eng.backend.decode_block()
+    torch.cuda.synchronize()
+    assert torch.equal(got, out), (got, out)
+    for k in state:
+        assert torch.equal(eng._state[k], state[k]), (k, eng._state[k],
+                                                      state[k])
+    for i, (a, b) in enumerate(zip(eng.backend.cache, cache)):
+        for j, (x, y) in enumerate(zip(a, b)):
+            assert torch.equal(x, y), (i, j, float((x.float() - y.float())
+                                                   .abs().max()))
+
+
+@pytest.mark.parametrize("megakernel", [False, True], ids=["unfused", "mega"])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["fp32", "int8"])
+def test_one_capture_per_program_over_a_ragged_stream(dev, kv_int8,
+                                                      megakernel):
+    """Each program is captured once, when the engine is built, and
+    replayed over a ragged stream; replays add the captured launches, so
+    the exact counts hold; the streams equal the CPU engine's."""
+    cpu, gpu = _tiny_pair(dev)
+    reqs = _graph_reqs(3)
+    results = []
+    for m, device in ((cpu, "cpu"), (gpu, dev)):
+        eng = PagedEngine(m, num_slots=2, max_len=64, decode_block=4,
+                          block_size=8, prefill_chunk=8, kv_int8=kv_int8,
+                          megakernel=megakernel, device=device)
+        want = 0 if device == "cpu" else 1
+        assert eng.decode_compile_count() == want
+        assert eng.prefill_compile_count() == want
+        srv = Server(eng, Scheduler(prefill_token_budget=8))
+        rids = [srv.submit(p, **kw) for p, kw in reqs]
+        ops.reset_launch_counts()
+        res = srv.run_until_idle()
+        results.append([res[r] for r in rids])
+        assert eng.decode_compile_count() == want
+        assert eng.prefill_compile_count() == want
+        eng.manager.assert_consistent()
+    assert eng.backend.decode_program.graph_bytes > 0
+    counts = ops.launch_counts()
+    L = gpu.config.num_hidden_layers
+    kernel = ("decode_layer" if megakernel else "paged_attention_decode") \
+        + ("_int8" if kv_int8 else "")
+    assert counts[kernel] == L * eng.steps > 0
+    assert counts["rms_norm"] == (2 * L + 1) * eng.prefill_chunks \
+        + (1 if megakernel else 2 * L + 1) * eng.steps
+    decode = {"decode_layer", "decode_layer_int8", "paged_attention_decode",
+              "paged_attention_decode_int8"}
+    assert all(counts[k] == 0 for k in decode - {kernel})
+    if megakernel:
+        assert eng.megakernel_rewrites() == eng.megakernel_kernel_calls() \
+            == L
+    for a, b in zip(*results):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_a_graph_holds_the_ticket_buffers_it_launches_on(dev):
+    """The paged kernels' shared tickets that a captured block launches
+    on belong to its program: after the module's cache lets go of them
+    and their old memory is asked for again (filled with -1, which would
+    break every split merge), the replayed stream still equals the CPU
+    engine's."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cpu, gpu = _tiny_pair(dev)
+    reqs = _graph_reqs(4)
+    results = []
+    for m, device in ((cpu, "cpu"), (gpu, dev)):
+        eng = PagedEngine(m, num_slots=2, max_len=64, decode_block=4,
+                          block_size=8, prefill_chunk=8, device=device)
+        if device != "cpu":
+            held = eng.backend.decode_program._held
+            assert pa._tickets and all(
+                any(t is h for h in held) for t in pa._tickets.values())
+            sizes = [t.numel() for t in pa._tickets.values()]
+            pa._tickets.clear()
+            torch.cuda.empty_cache()
+            reuse = [torch.full((n,), -1, dtype=torch.int32, device=dev)
+                     for n in sizes]
+        srv = Server(eng, Scheduler(prefill_token_budget=8))
+        rids = [srv.submit(p, **kw) for p, kw in reqs]
+        res = srv.run_until_idle()
+        results.append([res[r] for r in rids])
+    del reuse
+    for a, b in zip(*results):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_a_capture_that_fails_raises(dev):
+    """A program that copies from pageable host memory cannot be
+    captured: the capture raises, and nothing runs it eagerly."""
+    from paddle_tpu_torch.serving import CapturedProgram
+    dst = torch.zeros(4, device=dev)
+    prog = CapturedProgram(lambda: dst.copy_(torch.arange(4.0)), dev)
+    with pytest.raises(RuntimeError):
+        prog.capture()
+    assert prog.captures == 0 and prog.graph is None
+
+
+def test_megakernel_scratch_is_never_made_in_a_capture(dev):
+    """A scratch made during a capture would live in the graph's pool:
+    a fresh DecodeLayerScratch under capture raises instead."""
+    from paddle_tpu_torch.ops.decode_layer import (DecodeLayerScratch,
+                                                   decode_layer)
+    fixed, cache, wts = _megakernel_case(dev, "paged", 3)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="during a CUDA graph capture"):
+        with torch.inference_mode(), torch.cuda.graph(graph):
+            decode_layer("paged", *fixed, *cache, *wts,
+                         scratch=DecodeLayerScratch())

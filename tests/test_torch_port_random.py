@@ -118,10 +118,13 @@ def test_slot_sample_logits_matches_jax():
     tkeys = torch.from_numpy(_i64(keys))
     np.testing.assert_array_equal(
         slot_sample_logits(*args, tkeys).numpy(), want)
-    # only the sampled rows named: the same tokens; no keys: all greedy
-    rows = torch.tensor([1, 2, 3, 5])
+    # every row draws, and the greedy rows keep their argmax whatever
+    # their keys; no keys: all greedy
+    other = torch.from_numpy(_i64(jax.random.split(jax.random.PRNGKey(5),
+                                                   S)))
+    greedy = temp <= 0
     np.testing.assert_array_equal(
-        slot_sample_logits(*args, tkeys, rows).numpy(), want)
+        slot_sample_logits(*args, other).numpy()[greedy], want[greedy])
     np.testing.assert_array_equal(slot_sample_logits(*args).numpy(),
                                   logits.argmax(-1))
 
