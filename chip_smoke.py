@@ -20,7 +20,10 @@ Phases, each of which raises on failure (nothing is caught):
    against its own bound, and per phase (its %globaltimer stamps);
    the residual RMSNorm at (8, 4096) fp32 and (8192, 4096) bf16, then
    its entry point ``fused_rms_norm(residual=)`` driven along a
-   four-block residual stream, forward and backward.
+   four-block residual stream, forward and backward. The RMSNorm
+   forward at 1-512 rows, the backward kernel at (8192, 4096) bf16 and
+   (512, 4096), (8, 4096) fp32, and both at rows past the registers
+   (h = 16384 and 65536, the looping instances).
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
    published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
@@ -88,15 +91,18 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 
 
-def _time_ms(fn, iters: int = 50) -> float:
+def _time_ms(fn, iters: int = 50, stream=None) -> float:
     """Device time of one call of ``fn``: ``iters`` calls captured into a
     CUDA graph, replayed between CUDA events (so host launch overhead is
-    not in the figure), after a warm-up replay."""
+    not in the figure), after a warm-up replay. ``stream``: the stream
+    to warm up and capture on (an autograd backward runs on the stream
+    of its forward, so a captured backward needs its forward's stream)."""
     import torch
-    fn()
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -126,6 +132,22 @@ def _time_eager(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn, iters: int = 20) -> float:
+    """Host time to issue one call of ``fn``: ``iters`` calls after a
+    warm-up call and a sync, timed on the host's clock without waiting
+    for the device (whose queue holds them all). Where it is about the
+    eager device time of the same calls, the host paces them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return 1e3 * host
 
 
 def _bound_ms(nbytes: float, flops: float = 0.0,
@@ -222,6 +244,12 @@ def check_megakernel_sass():
 
 
 def check_rms_norm(torch, results, main_shape):
+    """The RMSNorm forward against its plain version at the decode rows
+    (1-64) and 512, fp32 and bf16, h = 4096, timed beside its bound, the
+    plain version and ``F.rms_norm``; then at rows past the registers
+    (h = 16384 and 65536: the looping instance), with and without a
+    residual."""
+    from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch.ops.fused import rms_norm, rms_norm_reference
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -229,7 +257,7 @@ def check_rms_norm(torch, results, main_shape):
     # fp32: rsqrtf and the reduction order differ from torch's by a few ulp
     tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: RMS_BF16_TOL}
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in (8, 32, 512):
+        for rows in (1, 8, 32, 64, 512):
             x = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
             w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
                  ).to(dtype)
@@ -246,14 +274,43 @@ def check_rms_norm(torch, results, main_shape):
             lib_ms = _time_ms(lambda: F.rms_norm(x, (h,), w, eps))
             nbytes = 2 * rows * h * x.element_size() + h * w.element_size()
             bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            plan = fused.rms_norm_plan(h * x.element_size() // 16)
             print(f"rms_norm {str(dtype)[6:]:8s} rows={rows:4d} h={h}: "
                   f"max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                   f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
-                  f"bound_ms={bound_ms:.6f} (bytes)")
+                  f"bound_ms={bound_ms:.6f} (bytes) plan (vectors a "
+                  f"thread, threads)={plan}")
             if (dtype, rows) == main_shape:
                 results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by="bytes",
                                library_ms=lib_ms)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, hl in ((64, 16384), (3, 65536)):
+            x = torch.randn(rows, hl, generator=gen, device="cuda").to(dtype)
+            r = torch.randn(rows, hl, generator=gen, device="cuda").to(dtype)
+            w = (1 + 0.1 * torch.randn(hl, generator=gen, device="cuda")
+                 ).to(dtype)
+            got, want = rms_norm(x, w, eps), rms_norm_reference(x, w, eps)
+            out, total = fused.rms_norm_residual(x, r, w, eps)
+            want_out, want_total = fused.rms_norm_residual_reference(
+                x, r, w, eps)
+            torch.cuda.synchronize()
+            atol, rtol = tol[dtype]
+            ok = all(torch.allclose(a.float(), b.float(), atol=atol,
+                                    rtol=rtol)
+                     for a, b in ((got, want), (out, want_out)))
+            if not (ok and torch.equal(total, want_total)):
+                raise AssertionError(
+                    f"rms_norm {dtype} ({rows}, {hl}): max abs err "
+                    f"{_max_err(got, want)}, residual {_max_err(out, want_out)}"
+                    f", sum equal {torch.equal(total, want_total)}")
+            ms = _time_ms(lambda: rms_norm(x, w, eps))
+            nbytes = 2 * rows * hl * x.element_size() + hl * w.element_size()
+            print(f"rms_norm {str(dtype)[6:]:8s} rows={rows:4d} h={hl}: "
+                  f"max_abs_err={_max_err(got, want):.3e} (residual "
+                  f"{_max_err(out, want_out):.3e}, sum bit-equal) kernel_ms="
+                  f"{ms:.5f} bound_ms={1e3 * nbytes / HBM_BYTES_PER_S:.6f} "
+                  f"(bytes) plan={fused.rms_norm_plan(hl * x.element_size() // 16)}")
 
 
 def check_paged_attention(torch, results, main_kvh):
@@ -649,22 +706,101 @@ def check_adamw(torch, results):
                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
-def check_rms_norm_backward(torch):
+def _bf16_ulp(t):
+    """One bf16 ulp (8 significant bits) of each value of ``t``."""
+    import torch
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _dw_flips(torch, x, ct, eps):
+    """What a bf16 dw column of the backward kernel may differ from the
+    plain version's by beside its final rounding: the products cast(ct·n)
+    whose n may round the other way on the two sides, summed per column.
+
+    n = cast(xf·r) to bf16 on both sides, but the two r differ: each side
+    sums the row's h squares in fp32 in its own order. The plain side's r
+    is recomputed here bit for bit (its own operations), beside r in
+    fp64. The kernel's sum of squares is a thread's ``d - 10`` values in
+    sequence, then two 5-level butterflies: depth d, so within d·2^-24 of
+    the exact sum (positive terms), and its r within (d/2)·2^-24 of r64,
+    plus 2^-24 for the division and the add and 4·2^-24 for rsqrtf (2
+    ulps). Each side then rounds xf·r (2^-24 of it each). So an element
+    whose plain xf·r lies within |r_p - r64|/r64 + (d/2 + 7)·2^-24 of it
+    from a bf16 rounding midpoint may round the other way in the
+    kernel. Such an n moves by one bf16 ulp, its product's exact value
+    by |ct|·ulp(n) <= 2^-7·|ct·n|, and each side rounds the product
+    (2^-8 of it at most each): at most 1.01·2^-6·|ct·n| a flip."""
+    from paddle_tpu_torch.ops import fused
+    h = x.shape[-1]
+    vpt, threads = fused.rms_norm_plan(h * x.element_size() // 16)
+    per_thread = (vpt or -(-(h * x.element_size() // 16) // threads)) \
+        * 16 // x.element_size()
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    x64 = x.double()
+    r64 = torch.rsqrt(torch.mean(x64 * x64, dim=-1, keepdim=True) + eps)
+    delta = (r.double() - r64).abs() / r64 \
+        + (per_thread / 2 + 5 + 7) * 2.0 ** -24
+    m = xf * r
+    mid = ((m.view(torch.int32) & -65536) | 0x8000).view(torch.float32)
+    amb = (m.double() - mid.double()).abs() <= delta * m.double().abs()
+    n = m.to(x.dtype).float()
+    ctn = (ct.float() * n).abs()
+    return (1.01 * 2.0 ** -6 * ctn * amb).reshape(-1, h).sum(0)
+
+
+def _rms_bwd_tol(torch, want, kind, x=None, ct=None, eps=None):
+    """The tolerance of a gradient of the backward kernel against the
+    plain version's: fp32 1e-5 absolute + 1e-5 relative; bf16 dx
+    ``RMS_BF16_TOL`` (both sides round one fp32 value a few ulp apart);
+    bf16 dw (``kind`` "dw", with the inputs ``x``, ``ct``, ``eps``) from
+    its rounding sites: both sides sum the same bf16-rounded products in
+    fp32 in other orders (a few fp32 ulps of the sum) and round once to
+    bf16, which two roundings a few fp32 ulps apart can leave 2 bf16 ulps
+    apart at most, plus what products whose n rounds the other way can
+    move the sum (``_dw_flips``), + 1e-6."""
+    if want.dtype == torch.float32:
+        return 1e-5 + 1e-5 * want.float().abs()
+    if kind == "dx":
+        return RMS_BF16_TOL[0] + RMS_BF16_TOL[1] * want.float().abs()
+    return 1e-6 + 2 * _bf16_ulp(want) + _dw_flips(torch, x, ct, eps)
+
+
+def _rms_bwd_close(got, want, bound):
+    """(ok, max abs err, largest share of ``bound``)."""
+    err = (got.float() - want.float()).abs()
+    share = float((err / bound).max())
+    return share <= 1.0, float(err.max()), share
+
+
+def check_rms_norm_backward(torch, results):
     """RMSNorm on the training path's (8192, 4096) bf16 rows. The
     forward kernel against its plain version at ``RMS_BF16_TOL``, timed
-    beside the plain version and ``F.rms_norm``. Then forward +
-    backward: the backward is the same torch recompute of the plain
-    version's VJP on both paths, so equal gradients show only that the
-    autograd wiring carries them through the kernel's output."""
+    beside the plain version and ``F.rms_norm``. Then the backward
+    kernel (``ops.fused.rms_norm_bwd``) against
+    ``rms_norm_backward_reference`` at (8192, 4096) bf16, (512, 4096),
+    (8, 4096) fp32 and rows past the registers ((64, 16384), (3, 65536),
+    both dtypes), within ``_rms_bwd_tol``; two calls bit-identical.
+    Timed alone (a CUDA graph) beside its bound (x and the cotangent read
+    once, dx written once, w, dw), the plain version and ``F.rms_norm``'s
+    autograd backward (captured in a CUDA graph too, on its forward's
+    stream; both also eager); forward + backward through the entry point
+    beside ``F.rms_norm`` forward + backward, eager, with the host's
+    time to issue each. Last the residual entry's backward at the main
+    shape."""
     import torch.nn.functional as F
-    from paddle_tpu_torch.ops import plain_versions
-    from paddle_tpu_torch.ops.fused import rms_norm, rms_norm_reference
+    from paddle_tpu_torch.ops import fused, plain_versions
+    from paddle_tpu_torch.ops.fused import (
+        rms_norm, rms_norm_backward_reference, rms_norm_bwd,
+        rms_norm_reference, rms_norm_residual)
     gen = torch.Generator(device="cuda").manual_seed(7)
+    eps = 1e-5
     x = torch.randn(8192, 4096, generator=gen, device="cuda").bfloat16()
     w = (1 + 0.1 * torch.randn(4096, generator=gen, device="cuda")).bfloat16()
     ct = torch.randn(8192, 4096, generator=gen, device="cuda").bfloat16()
 
-    y, want = rms_norm(x, w, 1e-5), rms_norm_reference(x, w, 1e-5)
+    y, want = rms_norm(x, w, eps), rms_norm_reference(x, w, eps)
     torch.cuda.synchronize()
     err = _max_err(y, want)
     atol, rtol = RMS_BF16_TOL
@@ -673,9 +809,9 @@ def check_rms_norm_backward(torch):
     if not torch.allclose(y.float(), want.float(), atol=atol, rtol=rtol):
         raise AssertionError(f"rms_norm (8192, 4096) bf16 forward: max "
                              f"abs err {err}, max relative err {rel}")
-    ms = _time_ms(lambda: rms_norm(x, w, 1e-5), iters=20)
-    plain_ms = _time_ms(lambda: rms_norm_reference(x, w, 1e-5), iters=20)
-    lib_ms = _time_ms(lambda: F.rms_norm(x, (4096,), w, 1e-5), iters=20)
+    ms = _time_ms(lambda: rms_norm(x, w, eps), iters=20)
+    plain_ms = _time_ms(lambda: rms_norm_reference(x, w, eps), iters=20)
+    lib_ms = _time_ms(lambda: F.rms_norm(x, (4096,), w, eps), iters=20)
     bms, by = _bound_ms(2 * x.numel() * 2 + 4096 * 2)
     print(f"rms_norm forward (8192, 4096) bf16: max_abs_err={err:.3e} "
           f"max_rel_err={rel:.3e} (tol {atol:g} + {rtol:.4e} relative) "
@@ -684,10 +820,76 @@ def check_rms_norm_backward(torch):
           f"({by})")
     del y, want
 
+    cases = [(x, w, ct)]
+    for dtype, rows, h in ((torch.float32, 512, 4096),
+                           (torch.float32, 8, 4096),
+                           (torch.float32, 64, 16384),
+                           (torch.bfloat16, 64, 16384),
+                           (torch.float32, 3, 65536),
+                           (torch.bfloat16, 3, 65536)):
+        cases.append(tuple(t.to(dtype) for t in (
+            torch.randn(rows, h, generator=gen, device="cuda"),
+            1 + 0.1 * torch.randn(h, generator=gen, device="cuda"),
+            torch.randn(rows, h, generator=gen, device="cuda"))))
+    for xc, wc, cc in cases:
+        dx, dw = rms_norm_bwd(xc, wc, cc, eps)
+        dx2, dw2 = rms_norm_bwd(xc, wc, cc, eps)
+        pdx, pdw = rms_norm_backward_reference(xc, wc, cc, eps)
+        torch.cuda.synchronize()
+        okx, ex, sx = _rms_bwd_close(dx, pdx, _rms_bwd_tol(torch, pdx, "dx"))
+        okw, ew, sw = _rms_bwd_close(
+            dw, pdw, _rms_bwd_tol(torch, pdw, "dw", xc, cc, eps))
+        same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        plan = fused.rms_norm_plan(xc.shape[-1] * xc.element_size() // 16)
+        label = f"rms_norm_bwd {tuple(xc.shape)} {str(xc.dtype)[6:]}"
+        print(f"{label} plan {plan}: max_abs_err dx={ex:.3e} dw={ew:.3e} "
+              f"(|dw| up to {float(pdw.float().abs().max()):.1f}); largest "
+              f"share of the tolerance dx {sx:.3f} dw {sw:.3f}; two calls "
+              f"bit-identical {same}")
+        if not (okx and okw and same):
+            raise AssertionError(f"{label}: against the plain version "
+                                 f"dx ok {okx}, dw ok {okw}; two calls "
+                                 f"bit-identical {same}")
+        if xc is x:
+            main_err = max(ex, ew)
+        del dx, dw, dx2, dw2, pdx, pdw
+    del cases
+
+    ms = _time_ms(lambda: rms_norm_bwd(x, w, ct, eps), iters=20)
+    eager_ms = _time_eager(lambda: rms_norm_bwd(x, w, ct, eps), iters=20)
+    plain_ms = _time_ms(lambda: rms_norm_backward_reference(x, w, ct, eps),
+                        iters=20)
+    # F.rms_norm's backward: its forward recorded on the stream the
+    # backward is captured on
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    with torch.cuda.stream(side):
+        ylib = F.rms_norm(xl, (4096,), wl, eps)
+    lib_bwd = lambda: torch.autograd.grad(ylib, (xl, wl), ct,  # noqa: E731
+                                          retain_graph=True)
+    lib_ms = _time_ms(lib_bwd, iters=20, stream=side)
+    torch.cuda.synchronize()
+    lib_eager_ms = _time_eager(lib_bwd, iters=20)
+    del ylib
+    bms, by = _bound_ms(3 * x.numel() * 2 + 2 * 4096 * 2)
+    print(f"rms_norm_bwd (8192, 4096) bf16 plan "
+          f"{fused._bwd_plan(x, True)}: kernel_ms={ms:.5f} (eager "
+          f"{eager_ms:.5f}) plain_ms={plain_ms:.5f} library_ms="
+          f"{lib_ms:.5f} (F.rms_norm's autograd backward in a CUDA graph; "
+          f"eager {lib_eager_ms:.5f}) bound_ms={bms:.5f} ({by}; x, grad "
+          f"in, dx out, w, dw)")
+    results.update(max_abs_err=main_err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
     def run():
-        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
-        rms_norm(xl, wl, 1e-5).backward(ct)
-        return xl.grad, wl.grad
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        rms_norm(xr, wr, eps).backward(ct)
+        return xr.grad, wr.grad
+
+    def lib():
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        F.rms_norm(xr, (4096,), wr, eps).backward(ct)
 
     def plain():
         with plain_versions():
@@ -695,16 +897,72 @@ def check_rms_norm_backward(torch):
 
     got, want = run(), plain()
     torch.cuda.synchronize()
-    err = max(_max_err(a, b) for a, b in zip(got, want))
-    if err != 0:
-        raise AssertionError(f"rms_norm backward: kernel path vs plain "
-                             f"path differ by {err}")
-    ms, plain_ms = _time_eager(run), _time_eager(plain)
+    okx, ex, _ = _rms_bwd_close(got[0], want[0],
+                                _rms_bwd_tol(torch, want[0], "dx"))
+    okw, ew, _ = _rms_bwd_close(got[1], want[1], _rms_bwd_tol(
+        torch, want[1], "dw", x, ct, eps))
+    if not (okx and okw):
+        raise AssertionError(f"rms_norm forward+backward: kernel path vs "
+                             f"plain path dx err {ex}, dw err {ew}")
+    del got, want
+    ms, plain_ms, lib_ms = _time_eager(run), _time_eager(plain), \
+        _time_eager(lib)
+    host = {name: _host_ms(fn) for name, fn in (
+        ("entry fwd+bwd", run), ("F.rms_norm fwd+bwd", lib),
+        ("entry forward", lambda: rms_norm(x, w, eps)),
+        ("rms_norm_bwd", lambda: rms_norm_bwd(x, w, ct, eps)),
+        ("F.rms_norm forward", lambda: F.rms_norm(x, (4096,), w, eps)),
+        ("clones of x and w", lambda: (x.clone().requires_grad_(),
+                                       w.clone().requires_grad_())))}
+    bms, by = _bound_ms(2 * x.numel() * 2 + 4096 * 2)
+    bbms, _ = _bound_ms(3 * x.numel() * 2 + 2 * 4096 * 2)
+    print(f"rms_norm forward+backward (8192, 4096) bf16 through the entry "
+          f"point (eager, clones of x and w included): kernel path "
+          f"ms={ms:.4f} plain path ms={plain_ms:.4f} F.rms_norm fwd+bwd "
+          f"ms={lib_ms:.4f} bound_ms={bms + bbms:.4f} (bytes; two "
+          f"launches, each reads x); host ms to issue one call: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in host.items()))
+
+    r = torch.randn(8192, 4096, generator=gen, device="cuda").bfloat16()
+    g_sum = torch.randn(8192, 4096, generator=gen, device="cuda").bfloat16()
+
+    def residual():
+        xr, rr, wr = (t.clone().requires_grad_() for t in (x, r, w))
+        out, total = rms_norm_residual(xr, rr, wr, eps)
+        torch.autograd.backward((out, total), (ct, g_sum))
+        return xr.grad, rr.grad, wr.grad
+
+    got = residual()
+    with plain_versions():
+        want = residual()
+    # d_s rounds twice: the RMS part (within RMS_BF16_TOL of the plain
+    # one's) and then its sum with g_sum (one bf16 ulp of the result)
+    s = x + r
+    part, _ = rms_norm_backward_reference(s, w, ct, eps)
+    torch.cuda.synchronize()
+    err = (got[0].float() - want[0].float()).abs()
+    bound = RMS_BF16_TOL[0] + RMS_BF16_TOL[1] * part.float().abs() \
+        + _bf16_ulp(torch.maximum(got[0].float().abs(),
+                                  want[0].float().abs()))
+    share = float((err / bound).max())
+    okw, ew, sw = _rms_bwd_close(got[2], want[2], _rms_bwd_tol(
+        torch, want[2], "dw", s, ct, eps))
+    if not (share <= 1 and okw and torch.equal(got[0], got[1])):
+        raise AssertionError(f"rms_norm_residual backward: d_s share "
+                             f"{share}, dw ok {okw} (share {sw})")
+    del got, want, part
+    ms = _time_ms(lambda: rms_norm_bwd(s, w, ct, eps, grad_sum=g_sum),
+                  iters=20)
+    with plain_versions():
+        plain_ms = _time_ms(lambda: rms_norm_bwd(s, w, ct, eps,
+                                                 grad_sum=g_sum), iters=20)
     bms, by = _bound_ms(4 * x.numel() * 2 + 2 * 4096 * 2)
-    print(f"rms_norm forward+backward (8192, 4096) bf16: grads equal to "
-          f"the plain path's (autograd wiring); kernel-path ms={ms:.4f} "
-          f"plain ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}; x, grad "
-          f"in, dx out, y out)")
+    print(f"rms_norm_residual backward (8192, 4096) bf16: kernel path vs "
+          f"plain path max_abs_err d_s={float(err.max()):.3e} (largest "
+          f"share of its tolerance {share:.3f}) dw={ew:.3e} ({sw:.3f} of "
+          f"its tolerance); the backward kernel through s with g_sum added "
+          f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms=none "
+          f"bound_ms={bms:.5f} ({by}; s, grad, g_sum in, d_s out, w, dw)")
 
 
 def check_xent(torch, res_fwd, res_bwd):
@@ -1148,8 +1406,8 @@ def rms_residual_entry(torch):
     ``fused_rms_norm(x, w, eps, residual=r)`` along a pre-norm residual
     stream of four blocks at (8192, 4096) bf16 (the training step's
     rows and width), forward and backward, counters zeroed just before
-    and read just after: four launches (the backward is the torch VJP
-    of the plain version, as JAX's). Returns the launch counts."""
+    and read just after: four launches of the forward kernel and four of
+    the backward kernel. Returns the launch counts."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops.fused import fused_rms_norm
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -1168,13 +1426,15 @@ def rms_residual_entry(torch):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     grads = [hidden.grad] + [w.grad for w in ws]
-    if counts["rms_norm_residual"] != 4 or not all(
-            g is not None and bool(torch.isfinite(g).all()) for g in grads):
+    if counts["rms_norm_residual"] != 4 or counts["rms_norm_bwd"] != 4 \
+            or not all(g is not None and bool(torch.isfinite(g).all())
+                       for g in grads):
         raise AssertionError(f"residual entry point: launches {counts}, "
                              f"finite grads {[g is not None for g in grads]}")
     print(f"fused_rms_norm(residual=) entry point, 4 blocks of (8192, 4096) "
           f"bf16 fwd + bwd: loss {loss.item():.6f}, launches "
-          f"rms_norm_residual={counts['rms_norm_residual']}")
+          f"rms_norm_residual={counts['rms_norm_residual']} "
+          f"rms_norm_bwd={counts['rms_norm_bwd']}")
     return counts
 
 
@@ -1291,7 +1551,8 @@ def train_path(torch, card):
                 "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
                 "rope": 2 * L, "adamw": n_tensors, "xent_fwd": 0,
                 "xent_bwd": 0, "moe_gather": 0, "rms_norm_residual": 0,
-                "decode_layer": 0, "decode_layer_int8": 0}
+                "decode_layer": 0, "decode_layer_int8": 0,
+                "rms_norm_bwd": 2 * L + 1}
     if n_tensors != 9 * L + 3:
         raise AssertionError(f"{n_tensors} parameter tensors, expected "
                              f"{9 * L + 3}")
@@ -1373,6 +1634,7 @@ def profile_train_step(torch, step, batch, card, label="train"):
 # device kernel name fragments -> family, for the profiles' breakdown
 _FAMILIES = (("flash_", "flash"), ("xent_", "xent"),
              ("gather_rows", "moe_gather"), ("adamw_kernel", "adamw"),
+             ("rms_norm_bwd", "rms_norm_bwd"),
              ("rms_norm_kernel", "rms_norm"), ("rope_kernel", "rope"),
              ("gemm", "GEMM"), ("nvjet", "GEMM"), ("xmma", "GEMM"))
 
@@ -1599,7 +1861,7 @@ def ernie_moe_path(torch, card):
                 "flash_attention_bwd_dkv": L, "rope": 0,
                 "adamw": n_tensors, "xent_fwd": 1, "xent_bwd": 1,
                 "moe_gather": 5 * n_moe, "rms_norm_residual": 0,
-                "decode_layer": 0, "decode_layer_int8": 0}
+                "decode_layer": 0, "decode_layer_int8": 0, "rms_norm_bwd": 0}
     torch.cuda.reset_peak_memory_stats()
     warm, timed = 2, 8
     ops.reset_launch_counts()
@@ -1703,7 +1965,7 @@ def _check_launches(engine, counts, kernel):
     mega = engine.megakernel()
     want = {k: 0 for k in ("paged_attention_decode",
                            "paged_attention_decode_int8", "decode_layer",
-                           "decode_layer_int8")}
+                           "decode_layer_int8", "rms_norm_bwd")}
     want["rms_norm"] = (2 * L + 1) * engine.prefill_chunks \
         + (1 if mega else 2 * L + 1) * engine.steps
     want[kernel] = L * engine.steps
@@ -2176,7 +2438,7 @@ def main() -> int:
     print("tf32 off for matmul and cuDNN (full fp32 products)")
     rms, pa, pa8, flash, rope, adamw = {}, {}, {}, {}, {}, {}
     xent_f, xent_b, gather = {}, {}, {}
-    rms_res, mega, mega8 = {}, {}, {}
+    rms_res, mega, mega8, rms_bwd = {}, {}, {}, {}
     check_rms_norm(torch, rms, (torch.float32, 8))
     check_paged_attention(torch, pa, 32)
     check_paged_attention_int8(torch, pa8)
@@ -2185,7 +2447,7 @@ def main() -> int:
           + json.dumps(flash["ernie"]))
     check_rope(torch, rope)
     check_adamw(torch, adamw)
-    check_rms_norm_backward(torch)
+    check_rms_norm_backward(torch, rms_bwd)
     check_xent(torch, xent_f, xent_b)
     check_moe_gather(torch, gather)
     check_adamw_bf16_moments(torch)
@@ -2249,6 +2511,9 @@ def main() -> int:
         dict(name="moe_gather", route="cuda", source=src + "moe_gather.cu",
              replaces="paddle_tpu/ops/pallas/moe_dispatch.py:105",
              launches=counts["moe_gather"], **gather),
+        dict(name="rms_norm_bwd", route="cuda", source=src + "rms_norm.cu",
+             replaces="paddle_tpu/ops/pallas/fused.py:119",
+             launches=counts["rms_norm_bwd"], **rms_bwd),
         dict(name="rms_norm_residual", route="cuda",
              source=src + "rms_norm.cu",
              replaces="paddle_tpu/ops/pallas/fused.py:65",

@@ -41,7 +41,8 @@ def _wrappers():
     from .flash_attention import (flash_attention_bwd_dkv,
                                   flash_attention_bwd_dq,
                                   flash_attention_fwd)
-    from .fused import fused_adamw, fused_rope, rms_norm, rms_norm_residual
+    from .fused import (fused_adamw, fused_rope, rms_norm, rms_norm_bwd,
+                        rms_norm_residual)
     from .moe_dispatch import moe_gather
     from .paged_attention import (paged_attention_decode,
                                   paged_attention_decode_int8)
@@ -59,7 +60,8 @@ def _wrappers():
             "moe_gather": moe_gather,
             "rms_norm_residual": rms_norm_residual,
             "decode_layer": decode_layer,
-            "decode_layer_int8": decode_layer_int8}
+            "decode_layer_int8": decode_layer_int8,
+            "rms_norm_bwd": rms_norm_bwd}
 
 
 def reset_launch_counts():

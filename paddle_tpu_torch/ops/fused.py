@@ -4,7 +4,8 @@ plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/fused.py``: ``fused_rms_norm``
 without ``residual`` (the TPU ``_rms_kernel``; :func:`rms_norm`) and
-with it (``_rms_res_kernel``; :func:`rms_norm_residual`),
+with it (``_rms_res_kernel``; :func:`rms_norm_residual`), the gradient
+of both (``_rms_bwd``, the VJP of ``_rms_ref``; :func:`rms_norm_bwd`),
 ``fused_rope`` (``_rope_kernel``) and ``fused_adamw``
 (``_adamw_kernel``)."""
 from __future__ import annotations
@@ -16,7 +17,9 @@ import torch
 
 from . import build, plain_active
 
-__all__ = ["rms_norm", "rms_norm_reference", "rms_norm_residual",
+__all__ = ["rms_norm", "rms_norm_reference", "rms_norm_bwd",
+           "rms_norm_backward_reference", "rms_norm_plan",
+           "rms_norm_residual",
            "rms_norm_residual_reference", "fused_rms_norm", "fused_rope",
            "rope_reference", "fused_adamw", "adamw_reference"]
 
@@ -66,20 +69,112 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
+def rms_norm_backward_reference(x: torch.Tensor, weight: torch.Tensor,
+                                grad: torch.Tensor, eps: float):
+    """The gradient of :func:`rms_norm_reference` (the JAX ``_rms_bwd``,
+    the VJP of ``_rms_ref``) written out, with the rounding sites of
+    torch's and XLA's VJP and the fp32 operations of torch's autograd in
+    its order. With xf = float(x), r = rsqrt(mean(xf²) + eps), n =
+    cast(xf·r) to x's dtype: dn = float(cast(grad·w)) to x's dtype;
+    a = (−0.5·Σ_row(dn·xf))·r³/h·xf (rsqrt's, the mean's and the
+    square's backward); dx = cast((dn·r + a) + a), fp32 with one
+    rounding, i.e. r·dn − xf·(r³/h)·Σ_row(dn·xf); dw = the products
+    grad·n in the product's dtype, summed over every row in fp32 and
+    rounded once to w's dtype. Returns ``(dx, dw)``."""
+    h = x.shape[-1]
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    n = (xf * r).to(x.dtype)
+    dn = (grad * weight).to(x.dtype).float()
+    dot = (dn * xf).sum(dim=-1, keepdim=True)
+    a = -0.5 * dot * r ** 3 / h * xf
+    dx = (dn * r + a + a).to(x.dtype)
+    dw = (grad * n).reshape(-1, h).sum(0, dtype=torch.float32)
+    return dx, dw.to(weight.dtype)
+
+
 def _check_rms(name, x, weight, *more):
     """What the RMSNorm kernels need, or raise: CUDA fp32/bf16 tensors,
     a (h,) weight in x's dtype, h a multiple of the 16-byte vector
-    width. Returns h."""
+    width, every other tensor x's shape and dtype. Returns h."""
     _check_cuda(name, x, weight, *more)
     h = x.shape[-1]
     if weight.dtype != x.dtype or tuple(weight.shape) != (h,):
         raise ValueError(
             f"{name}: weight must be ({h},) {x.dtype}, got "
             f"{tuple(weight.shape)} {weight.dtype}")
+    for t in more:
+        if t.shape != x.shape or t.dtype != x.dtype:
+            raise ValueError(f"{name}: tensors must be {tuple(x.shape)} "
+                             f"{x.dtype}, got {tuple(t.shape)} {t.dtype}")
     vec = 16 // x.element_size()
     if h % vec:
         raise ValueError(f"{name} kernel needs h % {vec} == 0 (h={h})")
     return h
+
+
+# A thread holds 1, 2 or 4 16-byte vectors of a row (the register
+# instances of the kernels); 0 is the looping instance.
+_VPT = (1, 2, 4)
+_THREADS = 256
+_sms = {}
+_bwd_plans = {}
+
+
+def rms_norm_plan(nvec: int):
+    """(vectors a thread, threads a CTA) of the RMSNorm kernels, forward
+    and backward, over rows of ``nvec`` 16-byte vectors: up to 256
+    threads (the first forward kernel's CTA, whose vector-to-thread map
+    and so whose sums the forward keeps bit for bit), each holding the
+    fewest vectors of 1, 2 or 4 that cover the row in registers; past
+    1024 vectors (fp32 h > 4096, bf16 h > 8192) ``(0, 256)``, the looping
+    instance, which reads each row twice (the second time from L1/L2)."""
+    threads = min(_THREADS, -(-nvec // 32) * 32)
+    for vpt in _VPT:
+        if vpt * threads >= nvec:
+            return vpt, threads
+    return 0, _THREADS
+
+
+def _sm_count(dev):
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sms[dev.index]
+
+
+def _forward_launch(x, residual, weight, eps):
+    """One launch of the forward kernel: ``out``, or ``(out, x +
+    residual)`` when ``residual`` is given."""
+    name = "rms_norm" if residual is None else "rms_norm_residual"
+    more = () if residual is None else (residual,)
+    h = _check_rms(name, x, weight, *more)
+    out = torch.empty_like(x)
+    total = None if residual is None else torch.empty_like(x)
+    rows = x.numel() // h
+    if rows:
+        vpt, threads = rms_norm_plan(h * x.element_size() // 16)
+        tail = [rows, h, float(eps), vpt, threads, _stream(x)]
+        if residual is None:
+            fn = _kernel("rms_norm", "pt_rms_norm",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 3
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),
+                    out.data_ptr(), *tail)
+        else:
+            fn = _kernel("rms_norm", "pt_rms_norm_residual",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), residual.data_ptr(),
+                    weight.data_ptr(), out.data_ptr(), total.data_ptr(),
+                    *tail)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{rc}")
+        (rms_norm if residual is None else rms_norm_residual).launches += 1
+    return out if residual is None else (out, total)
 
 
 def _rms_norm_forward(x, weight, eps):
@@ -87,27 +182,89 @@ def _rms_norm_forward(x, weight, eps):
     ``csrc/rms_norm.cu`` launch (or a raise)."""
     if x.device.type == "cpu" or plain_active():
         return rms_norm_reference(x, weight, eps)
-    h = _check_rms("rms_norm", x, weight)
-    out = torch.empty_like(x)
+    return _forward_launch(x, None, weight, eps)
+
+
+def _bwd_plan(x, dw):
+    """(vectors a thread, threads, CTAs) of the backward for x's rows:
+    :func:`rms_norm_plan`, and a grid of as many CTAs as fit on the card
+    at once, at most two an SM (the fastest at (8192, 4096) bf16 on the
+    H100, ``PERF.md`` §6; it also bounds the dw scratch at 2 * SMs * h
+    fp32). Cached."""
+    h = x.shape[-1]
+    key = (x.device.index, x.dtype, h, dw)
+    if key not in _bwd_plans:
+        vpt, threads = rms_norm_plan(h * x.element_size() // 16)
+        fn = _kernel("rms_norm", "pt_rms_norm_bwd_occupancy",
+                     [ctypes.c_int] * 4)
+        with torch.cuda.device(x.device):
+            per_sm = fn(_DTYPE_CODE[x.dtype], vpt, threads, int(dw))
+        if per_sm <= 0:
+            raise RuntimeError(f"rms_norm_bwd kernel: no CTA of {threads} "
+                               f"threads fits an SM (occupancy query: "
+                               f"{per_sm})")
+        _bwd_plans[key] = (vpt, threads,
+                           min(2, per_sm) * _sm_count(x.device))
+    return _bwd_plans[key]
+
+
+def _bwd_launch(x, weight, grad, gs, eps, need_x, need_w, plan):
+    """One backward launch (two with dw) at ``plan`` = (vectors a thread,
+    threads, CTAs): ``(dx, dw)``, each None when not needed."""
+    vpt, threads, ctas = plan
+    h = x.shape[-1]
     rows = x.numel() // h
-    if rows == 0:
-        return out
-    fn = _kernel("rms_norm", "pt_rms_norm",
-                 [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_float, ctypes.c_void_p])
+    dx = torch.empty_like(x) if need_x else None
+    dw = torch.empty_like(weight) if need_w else None
+    ctas = min(rows, ctas)
+    part = torch.empty(ctas, h, dtype=torch.float32, device=x.device) \
+        if need_w else None
+    fn = _kernel("rms_norm", "pt_rms_norm_bwd",
+                 [ctypes.c_int] + [ctypes.c_void_p] * 7
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), rows, h, float(eps), _stream(x))
+            grad.data_ptr(), *(None if t is None else t.data_ptr()
+                               for t in (gs, dx, dw, part)),
+            rows, h, float(eps), ctas, vpt, threads, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {rc}")
-    rms_norm.launches += 1
-    return out
+        raise RuntimeError(f"rms_norm_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    rms_norm_bwd.launches += 1
+    return dx, dw
+
+
+def rms_norm_bwd(x, weight, grad, eps, need_x=True, need_w=True,
+                 grad_sum=None):
+    """``(dx, dw)`` of ``rms_norm(x, weight, eps)`` for the cotangent
+    ``grad``, each None when not needed; ``grad_sum`` (the residual
+    entry's second cotangent) is added to dx in x's dtype. A CPU tensor
+    takes :func:`rms_norm_backward_reference`; a CUDA tensor launches
+    the backward of ``csrc/rms_norm.cu`` (without its dw stage when dw
+    is not needed) or raises."""
+    if x.device.type == "cpu" or plain_active():
+        dx, dw = rms_norm_backward_reference(x, weight, grad, eps)
+        if grad_sum is not None:
+            dx = dx + grad_sum
+        return dx if need_x else None, dw if need_w else None
+    grad = grad.contiguous()
+    gs = None if grad_sum is None else grad_sum.contiguous()
+    _check_rms("rms_norm_bwd", x, weight, grad,
+               *(() if gs is None else (gs,)))
+    if x.numel() == 0 or not (need_x or need_w):
+        return (torch.empty_like(x) if need_x else None,
+                torch.zeros_like(weight) if need_w else None)
+    return _bwd_launch(x, weight, grad, gs, eps, need_x, need_w,
+                       _bwd_plan(x, need_w))
+
+
+rms_norm_bwd.launches = 0
 
 
 class _RMSNorm(torch.autograd.Function):
-    """Forward: the kernel. Backward: the gradient of
-    :func:`rms_norm_reference` recomputed by torch's autograd — the JAX
-    ``_rms_bwd`` is the same jnp VJP, so there is no backward kernel."""
+    """Forward: the kernel. Backward: :func:`rms_norm_bwd` (the backward
+    kernel on the card, the plain VJP on the CPU), as JAX's
+    ``_rms_bwd``."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):
@@ -118,22 +275,16 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
-        with torch.enable_grad():
-            xd = x.detach().requires_grad_(ctx.needs_input_grad[0])
-            wd = weight.detach().requires_grad_(ctx.needs_input_grad[1])
-            out = rms_norm_reference(xd, wd, ctx.eps)
-            wrt = [t for t in (xd, wd) if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, grad))
-        gx = next(grads) if xd.requires_grad else None
-        gw = next(grads) if wd.requires_grad else None
-        return gx, gw, None
+        dx, dw = rms_norm_bwd(x, weight, grad, ctx.eps,
+                              *ctx.needs_input_grad[:2])
+        return dx, dw, None
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float) -> torch.Tensor:
     """RMSNorm over the last axis, differentiable in x and weight. A CPU
     tensor takes the plain version; a CUDA tensor launches
-    ``csrc/rms_norm.cu`` or raises."""
+    ``csrc/rms_norm.cu`` (forward and backward) or raises."""
     if torch.is_grad_enabled() and (x.requires_grad
                                     or weight.requires_grad):
         return _RMSNorm.apply(x, weight, eps)
@@ -155,60 +306,38 @@ def _rms_norm_residual_forward(x, residual, weight, eps):
     launch of the residual entry of ``csrc/rms_norm.cu`` (or a raise)."""
     if x.device.type == "cpu" or plain_active():
         return rms_norm_residual_reference(x, residual, weight, eps)
-    h = _check_rms("rms_norm_residual", x, weight, residual)
-    if residual.shape != x.shape or residual.dtype != x.dtype:
-        raise ValueError(
-            f"rms_norm_residual: residual must be {tuple(x.shape)} "
-            f"{x.dtype}, got {tuple(residual.shape)} {residual.dtype}")
-    out, total = torch.empty_like(x), torch.empty_like(x)
-    rows = x.numel() // h
-    if rows == 0:
-        return out, total
-    fn = _kernel("rms_norm", "pt_rms_norm_residual",
-                 [ctypes.c_int] + [ctypes.c_void_p] * 5
-                 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p])
-    rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), residual.data_ptr(),
-            weight.data_ptr(), out.data_ptr(), total.data_ptr(), rows, h,
-            float(eps), _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"rms_norm_residual kernel launch failed: CUDA "
-                           f"error {rc}")
-    rms_norm_residual.launches += 1
-    return out, total
+    return _forward_launch(x, residual, weight, eps)
 
 
 class _RMSNormResidual(torch.autograd.Function):
-    """Forward: the kernel. Backward: the torch VJP of
-    :func:`rms_norm_residual_reference` for both outputs' cotangents —
-    the JAX residual ``custom_vjp`` backward is the VJP of ``_rms_ref``
-    (fused.py:149-153)."""
+    """Forward: the kernel. Backward: :func:`rms_norm_bwd` through s =
+    x + residual (saved from the forward) for the normed output's
+    cotangent, plus the sum's cotangent in x's dtype — the JAX residual
+    ``custom_vjp`` backward, the VJP of ``_rms_ref`` (fused.py:149-153);
+    x and residual get the same gradient."""
 
     @staticmethod
     def forward(ctx, x, residual, weight, eps):
-        ctx.save_for_backward(x, residual, weight)
+        out, total = _rms_norm_residual_forward(x, residual, weight, eps)
+        ctx.save_for_backward(total, weight)
         ctx.eps = eps
-        return _rms_norm_residual_forward(x, residual, weight, eps)
+        return out, total
 
     @staticmethod
     def backward(ctx, g_out, g_sum):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need)
-                      for t, need in zip(saved, ctx.needs_input_grad)]
-            outs = rms_norm_residual_reference(*leaves, ctx.eps)
-            wrt = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(outs, wrt, (g_out, g_sum)))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in leaves) + (None,)
+        total, weight = ctx.saved_tensors
+        need_x, need_r, need_w = ctx.needs_input_grad[:3]
+        ds, dw = rms_norm_bwd(total, weight, g_out, ctx.eps,
+                              need_x or need_r, need_w, grad_sum=g_sum)
+        return ds if need_x else None, ds if need_r else None, dw, None
 
 
 def rms_norm_residual(x, residual, weight, eps):
     """``(rms(x + residual) * weight, x + residual)`` over the last axis,
     the sum in x's dtype, differentiable in x, residual and weight. A CPU
     tensor takes the plain version; a CUDA tensor launches the residual
-    entry of ``csrc/rms_norm.cu`` (one pass writes both outputs) or
-    raises."""
+    entry of ``csrc/rms_norm.cu`` (one pass writes both outputs) and its
+    backward, or raises."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, residual, weight)):
         return _RMSNormResidual.apply(x, residual, weight, eps)
@@ -226,7 +355,6 @@ def fused_rms_norm(x, weight, eps: float = 1e-6, residual=None):
     if residual is None:
         return rms_norm(x, weight, eps)
     return rms_norm_residual(x, residual, weight, eps)
-
 
 # ---------------------------------------------------------------------------
 # RoPE

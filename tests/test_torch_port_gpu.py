@@ -8,13 +8,16 @@ only PyTorch is installed:
 
 Kernels are held against their plain PyTorch versions on the same CUDA
 inputs — the serving kernels (RMSNorm, paged-attention decode over the
-fp32/bf16 and the int8 arenas) and the training kernels (flash
-attention forward/dq/dkv, RoPE, AdamW, and the RMSNorm gradient), the
+fp32/bf16 and the int8 arenas; the RMSNorm forward at 1-64 rows, also
+inside a CUDA graph, and at rows past its registers) and the training
+kernels (flash attention forward/dq/dkv, RoPE, AdamW, and the RMSNorm
+backward with and without a residual, long rows included), the
 ERNIE-MoE kernels (softmax cross-entropy forward and backward, the MoE
 row gather, AdamW over bf16 moments); the tiny Llama on the GPU against
 the same model on the CPU, serving (both arenas) and training, and the
 tiny ERNIE-MoE training step likewise; threefry on the card against the
 CPU."""
+import contextlib
 import math
 
 import numpy as np
@@ -551,7 +554,73 @@ def test_adamw_kernel_matches_plain(dev, pdtype, gdtype):
             atol=2.0 ** -23 * float(p.float().abs().max()))
 
 
+def _bf16_ulp(t):
+    a = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _dw_flips(x, ct, eps):
+    """Per column of a bf16 dw: what products cast(ct·n) whose n may
+    round the other way in the kernel can move it (``chip_smoke.py``'s
+    ``_dw_flips`` has the derivation). An element whose plain xf·r lies
+    within |r_p - r64|/r64 + (d/2 + 7)·2^-24 of it from a bf16 rounding
+    midpoint (d: the kernel's summation depth, a thread's values + 10)
+    may flip; a flip moves its product by 1.01·2^-6·|ct·n| at most."""
+    from paddle_tpu_torch.ops.fused import rms_norm_plan
+    h = x.shape[-1]
+    nvec = h * x.element_size() // 16
+    vpt, threads = rms_norm_plan(nvec)
+    per_thread = (vpt or -(-nvec // threads)) * 16 // x.element_size()
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    x64 = x.double()
+    r64 = torch.rsqrt(torch.mean(x64 * x64, dim=-1, keepdim=True) + eps)
+    delta = (r.double() - r64).abs() / r64 \
+        + (per_thread / 2 + 12) * 2.0 ** -24
+    m = xf * r
+    mid = ((m.view(torch.int32) & -65536) | 0x8000).view(torch.float32)
+    amb = (m.double() - mid.double()).abs() <= delta * m.double().abs()
+    ctn = (ct.float() * m.to(x.dtype).float()).abs()
+    return (1.01 * 2.0 ** -6 * ctn * amb).reshape(-1, h).sum(0)
+
+
+def _assert_rms_grad_close(got, want, kind, part=None, terms=None,
+                           flips=None):
+    """A gradient of the RMSNorm backward kernel against the plain
+    version's: fp32 1e-5 absolute + 1e-5 relative, and for dw also
+    sqrt(rows) fp32 ulps of ``terms`` = (rows, sum over the rows of
+    |grad * n|): both sides sum the same rows products in other orders,
+    which moves a sum by about sqrt(rows) ulps of its terms' magnitude
+    (beyond 1e-5 of |dw| from some 2000 rows on, where the terms cancel);
+    bf16 dx (``kind`` "dx") within 1e-6 + 1.01 * 2^-6 relative (both
+    sides round one fp32 value a few ulp apart: chip_smoke's
+    RMS_BF16_TOL), dw within 2 bf16 ulps of the value (bf16-rounded
+    products summed in fp32 in another order, rounded once) plus
+    ``flips`` (:func:`_dw_flips`: products whose n rounds the other
+    way); a residual d_s (``part``: the plain RMS part before the sum's
+    cotangent was added) within the dx tolerance of the part plus one
+    bf16 ulp of the result."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        bound = 1e-5 + 1e-5 * want.float().abs()
+        if terms is not None:
+            rows, mag = terms
+            bound = bound + math.sqrt(rows) * 2.0 ** -24 * mag
+    elif kind == "dw":
+        bound = 1e-6 + 2 * _bf16_ulp(want) + flips
+    else:
+        ref = want if part is None else part
+        bound = 1e-6 + 1.01 * 2.0 ** -6 * ref.float().abs()
+        if part is not None:
+            bound = bound + _bf16_ulp(torch.maximum(got.float().abs(),
+                                                    want.float().abs()))
+    assert (err <= bound).all(), (kind, float((err / bound).max()))
+
+
 def test_rms_norm_grad_kernel_path_matches_plain(dev):
+    """The entry point's gradients, forward and backward kernels against
+    the plain versions, at the stated tolerance
+    (``_assert_rms_grad_close``)."""
     g = torch.Generator(device=dev).manual_seed(8)
     x = torch.randn(64, 4096, generator=g, device=dev).bfloat16()
     w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).bfloat16()
@@ -559,15 +628,19 @@ def test_rms_norm_grad_kernel_path_matches_plain(dev):
     grads = []
     for plain in (False, True):
         xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ops.reset_launch_counts()
         if plain:
             with ops.plain_versions():
                 out = rms_norm(xl, wl, 1e-5)
+                (out.float() * ct.float()).sum().backward()
         else:
             out = rms_norm(xl, wl, 1e-5)
-        (out.float() * ct.float()).sum().backward()
+            (out.float() * ct.float()).sum().backward()
+        assert ops.launch_counts()["rms_norm_bwd"] == (0 if plain else 1)
         grads.append((xl.grad, wl.grad))
-    for a, b_ in zip(*grads):
-        torch.testing.assert_close(a, b_, rtol=0, atol=0)
+    _assert_rms_grad_close(grads[0][0], grads[1][0], "dx")
+    _assert_rms_grad_close(grads[0][1], grads[1][1], "dw",
+                           flips=_dw_flips(x, ct, 1e-5))
 
 
 def test_train_step_on_gpu_goes_through_kernels(dev):
@@ -598,8 +671,157 @@ def test_train_step_on_gpu_goes_through_kernels(dev):
                       "rope": 3 * 2 * L, "adamw": 3 * n_params,
                       "xent_fwd": 0, "xent_bwd": 0, "moe_gather": 0,
                       "rms_norm_residual": 0, "decode_layer": 0,
-                      "decode_layer_int8": 0}
+                      "decode_layer_int8": 0,
+                      "rms_norm_bwd": 3 * (2 * L + 1)}
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
+
+
+# (300, 11008) and (2, 131072): rows past the registers (the looping
+# instance), the second one longer than any a thread could hold
+RMS_BWD_SHAPES = [(8, 4096), (512, 4096), (2048, 4096), (37, 256),
+                  (1, 64), (300, 11008), (2, 3, 1024), (2, 131072)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES)
+def test_rms_norm_bwd_kernel_matches_plain(dev, shape, dtype):
+    from paddle_tpu_torch.ops.fused import (rms_norm_backward_reference,
+                                            rms_norm_bwd)
+    g = torch.Generator(device=dev).manual_seed(shape[-1] + len(shape))
+    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+         ).to(dtype)
+    ct = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    ops.reset_launch_counts()
+    dx, dw = rms_norm_bwd(x, w, ct, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rms_norm_bwd"] == 1
+    assert dx.shape == x.shape and dw.shape == w.shape
+    want_dx, want_dw = rms_norm_backward_reference(x, w, ct, 1e-5)
+    xf = x.double().reshape(-1, shape[-1])
+    n = (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5)) \
+        .to(dtype).double()
+    mag = (ct.double().reshape(n.shape) * n).abs().sum(0).float()
+    _assert_rms_grad_close(dx, want_dx, "dx")
+    _assert_rms_grad_close(dw, want_dw, "dw", terms=(n.shape[0], mag),
+                           flips=_dw_flips(x, ct, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_bwd_kernel_is_deterministic(dev, dtype):
+    """No atomics: dx and dw bit-identical over two calls."""
+    from paddle_tpu_torch.ops.fused import rms_norm_bwd
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(4096, 4096, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(dtype)
+    ct = torch.randn(4096, 4096, generator=g, device=dev).to(dtype)
+    a, b = rms_norm_bwd(x, w, ct, 1e-5), rms_norm_bwd(x, w, ct, 1e-5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("wrt", ["x", "w"])
+def test_rms_norm_bwd_kernel_for_one_input(dev, wrt):
+    """Only x (or only the weight) wants a gradient: one launch (the dw
+    stage skipped for x alone), the other gradient None, the one asked
+    for equal to the full backward's bits."""
+    from paddle_tpu_torch.ops.fused import rms_norm_bwd
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(300, 1024, generator=g, device=dev)
+    w = 1 + 0.1 * torch.randn(1024, generator=g, device=dev)
+    ct = torch.randn(300, 1024, generator=g, device=dev)
+    full = rms_norm_bwd(x, w, ct, 1e-5)
+    (x if wrt == "x" else w).requires_grad_()
+    ops.reset_launch_counts()
+    rms_norm(x, w, 1e-5).backward(ct)
+    assert ops.launch_counts()["rms_norm_bwd"] == 1
+    if wrt == "x":
+        assert w.grad is None and torch.equal(x.grad, full[0])
+    else:
+        assert x.grad is None and torch.equal(w.grad, full[1])
+
+
+def test_rms_norm_bwd_refuses_unsupported_inputs(dev):
+    from paddle_tpu_torch.ops.fused import rms_norm_bwd
+    x = torch.randn(4, 64, device=dev)
+    w = torch.ones(64, device=dev)
+    with pytest.raises(TypeError):
+        rms_norm_bwd(x.half(), w.half(), x.half(), 1e-5)
+    with pytest.raises(ValueError):
+        rms_norm_bwd(x, w, torch.randn(4, 32, device=dev), 1e-5)
+    with pytest.raises(ValueError):
+        rms_norm_bwd(x, w, x.bfloat16(), 1e-5)
+    with pytest.raises(ValueError):
+        rms_norm_bwd(x, w, x.cpu(), 1e-5)
+
+
+def _assert_rms_forward(x, w, eps=1e-5):
+    """The forward kernel, without and with a residual (x + x), against
+    the plain versions: fp32 1e-5 absolute and relative, bf16 1e-6 +
+    1.01 * 2^-6 relative (chip_smoke's RMS_BF16_TOL), the sum bit-equal;
+    a second call bit-identical."""
+    from paddle_tpu_torch.ops import fused
+    want = rms_norm_reference(x, w, eps).float()
+    atol, rtol = (1e-5, 1e-5) if x.dtype == torch.float32 \
+        else (1e-6, 1.01 * 2.0 ** -6)
+    got, again = rms_norm(x, w, eps), rms_norm(x, w, eps)
+    out, s = fused.rms_norm_residual(x, x, w, eps)
+    want_out, want_s = fused.rms_norm_residual_reference(x, x, w, eps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    assert torch.equal(got, again) and torch.equal(s, want_s)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 8, 32, 64])
+def test_rms_norm_few_row_forward_matches_plain(dev, rows, dtype):
+    """The decode rows: one CTA a row, the row in registers."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows, 4096, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(dtype)
+    ops.reset_launch_counts()
+    _assert_rms_forward(x, w)
+    assert ops.launch_counts()["rms_norm"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [11008, 16384, 65536, 131072])
+def test_rms_norm_long_row_forward_matches_plain(dev, h, dtype):
+    """Rows past the registers (fp32 h > 4096, bf16 h > 8192): the
+    looping instance, with any h."""
+    g = torch.Generator(device=dev).manual_seed(h)
+    x = torch.randn(5, h, generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
+    _assert_rms_forward(x, w)
+
+
+def test_rms_norm_forward_in_a_cuda_graph(dev):
+    """The forward's launches captured in a CUDA graph, as the decode
+    block's RMSNorms are, without and with a residual: replays equal the
+    eager launches' bits, on new inputs copied into the captured buffers
+    too."""
+    from paddle_tpu_torch.ops import fused
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(8, 4096, generator=g, device=dev)
+    w = 1 + 0.1 * torch.randn(4096, generator=g, device=dev)
+    rms_norm(x, w, 1e-5)                     # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    ops.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        out = rms_norm(x, w, 1e-5)
+        out_r, s = fused.rms_norm_residual(x, out, w, 1e-5)
+    assert ops.launch_counts()["rms_norm"] == 1
+    assert ops.launch_counts()["rms_norm_residual"] == 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        want = rms_norm(x, w, 1e-5)
+        want_r, want_s = fused.rms_norm_residual(x, want, w, 1e-5)
+        assert torch.equal(out, want) and torch.equal(out_r, want_r)
+        assert torch.equal(s, want_s)
+        x.copy_(torch.randn(8, 4096, generator=g, device=dev))
 
 
 # -- ERNIE-MoE kernels ------------------------------------------------------
@@ -755,7 +977,7 @@ def test_ernie_train_step_on_gpu_goes_through_kernels(dev, monkeypatch):
                       "xent_fwd": 3, "xent_bwd": 3,
                       "moe_gather": 3 * 5 * (L // cfg.moe_every),
                       "rms_norm_residual": 0, "decode_layer": 0,
-                      "decode_layer_int8": 0}
+                      "decode_layer_int8": 0, "rms_norm_bwd": 0}
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
 
 
@@ -1002,17 +1224,47 @@ def test_rms_norm_residual_kernel_matches_plain(dev, dtype, rows):
         else (1e-6, 1.01 * 2.0 ** -6)
     torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
                                rtol=rtol)
-    # the gradient: the kernel forward, the plain version's VJP
+    # the gradient: the forward and backward kernels against the plain
+    # versions of both
     xs, rs_, ws = (t.float().requires_grad_() for t in (x, r, w))
     o, s2 = rms_norm_residual(xs, rs_, ws, 1e-5)
     (o.square().sum() + s2.sum()).backward()
     assert ops.launch_counts()["rms_norm_residual"] == 2
+    assert ops.launch_counts()["rms_norm_bwd"] == 1
     xp, rp, wp = (t.float().requires_grad_() for t in (x, r, w))
     with ops.plain_versions():
         o, s2 = rms_norm_residual(xp, rp, wp, 1e-5)
-    (o.square().sum() + s2.sum()).backward()
+        (o.square().sum() + s2.sum()).backward()
     for a, b in ((xs, xp), (rs_, rp), (ws, wp)):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_residual_backward_matches_plain(dev, dtype):
+    """The residual entry's backward (the backward kernel through s = x +
+    r, the sum's cotangent added in the kernel) against the plain
+    versions, in the input dtype: d_x and d_r equal each other, d_s
+    within the RMS part's tolerance plus one bf16 ulp of the sum."""
+    from paddle_tpu_torch.ops.fused import (rms_norm_backward_reference,
+                                            rms_norm_residual)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, r, ct, g_sum = (torch.randn(512, 4096, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(dtype)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, r, w)]
+        ops.reset_launch_counts()
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            out, total = rms_norm_residual(*leaves, 1e-5)
+            torch.autograd.backward((out, total), (ct, g_sum))
+        assert ops.launch_counts()["rms_norm_bwd"] == (0 if plain else 1)
+        grads.append([t.grad for t in leaves])
+    (dx, dr, dw), (px, pr, pw) = grads
+    assert torch.equal(dx, dr) and torch.equal(px, pr)
+    part, _ = rms_norm_backward_reference(x + r, w, ct, 1e-5)
+    _assert_rms_grad_close(dx, px, "dx", part=part)
+    _assert_rms_grad_close(dw, pw, "dw", flips=_dw_flips(x + r, ct, 1e-5))
 
 
 # -- the paged engine's programs as CUDA graphs -------------------------------
