@@ -23,7 +23,9 @@ Phases, each of which raises on failure (nothing is caught):
    four-block residual stream, forward and backward. The RMSNorm
    forward at 1-512 rows, the backward kernel at (8192, 4096) bf16 and
    (512, 4096), (8, 4096) fp32, and both at rows past the registers
-   (h = 16384 and 65536, the looping instances).
+   (h = 16384 and 65536, the looping instances). RoPE also on its
+   serving route (``generate()``'s decode shape (4, 1, 32, 128) fp32, the
+   start position read on the device).
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
    published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
@@ -56,7 +58,19 @@ Phases, each of which raises on failure (nothing is caught):
    one decode step's log-probs three ways (megakernel, unfused kernels,
    plain versions), one profiled decode block, and decode step ms,
    decode tokens/s and the idle share beside the unfused engine's.
-6. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
+6. Dense serving and ``generate()`` on the same model (phase 5's engines
+   freed): ``ContinuousBatchingEngine(num_slots=8, max_len=1024,
+   decode_block=8, prompt_buckets=(64, 128, 256, 512))`` serves phase
+   3's 12 requests (its decode block one CUDA graph, one prefill graph
+   per bucket used, launches exact: RMSNorm only), greedy streams
+   token-identical to phase 3's paged engine, one decode step's
+   log-probs kernels against plain versions, one profiled block, decode
+   step ms, tokens/s and TTFT beside phase 3's; then ``generate()`` on 4
+   prompts of 128 tokens, 64 new (one captured step replayed per token;
+   RoPE L launches a step through its device start position, plus L for
+   the prefill), tokens equal to the dense engine's, and a ragged, a
+   sampled and a 4-beam run at 8 new tokens.
+7. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
    O2 bf16, ``AdamW(lr=1e-4, weight_decay=0.01)`` with fp32 masters,
    ``TrainStep`` on a 4 x 2048 batch from ``np.random.RandomState(0)``
    (labels rolled by one, as bench.py): first, at batch 1, one forward
@@ -64,7 +78,7 @@ Phases, each of which raises on failure (nothing is caught):
    initial weights (loss and every parameter's gradient); then 2
    warm-up and 5 timed steps with exact launch counts per step and
    finite losses; last, one profiled step.
-7. The ERNIE-MoE training path (``bench_workloads.py`` ``ernie_moe``):
+8. The ERNIE-MoE training path (``bench_workloads.py`` ``ernie_moe``):
    ``ernie_moe_base_config(expert_parallel=False)`` at full size, O2
    bf16, ``AdamW(multi_precision=False)`` (bf16 moments), the forward
    under ``auto_cast``, a 16 x 1024 batch: kernels vs plain versions at
@@ -245,7 +259,8 @@ def check_megakernel_sass():
 
 def check_rms_norm(torch, results, main_shape):
     """The RMSNorm forward against its plain version at the decode rows
-    (1-64) and 512, fp32 and bf16, h = 4096, timed beside its bound, the
+    (1-64) and 512, fp32 and bf16, and at every other row count phase 6
+    launches in fp32, h = 4096, timed beside its bound, the
     plain version and ``F.rms_norm``; then at rows past the registers
     (h = 16384 and 65536: the looping instance), with and without a
     residual."""
@@ -256,8 +271,13 @@ def check_rms_norm(torch, results, main_shape):
     h, eps = 4096, 1e-5
     # fp32: rsqrtf and the reduction order differ from torch's by a few ulp
     tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: RMS_BF16_TOL}
+    # fp32 rows: every row count phase 6 gives the kernel (generate()'s
+    # 1, 4 and 16 beam rows a decode step, the engine's 8; the prefills'
+    # 64-512 bucket rows and the unpadded 88-token prompt)
+    sweep = {torch.float32: (1, 4, 8, 16, 32, 64, 88, 128, 256, 512),
+             torch.bfloat16: (1, 8, 32, 64, 512)}
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in (1, 8, 32, 64, 512):
+        for rows in sweep[dtype]:
             x = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
             w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
                  ).to(dtype)
@@ -653,6 +673,85 @@ def check_rope(torch, results):
           f"({by})")
     results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                    bound_by=by, library_ms=None)
+    check_rope_serving(torch, cos_full=_rope_cache(llama_7b_config(),
+                                                   "cuda"))
+
+
+def check_rope_serving(torch, cos_full):
+    """RoPE's serving route at ``generate()``'s decode shape on Llama-2-7B
+    (q and k (4, 1, 32, 128) fp32, one launch for both): the whole
+    (4096, 128) tables and the start position read on the device, at
+    starts 0, 191, 4095 and 5000 (clamped to 4095, as
+    ``dynamic_slice_in_dim`` clamps it), against the plain version
+    (fp32, 1e-5) and bit for bit against the route of sliced tables; then
+    timed inside a CUDA graph with its bound (bytes: q, k, their outputs
+    and one table row each). Then every other RoPE launch of phase 6
+    against the plain version (fp32, 1e-5): ``generate()``'s prefills
+    over sliced tables ((4, 128) prompts; the unpadded (1, 88) prompt),
+    the 4-beam decode (16 rows, s = 1, sliced tables at an int
+    position) and the batch-1 decode with a device start."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import _rope_pair
+    cos, sin = cos_full
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, h, d = 4, 32, 128
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda")
+    k = torch.randn(b, 1, h, d, generator=gen, device="cuda")
+    start = torch.zeros(1, dtype=torch.int32, device="cuda")
+    err = 0.0
+    for p in (0, 191, 4095, 5000):
+        start.fill_(p)
+        ops.reset_launch_counts()
+        got = _rope_pair(q, k, cos, sin, 1.0, start)
+        if ops.launch_counts()["rope"] != 1:
+            raise AssertionError("rope's serving route: not one launch")
+        with plain_versions():
+            want = _rope_pair(q, k, cos, sin, 1.0, start)
+        r = min(p, cos.shape[0] - 1)
+        sliced = _rope_pair(q, k, cos[r:r + 1].contiguous(),
+                            sin[r:r + 1].contiguous(), 1.0)
+        torch.cuda.synchronize()
+        err = max([err] + [_max_err(a, w) for a, w in zip(got, want)])
+        if not all(torch.equal(a, c) for a, c in zip(got, sliced)):
+            raise AssertionError(f"rope start {p}: the device start differs "
+                                 "from the sliced tables")
+    if not err <= 1e-5:
+        raise AssertionError(f"rope serving route: max abs err {err} > 1e-5")
+    start.fill_(191)
+    ms = _time_ms(lambda: _rope_pair(q, k, cos, sin, 1.0, start))
+
+    def plain():
+        with plain_versions():
+            return _rope_pair(q, k, cos, sin, 1.0, start)
+
+    plain_ms = _time_ms(plain)
+    bms, by = _bound_ms(4 * q.numel() * 4 + 2 * d * 4)
+    print(f"rope serving route (4, 1, 32, 128) fp32, device start over the "
+          f"(4096, 128) tables: max_abs_err={err:.3e} (tol 1e-5), equal "
+          f"to the sliced tables' route; kernel_ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms=none bound_ms={bms:.6f} "
+          f"({by})")
+    for b, s, p, dev_start in ((4, 128, 0, False), (1, 88, 0, False),
+                               (16, 1, 130, False), (1, 1, 90, True)):
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+        k = torch.randn(b, s, h, d, generator=gen, device="cuda")
+        if dev_start:
+            start.fill_(p)
+            args = (cos, sin, 1.0, start)
+        else:
+            args = (cos[p:p + s], sin[p:p + s], 1.0)
+        got = _rope_pair(q, k, *args)
+        with plain_versions():
+            want = _rope_pair(q, k, *args)
+        torch.cuda.synchronize()
+        err = max(_max_err(a, w) for a, w in zip(got, want))
+        if not err <= 1e-5:
+            raise AssertionError(f"rope ({b}, {s}, 32, 128) fp32 at {p}: "
+                                 f"max abs err {err} > 1e-5")
+        print(f"rope ({b}, {s}, 32, 128) fp32 at position {p}, "
+              f"{'device start' if dev_start else 'sliced tables'}: "
+              f"max_abs_err={err:.3e} (tol 1e-5)")
 
 
 def check_adamw(torch, results):
@@ -1942,11 +2041,13 @@ def _serve_checked(torch, srv, engine, reqs, vocab):
         gen = out[len(p):]
         if gen.min() < 0 or gen.max() >= vocab:
             raise AssertionError(f"request {rid}: token out of vocab")
-    engine.manager.assert_consistent()
-    if engine.manager._ref:
-        raise AssertionError(f"blocks leaked: {engine.manager._ref}")
-    if srv.stats()["prefix_cache_hit_rate"] <= 0:
-        raise AssertionError("the shared prefix was not reused")
+    manager = getattr(engine, "manager", None)     # paged engines
+    if manager is not None:
+        manager.assert_consistent()
+        if manager._ref:
+            raise AssertionError(f"blocks leaked: {manager._ref}")
+        if srv.stats()["prefix_cache_hit_rate"] <= 0:
+            raise AssertionError("the shared prefix was not reused")
     return rids, res, counts, wall
 
 
@@ -2003,8 +2104,9 @@ def _print_serving(card, label, st, extra=""):
           f"ttft_p50_s={st['ttft_p50_s']:.4f} "
           f"ttft_p95_s={st['ttft_p95_s']:.4f} "
           f"decode_step_ms={st['decode_step_ms']:.3f} "
-          f"prefix_hit_rate={st['prefix_cache_hit_rate']:.4f} "
-          f"occupancy={st['slot_occupancy']:.4f}{extra}")
+          + (f"prefix_hit_rate={st['prefix_cache_hit_rate']:.4f} "
+             if "prefix_cache_hit_rate" in st else "")
+          + f"occupancy={st['slot_occupancy']:.4f}{extra}")
 
 
 def _check_step_logprobs(torch, model, engine, label, megakernel=False):
@@ -2019,20 +2121,24 @@ def _check_step_logprobs(torch, model, engine, label, megakernel=False):
     from paddle_tpu_torch.models import decode_step_logprobs
     from paddle_tpu_torch.ops.decode_layer import FusedDecode
     s = engine._state
-    tbl = torch.where(s["live"][:, None], s["table"], 0)
-    step = (s["tok"][:, None], engine.backend.cache, s["pos"], tbl)
+    step = (s["tok"][:, None], engine.backend.cache, s["pos"])
+    if "table" in s:                      # paged: the live slots' tables
+        aux = dict(block_table=torch.where(s["live"][:, None], s["table"],
+                                           0))
+    else:                                 # dense: the slots' pad counts
+        aux = dict(pad=s["pad"])
     runs = {}
     if megakernel:
         fused = FusedDecode()
         runs["megakernel"] = decode_step_logprobs(model, *step,
-                                                  fused_decode=fused)
+                                                  fused_decode=fused, **aux)
         L = model.config.num_hidden_layers
         if fused.kernel_calls != L:
             raise AssertionError(f"{label}log-prob check: {fused.kernel_calls}"
                                  f" megakernel launches for {L} layers")
-    runs["kernels"] = decode_step_logprobs(model, *step)
+    runs["kernels"] = decode_step_logprobs(model, *step, **aux)
     with ops.plain_versions():
-        runs["plain"] = decode_step_logprobs(model, *step)
+        runs["plain"] = decode_step_logprobs(model, *step, **aux)
     torch.cuda.synchronize()
     names = list(runs)
     errs = {f"{a} vs {b}": _max_err(runs[a], runs[b])
@@ -2085,8 +2191,9 @@ def serving_path(torch, card):
 
 
 def _arm_fp32_check(engine, cfg):
-    """Arm 8 fresh greedy requests (prompts of 40 + 37 i tokens) for the
-    one-step log-prob check."""
+    """Arm 8 fresh greedy requests (prompts of 40 + 37 i tokens, 32 new
+    tokens: four decode blocks of work) for the one-step log-prob check
+    and the block profile."""
     import numpy as np
     from paddle_tpu_torch.serving import Request
     rng = np.random.RandomState(1)
@@ -2095,14 +2202,17 @@ def _arm_fp32_check(engine, cfg):
         engine.try_admit(Request(request_id=1000 + i,
                                  prompt=rng.randint(0, cfg.vocab_size,
                                                     (L0,)).astype("int32"),
-                                 max_new_tokens=24))
-    engine.prefill_tick(None)
+                                 max_new_tokens=32))
+    prefill_tick = getattr(engine, "prefill_tick", None)   # paged
+    if prefill_tick is not None:
+        prefill_tick(None)
 
 
 def _arm_int8_check(engine, cfg):
     """Arm all 32 slots at lengths 1009..1071 for the one-step log-prob
-    check: a shared 1008-token prefix (63 blocks, prefilled once) plus
-    1 + 2 i tokens of each request's own."""
+    check and the block profile: a shared 1008-token prefix (63 blocks,
+    prefilled once) plus 1 + 2 i tokens of each request's own, 32 new
+    tokens each (four decode blocks of work)."""
     import numpy as np
     from paddle_tpu_torch.serving import Request
     rng = np.random.RandomState(6)
@@ -2112,7 +2222,7 @@ def _arm_int8_check(engine, cfg):
                                               (1 + 2 * i,))])
         engine.try_admit(Request(request_id=2000 + i,
                                  prompt=p.astype("int32"),
-                                 max_new_tokens=24))
+                                 max_new_tokens=32))
         if i == 0:
             engine.prefill_tick(None)         # registers the prefix
     engine.prefill_tick(None)
@@ -2134,35 +2244,53 @@ _PATH_KERNELS = {
 
 def _profile_block(torch, engine):
     """One decode block (one replay of its graph) under the profiler,
-    between two margins in the same session. The profiler converts the
-    device's clock to the host's, and the offset drifts over a process's
-    life (by milliseconds after a few minutes on the H100): it drops the
-    device records it places outside the session, and places a block's
-    first kernels before the host call that launched them. So a block
-    runs first to take the loss at the start, and a 50 ms wait follows
+    after two margin blocks in the same session. The profiler converts
+    the device's clock to the host's, and the offset drifts over a
+    process's life (by milliseconds after a few minutes on the H100): it
+    drops device records it places outside the session (once, on an
+    H100, a whole first block's host read), and places a block's
+    first kernels before the host call that launched them. So two blocks
+    run first to take the loss at the start, and a 50 ms wait follows
     the read block; the read block's records are found on the device's
-    own timeline, between the first block's host read (its one copy to
-    the host) and its own. Returns its host wall us and its device
-    events as (name, us, count)."""
+    own timeline, between the last two host reads (a block's one copy to
+    the host each): the block before it and its own. The read closing
+    that window must end in the second half of the timed block's host
+    range (a drift of milliseconds against a block of 100 ms or more),
+    so a dropped last read, which would leave the block before it in the
+    window, fails; a read dropped inside the window fails the caller's
+    kernel-by-kernel check of the captured launches. Returns its host
+    wall us and its device events as (name, us, count)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    mark = "chip_smoke timed decode block"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         engine.step_block()
-        t0 = time.perf_counter()
         engine.step_block()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+        with record_function(mark):
+            t0 = time.perf_counter()
+            engine.step_block()
+            wall_us = 1e6 * (time.perf_counter() - t0)
         time.sleep(0.05)
+    timed = [e.time_range for e in prof.events()
+             if e.name == mark and e.device_type == DeviceType.CPU]
     events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
+                     if e.device_type == DeviceType.CUDA and e.name != mark),
                     key=lambda e: e.time_range.start)
     reads = [k for k, e in enumerate(events)
              if e.name.startswith("Memcpy DtoH")]
-    if len(reads) != 2:
-        raise AssertionError(f"two profiled decode blocks made {len(reads)} "
-                             f"copies to the host, not one each")
+    if not 2 <= len(reads) <= 3 or len(timed) != 1:
+        raise AssertionError(f"three profiled decode blocks made "
+                             f"{len(reads)} copies to the host, not one "
+                             f"each (the first may be dropped), and "
+                             f"{len(timed)} timed ranges, not one")
+    mid = (timed[0].start + timed[0].end) / 2
+    if events[reads[-1]].time_range.end < mid:
+        raise AssertionError("the last host read the profiler recorded "
+                             "ends before the middle of the timed block: "
+                             "the window would hold the block before it")
     kernels = {}
-    for e in events[reads[0] + 1:reads[1] + 1]:
+    for e in events[reads[-2] + 1:reads[-1] + 1]:
         t, n = kernels.get(e.name, (0.0, 0))
         kernels[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     return wall_us, [(name, t, n) for name, (t, n) in kernels.items()
@@ -2176,22 +2304,23 @@ def _path_counts(kernels):
             for w, parts in _PATH_KERNELS.items()}
 
 
-def profile_decode_block(torch, engine, card):
+def profile_decode_block(torch, engine, card, arena=None):
     """Where one decode block's time goes: device time by kernel name
     and the device's busy share of the block's host wall time (every
     live slot, one replay of the block's CUDA graph ending in its host
     sync), and the RMSNorm kernel's time inside it. One unprofiled
     block runs first, for the wall time without the profiler's
-    overhead; the profiled block is the second of its session
-    (:func:`_profile_block`), so three blocks of work must be armed.
+    overhead; the profiled block is the third of its session
+    (:func:`_profile_block`), so four blocks of work must be armed.
     The decode-path kernels the profiler saw the device run in the
     replay must equal the launches the graph captured, kernel by kernel
     (the launch counts only add the captured launches at each replay;
     this observes them). Returns the idle share."""
     live = int(engine._state["live"].sum())
-    arena = "int8" if getattr(engine, "kv_int8", False) else "fp32"
-    if engine.megakernel():
-        arena = "megakernel " + arena
+    if arena is None:
+        arena = "int8" if getattr(engine, "kv_int8", False) else "fp32"
+        if engine.megakernel():
+            arena = "megakernel " + arena
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.step_block()
@@ -2405,6 +2534,216 @@ def serving_megakernel_path(torch, card, model, refs):
     return total
 
 
+def _check_dense_launches(engine, counts):
+    """Exact launch counts of a dense engine's served run: RMSNorm 2L + 1
+    times per decode step and per prefill (each a graph replay), every
+    other kernel never (the slot pool rotates per row in torch ops and
+    reads through the dense einsum sequence)."""
+    L = engine.backend.model.config.num_hidden_layers
+    want = {k: 0 for k in counts}
+    want["rms_norm"] = (2 * L + 1) * (engine.steps + engine.prefills)
+    if counts != want:
+        raise AssertionError(f"dense launch counts {counts}, expected "
+                             f"{want}")
+
+
+def serving_dense_path(torch, card, model, ref):
+    """Phase 6, the dense engine: ``ContinuousBatchingEngine`` without
+    ``paged`` on the fp32 serving path's model serves phase 3's 12
+    requests. Both programs are CUDA graphs: the decode block captured
+    once at construction, one prefill per prompt bucket at its first
+    admission. Gates: greedy streams token-identical to phase 3's paged
+    engine (``ref``), one decode capture, one prefill capture per bucket
+    used, exact launch counts, one decode step's log-probs with the
+    kernels against the plain versions, one profiled decode block.
+    Returns the launch counts, the engine's greedy tokens for
+    ``generate_path`` and its stats."""
+    import numpy as np
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          Scheduler, Server)
+    cfg = model.config
+    buckets = (64, 128, 256, 512)
+    engine = ContinuousBatchingEngine(model, num_slots=8, max_len=1024,
+                                      decode_block=8, prompt_buckets=buckets,
+                                      device="cuda")
+    b = engine.backend
+    pool = sum(t.numel() * t.element_size() for layer in b.cache
+               for t in layer)
+    row = sum(t.numel() * t.element_size() for layer in b.row for t in layer)
+    print(f"dense engine: 8 slots, max_len 1024, decode_block 8, buckets "
+          f"{buckets}: pool {pool / 1e9:.3f} GB, prefill row "
+          f"{row / 1e9:.3f} GB, {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated")
+    srv = Server(engine, Scheduler(prefill_token_budget=256))
+    reqs = _prompts(np.random.RandomState(0), cfg.vocab_size)
+    rids, res, counts, wall = _serve_checked(torch, srv, engine, reqs,
+                                             cfg.vocab_size)
+    _check_dense_launches(engine, counts)
+    used = sorted({engine.bucket_len(len(r[0])) for r in reqs})
+    compiles = (engine.decode_compile_count(), engine.prefill_compile_count())
+    if compiles != (1, len(used)):
+        raise AssertionError(f"dense compile counts (decode, prefill) "
+                             f"{compiles}, expected (1, {len(used)})")
+    dec = b.decode_program
+    pre = sorted(b.prefill_programs().items())
+    print(f"dense graphs: decode block captured once in {dec.capture_s:.3f}"
+          f" s, pool {dec.graph_bytes / 2**20:.1f} MiB; the prefills share "
+          f"one pool of {sum(p.graph_bytes for _, p in pre) / 2**20:.1f} "
+          f"MiB: " + "; ".join(
+              f"prefill {n} captured once in {p.capture_s:.3f} s, pool "
+              f"growth {p.graph_bytes / 2**20:.1f} MiB" for n, p in pre))
+    print(f"dense served {len(rids)} requests in {wall:.2f} s: "
+          f"{engine.steps} decode steps, {engine.prefills} prefills "
+          f"(buckets {used}), launches {counts}")
+    st = srv.stats()
+    _print_serving(card, "dense ", st,
+                   f" prefill_s={engine.prefill_s:.3f}")
+    _print_serving(card, "paged (phase 3, same run) ", ref["stats"])
+    same = total_tok = identical = 0
+    for i, out in ref["greedy"].items():
+        p_len = len(reqs[i][0])
+        eq = res[rids[i]][p_len:] == out[p_len:]
+        same += int(eq.sum())
+        total_tok += len(eq)
+        identical += int(eq.all())
+    print(f"dense vs paged greedy streams ({len(ref['greedy'])} requests): "
+          f"{identical} identical, token agreement {same / total_tok:.4f}")
+    if identical != len(ref["greedy"]):
+        raise AssertionError("dense engine: greedy streams differ from the "
+                             "paged engine's")
+    _arm_fp32_check(engine, cfg)
+    _check_step_logprobs(torch, model, engine, "dense ")
+    idle = profile_decode_block(torch, engine, card, arena="dense fp32")
+    rst = ref["stats"]
+    print(f"[{card}] dense vs paged decode: step {st['decode_step_ms']:.3f} vs "
+          f"{rst['decode_step_ms']:.3f} ms, decode tokens/s "
+          f"{st['decode_tokens_per_sec']:.1f} vs "
+          f"{rst['decode_tokens_per_sec']:.1f}, ttft p50 "
+          f"{st['ttft_p50_s']:.4f} vs {rst['ttft_p50_s']:.4f} s, p95 "
+          f"{st['ttft_p95_s']:.4f} vs {rst['ttft_p95_s']:.4f} s, device "
+          f"idle {100 * idle:.1f}% vs {100 * ref['idle']:.1f}%")
+    return counts, engine
+
+
+def generate_path(torch, card, model, engine):
+    """Phase 6, ``generate()``: 4 prompts of 128 tokens, 64 new tokens,
+    greedy (the scan tail: no host read between steps). Gates: the
+    step's CUDA graph captured once; RoPE through its serving route,
+    exactly L launches per decode step plus L for the prefill, RMSNorm
+    2L + 1 per step and for the prefill, nothing else; the tokens equal
+    the dense ``engine``'s greedy streams for the same prompts (the
+    largest log-prob difference of one decode step between the two
+    routes is printed beside it). Then a ragged ``attention_mask``
+    batch, a sampled run and a 4-beam run at 8 new tokens (shapes,
+    vocabulary, the ragged row against its unpadded prompt). Returns
+    the launch counts of the greedy run."""
+    import numpy as np
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models import decode_step_logprobs
+    from paddle_tpu_torch.serving import Request, Scheduler, Server
+    cfg = model.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    prompts = np.random.RandomState(3).randint(0, V, (4, 128)) \
+        .astype(np.int32)
+    new = 64
+    model.release_decode_programs()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    (step,) = model.__dict__["_decode_fn_cache"].values()
+    if step.program.captures != 1:
+        raise AssertionError(f"generate(): {step.program.captures} "
+                             "captures of its step")
+    want = {k: 0 for k in counts}
+    want["rope"] = L * (new - 1) + L
+    want["rms_norm"] = (2 * L + 1) * new
+    if counts != want:
+        raise AssertionError(f"generate() launch counts {counts}, expected "
+                             f"{want}")
+    gen = out.cpu().numpy()
+    if gen.shape != (4, 128 + new) or gen.min() < 0 or gen.max() >= V:
+        raise AssertionError(f"generate(): bad output {gen.shape}")
+    t0 = time.perf_counter()
+    model.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # the replayed step alone (CUDA events around 10 replays), and the
+    # eager prefill on the same shapes
+    step_ms = _time_eager(step, iters=10)
+    ids = torch.from_numpy(prompts).to(model.device)
+    prefill_ms = _time_eager(lambda: decode_step_logprobs(
+        model, ids, step.cache, 0), iters=3)
+    print(f"[{card}] generate() 4 x 128 prompts, {new} new tokens, greedy: "
+          f"first call {first_s:.3f} s (step captured in "
+          f"{step.program.capture_s:.3f} s, pool "
+          f"{step.program.graph_bytes / 2**20:.1f} MiB), warm call "
+          f"{warm_s:.3f} s; replayed step {step_ms:.3f} ms a token "
+          f"({4e3 / step_ms:.1f} tokens/s), prefill {prefill_ms:.3f} ms; "
+          f"launches {counts}")
+
+    # the dense engine on the same prompts: the same greedy tokens
+    engine.reset()
+    srv = Server(engine, Scheduler())
+    rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    res = srv.run_until_idle()
+    agree = [int((res[r][128:] == gen[i, 128:]).sum())
+             for i, r in enumerate(rids)]
+    # one decode step of both routes from the same state: the generate
+    # step's cache after its prefill, and the engine's slots armed the
+    # same way
+    engine.reset()
+    for i, p in enumerate(prompts):
+        engine.admit(Request(request_id=i, prompt=p, max_new_tokens=new))
+    s = engine._state
+    lp_engine = decode_step_logprobs(model, s["tok"][:, None],
+                                     engine.backend.cache, s["pos"],
+                                     pad=s["pad"])
+    step.start(None)
+    tok = torch.from_numpy(gen[:, 128]).to(model.device)
+    decode_step_logprobs(model, ids, step.cache, 0)
+    lp_gen = decode_step_logprobs(model, tok[:, None], step.cache,
+                                  torch.tensor(128, dtype=torch.int32,
+                                               device=model.device))
+    torch.cuda.synchronize()
+    diff = _max_err(lp_engine[:4], lp_gen)
+    print(f"generate() vs dense engine greedy tokens: "
+          f"{sum(agree)}/{4 * new} agree ({agree}); one decode step's "
+          f"log-probs max_abs_diff={diff:.3e} (fused RoPE over a "
+          f"{128 + new}-entry cache vs per-row RoPE over the 1024-entry "
+          f"pool)")
+    if sum(agree) != 4 * new:
+        raise AssertionError("generate(): greedy tokens differ from the "
+                             "dense engine's")
+    engine.reset()
+
+    # ragged, sampled and beam runs at 8 new tokens
+    am = np.ones((4, 128), np.int32)
+    am[1, :40] = 0
+    am[3, :100] = 0
+    rag = model.generate(prompts, max_new_tokens=8, attention_mask=am)
+    alone = model.generate(prompts[1:2, 40:], max_new_tokens=8)
+    smp = model.generate(prompts, max_new_tokens=8, do_sample=True,
+                         temperature=0.8, top_k=50, top_p=0.95, seed=7)
+    beam = model.generate(prompts, max_new_tokens=8, num_beams=4)
+    torch.cuda.synchronize()
+    for name, t in (("ragged", rag), ("sampled", smp), ("beam", beam)):
+        t = t.cpu().numpy()
+        if t.shape != (4, 136) or t.min() < 0 or t.max() >= V \
+                or not np.array_equal(t[:, :128], prompts):
+            raise AssertionError(f"generate() {name}: bad output")
+    rag_ok = bool(torch.equal(rag[1, 40:], alone[0]))
+    print(f"generate() at 8 new tokens: ragged (pads 0, 40, 0, 100; row 1 "
+          f"equals its unpadded prompt's: {rag_ok}), sampled (t 0.8, top-k "
+          f"50, top-p 0.95, seed 7) and 4-beam runs: shapes and tokens ok; "
+          f"{len(model.__dict__['_decode_fn_cache'])} step programs cached")
+    model.release_decode_programs()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2460,7 +2799,10 @@ def main() -> int:
     serving8, ref8 = serving_int8_path(torch, card, model)
     megakernel = serving_megakernel_path(torch, card, model,
                                          {"fp32": ref, "int8": ref8})
-    del model
+    torch.cuda.empty_cache()
+    dense, dense_engine = serving_dense_path(torch, card, model, ref)
+    gen = generate_path(torch, card, model, dense_engine)
+    del dense_engine, model
     torch.cuda.empty_cache()
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -2468,8 +2810,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ernie = ernie_moe_path(torch, card)
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
-                 megakernel_serving=megakernel, training=train,
-                 ernie_moe_training=ernie)
+                 megakernel_serving=megakernel, dense_serving=dense,
+                 generate=gen, training=train, ernie_moe_training=ernie)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))

@@ -17,7 +17,9 @@ Slice 3 serves over the int8 KV arena (the int8 paged-decode kernel)
 with threefry sampling. Slice 4 is the ERNIE-MoE training step:
 ``models.ErnieMoEForCausalLM`` under ``amp.auto_cast`` with AdamW over
 bf16 moments, with the MoE row-gather and fused softmax cross-entropy
-kernels."""
+kernels. Slice 10 is the dense serving engine
+(``serving.ContinuousBatchingEngine``) and ``LlamaForCausalLM.generate``,
+each as CUDA graphs, with RoPE's serving route."""
 from .device import resolve_device
 
 __all__ = ["resolve_device"]

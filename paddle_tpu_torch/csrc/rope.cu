@@ -15,7 +15,12 @@
 // The TPU kernel rotated q and k of a (rows, h, d) block in one launch
 // with cos/sin pre-broadcast over the batch. Here blockIdx.y picks the
 // tensor (q and k of equal shape in one launch; GQA launches once per
-// tensor), and each thread reads its own cos/sin row (position = row % s).
+// tensor), and each thread reads its own cos/sin row: row % s of (s, d)
+// tables, or, on the serving route, row p0 + row % s of the whole
+// (table_rows, d) tables, where p0 is a start position read on the
+// device (a replayed CUDA graph cannot slice the tables with a host
+// integer). p0 is clamped to [0, table_rows - s], as JAX's
+// dynamic_slice_in_dim clamps its start.
 //
 // Bound: bytes — x read once, out written once, cos/sin (s*d, cached in
 // L2 across the batch and heads) read once. Design: one thread per
@@ -49,9 +54,13 @@ template <typename T>
 __global__ void rope_kernel(const T* __restrict__ x0, T* __restrict__ o0,
                             const T* __restrict__ x1, T* __restrict__ o1,
                             const T* __restrict__ cos_t,
-                            const T* __restrict__ sin_t, size_t rows, int s,
-                            int h, int d, float sign) {
+                            const T* __restrict__ sin_t,
+                            const int32_t* __restrict__ pos0,
+                            int table_rows, size_t rows, int s, int h, int d,
+                            float sign) {
   constexpr int N = VecWidth<T>::N;
+  int p0 = 0;
+  if (pos0 != nullptr) p0 = min(max(*pos0, 0), table_rows - s);
   const T* x = blockIdx.y == 0 ? x0 : x1;
   T* out = blockIdx.y == 0 ? o0 : o1;
   const int half = d / 2;
@@ -62,7 +71,7 @@ __global__ void rope_kernel(const T* __restrict__ x0, T* __restrict__ o0,
     const int vi = (int)(idx % vpr);
     const size_t rh = idx / vpr;              // (row, head)
     const size_t row = rh / h;
-    const int pos = (int)(row % s);
+    const int pos = p0 + (int)(row % s);
     const size_t base = rh * d + (size_t)vi * N;
     const size_t cbase = (size_t)pos * d + (size_t)vi * N;
     uint4 a_raw = *reinterpret_cast<const uint4*>(x + base);
@@ -93,8 +102,9 @@ __global__ void rope_kernel(const T* __restrict__ x0, T* __restrict__ o0,
 
 template <typename T>
 int launch(const void* x0, void* o0, const void* x1, void* o1, int ntensors,
-           const void* cos_t, const void* sin_t, size_t rows, int s, int h,
-           int d, float sign, cudaStream_t stream) {
+           const void* cos_t, const void* sin_t, const int32_t* pos0,
+           int table_rows, size_t rows, int s, int h, int d, float sign,
+           cudaStream_t stream) {
   const size_t total = rows * (size_t)h * (d / 2 / VecWidth<T>::N);
   const int threads = 256;
   size_t blocks = (total + threads - 1) / threads;
@@ -104,8 +114,8 @@ int launch(const void* x0, void* o0, const void* x1, void* o1, int ntensors,
   rope_kernel<T><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(x0), static_cast<T*>(o0),
       static_cast<const T*>(x1), static_cast<T*>(o1),
-      static_cast<const T*>(cos_t), static_cast<const T*>(sin_t), rows, s, h,
-      d, sign);
+      static_cast<const T*>(cos_t), static_cast<const T*>(sin_t), pos0,
+      table_rows, rows, s, h, d, sign);
   return (int)cudaGetLastError();
 }
 
@@ -113,20 +123,26 @@ int launch(const void* x0, void* o0, const void* x1, void* o1, int ntensors,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, out, cos and sin share it).
 // ntensors 1 or 2: tensor 0 is (x0 -> o0), tensor 1 (x1 -> o1); both are
-// (rows = b*s, h, d) contiguous with the same h. cos/sin are (s, d)
-// contiguous; d is a multiple of twice the 16-byte vector width and
-// every pointer is 16-byte aligned (the Python wrapper checks). Returns
-// the CUDA error of the launch (0 = cudaSuccess).
+// (rows = b*s, h, d) contiguous with the same h. cos/sin are
+// (table_rows, d) contiguous: with pos0 null, table_rows = s and row i of
+// a sequence reads table row i; with pos0 a device int32, it reads row
+// clamp(*pos0, 0, table_rows - s) + i (table_rows >= s). d is a multiple
+// of twice the 16-byte vector width and every pointer is 16-byte aligned
+// (the Python wrapper checks). Returns the CUDA error of the launch
+// (0 = cudaSuccess).
 extern "C" int pt_rope(int dtype, const void* x0, void* o0, const void* x1,
                        void* o1, int ntensors, const void* cos_t,
-                       const void* sin_t, long long rows, int s, int h, int d,
-                       float sign, void* stream) {
+                       const void* sin_t, const int32_t* pos0, int table_rows,
+                       long long rows, int s, int h, int d, float sign,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pos0 == nullptr && table_rows != s) return (int)cudaErrorInvalidValue;
+  if (table_rows < s) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(x0, o0, x1, o1, ntensors, cos_t, sin_t,
-                         (size_t)rows, s, h, d, sign, st);
+    return launch<float>(x0, o0, x1, o1, ntensors, cos_t, sin_t, pos0,
+                         table_rows, (size_t)rows, s, h, d, sign, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x0, o0, x1, o1, ntensors, cos_t, sin_t,
-                                 (size_t)rows, s, h, d, sign, st);
+    return launch<__nv_bfloat16>(x0, o0, x1, o1, ntensors, cos_t, sin_t, pos0,
+                                 table_rows, (size_t)rows, s, h, d, sign, st);
   return (int)cudaErrorInvalidValue;
 }

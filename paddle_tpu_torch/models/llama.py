@@ -1,9 +1,12 @@
-"""Llama-2: the paged KV-cache path and the training forward.
+"""Llama-2: the KV-cache path (serving and ``generate()``) and the
+training forward.
 
 Counterpart of ``paddle_tpu/models/llama.py``: the config (the serving
 and training fields), the RoPE tables, and the attention / MLP / decoder
-layer / model / causal-LM modules, on the cache path (serving) and on
-the no-cache path (training, with the fused head + cross-entropy).
+layer / model / causal-LM modules, on the cache path (a dense cache or
+the paged arena, with per-row left-pad counts and the sliding window)
+and on the no-cache path (training, with the fused head +
+cross-entropy).
 RMSNorm, RoPE and flash attention run the CUDA kernels on the GPU; the
 projections are ``nn.Linear`` (``torch.matmul``), as the JAX package
 leaves them to XLA. Parameter
@@ -26,7 +29,7 @@ from ..nn import functional as PF
 from ..ops import plain_active
 from ..ops.decode_layer import decode_layer, kernel_viable
 from ..ops.fused import fused_rope
-from .generation import cached_attention
+from .generation import GenerationMixin, cached_attention
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "llama_tiny_config", "llama_7b_config"]
@@ -111,7 +114,8 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, kv, **kw)
         self.o_proj = nn.Linear(h, h, **kw)
 
-    def forward(self, x, cos, sin, cache=None, pos=None, block_table=None):
+    def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
+                pad=None):
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, -1, self.head_dim)
         k = self.k_proj(x).view(b, s, -1, self.head_dim)
@@ -122,14 +126,13 @@ class LlamaAttention(nn.Module):
             out = PF.scaled_dot_product_attention(
                 q, k, v, is_causal=True, sliding_window=self.sliding_window)
             return self.o_proj(out.reshape(b, s, -1))
-        if self.sliding_window is not None:
-            raise NotImplementedError(
-                "the paged cache path does not take sliding_window yet")
-        # (k, v) arenas, or int8 (k, v) codes + (k, v) scales
+        # a dense (k, v) cache, (k, v) arenas, or int8 (k, v) codes +
+        # (k, v) scales
         out = cached_attention(q, k, v, cache[0], cache[1], pos,
                                scale=1.0 / math.sqrt(self.head_dim),
                                cos=cos, sin=sin, block_table=block_table,
-                               kv_scales=cache[2:] or None)
+                               kv_scales=cache[2:] or None,
+                               window=self.sliding_window, pad=pad)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -158,28 +161,32 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, **kw)
 
     def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
-                fused_decode=None):
+                fused_decode=None, pad=None):
         """The layer; with a ``FusedDecode`` request
         (``ops.decode_layer``) the slot-pool decode shape goes through
         the fused decode-layer call instead (:meth:`_fused_decode`)."""
         if fused_decode is not None and self._fusable(x, cache, pos,
-                                                      block_table):
+                                                      block_table, pad):
             return self._fused_decode(x, cos, sin, cache, pos, block_table,
-                                      fused_decode)
-        return self._decode_forward(x, cos, sin, cache, pos, block_table)
+                                      fused_decode, pad)
+        return self._decode_forward(x, cos, sin, cache, pos, block_table,
+                                    pad)
 
-    def _decode_forward(self, x, cos, sin, cache, pos, block_table):
+    def _decode_forward(self, x, cos, sin, cache, pos, block_table,
+                        pad=None):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
-                               pos, block_table)
+                               pos, block_table, pad)
         return h + self.mlp(self.post_attention_layernorm(h))
 
-    def _fusable(self, x, cache, pos, block_table) -> bool:
+    def _fusable(self, x, cache, pos, block_table, pad=None) -> bool:
         """Whether this call is the slot-pool decode shape the fused
         layer covers (the JAX ``_markable``): s == 1, per-row positions,
-        a block table, no sliding window. Prefill chunks (s > 1) stay
-        unfused."""
-        return (cache is not None and block_table is not None
-                and x.shape[1] == 1 and pos is not None and pos.dim() == 1
+        no sliding window, and a block table (paged) or per-row pad
+        counts (dense). Prefill chunks (s > 1) stay unfused."""
+        return (cache is not None
+                and (block_table is not None or pad is not None)
+                and x.shape[1] == 1 and isinstance(pos, torch.Tensor)
+                and pos.dim() == 1
                 and self.self_attn.sliding_window is None)
 
     def _decode_layer_weights(self):
@@ -191,15 +198,19 @@ class LlamaDecoderLayer(nn.Module):
                 self.post_attention_layernorm.weight, m.gate_proj.weight,
                 m.up_proj.weight, m.down_proj.weight)
 
-    def _fused_decode(self, x, cos, sin, cache, pos, block_table, fused):
+    def _fused_decode(self, x, cos, sin, cache, pos, block_table, fused,
+                      pad=None):
         """The fused decode-layer route (JAX ``_marked_decode`` and the
         call the fusion pass splices). A CUDA call the card's kernel
         takes launches the megakernel once (``kernel_calls`` counts it);
-        any other (the CPU, or a shape ``kernel_viable`` refuses) runs
-        the unfused math, as the JAX engine runs its captured jaxpr
+        any other (the CPU, the dense mode, which the kernel never takes,
+        as ``kernel_viable`` refuses it in JAX, or a shape it refuses)
+        runs the unfused math, as the JAX engine runs its captured jaxpr
         where its kernel is not viable. Either way ``rewrites`` counts
         the layer."""
         fused.rewrites += 1
+        if block_table is None:
+            return self._decode_forward(x, cos, sin, cache, pos, None, pad)
         mode = "paged_int8" if len(cache) == 4 else "paged"
         wts = self._decode_layer_weights()
         if x.device.type == "cuda" and kernel_viable(mode, x, cache, wts):
@@ -225,18 +236,18 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
     def forward(self, input_ids, cos, sin, cache=None, pos=None,
-                block_table=None, fused_decode=None):
+                block_table=None, fused_decode=None, pad=None):
         x = self.embed_tokens(input_ids)
         caches = cache if cache is not None else [None] * len(self.layers)
         for layer, layer_cache in zip(self.layers, caches):
             x = layer(x, cos, sin, layer_cache, pos, block_table,
-                      fused_decode)
+                      fused_decode, pad)
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
-    """Causal LM: the paged cache path (serving) and the no-cache path
-    (training). Built directly on ``device``
+class LlamaForCausalLM(nn.Module, GenerationMixin):
+    """Causal LM: the cache path (serving and ``generate()``) and the
+    no-cache path (training). Built directly on ``device``
     (default the GPU; ``device="cpu"`` must be asked for) with weights
     drawn from a ``torch.Generator`` seeded with ``seed`` on that
     device: linear and embedding weights N(0, 0.02), norm weights 1 —
@@ -283,6 +294,19 @@ class LlamaForCausalLM(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=gen)
 
+    def init_kv_cache(self, batch: int, max_len: int, dtype=None
+                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Per layer a zeroed (batch, max_len, kv_heads, head_dim) (k, v)
+        pair on the model's device, in ``dtype`` (default the model's):
+        the dense cache of ``generate()`` and of the dense engine's slot
+        pool."""
+        c = self.config
+        shape = (batch, max_len, c.num_key_value_heads, c.head_dim)
+        dt = dtype or self.head_weight.dtype
+        return [(torch.zeros(shape, dtype=dt, device=self.device),
+                 torch.zeros(shape, dtype=dt, device=self.device))
+                for _ in range(c.num_hidden_layers)]
+
     def init_paged_kv_cache(self, num_blocks: int, block_size: int,
                             kv_int8: bool = False, dtype=None
                             ) -> List[Tuple[torch.Tensor, ...]]:
@@ -309,10 +333,12 @@ class LlamaForCausalLM(nn.Module):
                 for _ in range(c.num_hidden_layers)]
 
     def forward(self, input_ids, labels=None, cache=None, pos=None,
-                block_table=None, fused_decode=None):
-        """With ``cache``: (b, s) token ids at per-row positions ``pos``
-        (b,) through the paged ``cache`` (written in place) -> (b, s,
-        vocab) logits. Without: the training forward over positions
+                block_table=None, fused_decode=None, pad=None):
+        """With ``cache``: (b, s) token ids at ``pos`` through the cache
+        (written in place; see ``generation.cached_attention``: a dense
+        cache from :meth:`init_kv_cache` or, with ``block_table``, the
+        paged arena; ``pad`` (b,) left-pad counts) -> (b, s, vocab)
+        logits. Without: the training forward over positions
         0..s-1; with ``labels`` it returns ``(loss, None)`` through the
         fused head + CE (``fused_head_ce``, the default) or ``(loss,
         logits)`` with the plain head and ``nn.functional.cross_entropy``
@@ -322,7 +348,7 @@ class LlamaForCausalLM(nn.Module):
         (``ops.decode_layer.FusedDecode``) routes each decode layer of an
         s = 1 cache step through the fused decode-layer call."""
         h = self.llama(input_ids, self.rope_cos, self.rope_sin, cache, pos,
-                       block_table, fused_decode)
+                       block_table, fused_decode, pad)
         c = self.config
         if cache is None and labels is not None and c.fused_head_ce:
             loss = fused_linear_cross_entropy(

@@ -3,9 +3,10 @@
 plain PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/pallas/decode_layer.py``, modes
-``paged`` and ``paged_int8`` (the dense mode waits for the dense
-engine; the JAX kernel never takes it either). The JAX package reaches
-its kernel through a jaxpr pass that splices a marked region of the
+``paged`` and ``paged_int8``. The JAX kernel never takes the dense
+mode, so the dense engine's fused request counts its layers and runs
+the unfused layer (``models/llama.py``), as JAX does. The JAX package
+reaches its kernel through a jaxpr pass that splices a marked region of the
 decode-block trace; in torch the model calls :func:`decode_layer`
 directly when its forward is given a :class:`FusedDecode` request
 (``models/llama.py``), so there is no marking and no pass.

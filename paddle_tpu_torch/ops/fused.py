@@ -369,15 +369,24 @@ def _rope_one_reference(x, cos, sin):
     return x * cos[None, :, None, :] + _rot(x) * sin[None, :, None, :]
 
 
-def rope_reference(q, k, cos, sin):
+def rope_reference(q, k, cos, sin, start=None):
     """The JAX ``_rope_ref``: (b, s, h, d) q and k, (s, d) cos/sin,
-    ``x*cos + rot(x)*sin`` computed in the inputs' dtype."""
+    ``x*cos + rot(x)*sin`` computed in the inputs' dtype. With
+    ``start`` (a (1,) int32 tensor) cos/sin are whole (T, d) tables and
+    rows ``start .. start + s - 1`` are used, the start clamped to
+    [0, T - s] as ``jax.lax.dynamic_slice_in_dim`` clamps it."""
+    if start is not None:
+        s = q.shape[1]
+        rows = start.long().clamp(0, cos.shape[0] - s) \
+            + torch.arange(s, device=cos.device)
+        cos, sin = cos.index_select(0, rows), sin.index_select(0, rows)
     return _rope_one_reference(q, cos, sin), _rope_one_reference(k, cos, sin)
 
 
-def _rope_launch(xs, cos, sin, sign):
+def _rope_launch(xs, cos, sin, sign, start=None):
     """Rotate each tensor of ``xs`` (one launch for all of them; they
-    share a shape) by +theta (sign 1) or -theta (sign -1)."""
+    share a shape) by +theta (sign 1) or -theta (sign -1); ``start`` as
+    in :func:`rope_reference`."""
     x0 = xs[0]
     _check_cuda("rope", *xs, cos, sin)
     b, s, h, d = x0.shape
@@ -385,10 +394,18 @@ def _rope_launch(xs, cos, sin, sign):
     if d % (2 * vec):
         raise ValueError(f"rope kernel needs head_dim % {2 * vec} == 0, "
                          f"got {d}")
-    if tuple(cos.shape) != (s, d) or tuple(sin.shape) != (s, d) \
-            or cos.dtype != x0.dtype or sin.dtype != x0.dtype:
-        raise ValueError(f"rope: cos/sin must be ({s}, {d}) {x0.dtype}, "
-                         f"got {tuple(cos.shape)} {cos.dtype}")
+    rows = s if start is None else cos.shape[0]
+    if tuple(cos.shape) != (rows, d) or tuple(sin.shape) != (rows, d) \
+            or cos.dtype != x0.dtype or sin.dtype != x0.dtype or rows < s:
+        raise ValueError(f"rope: cos/sin must be ({rows}, {d}) {x0.dtype} "
+                         f"with at least {s} rows, got {tuple(cos.shape)} "
+                         f"{cos.dtype}")
+    if start is not None and (start.dtype != torch.int32
+                              or start.device != x0.device
+                              or start.numel() != 1):
+        raise ValueError("rope: start must be one int32 on the tensors' "
+                         f"device, got {start.dtype} {tuple(start.shape)} "
+                         f"on {start.device}")
     outs = [torch.empty_like(x) for x in xs]
     if x0.numel() == 0:
         return outs
@@ -396,27 +413,29 @@ def _rope_launch(xs, cos, sin, sign):
     fn = _kernel("rope", "pt_rope",
                  [ctypes.c_int] + [ctypes.c_void_p] * 4
                  + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     rc = fn(_DTYPE_CODE[x0.dtype], x0.data_ptr(), outs[0].data_ptr(),
             x1.data_ptr(), o1.data_ptr(), len(xs), cos.data_ptr(),
-            sin.data_ptr(), b * s, s, h, d, float(sign), _stream(x0))
+            sin.data_ptr(), None if start is None else start.data_ptr(),
+            rows, b * s, s, h, d, float(sign), _stream(x0))
     if rc != 0:
         raise RuntimeError(f"rope kernel launch failed: CUDA error {rc}")
     fused_rope.launches += 1
     return outs
 
 
-def _rope_pair(q, k, cos, sin, sign):
+def _rope_pair(q, k, cos, sin, sign, start=None):
     """q and k rotated by sign * theta: one launch when their shapes are
     equal, two for GQA (as ``fused_rope`` at fused.py:250-255)."""
     if q.device.type == "cpu" or plain_active():
         sn = sin if sign > 0 else -sin
-        return rope_reference(q, k, cos, sn)
+        return rope_reference(q, k, cos, sn, start)
     if q.shape == k.shape:
-        return tuple(_rope_launch([q, k], cos, sin, sign))
-    return _rope_launch([q], cos, sin, sign)[0], \
-        _rope_launch([k], cos, sin, sign)[0]
+        return tuple(_rope_launch([q, k], cos, sin, sign, start))
+    return _rope_launch([q], cos, sin, sign, start)[0], \
+        _rope_launch([k], cos, sin, sign, start)[0]
 
 
 class _Rope(torch.autograd.Function):
@@ -439,12 +458,25 @@ class _Rope(torch.autograd.Function):
         return dq, dk, None, None
 
 
-def fused_rope(q, k, cos, sin):
+def fused_rope(q, k, cos, sin, start=None):
     """Rotary embedding of q (b, s, h, d) and k (b, s, hk, d) with
     (s, d) cos/sin in their dtype, differentiable in q and k. CPU
     tensors take the plain version; CUDA tensors launch
     ``csrc/rope.cu`` or raise. fp32 and bf16; the kernel rounds once
-    from fp32 where the JAX reference rounds each bf16 product."""
+    from fp32 where the JAX reference rounds each bf16 product.
+
+    ``start`` is the serving route (``generate()``'s cache path, the
+    JAX ``dynamic_slice_in_dim(cos, pos, s)``): a (1,) int32 tensor on
+    the tensors' device holding the first position, with cos/sin the
+    whole (T, d) tables. The kernel reads the position on the device,
+    so a captured CUDA graph replays it at each step's position. It is
+    inference only (no gradient)."""
+    if start is not None:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+            raise NotImplementedError(
+                "fused_rope(start=) is the inference route; call it under "
+                "torch.no_grad() or slice the tables for training")
+        return _rope_pair(q, k, cos, sin, 1.0, start)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
         return _Rope.apply(q, k, cos, sin)
     return _rope_pair(q, k, cos, sin, 1.0)

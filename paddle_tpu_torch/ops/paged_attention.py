@@ -122,11 +122,16 @@ def paged_gather(arena: torch.Tensor,
     return g.reshape(b, mb * g.shape[2], *g.shape[3:])
 
 
-def dense_attention(q, kd, vd, lengths, *, scale):
-    """The dense einsum/mask/softmax sequence of the JAX package over
-    already-gathered (b, T, kvh, d) k/v: fp32 scores, the -1e30 mask,
-    fp32 softmax, probabilities cast to v's dtype. ``q`` is (b, s, h, d)
-    and row i of it sits at position lengths - s + i."""
+def dense_attention(q, kd, vd, lengths, *, scale, window=None, pad=None):
+    """The dense einsum/mask/softmax sequence of the JAX package
+    (``cached_attention``'s read, ``generation.py:204-228``) over
+    (b, T, kvh, d) k/v, a dense cache or a gathered table: fp32 scores,
+    the -1e30 mask, fp32 softmax, probabilities cast to v's dtype.
+    ``q`` is (b, s, h, d) and row i of it sits at position
+    lengths - s + i (``lengths`` (b,)). The mask is causal; with
+    ``window`` a key at t is seen only from positions < t + window (the
+    sliding window); with ``pad`` (b,) a row's keys below its pad count
+    are never seen (left-padded prompts)."""
     b, s, h, d = q.shape
     kvh = kd.shape[2]
     g = h // kvh
@@ -136,6 +141,11 @@ def dense_attention(q, kd, vd, lengths, *, scale):
     q_idx = (lengths.long() - s)[:, None] \
         + torch.arange(s, device=q.device)[None, :]            # (b, s)
     mask = t_idx[None, None, :] <= q_idx[:, :, None]           # (b, s, T)
+    if window is not None:
+        mask = mask & (t_idx[None, None, :] > q_idx[:, :, None]
+                       - int(window))
+    if pad is not None:
+        mask = mask & (t_idx[None, None, :] >= pad.long()[:, None, None])
     scores = scores.masked_fill(~mask[:, None, None], NEG)
     probs = torch.softmax(scores, dim=-1).to(vd.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, vd)

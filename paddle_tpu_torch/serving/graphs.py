@@ -38,13 +38,18 @@ class CapturedProgram:
     and each call runs ``fn``. ``captures`` counts the captures (the
     JAX engine's trace counter: 1 once captured, 0 on the CPU);
     ``capture_s`` is the wall time of the warm-up and the capture and
-    ``graph_bytes`` the device memory the capture reserved for the
-    graph's pool. The graph, its pool and the shared buffers it launches
-    on belong to the program and are freed with it."""
+    ``graph_bytes`` the device memory the capture added to the graph's
+    pool. The graph, its pool and the shared buffers it launches
+    on belong to the program and are freed with it. Programs given one
+    ``pool`` (``torch.cuda.graph_pool_handle()``) capture into the same
+    memory pool: only programs that never run concurrently and whose
+    allocations all die within a run (their results land in static
+    tensors) may share one, and they may then replay in any order."""
 
-    def __init__(self, fn, device):
+    def __init__(self, fn, device, pool=None):
         self._fn = fn
         self.device = torch.device(device)
+        self.pool = pool
         self.graph = None
         self.captures = 0
         self.capture_s = 0.0
@@ -73,7 +78,8 @@ class CapturedProgram:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), torch.cuda.graph(graph):
+        with torch.cuda.device(self.device), \
+                torch.cuda.graph(graph, pool=self.pool):
             self._fn()
         torch.cuda.synchronize(self.device)
         self.graph_bytes = torch.cuda.memory_reserved(self.device) - reserved

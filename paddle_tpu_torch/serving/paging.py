@@ -31,7 +31,8 @@ from ..models.generation import decode_step_logprobs
 from ..ops.decode_layer import FusedDecode
 from ..ops.paged_attention import kv_int8_error_bound
 from ..utils.flags import env_bool, env_flag, env_int
-from .engine import (ContinuousBatchingEngine, _SlotRun, free_slot_state,
+from .engine import (ContinuousBatchingEngine, _arm_fn, _checked_step,
+                     _refuse_unported, _SlotRun, free_slot_state,
                      init_slot_state, run_decode_block, slot_sample_logits)
 from .graphs import CapturedProgram
 
@@ -306,15 +307,8 @@ class PagedModelStepBackend:
         return total // self.num_slots
 
     def _step(self, tok, pos, table):
-        logp = decode_step_logprobs(self.model, tok, self.cache, pos, table,
-                                    fused_decode=self.fused_decode)
-        if self.fused_decode is not None and self.fused_decode.rewrites == 0:
-            raise RuntimeError(
-                "megakernel decode requested but no decode layer went "
-                "through the fused call — the model must route its decode "
-                "layers (see models/llama.py LlamaDecoderLayer."
-                "_fused_decode)")
-        return logp
+        return _checked_step(self.model, self.cache, self.fused_decode, tok,
+                             pos, block_table=table)
 
     def _run_block(self):
         run_decode_block(self._step, self.state, self._block_out)
@@ -362,24 +356,6 @@ class PagedModelStepBackend:
         return self._chunk_tok
 
 
-def _arm_fn(state, slot, table_row, tok0, pos0, rem0, eos0, temp0, topk0,
-            topp0, key0):
-    """Turn a slot live after its chunked prefill finished: the arena
-    already holds the prompt's K/V, so arming is a state update in
-    place."""
-    state["tok"][slot] = tok0
-    state["pos"][slot] = pos0
-    state["live"][slot] = rem0 > 0
-    state["eos"][slot] = eos0
-    state["remaining"][slot] = rem0
-    state["temp"][slot] = temp0
-    state["topk"][slot] = topk0
-    state["topp"][slot] = topp0
-    state["key"][slot] = key0
-    state["table"][slot] = torch.as_tensor(table_row,
-                                           device=state["table"].device)
-
-
 @dataclass
 class _PrefillJob:
     """One admitted request still streaming its prompt into the arena
@@ -425,15 +401,35 @@ class PagedEngine(ContinuousBatchingEngine):
     the argument, else ``PT_SERVING_BLOCK_SIZE`` /
     ``PT_SERVING_PREFILL_CHUNK``, else 16 / twice the block size (there
     is no autotune table). ``device`` must match the model's (default
-    the GPU)."""
+    the GPU). It is also what ``ContinuousBatchingEngine(..., paged=True)``
+    builds, so it takes that signature: ``prompt_buckets`` is refused
+    (paged prompts are unpadded), and so are an explicit ``backend`` (the
+    engine builds its own from the model) and ``paged=False``."""
 
-    def __init__(self, model, num_slots: int = 4, max_len: int = 256,
-                 decode_block: int = 8, *, block_size: Optional[int] = None,
+    def __init__(self, model=None, num_slots: int = 4, max_len: int = 256,
+                 decode_block: int = 8,
+                 prompt_buckets: Optional[Sequence[int]] = None,
+                 backend=None, *, paged: bool = True, spec=None, tp=None,
+                 quant=None, block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  kv_int8: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
                  megakernel: Optional[bool] = None, device=None):
         from ..device import resolve_device
+        _refuse_unported(spec, tp, quant)
+        if not paged:
+            raise ValueError("PagedEngine is the paged engine; build the "
+                             "dense one with ContinuousBatchingEngine("
+                             "model, paged=False)")
+        if prompt_buckets is not None:
+            raise ValueError(
+                "paged mode takes no prompt_buckets: prompts are "
+                "unpadded and prefilled in fixed-size chunks")
+        if backend is not None:
+            raise ValueError("PagedEngine builds its own backend from the "
+                             "model; pass the model")
+        if model is None:
+            raise ValueError("pass a model")
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"model is on {model.device}, engine asked "
@@ -462,7 +458,8 @@ class PagedEngine(ContinuousBatchingEngine):
         self.max_blocks = backend.max_blocks
         self.prefill_chunk_len = prefill_chunk
         self.manager = BlockManager(num_blocks, block_size)
-        super().__init__(backend)
+        self.prompt_buckets = None
+        self._init_engine(backend)
 
     # -- lifecycle ---------------------------------------------------------
     def reset(self):
@@ -600,9 +597,13 @@ class PagedEngine(ContinuousBatchingEngine):
         if rem0 <= 0:                # finished at admission
             self._retire(job.slot, job.run, now)
             return
-        _arm_fn(self._state, job.slot, job.table_row, tok0, len(job.prompt),
-                rem0, -1 if eos is None else eos, req.temperature,
-                req.top_k, req.top_p, job.key)
+        # the arena already holds the prompt's K/V: arming is a state
+        # update in place
+        _arm_fn(self._state, job.slot, tok=tok0, pos=len(job.prompt),
+                live=True, eos=-1 if eos is None else eos, remaining=rem0,
+                temp=req.temperature, topk=req.top_k, topp=req.top_p,
+                key=job.key, table=torch.as_tensor(
+                    job.table_row, device=self.backend.device))
 
     def _retire(self, slot, run, now):
         super()._retire(slot, run, now)

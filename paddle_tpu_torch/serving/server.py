@@ -1,10 +1,12 @@
-"""Serving loop: Scheduler + paged engine + per-request latency.
+"""Serving loop: Scheduler + engine (dense or paged) + per-request
+latency.
 
 Counterpart of ``paddle_tpu/serving/server.py`` (``submit``/``_tick``/
 ``_harvest``/``run_until_idle``/``stats``). One iteration of the loop is
 one tick of the engine-block clock: admit whatever the scheduler
-releases into free slots (requests the engine defers for want of KV
-blocks re-queue), advance chunked prefills within the scheduler's
+releases into free slots (the dense engine prefills each at admission;
+requests the paged engine defers for want of KV blocks re-queue),
+advance the paged engine's chunked prefills within the scheduler's
 prefill token budget, run one decode block, harvest retired requests.
 Resilience, preemption, tracing, the flight recorder, the metrics
 registry and snapshots come later."""

@@ -1416,3 +1416,224 @@ def test_megakernel_scratch_is_never_made_in_a_capture(dev):
         with torch.inference_mode(), torch.cuda.graph(graph):
             decode_layer("paged", *fixed, *cache, *wts,
                          scratch=DecodeLayerScratch())
+
+
+# -- RoPE's serving route, generate() and the dense engine (slice 10) --------
+
+def test_rope_device_start_matches_plain(dev):
+    """generate()'s decode shape (4, 1, 32, 128) fp32 over the whole
+    (4096, 128) Llama-2-7B tables with the start position on the device:
+    against the plain version (1e-5), and bit for bit the route of the
+    sliced tables; starts past the table clamp as
+    ``dynamic_slice_in_dim`` clamps. GQA takes two launches."""
+    from paddle_tpu_torch.models.llama import _rope_cache, llama_7b_config
+    from paddle_tpu_torch.ops.fused import _rope_pair
+    cos, sin = _rope_cache(llama_7b_config(), dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    for hk, launches in ((32, 1), (8, 2)):
+        q = torch.randn(4, 1, 32, 128, generator=g, device=dev)
+        k = torch.randn(4, 1, hk, 128, generator=g, device=dev)
+        for p in (0, 1, 191, 4095, 4096, 10 ** 6):
+            start.fill_(p)
+            ops.reset_launch_counts()
+            got = _rope_pair(q, k, cos, sin, 1.0, start)
+            assert ops.launch_counts()["rope"] == launches
+            with ops.plain_versions():
+                want = _rope_pair(q, k, cos, sin, 1.0, start)
+            r = min(p, 4095)
+            sliced = _rope_pair(q, k, cos[r:r + 1].contiguous(),
+                                sin[r:r + 1].contiguous(), 1.0)
+            for a, w, c in zip(got, want, sliced):
+                assert float((a - w).abs().max()) <= 1e-5
+                assert torch.equal(a, c)
+    # a prefill block (s = 5) from a device start
+    q = torch.randn(2, 5, 32, 128, generator=g, device=dev)
+    start.fill_(40)
+    got = _rope_pair(q, q, cos, sin, 1.0, start)
+    sliced = _rope_pair(q, q, cos[40:45].contiguous(),
+                        sin[40:45].contiguous(), 1.0)
+    assert all(torch.equal(a, c) for a, c in zip(got, sliced))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_training_route_is_unchanged(dev, dtype):
+    """The training route passes a null start: its table row is row %
+    s, as before the serving route existed, so its output is the device
+    start 0's over the same (s, d) tables bit for bit, and two launches
+    agree bit for bit."""
+    from paddle_tpu_torch.ops.fused import _rope_pair, fused_rope
+    g = torch.Generator(device=dev).manual_seed(12)
+    s, d = 256, 128
+    cos = torch.randn(s, d, generator=g, device=dev).to(dtype)
+    sin = torch.randn(s, d, generator=g, device=dev).to(dtype)
+    q = torch.randn(4, s, 32, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(4, s, 32, d, generator=g, device=dev).to(dtype)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    for sign in (1.0, -1.0):
+        a = _rope_pair(q, k, cos, sin, sign)
+        b = _rope_pair(q, k, cos, sin, sign)
+        c = _rope_pair(q, k, cos, sin, sign, zero)
+        assert all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(a, b, c))
+    qg = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="inference"):
+        fused_rope(qg, k, cos, sin, start=zero)
+
+
+def _eager_generate(m, prompts, new, sample_kwargs, seed):
+    """generate()'s loop without a captured step: the prefill and each
+    decode step as eager calls, positions as host integers (the sliced
+    tables' RoPE route), keys split on the same schedule."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.models import decode_step
+    ids = torch.from_numpy(prompts).to(m.device)
+    b, s = ids.shape
+    cache = m.init_kv_cache(b, s + new)
+    key, sub = prng.split(prng.prng_key(seed)).to(m.device)
+    tok = decode_step(m, ids, cache, 0, key=sub, sample_kwargs=sample_kwargs)
+    out = [tok]
+    for i in range(1, new):
+        key, sub = prng.split(key)
+        tok = decode_step(m, tok[:, None], cache, s + i - 1, key=sub,
+                          sample_kwargs=sample_kwargs)
+        out.append(tok)
+    return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+@pytest.mark.parametrize("sample", [
+    dict(temperature=0.0, top_k=0, top_p=1.0),
+    dict(temperature=0.8, top_k=20, top_p=0.9)], ids=["greedy", "sampled"])
+def test_replayed_generate_step_matches_eager(dev, sample):
+    """Each token of generate() is one replay of its captured step: the
+    same tokens as the eager loop, the step captured once and reused by
+    a second call, RoPE L launches a step plus L for the prefill."""
+    _, gpu = _tiny_pair(dev)
+    L = gpu.config.num_hidden_layers
+    prompts = np.random.RandomState(4).randint(0, 512, (3, 9)) \
+        .astype(np.int32)
+    new = 12
+    kw = dict(do_sample=sample["temperature"] > 0, seed=5,
+              **{k: v for k, v in sample.items() if k != "temperature"})
+    if kw["do_sample"]:
+        kw["temperature"] = sample["temperature"]
+    gpu.release_decode_programs()
+    ops.reset_launch_counts()
+    got = gpu.generate(prompts, max_new_tokens=new, **kw)
+    counts = ops.launch_counts()
+    assert counts["rope"] == L * new
+    assert counts["rms_norm"] == (2 * L + 1) * new
+    want = _eager_generate(gpu, prompts, new, sample, 5)
+    assert torch.equal(got, want)
+    again = gpu.generate(prompts, max_new_tokens=new, use_scan_decode=False,
+                         **kw)
+    assert torch.equal(again, got)
+    (step,) = gpu.__dict__["_decode_fn_cache"].values()
+    assert step.program.captures == 1 and step.program.graph is not None
+    gpu.release_decode_programs()
+
+
+def test_generate_on_gpu_matches_cpu(dev):
+    """Greedy, ragged and beam generate() on the card give the CPU's
+    tokens on the tiny model."""
+    cpu, gpu = _tiny_pair(dev)
+    prompts = np.random.RandomState(5).randint(0, 512, (3, 8)) \
+        .astype(np.int32)
+    am = np.ones((3, 8), np.int32)
+    am[0, :3] = 0
+    for kw in (dict(), dict(attention_mask=am), dict(num_beams=3)):
+        a = cpu.generate(prompts, max_new_tokens=8, **kw)
+        b = gpu.generate(prompts, max_new_tokens=8, **kw)
+        np.testing.assert_array_equal(b.cpu().numpy(), a.numpy())
+    gpu.release_decode_programs()
+
+
+def test_dense_engine_on_gpu(dev):
+    """The dense engine on the card: its decode block captured once, one
+    prefill program per bucket admitted, RMSNorm launched 2L + 1 a step
+    and a prefill and nothing else, the CPU engine's streams (greedy and
+    sampled), and the paged engine's greedy streams."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    cpu, gpu = _tiny_pair(dev)
+    L = gpu.config.num_hidden_layers
+    reqs = _graph_reqs(3)
+    kw = dict(num_slots=2, max_len=64, decode_block=4,
+              prompt_buckets=(8, 16, 32))
+    results = []
+    for m, device in ((cpu, "cpu"), (gpu, dev)):
+        eng = ContinuousBatchingEngine(m, device=device, **kw)
+        srv = Server(eng)
+        rids = [srv.submit(p, **r) for p, r in reqs]
+        ops.reset_launch_counts()
+        res = srv.run_until_idle()
+        results.append([res[r] for r in rids])
+    counts = ops.launch_counts()
+    assert eng.decode_compile_count() == 1
+    assert eng.prefill_compile_count() == 3           # buckets 8, 16, 32
+    want = {k: 0 for k in counts}
+    want["rms_norm"] = (2 * L + 1) * (eng.steps + eng.prefills)
+    assert counts == want
+    for a, b in zip(*results):
+        np.testing.assert_array_equal(b, a)
+    paged = PagedEngine(gpu, num_slots=2, max_len=64, decode_block=4,
+                        block_size=8, prefill_chunk=8, device=dev)
+    srv = Server(paged)
+    rids = [srv.submit(p, **r) for p, r in reqs]
+    res = srv.run_until_idle()
+    for i, (r, (_, rkw)) in enumerate(zip(rids, reqs)):
+        if "temperature" not in rkw:
+            np.testing.assert_array_equal(res[r], results[1][i])
+
+
+def test_dense_prefills_share_one_pool(dev):
+    """Without buckets the dense engine captures one prefill per prompt
+    length, all into one memory pool: the captures after the longest
+    reserve less than it did, and the programs, replayed in another
+    order than they were captured, give the CPU engine's streams."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    cpu, gpu = _tiny_pair(dev)
+    rs = np.random.RandomState(9)
+    reqs = [(rs.randint(0, 512, (n,)).astype(np.int32),
+             dict(max_new_tokens=6))
+            for n in (24, 16, 8, 20, 12, 24, 8, 16)]
+    results = []
+    for m, device in ((cpu, "cpu"), (gpu, dev)):
+        eng = ContinuousBatchingEngine(m, num_slots=2, max_len=64,
+                                       decode_block=4, device=device)
+        srv = Server(eng)
+        rids = [srv.submit(p, **r) for p, r in reqs]
+        res = srv.run_until_idle()
+        results.append([res[r] for r in rids])
+    progs = eng.backend.prefill_programs()
+    assert eng.prefill_compile_count() == len(progs) == 5
+    first = progs[24].graph_bytes
+    assert first > 0
+    assert sum(p.graph_bytes for n, p in progs.items() if n != 24) < first
+    for a, b in zip(*results):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_dense_megakernel_launches_nothing(dev):
+    """megakernel=True on the dense engine: every layer is rewritten and
+    none launches the megakernel, as in JAX (the kernel takes the paged
+    modes only); the streams are the unfused engine's."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    _, gpu = _tiny_pair(dev)
+    L = gpu.config.num_hidden_layers
+    reqs = _graph_reqs(4)
+    outs = []
+    for mk in (False, True):
+        eng = ContinuousBatchingEngine(gpu, num_slots=2, max_len=64,
+                                       decode_block=4, megakernel=mk,
+                                       device=dev)
+        srv = Server(eng)
+        rids = [srv.submit(p, **r) for p, r in reqs]
+        ops.reset_launch_counts()
+        res = srv.run_until_idle()
+        outs.append([res[r] for r in rids])
+    assert eng.megakernel_rewrites() == L
+    assert eng.megakernel_kernel_calls() == 0
+    counts = ops.launch_counts()
+    assert counts["decode_layer"] == counts["paged_attention_decode"] == 0
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(b, a)
