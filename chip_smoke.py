@@ -25,7 +25,12 @@ Phases, each of which raises on failure (nothing is caught):
    (512, 4096), (8, 4096) fp32, and both at rows past the registers
    (h = 16384 and 65536, the looping instances). RoPE also on its
    serving route (``generate()``'s decode shape (4, 1, 32, 128) fp32, the
-   start position read on the device).
+   start position read on the device). The training kernels also at
+   phase 9's shapes (``check_headline_kernels``): flash (8, 2048, 16,
+   128) bf16 causal, RMSNorm forward and backward on (16384, 2048) bf16,
+   RoPE on q and k (8, 2048, 16, 128) bf16, AdamW over bf16 moments on
+   the largest stack (16, 5632, 2048); their rows go into the kernels
+   line under ``headline``.
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
    published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
@@ -86,6 +91,21 @@ Phases, each of which raises on failure (nothing is caught):
    expert choices pinned to the plain run's), 2 warm-up and 8 timed
    steps with exact launch counts per step (MoE gather 30, xent 1 + 1,
    flash 12 each, AdamW 154), and one profiled step.
+9. bench.py's headline training configuration (phase 8's model freed),
+   through ``tools/port_train_bench.py`` so that both time one program:
+   ``headline_big_config("full")`` (~0.95B: hidden 2048, ff 5632, 16
+   layers, the stacked trunk with per-layer recompute) built in bf16 on
+   the card, ``AdamW(multi_precision=False)`` (bf16 moments). First, at
+   batch 1 x 2048, one forward and backward with the kernels against the
+   plain versions (loss and every parameter's gradient, the stacks per
+   layer; the rule of phase 7). Then the bench's stages: "full"
+   recompute at batch 8 x 2048 and "selective" at 4 x 2048, each 2
+   warm-up and 8 timed steps with exact launch counts per step (the
+   recompute repeats the layer's forward kernels: RMSNorm 4L+1, RoPE 3L,
+   flash forward 2L, dq and dkv L each, the RMSNorm backward 2L+1, AdamW
+   12), finite losses and parameters, step ms, tokens/s, MFU, peak
+   memory, and one profiled step; then the bench's JSON line and the
+   phase's seconds.
 
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -171,13 +191,6 @@ def _bound_ms(nbytes: float, flops: float = 0.0,
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), \
         "operations" if t_ops > t_bytes else "bytes"
-
-
-def _card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def _kernel_name(mangled: str) -> str:
@@ -486,8 +499,9 @@ def check_paged_attention_int8(torch, results):
 def check_flash(torch, results):
     """The three flash kernels against their plain versions, at the
     Llama training path's shape (4, 2048, 32, 128) bf16 causal, a GQA
-    kvh=8 case, an fp32 case at seq 512, and the ERNIE-MoE path's shape
-    (16, 1024, 12, 64) bf16 causal. The backward pair gets the kernel's
+    kvh=8 case, an fp32 case at seq 512, the ERNIE-MoE path's shape
+    (16, 1024, 12, 64) bf16 causal and the headline training path's
+    (8, 2048, 16, 128) bf16 causal. The backward pair gets the kernel's
     o and lse and the same delta on both sides.
 
     Tolerances. fp32: o and lse 2e-5, gradients 1e-4 absolute (the same
@@ -502,8 +516,8 @@ def check_flash(torch, results):
 
     Beside each time: the achieved TFLOP/s, the share of the bound
     (bound / kernel) and the ratio to the library call; the main shape's
-    times go into the kernels line, the ERNIE shape's into
-    ``results["ernie"]``."""
+    times go into the kernels line, the ERNIE and headline shapes' into
+    ``results["ernie"]`` and ``results["headline"]``."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -513,7 +527,8 @@ def check_flash(torch, results):
     cases = [("main", 4, 2048, 32, 32, 128, torch.bfloat16),
              ("gqa", 4, 2048, 32, 8, 128, torch.bfloat16),
              ("fp32", 4, 512, 32, 32, 128, torch.float32),
-             ("ernie", 16, 1024, 12, 12, 64, torch.bfloat16)]
+             ("ernie", 16, 1024, 12, 12, 64, torch.bfloat16),
+             ("headline", 8, 2048, 16, 16, 128, torch.bfloat16)]
     for name, b, s, h, hk, d, dtype in cases:
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(
@@ -620,8 +635,8 @@ def check_flash(torch, results):
                        bound_by=by, library_ms=lib)
             if name == "main":
                 results[kname] = row
-            elif name == "ernie":
-                results.setdefault("ernie", {})[kname] = row
+            elif name in ("ernie", "headline"):
+                results.setdefault(name, {})[kname] = row
         print(f"  dq + dkv: kernel_ms={ms_dq + ms_dkv:.4f} "
               f"vs_library={(ms_dq + ms_dkv) / lib_b:.2f}x; plain_ms of dq "
               f"and dkv: the whole plain backward; library_ms of dq and "
@@ -1241,6 +1256,158 @@ def check_adamw_bf16_moments(torch):
           f"{lib_ms:.4f} (torch._fused_adamw_) bound_ms={bms:.4f} ({by})")
 
 
+def check_headline_kernels(torch, results):
+    """RMSNorm (forward and backward), RoPE and AdamW at the shapes the
+    headline training path (phase 9) gives them, each against its plain
+    version, timed beside its bound, the plain version and the library
+    call (flash at its headline shape is in :func:`check_flash`):
+
+    - RMSNorm on (16384, 2048) bf16 rows (8 x 2048 tokens, hidden 2048):
+      the forward at ``RMS_BF16_TOL``, the backward at ``_rms_bwd_tol``;
+    - RoPE on q and k (8, 2048, 16, 128) bf16 with the model's tables,
+      one launch, forward and backward, one bf16 ulp of the largest term;
+    - AdamW with bf16 p, g, m and v on the largest stack, (16, 5632,
+      2048) = 184.5M elements (a grid that strides over 23M groups of 8
+      with 64-bit offsets), step 3, each output within one bf16 ulp plus
+      one fp32 ulp of the largest entry, and the last group updated.
+
+    ``results`` gets one row a kernel (``rms_norm``, ``rms_norm_bwd``,
+    ``rope``, ``adamw``) for the kernels line."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.models.llama import _rope_cache
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import (
+        _rope_pair, fused_adamw, rms_norm, rms_norm_backward_reference,
+        rms_norm_bwd, rms_norm_reference)
+    from tools.port_train_bench import headline_big_config
+    cfg = headline_big_config()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    eps, h = cfg.rms_norm_eps, cfg.hidden_size
+    rows = 8 * 2048
+
+    x = torch.randn(rows, h, generator=gen, device="cuda").bfloat16()
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).bfloat16()
+    ct = torch.randn(rows, h, generator=gen, device="cuda").bfloat16()
+    y, want = rms_norm(x, w, eps), rms_norm_reference(x, w, eps)
+    torch.cuda.synchronize()
+    err = _max_err(y, want)
+    if not torch.allclose(y.float(), want.float(), atol=RMS_BF16_TOL[0],
+                          rtol=RMS_BF16_TOL[1]):
+        raise AssertionError(f"rms_norm {tuple(x.shape)} bf16: max abs err "
+                             f"{err}")
+    bms, by = _bound_ms(2 * x.numel() * 2 + h * 2)
+    results["rms_norm"] = dict(
+        max_abs_err=err, ms=_time_ms(lambda: rms_norm(x, w, eps), iters=20),
+        plain_ms=_time_ms(lambda: rms_norm_reference(x, w, eps), iters=20),
+        bound_ms=bms, bound_by=by,
+        library_ms=_time_ms(lambda: F.rms_norm(x, (h,), w, eps), iters=20))
+    dx, dw = rms_norm_bwd(x, w, ct, eps)
+    pdx, pdw = rms_norm_backward_reference(x, w, ct, eps)
+    torch.cuda.synchronize()
+    okx, ex, sx = _rms_bwd_close(dx, pdx, _rms_bwd_tol(torch, pdx, "dx"))
+    okw, ew, sw = _rms_bwd_close(
+        dw, pdw, _rms_bwd_tol(torch, pdw, "dw", x, ct, eps))
+    if not (okx and okw):
+        raise AssertionError(f"rms_norm_bwd {tuple(x.shape)} bf16: dx "
+                             f"share {sx}, dw share {sw}")
+    del dx, dw, pdx, pdw
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    with torch.cuda.stream(side):
+        ylib = F.rms_norm(xl, (h,), wl, eps)
+    bms, by = _bound_ms(3 * x.numel() * 2 + 2 * h * 2)
+    results["rms_norm_bwd"] = dict(
+        max_abs_err=max(ex, ew),
+        ms=_time_ms(lambda: rms_norm_bwd(x, w, ct, eps), iters=20),
+        plain_ms=_time_ms(lambda: rms_norm_backward_reference(
+            x, w, ct, eps), iters=20),
+        bound_ms=bms, bound_by=by,
+        library_ms=_time_ms(lambda: torch.autograd.grad(
+            ylib, (xl, wl), ct, retain_graph=True), iters=20, stream=side))
+    torch.cuda.synchronize()
+    del x, w, ct, y, want, xl, wl, ylib
+
+    b, s, nh, d = 8, 2048, cfg.num_attention_heads, cfg.head_dim
+    cos, sin = (t[:s].bfloat16() for t in _rope_cache(cfg, "cuda"))
+    q, k = (torch.randn(b, s, nh, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    tol = 2.0 ** -7 * 2 * float(max(q.float().abs().max(),
+                                    k.float().abs().max()))
+    err = 0.0
+    for sign in (1.0, -1.0):
+        got = _rope_pair(q, k, cos, sin, sign)
+        with plain_versions():
+            want = _rope_pair(q, k, cos, sin, sign)
+        torch.cuda.synchronize()
+        err = max([err] + [_max_err(a, r) for a, r in zip(got, want)])
+    if not err <= tol:
+        raise AssertionError(f"rope {(b, s, nh, d)} bf16: max abs err "
+                             f"{err} > {tol}")
+
+    def rope_plain():
+        with plain_versions():
+            return _rope_pair(q, k, cos, sin, 1.0)
+
+    bms, by = _bound_ms(4 * q.numel() * 2 + 2 * s * d * 2)
+    results["rope"] = dict(
+        max_abs_err=err,
+        ms=_time_ms(lambda: _rope_pair(q, k, cos, sin, 1.0)),
+        plain_ms=_time_ms(rope_plain), bound_ms=bms, bound_by=by,
+        library_ms=None)
+    del q, k, got, want
+
+    shape = (cfg.num_hidden_layers, cfg.intermediate_size, h)
+    n = math.prod(shape)
+    p = (0.02 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+    g = (1e-3 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+    m = (1e-4 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+    v = (1e-8 * torch.rand(shape, generator=gen, device="cuda")).bfloat16()
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              step=3)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    m_last = m.view(-1)[-8:].clone()
+    fused_adamw(kp, g, km, kv, **hp)
+    with plain_versions():
+        fused_adamw(p, g, m, v, **hp)
+    torch.cuda.synchronize()
+    shares = []
+    for got, want in ((kp, p), (km, m), (kv, v)):
+        wf = want.float()
+        atol = 2.0 ** -7 * wf.abs() + 2.0 ** -23 * float(wf.abs().max())
+        shares.append(float(((got.float() - wf).abs() / atol).max()))
+        del wf, atol
+    last = not torch.equal(km.view(-1)[-8:], m_last)
+    if not (max(shares) <= 1.0 and last):
+        raise AssertionError(f"adamw {shape} bf16 moments: largest shares "
+                             f"(p, m, v) {shares}")
+    err = _max_err(kp, p)
+
+    def adamw_plain():
+        with plain_versions():
+            fused_adamw(p, g, m, v, **hp)
+
+    steps = [torch.tensor(2.0, device="cuda")]
+    bms, by = _bound_ms(n * 7 * 2)
+    results["adamw"] = dict(
+        max_abs_err=err,
+        ms=_time_eager(lambda: fused_adamw(kp, g, km, kv, **hp), iters=20),
+        plain_ms=_time_eager(adamw_plain, iters=3), bound_ms=bms,
+        bound_by=by, library_ms=_time_eager(lambda: torch._fused_adamw_(
+            [kp], [g], [km], [kv], [], steps, lr=1e-4, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False), iters=20))
+    del p, g, m, v, kp, km, kv
+    torch.cuda.empty_cache()
+    for name, row in results.items():
+        print(f"headline {name}: " + " ".join(
+            f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in row.items()))
+    print(f"headline adamw {shape} bf16 p, g, m, v: largest shares of the "
+          f"per-element tol (p, m, v) "
+          f"{', '.join(f'{x:.3f}' for x in shares)}")
+
+
 def _decode_layer_tol(d, ff):
     """Absolute tolerance on a decode layer's output, megakernel against
     its plain version, for unit-scale inputs and weights of nn.Linear's
@@ -1544,14 +1711,21 @@ def _train_loss(model, batch):
 
 def _grads(torch, model, batch, plain):
     """(loss, {name: fp32 grad}) of one forward and backward, with the
-    kernels or under ``ops.plain_versions()``; no update."""
+    kernels or under ``ops.plain_versions()``; no update. A stacked
+    trunk's weights are split per layer (``name[i]``)."""
     import contextlib
     from paddle_tpu_torch import ops
     model.zero_grad(set_to_none=True)
     with ops.plain_versions() if plain else contextlib.nullcontext():
         loss = _train_loss(model, batch)
         loss.backward()
-    out = {n: p.grad.float() for n, p in model.named_parameters()}
+    out = {}
+    for n, p in model.named_parameters():
+        if "__" in n:               # a stacked (L, ...) weight: each layer
+            for i, g in enumerate(p.grad.unbind(0)):
+                out[f"{n}[{i}]"] = g.float()
+        else:
+            out[n] = p.grad.float()
     model.zero_grad(set_to_none=True)
     return float(loss.detach()), out
 
@@ -1578,7 +1752,8 @@ def compare_plain(torch, model, cfg, b1):
     path runs, so this check guards the wiring; the per-element kernel
     checks guard the kernels' arithmetic."""
     from paddle_tpu_torch.models import LlamaForCausalLM
-    ref = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    ref = LlamaForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           seed=0)
     ref.load_state_dict({n: p.float() for n, p in
                          model.state_dict().items()})
     l32p, g32 = _grads(torch, ref, b1, plain=True)
@@ -1604,7 +1779,7 @@ def compare_plain(torch, model, cfg, b1):
     print(f"batch-1 fp32 weights, kernels vs plain: loss {l32k:.6f} vs "
           f"{l32p:.6f} (|diff| {abs(l32k - l32p):.3e}, tol 1e-4); grad "
           f"relative error {stats(rel32)} (tol 1e-3)")
-    print(f"batch-1 bf16 (O2) model: loss kernels {lk:.6f} plain {lp:.6f} "
+    print(f"batch-1 bf16 model: loss kernels {lk:.6f} plain {lp:.6f} "
           f"fp32 {l32p:.6f} (|kernels - plain| {abs(lk - lp):.3e}, tol "
           f"2e-2); grad error vs fp32: kernels {stats(ek)}; plain "
           f"{stats(ep)}; ratio kernels/plain {stats(ratio)} (tol "
@@ -1804,7 +1979,13 @@ def _ernie_grads(torch, model, batch, plain, loss_fn, pin=None,
             h.remove()
     if pin is not None and (tops or (pin_aux and firsts)):
         raise AssertionError("pinned routes left unused")
-    out = {n: p.grad.float() for n, p in model.named_parameters()}
+    out = {}
+    for n, p in model.named_parameters():
+        if "__" in n:               # a stacked (L, ...) weight: each layer
+            for i, g in enumerate(p.grad.unbind(0)):
+                out[f"{n}[{i}]"] = g.float()
+        else:
+            out[n] = p.grad.float()
     model.zero_grad(set_to_none=True)
     return float(loss.detach()), out, routes
 
@@ -1999,6 +2180,79 @@ def ernie_moe_path(torch, card):
           f"TFLOP/s bf16) peak_mem_gb={peak_gb:.3f}")
     profile_train_step(torch, step, batch, card, label="ernie")
     return counts
+
+
+def headline_path(torch, card):
+    """Phase 9: bench.py's headline training configuration through
+    ``tools/port_train_bench.py`` (see the module docstring). Returns
+    the launch counts of its two stages' steps."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from tools import port_train_bench as bench
+    t_phase = time.perf_counter()
+    cfg = bench.headline_big_config("full")
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"headline model: {model.num_params() / 1e9:.4f}B params bf16, "
+          f"stacked trunk of {L} layers, full recompute, on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    import numpy as np
+    np.random.seed(0)
+    ids = np.random.randint(0, cfg.vocab_size, (1, bench.SEQ)).astype(
+        np.int32)
+    batch1 = (torch.from_numpy(ids).cuda(),
+              torch.from_numpy(np.roll(ids, -1, axis=1).astype(np.int32))
+              .cuda())
+    compare_plain(torch, model, cfg, batch1)
+    del model
+    torch.cuda.empty_cache()
+    # one step: the forward and its repeat in the backward launch the
+    # layer's RMSNorms, RoPE and flash forward twice
+    per_step = {k: 0 for k in ops.launch_counts()}
+    per_step.update({"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+                     "rope": 3 * L, "flash_attention_fwd": 2 * L,
+                     "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L, "adamw": 12})
+    totals, stages = {k: 0 for k in per_step}, {}
+    for gran, b in bench.STAGES.items():
+        def inspect(model, step, batch, gran=gran, b=b):
+            if not all(torch.isfinite(p).all() for p in model.parameters()):
+                raise AssertionError(f"headline {gran}: a parameter went "
+                                     "non-finite")
+            n_tensors = len(list(model.parameters()))
+            if n_tensors != 12:
+                raise AssertionError(f"{n_tensors} parameter tensors, "
+                                     "expected 12")
+            profile_train_step(torch, step, batch, card,
+                               label=f"headline {gran} b{b}")
+
+        r = bench.bench_stage(gran, b, inspect=inspect)   # zeroes counts
+        n = r["steps"]
+        counts = {k: r["launches"].get(k, 0) for k in per_step}
+        want = {k: n * v for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"headline {gran} b{b} launch counts "
+                                 f"{counts}, expected {want} ({per_step} "
+                                 "per step)")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"headline {gran}: non-finite loss "
+                                 f"{r['losses']}")
+        for k in totals:
+            totals[k] += counts[k]
+        stages[gran] = r
+        print(f"[{card}] headline {gran} b{b}x{r['seq']} step_ms="
+              f"{r['step_ms']:.3f} tokens_per_s={r['tokens_per_sec']:.1f} "
+              f"mfu={r['mfu']:.4f} (vs 989 TFLOP/s bf16) peak_mem_gb="
+              f"{r['peak_mem_gb']:.3f} losses (warm-up, last) "
+              f"{', '.join(f'{x:.6f}' for x in r['losses'])}; "
+              f"launches over {n} steps exact ({per_step} per step)")
+    print("headline bench line: " + json.dumps(bench.result_line(stages,
+                                                                 card)))
+    print(f"phase 9 (headline training) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def _prompts(rng, vocab):
@@ -2751,8 +3005,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from paddle_tpu_torch.ops import build
+    from tools.port_train_bench import card_line
 
-    card = _card_line()
+    card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -2778,6 +3033,7 @@ def main() -> int:
     rms, pa, pa8, flash, rope, adamw = {}, {}, {}, {}, {}, {}
     xent_f, xent_b, gather = {}, {}, {}
     rms_res, mega, mega8, rms_bwd = {}, {}, {}, {}
+    heads = {}          # kernel name -> its row at the headline shapes
     check_rms_norm(torch, rms, (torch.float32, 8))
     check_paged_attention(torch, pa, 32)
     check_paged_attention_int8(torch, pa8)
@@ -2790,6 +3046,9 @@ def main() -> int:
     check_xent(torch, xent_f, xent_b)
     check_moe_gather(torch, gather)
     check_adamw_bf16_moments(torch)
+    check_headline_kernels(torch, heads)
+    heads.update({f"flash_attention_{'bwd_' if k != 'fwd' else ''}{k}": row
+                  for k, row in flash["headline"].items()})
     check_rms_norm_residual(torch, rms_res)
     check_decode_layer(torch, mega, mega8)
     residual = rms_residual_entry(torch)
@@ -2809,9 +3068,12 @@ def main() -> int:
     train = train_path(torch, card)
     torch.cuda.empty_cache()
     ernie = ernie_moe_path(torch, card)
+    torch.cuda.empty_cache()
+    headline = headline_path(torch, card)
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
-                 generate=gen, training=train, ernie_moe_training=ernie)
+                 generate=gen, training=train, ernie_moe_training=ernie,
+                 headline_training=headline)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))
@@ -2869,6 +3131,10 @@ def main() -> int:
              replaces="paddle_tpu/ops/pallas/decode_layer.py:278",
              launches=counts["decode_layer_int8"], **mega8),
     ]
+    for k in kernels:
+        if k["name"] in heads:      # the same keys at phase 9's shapes
+            k["headline"] = dict(heads[k["name"]],
+                                 launches=headline[k["name"]])
     unused = [k["name"] for k in kernels if not k["launches"] > 0]
     if unused:
         raise AssertionError(f"kernels no path launched: {unused}")

@@ -19,7 +19,12 @@ with threefry sampling. Slice 4 is the ERNIE-MoE training step:
 bf16 moments, with the MoE row-gather and fused softmax cross-entropy
 kernels. Slice 10 is the dense serving engine
 (``serving.ContinuousBatchingEngine``) and ``LlamaForCausalLM.generate``,
-each as CUDA graphs, with RoPE's serving route."""
+each as CUDA graphs, with RoPE's serving route. Slice 11 is bench.py's
+headline training configuration: the stacked trunk
+(``LlamaConfig(scan_layers=True)``) with full or selective per-layer
+recompute, pure bf16 with bf16 AdamW moments, LR schedulers
+(``optimizer.lr``) and gradient clipping (``grad_clip=``,
+``nn.utils``)."""
 from .device import resolve_device
 
 __all__ = ["resolve_device"]

@@ -3,7 +3,10 @@
 The JAX ``nn.Linear`` stores its weight as (in, out); ``torch.nn.Linear``
 as (out, in). ``params_from_jax`` transposes every linear weight (Llama's
 projections and head; ERNIE-MoE's ``qkv_proj``, ``out_proj``, dense
-``mlp.N`` layers and MoE ``gate.gate``) and passes the rest (embeddings,
+``mlp.N`` layers and MoE ``gate.gate``), and the last two axes of every
+stacked linear weight of the stacked trunk (``self_attn__q_proj__weight``
+and its kin: JAX's (L, in, out) to the port's (L, out, in)), and passes
+the rest (embeddings,
 norm weights and biases, and the MoE expert stacks ``w1``/``b1``/``w2``/
 ``b2``, whose layout the port keeps) through. The RoPE tables are
 buffers the port computes itself, so they are not carried over.
@@ -19,17 +22,25 @@ import torch
 
 __all__ = ["params_from_jax", "adamw_state_from_jax"]
 
-_LINEAR_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
-                    "o_proj.weight", "gate_proj.weight", "up_proj.weight",
-                    "down_proj.weight", "qkv_proj.weight", "out_proj.weight",
-                    "gate.gate.weight")
+_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+            "down_proj", "qkv_proj", "out_proj", "gate.gate")
+_LINEAR_SUFFIXES = tuple(f"{n}.weight" for n in _LINEARS)
+# the stacked trunk's names: the layer's dotted path with "." -> "__"
+_STACKED_SUFFIXES = tuple(f"{n.replace('.', '__')}__weight"
+                          for n in _LINEARS)
 # the Linear layers of an nn.Sequential FFN (ERNIE-MoE's dense blocks)
 _SEQUENTIAL_LINEAR = re.compile(r"\.mlp\.\d+\.weight$")
 
 
-def _is_linear(name: str) -> bool:
-    return name.endswith(_LINEAR_SUFFIXES) or name == "lm_head.weight" \
-        or bool(_SEQUENTIAL_LINEAR.search(name))
+def _linear_ndim(name: str) -> int:
+    """2 for a linear weight, 3 for a stacked one, 0 for anything
+    else."""
+    if name.endswith(_STACKED_SUFFIXES):
+        return 3
+    if name.endswith(_LINEAR_SUFFIXES) or name == "lm_head.weight" \
+            or _SEQUENTIAL_LINEAR.search(name):
+        return 2
+    return 0
 
 
 def _to_torch(name: str, arr) -> torch.Tensor:
@@ -38,11 +49,12 @@ def _to_torch(name: str, arr) -> torch.Tensor:
         t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
-    if _is_linear(name):
-        if t.ndim != 2:
-            raise ValueError(f"{name}: expected a 2-D linear weight, "
+    ndim = _linear_ndim(name)
+    if ndim:
+        if t.ndim != ndim:
+            raise ValueError(f"{name}: expected a {ndim}-D linear weight, "
                              f"got shape {tuple(t.shape)}")
-        t = t.t().contiguous()
+        t = t.transpose(-1, -2).contiguous()
     return t
 
 

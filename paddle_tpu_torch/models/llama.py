@@ -6,7 +6,8 @@ and training fields), the RoPE tables, and the attention / MLP / decoder
 layer / model / causal-LM modules, on the cache path (a dense cache or
 the paged arena, with per-row left-pad counts and the sliding window)
 and on the no-cache path (training, with the fused head +
-cross-entropy).
+cross-entropy), where ``scan_layers`` (or ``pipeline_parallel``, one
+stage) runs the stacked trunk with per-layer recompute.
 RMSNorm, RoPE and flash attention run the CUDA kernels on the GPU; the
 projections are ``nn.Linear`` (``torch.matmul``), as the JAX package
 leaves them to XLA. Parameter
@@ -14,6 +15,7 @@ names match the JAX model's ``named_parameters()``, so
 ``convert.params_from_jax`` maps one onto the other."""
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -21,17 +23,21 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..incubate.nn import fused_linear_cross_entropy
 from ..nn import RMSNorm
 from ..nn import functional as PF
-from ..ops import plain_active
+from ..ops import plain_active, plain_as
 from ..ops.decode_layer import decode_layer, kernel_viable
 from ..ops.fused import fused_rope
 from .generation import GenerationMixin, cached_attention
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+__all__ = ["LlamaConfig", "LlamaDecoderStack", "LlamaForCausalLM",
+           "LlamaModel",
            "llama_tiny_config", "llama_7b_config"]
 
 
@@ -47,6 +53,21 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # the mesh fields, with the JAX defaults and checks. On one card
+    # tensor_parallel is inert (as in JAX without a mesh) and
+    # pipeline_parallel builds the stacked trunk and runs it as one stage;
+    # sequence_parallel and virtual_pp > 1 raise (a mesh is not ported)
+    tensor_parallel: bool = True
+    sequence_parallel: bool = False
+    sequence_parallel_mode: str = "megatron"
+    pipeline_parallel: bool = False
+    pp_num_microbatches: int = 4
+    virtual_pp: int = 1
+    scan_layers: bool = False           # the stacked trunk
+    recompute: bool = False             # per-layer checkpointing (stack)
+    # "full": keep each layer's input only; "selective": also the linear
+    # products (JAX's dots_with_no_batch_dims_saveable)
+    recompute_granularity: str = "full"
     # Mistral-class sliding-window causal attention (None = full causal)
     sliding_window: Optional[int] = None
     # chunked fused lm-head + CE on the labels path (the (tokens, vocab)
@@ -56,10 +77,48 @@ class LlamaConfig:
     dtype: str = "float32"
 
     def __post_init__(self):
+        if self.sequence_parallel_mode not in ("megatron", "ring",
+                                               "ulysses"):
+            raise ValueError(
+                f"unknown sequence_parallel_mode="
+                f"{self.sequence_parallel_mode!r}; expected 'megatron', "
+                f"'ring', or 'ulysses'")
         if self.sliding_window is not None and self.sliding_window <= 0:
             raise ValueError(
                 f"sliding_window={self.sliding_window}; expected a "
                 "positive window size or None (disabled)")
+        if self.sliding_window is not None and self.sequence_parallel \
+                and self.sequence_parallel_mode in ("ring", "ulysses"):
+            raise ValueError(
+                "sliding_window is not yet supported with ring/ulysses "
+                "context parallelism (the CP kernels compute full causal "
+                "attention); use sequence_parallel_mode='megatron' or "
+                "disable the window")
+        if self.recompute_granularity not in ("full", "selective"):
+            raise ValueError(
+                f"recompute_granularity="
+                f"{self.recompute_granularity!r}; expected 'full' or "
+                "'selective'")
+        if self.pipeline_parallel and \
+                self.sequence_parallel_mode in ("ring", "ulysses"):
+            raise ValueError(
+                "ring/ulysses attention runs its own shard_map and cannot "
+                "nest inside the pipeline's manual pp region; use "
+                "sequence_parallel_mode='megatron' with pipeline_parallel")
+        if self.virtual_pp < 1:
+            raise ValueError(f"virtual_pp={self.virtual_pp}; must be >= 1")
+        if self.virtual_pp > 1 and not self.pipeline_parallel:
+            raise ValueError("virtual_pp > 1 requires pipeline_parallel")
+        if self.virtual_pp > 1 and \
+                self.num_hidden_layers % self.virtual_pp != 0:
+            raise ValueError(
+                f"num_hidden_layers={self.num_hidden_layers} not "
+                f"divisible by virtual_pp={self.virtual_pp}")
+        if self.sequence_parallel or self.virtual_pp > 1:
+            raise NotImplementedError(
+                "sequence_parallel and virtual_pp > 1 shard the trunk over "
+                "a mesh of cards, which is not ported yet (ROADMAP.md "
+                "A.6)")
 
     @property
     def head_dim(self) -> int:
@@ -224,20 +283,109 @@ class LlamaDecoderLayer(nn.Module):
         return self._decode_forward(x, cos, sin, cache, pos, block_table)
 
 
+# the products the selective policy keeps: nn.Linear on a 3-D input
+# reaches aten.mm (aten.addmm with a bias); the batched attention
+# products (aten.bmm) and everything else are recomputed
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default})
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective recompute, JAX's ``dots_with_no_batch_dims_saveable``:
+    save the products without batch dimensions, recompute the rest. The
+    kernels are ctypes launches the dispatcher never sees; what it sees
+    of them is the ``torch.empty`` of their outputs, which this policy
+    recomputes, so they rerun as JAX reruns a ``pallas_call``."""
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class LlamaDecoderStack(nn.Module):
+    """The stacked decoder trunk (JAX ``LlamaDecoderStack`` on one
+    stage). One prototype layer gives the structure and is kept off the
+    module's parameters; each of its parameters becomes one stacked
+    (L, ...) parameter named as JAX names it
+    (``self_attn__q_proj__weight``), a linear stack in torch's (L, out,
+    in) layout. The forward takes every layer's slices with one
+    ``unbind(0)`` a stack (its backward is one ``stack``; indexing
+    ``w[i]`` would give each layer a zero-filled (L, ...) gradient) and
+    runs the prototype on them through ``torch.func.functional_call``,
+    as JAX's ``_layer_fwd`` runs the scan body. ``config.recompute``
+    checkpoints each layer: "full" keeps the layer's input only,
+    "selective" also its linear products (:func:`_save_products`). The
+    recompute runs under the plain-version choice of the forward it
+    repeats (``ops.plain_as``)."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=dtype)
+        layers = [LlamaDecoderLayer(config, **kw)
+                  for _ in range(config.num_hidden_layers)]
+        # structure donor only: its parameters are replaced by the slices
+        # at every call, so it lives on the meta device, unregistered
+        object.__setattr__(self, "_proto",
+                           LlamaDecoderLayer(config, device="meta",
+                                             dtype=dtype))
+        self._pnames = [n for n, _ in self._proto.named_parameters()]
+        for n in self._pnames:
+            stacked = torch.stack([layer.get_parameter(n).detach()
+                                   for layer in layers])
+            self.register_parameter(n.replace(".", "__"),
+                                    nn.Parameter(stacked))
+
+    def forward(self, x, cos, sin):
+        c = self.config
+        plain = plain_active()
+        # the layer draws no random numbers: no RNG state to keep
+        kw = dict(use_reentrant=False, preserve_rng_state=False)
+        if c.recompute_granularity == "selective":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_products)
+        slices = zip(*(self.get_parameter(n.replace(".", "__")).unbind(0)
+                       for n in self._pnames))
+        for layer in slices:
+            if c.recompute:
+                x = checkpoint(self._layer_fwd, x, cos, sin, plain, *layer,
+                               **kw)
+            else:
+                x = self._layer_fwd(x, cos, sin, plain, *layer)
+        return x
+
+    def _layer_fwd(self, x, cos, sin, plain, *layer):
+        with plain_as(plain):
+            return functional_call(self._proto,
+                                   dict(zip(self._pnames, layer)),
+                                   (x, cos, sin))
+
+
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = nn.Embedding(config.vocab_size,
                                          config.hidden_size, **kw)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, **kw)
-             for _ in range(config.num_hidden_layers)])
+        if config.pipeline_parallel or config.scan_layers:
+            self.layers = LlamaDecoderStack(config, **kw)
+        else:
+            self.layers = nn.ModuleList(
+                [LlamaDecoderLayer(config, **kw)
+                 for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
     def forward(self, input_ids, cos, sin, cache=None, pos=None,
                 block_table=None, fused_decode=None, pad=None):
+        stacked = isinstance(self.layers, LlamaDecoderStack)
+        if stacked and cache is not None:
+            raise ValueError(
+                "KV-cache decode is not supported with the stacked "
+                "pipeline/scan trunk; build the model with "
+                "pipeline_parallel=False, scan_layers=False for "
+                "generation")
         x = self.embed_tokens(input_ids)
+        if stacked:
+            return self.norm(self.layers(x, cos, sin))
         caches = cache if cache is not None else [None] * len(self.layers)
         for layer, layer_cache in zip(self.layers, caches):
             x = layer(x, cos, sin, layer_cache, pos, block_table,
@@ -289,7 +437,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "llama.norm.weight":
+            if name.endswith(("layernorm.weight", "layernorm__weight")) \
+                    or name == "llama.norm.weight":
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=gen)

@@ -10,12 +10,14 @@ tensor the wrapper launches or raises.
 :func:`plain_versions` is the one explicit exception, for comparisons:
 inside it every wrapper computes its plain version on any device, so a
 caller can hold a kernel's result against the plain one on the same
-CUDA inputs. It launches nothing and counts nothing."""
+CUDA inputs. It launches nothing and counts nothing. :func:`plain_as`
+sets the choice for a block whatever the enclosing scope: a recomputed
+forward repeats the choice of the forward it repeats."""
 from __future__ import annotations
 
 import contextlib
 
-__all__ = ["plain_versions", "plain_active", "reset_launch_counts",
+__all__ = ["plain_versions", "plain_as", "plain_active", "reset_launch_counts",
            "launch_counts", "add_launch_counts"]
 
 _plain_depth = 0
@@ -30,6 +32,18 @@ def plain_versions():
         yield
     finally:
         _plain_depth -= 1
+
+
+@contextlib.contextmanager
+def plain_as(active: bool):
+    """Run the plain versions inside the block if ``active``, else the
+    kernels, whatever the enclosing scope says."""
+    global _plain_depth
+    saved, _plain_depth = _plain_depth, int(active)
+    try:
+        yield
+    finally:
+        _plain_depth = saved
 
 
 def plain_active() -> bool:

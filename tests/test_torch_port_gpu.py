@@ -379,6 +379,8 @@ FLASH_GPU_CASES = {
     "d96": (2, 256, 256, 4, 4, 96, True, None),
     "gqa4_window": (1, 512, 512, 8, 2, 128, True, 200),
     "long_causal": (1, 4096, 4096, 4, 4, 128, True, None),
+    # bench.py's headline configuration (tools/port_train_bench.py)
+    "headline": (8, 2048, 2048, 16, 16, 128, True, None),
 }
 
 
@@ -679,7 +681,8 @@ def test_train_step_on_gpu_goes_through_kernels(dev):
 # (300, 11008) and (2, 131072): rows past the registers (the looping
 # instance), the second one longer than any a thread could hold
 RMS_BWD_SHAPES = [(8, 4096), (512, 4096), (2048, 4096), (37, 256),
-                  (1, 64), (300, 11008), (2, 3, 1024), (2, 131072)]
+                  (1, 64), (300, 11008), (2, 3, 1024), (2, 131072),
+                  (16384, 2048)]      # the headline configuration's rows
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1637,3 +1640,114 @@ def test_dense_megakernel_launches_nothing(dev):
     assert counts["decode_layer"] == counts["paged_attention_decode"] == 0
     for a, b in zip(*outs):
         np.testing.assert_array_equal(b, a)
+
+
+# -- bench.py's headline configuration (tools/port_train_bench.py) ----------
+
+def test_headline_rms_norm_forward_matches_plain(dev):
+    """The headline step's norm rows: 8 x 2048 tokens of hidden 2048,
+    bf16."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(16384, 2048, generator=g, device=dev).bfloat16()
+    w = (1 + 0.1 * torch.randn(2048, generator=g, device=dev)).bfloat16()
+    _assert_rms_forward(x, w)
+
+
+def test_headline_rope_matches_plain(dev):
+    """q and k (8, 2048, 16, 128) bf16 with the model's own tables (one
+    launch for both), forward and the sin-negated backward, within one
+    bf16 ulp of the largest term (as ``test_rope_kernel_matches_plain``)."""
+    from paddle_tpu_torch.models.llama import _rope_cache
+    from paddle_tpu_torch.ops.fused import _rope_pair
+    from tools.port_train_bench import headline_big_config
+    cfg = headline_big_config()
+    cos, sin = (t.bfloat16() for t in _rope_cache(cfg, dev))
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k = (torch.randn(8, 2048, 16, 128, generator=g, device=dev)
+            .bfloat16() for _ in range(2))
+    for sign in (1.0, -1.0):
+        ops.reset_launch_counts()
+        got = _rope_pair(q, k, cos, sin, sign)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rope"] == 1
+        with ops.plain_versions():
+            want = _rope_pair(q, k, cos, sin, sign)
+        tol = 2.0 ** -7 * 2 * float(q.float().abs().max())
+        for a, b_ in zip(got, want):
+            assert float((a.float() - b_.float()).abs().max()) <= tol
+
+
+def test_headline_adamw_bf16_moments_match_plain(dev):
+    """The largest stack of the headline step, (16, 5632, 2048) =
+    184.5M elements of bf16 p, g, m and v (369 MB each): every group of
+    8 (the kernel's grid strides over 23M of them, with 64-bit offsets)
+    within one bf16 ulp, as ``test_adamw_kernel_bf16_moments_match_plain``
+    holds them, the last row included."""
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    g = torch.Generator(device=dev).manual_seed(13)
+    shape = (16, 5632, 2048)
+    p = (0.02 * torch.randn(shape, generator=g, device=dev)).bfloat16()
+    grad = torch.randn(shape, generator=g, device=dev).bfloat16()
+    m = (0.1 * torch.randn(shape, generator=g, device=dev)).bfloat16()
+    v = (0.01 * torch.rand(shape, generator=g, device=dev)).bfloat16()
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.01, step=3)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    ops.reset_launch_counts()
+    fused_adamw(kp, grad, km, kv, **hp)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["adamw"] == 1
+    assert not torch.equal(km[-1, -1], m[-1, -1])      # the tail was updated
+    with ops.plain_versions():
+        fused_adamw(p, grad, m, v, **hp)
+    for got, want in ((kp, p), (km, m), (kv, v)):
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=2.0 ** -7,
+            atol=2.0 ** -23 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("granularity", ["none", "full", "selective"])
+def test_stacked_train_step_on_gpu_matches_plain(dev, granularity):
+    """The tiny stacked Llama on the card: one forward and backward with
+    the kernels against the same model under ``ops.plain_versions()``
+    (loss 1e-5, every gradient 1e-4: fp32, sums in other orders), then
+    two AdamW steps with exact launches. Recompute repeats the layer's
+    forward kernels: RMSNorm 2L more, RoPE and the flash forward L
+    more, per step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    rc = granularity != "none"
+    cfg = llama_tiny_config(scan_layers=True, recompute=rc,
+                            recompute_granularity=granularity if rc
+                            else "full")
+    m = LlamaForCausalLM(cfg, device=dev, seed=0)
+    ids = np.random.RandomState(0).randint(0, 512, (2, 64)).astype(np.int32)
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in (ids, np.roll(ids, -1, 1).astype(np.int32)))
+    out = []
+    for plain in (False, True):
+        m.zero_grad(set_to_none=True)
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            loss = m(*batch)[0]
+            loss.backward()
+        out.append((float(loss), {n: p.grad.clone()
+                                  for n, p in m.named_parameters()}))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5
+    for n, g in out[0][1].items():
+        assert float((g - out[1][1][n]).abs().max()) <= 1e-4, n
+    m.zero_grad(set_to_none=True)
+    opt = AdamW(learning_rate=1e-4, parameters=m.parameters())
+    step = TrainStep(m, lambda mm, b: mm(*b)[0], opt)
+    ops.reset_launch_counts()
+    losses = [float(step(batch)) for _ in range(2)]
+    L, extra = cfg.num_hidden_layers, int(rc)
+    want = {k: 0 for k in ops.launch_counts()}
+    want.update({"rms_norm": 2 * (2 * L + 1 + extra * 2 * L),
+                 "rms_norm_bwd": 2 * (2 * L + 1),
+                 "rope": 2 * (2 * L + extra * L),
+                 "flash_attention_fwd": 2 * (L + extra * L),
+                 "flash_attention_bwd_dq": 2 * L,
+                 "flash_attention_bwd_dkv": 2 * L,
+                 "adamw": 2 * 12})
+    assert ops.launch_counts() == want
+    assert all(math.isfinite(x) for x in losses) and losses[1] < losses[0]
