@@ -30,7 +30,9 @@ Phases, each of which raises on failure (nothing is caught):
    128) bf16 causal, RMSNorm forward and backward on (16384, 2048) bf16,
    RoPE on q and k (8, 2048, 16, 128) bf16, AdamW over bf16 moments on
    the largest stack (16, 5632, 2048); their rows go into the kernels
-   line under ``headline``.
+   line under ``headline``. AdamW at each of its three shapes reads its
+   lr and step from device memory, as the optimizer passes them, and is
+   held against its plain version at steps 1, 2 and 1000.
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
    published shape at full depth, fp32 (random weights from a seeded
    generator, created on the card), 12 requests with a shared prefix and
@@ -78,19 +80,29 @@ Phases, each of which raises on failure (nothing is caught):
 7. The training path: Llama-2-7B's width at 8 layers, ``amp.decorate``
    O2 bf16, ``AdamW(lr=1e-4, weight_decay=0.01)`` with fp32 masters,
    ``TrainStep`` on a 4 x 2048 batch from ``np.random.RandomState(0)``
-   (labels rolled by one, as bench.py): first, at batch 1, one forward
-   and backward with the kernels against the plain versions on the
-   initial weights (loss and every parameter's gradient); then 2
-   warm-up and 5 timed steps with exact launch counts per step and
-   finite losses; last, one profiled step.
+   (labels rolled by one, as bench.py). On the card the step is one
+   CUDA graph: the first call runs a step (the warm-up) and captures the
+   next, each later call replays it. First a hand-written eager loop
+   (forward, backward, ``opt.step()``, ``clear_grad``) runs 3 steps on a
+   model from seed 0, its states kept on the host. Then, on a second
+   model from seed 0: at batch 1, one forward and backward with the
+   kernels against the plain versions on the initial weights (loss and
+   every parameter's gradient); then 3 captured steps held against the
+   eager loop (losses, every parameter, moment and fp32 master, the
+   step count: bit-equal; one capture), 5 timed replays, exact launch
+   counts per step over all 8, finite losses; last, one profiled
+   replayed step and its idle share.
 8. The ERNIE-MoE training path (``bench_workloads.py`` ``ernie_moe``):
    ``ernie_moe_base_config(expert_parallel=False)`` at full size, O2
    bf16, ``AdamW(multi_precision=False)`` (bf16 moments), the forward
    under ``auto_cast``, a 16 x 1024 batch: kernels vs plain versions at
    batch 4 (loss and every gradient; the bf16 kernel run also with its
-   expert choices pinned to the plain run's), 2 warm-up and 8 timed
-   steps with exact launch counts per step (MoE gather 30, xent 1 + 1,
-   flash 12 each, AdamW 154), and one profiled step.
+   expert choices pinned to the plain run's), then the captured step:
+   its first 3 steps held against the eager loop on a second model from
+   seed 0 (bit-equal, one capture), 10 steps in all with exact launch
+   counts per step (MoE gather 30, xent 1 + 1, flash 12 each, AdamW
+   154), and one profiled replayed step, its idle share beside the
+   eager step's.
 9. bench.py's headline training configuration (phase 8's model freed),
    through ``tools/port_train_bench.py`` so that both time one program:
    ``headline_big_config("full")`` (~0.95B: hidden 2048, ff 5632, 16
@@ -100,12 +112,32 @@ Phases, each of which raises on failure (nothing is caught):
    plain versions (loss and every parameter's gradient, the stacks per
    layer; the rule of phase 7). Then the bench's stages: "full"
    recompute at batch 8 x 2048 and "selective" at 4 x 2048, each 2
-   warm-up and 8 timed steps with exact launch counts per step (the
-   recompute repeats the layer's forward kernels: RMSNorm 4L+1, RoPE 3L,
-   flash forward 2L, dq and dkv L each, the RMSNorm backward 2L+1, AdamW
-   12), finite losses and parameters, step ms, tokens/s, MFU, peak
-   memory, and one profiled step; then the bench's JSON line and the
-   phase's seconds.
+   warm-up calls (a step and the capture, a replay) and 8 timed steps in
+   one ``run_steps`` (8 replays, no host read between them) with exact
+   launch counts per step (the recompute repeats the layer's forward
+   kernels: RMSNorm 4L+1, RoPE 3L, flash forward 2L, dq and dkv L each,
+   the RMSNorm backward 2L+1, AdamW 12), the 10 steps held against the
+   eager loop on a second model (bit-equal; its states on the host),
+   finite losses and parameters, step ms, tokens/s, MFU, peak memory,
+   the graph pool's MiB and one profiled replayed step's idle share;
+   then a scheduler's lr change between two ``run_steps`` calls must
+   reach the replay (one lr read a call; lr 0 leaves the parameters
+   bit-equal) and a second batch shape must be a second capture; then
+   the bench's JSON line and the phase's seconds.
+10. The ``io`` harness on phase 7's configuration: 16 sequences of 2048
+   tokens from ``RandomState(0)`` through ``io.DataLoader(batch_size=4,
+   num_workers=2)`` (forked workers over the native shared-memory ring,
+   ``csrc/shm_ring.cc`` built with ``g++``) and ``io.device_prefetch
+   (size=2)`` (pinned staging, copies on a copy stream) into the
+   captured step: the 8 losses bit-equal to the same batches fed
+   directly to a second model's captured step, over 2 epochs, exact
+   launch counts; then a third epoch times its steps 2-4 (host clock,
+   unprofiled, the batch's fetch included) against steps of the same
+   graph fed a batch already on the card: the idle the loader adds must
+   stay within 2 points. The profiled idle shares of a loader-fed step
+   in each of the first two epochs are printed beside phase 7's (in the
+   first its pinned staging block is new: the capture emptied the host
+   allocator's cache).
 
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -113,6 +145,7 @@ last line is ``{"ok": true, "device": {...}}``. Without a GPU the script
 exits 1 before printing any result."""
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -769,12 +802,47 @@ def check_rope_serving(torch, cos_full):
               f"max_abs_err={err:.3e} (tol 1e-5)")
 
 
+ADAMW_STEPS = (1, 2, 1000)
+
+
+def _adamw_hp(torch):
+    """AdamW's hyper-parameters with the lr (1e-4) and the step in
+    device tensors, as the optimizer passes them and the kernel reads
+    them."""
+    return dict(lr=torch.full((1,), 1e-4, device="cuda"), beta1=0.9,
+                beta2=0.999, eps=1e-8, weight_decay=0.01,
+                step=torch.zeros(1, dtype=torch.int32, device="cuda"))
+
+
+def _adamw_steps(torch, p, g, m, v, hp, errors):
+    """The kernel against the plain version from the same (p, m, v) at
+    each step of ``ADAMW_STEPS`` (written into the device step tensor):
+    ``errors(got, want)`` of each, and the kernel's outputs at the last
+    step."""
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    out = {}
+    for t in ADAMW_STEPS:
+        hp["step"].fill_(t)
+        got = [x.clone() for x in (p, m, v)]
+        fused_adamw(got[0], g, got[1], got[2], **hp)
+        want = [x.clone() for x in (p, m, v)]
+        with plain_versions():
+            fused_adamw(want[0], g, want[1], want[2], **hp)
+        torch.cuda.synchronize()
+        out[t] = errors(got, want)
+        del want
+    return out, got
+
+
 def check_adamw(torch, results):
     """AdamW on a gate_proj-sized (11008 x 4096 = 45.1M) fp32 master with
-    a bf16 gradient, step 3, in place. The kernel and the plain version
-    (the same fp32 arithmetic, op by op) agree to the last bits: m and v
-    1e-6 relative, the master one ulp of its largest entry (a contracted
-    FMA moves the last bit)."""
+    a bf16 gradient, in place, the lr and the step read from device
+    memory, at steps 1, 2 and 1000. The kernel and the plain version
+    (the same fp32 arithmetic, op by op, and the same fp32 bias
+    corrections) agree to the last bits: m and v 1e-6 relative, the
+    master one ulp of its largest entry (a contracted FMA moves the last
+    bit)."""
     from paddle_tpu_torch.ops import plain_versions
     from paddle_tpu_torch.ops.fused import fused_adamw
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -783,18 +851,21 @@ def check_adamw(torch, results):
     g = (1e-3 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
     m = 1e-4 * torch.randn(n, generator=gen, device="cuda")
     v = 1e-8 * torch.rand(n, generator=gen, device="cuda")
-    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
-              step=3)
-    kp, km, kv = p.clone(), m.clone(), v.clone()
-    fused_adamw(kp, g, km, kv, **hp)
-    with plain_versions():
-        fused_adamw(p, g, m, v, **hp)
-    torch.cuda.synchronize()
-    errs = (_max_err(kp, p), _max_err(km, m) / float(m.abs().max()),
-            _max_err(kv, v) / float(v.abs().max()))
+    hp = _adamw_hp(torch)
     ptol = 2.0 ** -23 * float(p.abs().max())     # one ulp of the largest
-    if not (errs[0] <= ptol and errs[1] <= 1e-6 and errs[2] <= 1e-6):
-        raise AssertionError(f"adamw: errors (p abs, m rel, v rel) {errs}")
+
+    def errors(got, want):
+        return (_max_err(got[0], want[0]),
+                _max_err(got[1], want[1]) / float(want[1].abs().max()),
+                _max_err(got[2], want[2]) / float(want[2].abs().max()))
+
+    by_step, (kp, km, kv) = _adamw_steps(torch, p, g, m, v, hp, errors)
+    bad = {t: e for t, e in by_step.items()
+           if not (e[0] <= ptol and e[1] <= 1e-6 and e[2] <= 1e-6)}
+    if bad:
+        raise AssertionError(f"adamw: errors (p abs, m rel, v rel) by "
+                             f"step {by_step}")
+    errs = max(by_step.values())
     ms = _time_eager(lambda: fused_adamw(kp, g, km, kv, **hp), iters=20)
 
     def plain():
@@ -811,12 +882,16 @@ def check_adamw(torch, results):
         beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
         maximize=False), iters=20)
     bms, by = _bound_ms(n * (4 + 2 + 4 + 4 + 4 + 4 + 4))
-    print(f"adamw n={n} fp32 master, bf16 grad: max_abs_err p={errs[0]:.3e}"
-          f" (tol {ptol:.1e}), rel m={errs[1]:.3e} v={errs[2]:.3e} (tol 1e-6) "
+    print(f"adamw n={n} fp32 master, bf16 grad, lr and step on the device, "
+          f"steps {ADAMW_STEPS}: max_abs_err p="
+          f"{max(e[0] for e in by_step.values()):.3e} (tol {ptol:.1e}), rel "
+          f"m={max(e[1] for e in by_step.values()):.3e} "
+          f"v={max(e[2] for e in by_step.values()):.3e} (tol 1e-6) "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={lib_ms:.4f} (torch._fused_adamw_, fp32 grad) "
           f"bound_ms={bms:.4f} ({by})")
-    results.update(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+    results.update(max_abs_err=max(e[0] for e in by_step.values()), ms=ms,
+                   plain_ms=plain_ms,
                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
@@ -1204,10 +1279,25 @@ def check_moe_gather(torch, results):
     torch.cuda.empty_cache()
 
 
+def _bf16_shares(got, want):
+    """The largest share of each of (p, m, v)'s per-element tolerance:
+    one bf16 ulp (2^-7 relative: both sides round once from fp32, and
+    the kernel's contracted FMA may move an fp32 result across a
+    rounding boundary) plus one fp32 ulp of the largest entry."""
+    shares = []
+    for a, b in zip(got, want):
+        w = b.float()
+        tol = 2.0 ** -7 * w.abs() + 2.0 ** -23 * float(w.abs().max())
+        shares.append(float(((a.float() - w).abs() / tol).max()))
+        del w, tol
+    return shares
+
+
 def check_adamw_bf16_moments(torch):
     """AdamW with bf16 moments (``multi_precision=False`` on a bf16
     model) on one ERNIE-MoE expert stack, 8 x 768 x 3072 = 18.9M bf16
-    elements, bf16 gradient, step 3, in place. Both sides compute in
+    elements, bf16 gradient, in place, the lr and the step read from
+    device memory, at steps 1, 2 and 1000. Both sides compute in
     fp32 and round p, m and v once, so each within one bf16 ulp (the
     kernel's contracted FMA may move an fp32 result across a rounding
     boundary) plus one fp32 ulp of the largest entry. Library:
@@ -1220,22 +1310,13 @@ def check_adamw_bf16_moments(torch):
     g = (1e-3 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
     m = (1e-4 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
     v = (1e-8 * torch.rand(n, generator=gen, device="cuda")).bfloat16()
-    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
-              step=3)
-    kp, km, kv = p.clone(), m.clone(), v.clone()
-    fused_adamw(kp, g, km, kv, **hp)
-    with plain_versions():
-        fused_adamw(p, g, m, v, **hp)
-    torch.cuda.synchronize()
-    shares = []
-    for got, want in ((kp, p), (km, m), (kv, v)):
-        w = want.float()
-        tol = 2.0 ** -7 * w.abs() + 2.0 ** -23 * float(w.abs().max())
-        shares.append(float(((got.float() - w).abs() / tol).max()))
+    hp = _adamw_hp(torch)
+    by_step, (kp, km, kv) = _adamw_steps(torch, p, g, m, v, hp, _bf16_shares)
+    shares = [max(s[i] for s in by_step.values()) for i in range(3)]
     err = _max_err(kp, p)
     if not max(shares) <= 1.0:
         raise AssertionError(f"adamw bf16 moments: largest shares of the "
-                             f"per-element tol (p, m, v) {shares}")
+                             f"per-element tol (p, m, v) by step {by_step}")
     ms = _time_eager(lambda: fused_adamw(kp, g, km, kv, **hp), iters=20)
 
     def plain():
@@ -1249,8 +1330,9 @@ def check_adamw_bf16_moments(torch):
         beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
         maximize=False), iters=20)
     bms, by = _bound_ms(n * (2 + 2 + 2 + 2 + 2 + 2 + 2))
-    print(f"adamw n={n} bf16 p, g, m, v (multi_precision=False): "
-          f"max_abs_err p={err:.3e}, largest shares of the per-element tol "
+    print(f"adamw n={n} bf16 p, g, m, v (multi_precision=False), lr and "
+          f"step on the device, steps {ADAMW_STEPS}: max_abs_err p (last "
+          f"step) {err:.3e}, largest shares of the per-element tol "
           f"(p, m, v) {', '.join(f'{x:.3f}' for x in shares)} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
           f"{lib_ms:.4f} (torch._fused_adamw_) bound_ms={bms:.4f} ({by})")
@@ -1363,25 +1445,15 @@ def check_headline_kernels(torch, results):
     g = (1e-3 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
     m = (1e-4 * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
     v = (1e-8 * torch.rand(shape, generator=gen, device="cuda")).bfloat16()
-    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
-              step=3)
-    kp, km, kv = p.clone(), m.clone(), v.clone()
-    m_last = m.view(-1)[-8:].clone()
-    fused_adamw(kp, g, km, kv, **hp)
-    with plain_versions():
-        fused_adamw(p, g, m, v, **hp)
-    torch.cuda.synchronize()
-    shares = []
-    for got, want in ((kp, p), (km, m), (kv, v)):
-        wf = want.float()
-        atol = 2.0 ** -7 * wf.abs() + 2.0 ** -23 * float(wf.abs().max())
-        shares.append(float(((got.float() - wf).abs() / atol).max()))
-        del wf, atol
-    last = not torch.equal(km.view(-1)[-8:], m_last)
+    hp = _adamw_hp(torch)
+    by_step, (kp, km, kv) = _adamw_steps(torch, p, g, m, v, hp, _bf16_shares)
+    shares = [max(s[i] for s in by_step.values()) for i in range(3)]
+    last = not torch.equal(km.view(-1)[-8:], m.view(-1)[-8:])
     if not (max(shares) <= 1.0 and last):
         raise AssertionError(f"adamw {shape} bf16 moments: largest shares "
-                             f"(p, m, v) {shares}")
+                             f"(p, m, v) by step {by_step}")
     err = _max_err(kp, p)
+    p, m, v = kp.clone(), km.clone(), kv.clone()    # the plain run's state
 
     def adamw_plain():
         with plain_versions():
@@ -1403,7 +1475,8 @@ def check_headline_kernels(torch, results):
         print(f"headline {name}: " + " ".join(
             f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in row.items()))
-    print(f"headline adamw {shape} bf16 p, g, m, v: largest shares of the "
+    print(f"headline adamw {shape} bf16 p, g, m, v, lr and step on the "
+          f"device, steps {ADAMW_STEPS}: largest shares of the "
           f"per-element tol (p, m, v) "
           f"{', '.join(f'{x:.3f}' for x in shares)}")
 
@@ -1792,92 +1865,307 @@ def compare_plain(torch, model, cfg, b1):
                              f"{over}")
 
 
-def train_path(torch, card):
-    """The training step at Llama-2-7B's width, 8 layers (see the module
-    docstring). Returns the launch counts of its 7 steps."""
-    import numpy as np
-    from paddle_tpu_torch import amp, ops
-    from paddle_tpu_torch.jit import TrainStep
+def _eager_steps(model, loss_fn, opt, batches):
+    """The hand-written eager loop a captured ``TrainStep`` is held
+    against: forward, backward, ``opt.step()``, ``clear_grad`` per batch.
+    Returns the losses (device tensors)."""
+    losses = []
+    for b in batches:
+        opt.clear_grad()
+        loss = loss_fn(model, b)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach().clone())
+    return losses
+
+
+def _states(model, opt):
+    """Every parameter and optimizer state of ``(model, opt)`` by name
+    (the live tensors), and the device step count."""
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = p.detach()
+        for k, v in opt._slots.get(id(p), {}).items():
+            out[f"{n}.{k}"] = v
+    out["@step"] = int(opt._step_tensor)
+    return out
+
+
+def _snapshot(model, opt, device="cpu"):
+    """``_states`` copied to ``device``."""
+    return {k: v if k == "@step" else v.to(device, copy=True)
+            for k, v in _states(model, opt).items()}
+
+
+def _check_captured(torch, label, step, want_losses, want, got_losses):
+    """The captured step against the eager loop: losses, every parameter,
+    every optimizer state (moments, fp32 masters) and the step count
+    bit-equal, and one capture. Prints the largest difference of each
+    kind either way."""
+    model, opt = step.model, step.optimizer
+    got = _states(model, opt)
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: captured and eager states hold "
+                             f"other tensors")
+    diff, unequal = {}, []
+    for k, w in want.items():
+        if k == "@step":
+            continue
+        g = got[k]
+        wd = w.to(g.device)
+        if not torch.equal(g, wd):
+            unequal.append(k)
+            kind = k.rsplit(".", 1)[-1] if "." in k else "param"
+            kind = kind if kind in ("moment1", "moment2", "master") \
+                else "param"
+            diff[kind] = max(diff.get(kind, 0.0), _max_err(g, wd))
+        del wd
+    got_losses = [float(x) for x in got_losses]
+    want_losses = [float(x) for x in want_losses]
+    loss_eq = [a == b for a, b in zip(got_losses, want_losses)]
+    print(f"{label} captured vs eager loop over {want['@step']} steps: "
+          f"losses {', '.join(f'{x:.6f}' for x in got_losses)} "
+          f"(eager {', '.join(f'{x:.6f}' for x in want_losses)}), "
+          f"bit-equal {loss_eq}; {len(want) - 1} parameters and states, "
+          f"{len(unequal)} not bit-equal (largest |diff| {diff}); step "
+          f"{got['@step']} (eager {want['@step']}); captures "
+          f"{step.captures}; graph pool {step.graph_bytes / 2**20:.1f} MiB")
+    if unequal or not all(loss_eq) or got["@step"] != want["@step"] \
+            or step.captures != 1 or len(loss_eq) != len(want_losses):
+        raise AssertionError(f"{label}: the captured step differs from the "
+                             f"eager loop: {unequal[:8]}, losses {loss_eq}, "
+                             f"captures {step.captures}")
+
+
+def _llama_7b_width(torch):
+    """Phase 7's model and optimizer from seed 0: Llama-2-7B's width at 8
+    layers, ``amp.decorate`` O2 bf16 with fp32 masters."""
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
     from paddle_tpu_torch.optimizer import AdamW
     cfg = llama_7b_config(num_hidden_layers=8)
-    L, B, S = cfg.num_hidden_layers, 4, 2048
-    t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=True)
-    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return cfg, model, opt
+
+
+def _llama_per_step(L, n_tensors):
+    return {"rms_norm": 2 * L + 1, "paged_attention_decode": 0,
+            "paged_attention_decode_int8": 0, "flash_attention_fwd": L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+            "rope": 2 * L, "adamw": n_tensors, "xent_fwd": 0,
+            "xent_bwd": 0, "moe_gather": 0, "rms_norm_residual": 0,
+            "decode_layer": 0, "decode_layer_int8": 0,
+            "rms_norm_bwd": 2 * L + 1}
+
+
+def train_path(torch, card):
+    """The training step at Llama-2-7B's width, 8 layers (see the module
+    docstring). Returns the launch counts of its 8 captured steps and
+    the idle share of its profiled step."""
+    import numpy as np
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.jit import TrainStep
+    B, S, compared, timed = 4, 2048, 3, 5
+    rs = np.random.RandomState(0)
+    cfg, ref, ropt = _llama_7b_width(torch)
+    ids = rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+    # the eager loop first, its states kept on the host: two models of
+    # this width and their AdamW states do not fit on the card together
+    want_losses = _eager_steps(ref, _train_loss, ropt, [batch] * compared)
+    want = _snapshot(ref, ropt)
+    del ref, ropt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model, opt = _llama_7b_width(torch)
     step = TrainStep(model, _train_loss, opt)
     torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
     n_params = model.num_params()
     print(f"train model: Llama-2-7B width, {L} layers, "
           f"{n_params / 1e9:.4f}B params bf16 (O2) on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    rs = np.random.RandomState(0)
-    ids = rs.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    labels = np.roll(ids, -1, axis=1).astype(np.int32)
-    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
-
     compare_plain(torch, model, cfg, (batch[0][:1], batch[1][:1]))
     n_tensors = len(list(model.parameters()))
-    per_step = {"rms_norm": 2 * L + 1, "paged_attention_decode": 0,
-                "paged_attention_decode_int8": 0, "flash_attention_fwd": L,
-                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
-                "rope": 2 * L, "adamw": n_tensors, "xent_fwd": 0,
-                "xent_bwd": 0, "moe_gather": 0, "rms_norm_residual": 0,
-                "decode_layer": 0, "decode_layer_int8": 0,
-                "rms_norm_bwd": 2 * L + 1}
+    per_step = _llama_per_step(L, n_tensors)
     if n_tensors != 9 * L + 3:
         raise AssertionError(f"{n_tensors} parameter tensors, expected "
                              f"{9 * L + 3}")
     torch.cuda.reset_peak_memory_stats()
-    warm, timed = 2, 5
     ops.reset_launch_counts()
-    losses, times = [], []
-    for _ in range(warm + timed):
+    losses, times, got_losses = [], [], []
+    for i in range(compared + timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = step(batch)            # ends in the loss's host read
         times.append(time.perf_counter() - t0)
         losses.append(step.last_loss)
+        if i < compared:
+            got_losses.append(loss)
+        if i == compared - 1:
+            _check_captured(torch, "train", step, want_losses, want,
+                            got_losses)
+            del want
     counts = ops.launch_counts()
-    want = {k: (warm + timed) * v for k, v in per_step.items()}
-    if counts != want:
+    n = compared + timed
+    want_counts = {k: n * v for k, v in per_step.items()}
+    if counts != want_counts:
         raise AssertionError(f"train launch counts {counts}, expected "
-                             f"{want} ({per_step} per step)")
+                             f"{want_counts} ({per_step} per step)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     for p in model.parameters():
         if not torch.isfinite(p).all():
             raise AssertionError("a parameter went non-finite")
-    step_s = sum(times[warm:]) / timed
+    step_s = sum(times[compared:]) / timed
     tok_s = B * S / step_s
     flops = model.flops_per_token(S) * B * S
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"train launches over {warm + timed} steps: {counts} "
-          f"(per step {per_step})")
+    print(f"train launches over {n} steps (the first the warm-up, then one "
+          f"capture and {n - 1} replays): {counts} (per step {per_step})")
     print(f"train losses: {', '.join(f'{x:.6f}' for x in losses)}")
-    print(f"train step times ms: "
+    print(f"train step times ms (first: warm-up and capture): "
           f"{', '.join(f'{1e3 * x:.2f}' for x in times)}")
     print(f"[{card}] train step_ms={1e3 * step_s:.3f} "
           f"tokens_per_s={tok_s:.1f} tflop_per_step={flops / 1e12:.3f} "
           f"mfu={flops / step_s / BF16_FLOPS:.4f} (vs 989 TFLOP/s bf16) "
-          f"peak_mem_gb={peak_gb:.3f}")
+          f"peak_mem_gb={peak_gb:.3f} graph_pool_mib="
+          f"{step.graph_bytes / 2**20:.1f}")
+    idle = profile_train_step(torch, lambda: step(batch), card)
+    return counts, idle
 
-    profile_train_step(torch, step, batch, card)
+
+def io_path(torch, card, idle7):
+    """Phase 10: phase 7's model fed from the ``io`` DataLoader (see the
+    module docstring). Returns the launch counts of its 4 steps."""
+    import numpy as np
+    from paddle_tpu_torch import core, io, ops
+    from paddle_tpu_torch.jit import TrainStep
+    t_phase = time.perf_counter()
+    n_seq, B, S = 16, 4, 2048
+    cfg, model, opt = _llama_7b_width(torch)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (n_seq, S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+
+    class Sequences(io.Dataset):
+        def __len__(self):
+            return n_seq
+
+        def __getitem__(self, i):
+            return ids[i], labels[i]
+
+    loader = io.DataLoader(Sequences(), batch_size=B, num_workers=2,
+                           use_shared_memory=True)
+    if not (loader._shm_usable() and core.native_available()):
+        raise AssertionError("io: the DataLoader's shared-memory ring is not "
+                             "native (csrc/shm_ring.cc did not build)")
+    step = TrainStep(model, _train_loss, opt)
+    per_step = _llama_per_step(cfg.num_hidden_layers,
+                               len(list(model.parameters())))
+    epochs = 2
+    ops.reset_launch_counts()
+    fed, idle = [], {}
+    for epoch in range(epochs):
+        batches = io.device_prefetch(loader, size=2)
+        fed.append(step(tuple(next(batches))))
+        # the second step's window holds the ring pop, collation and
+        # pinned copy of the batch after it (the third's, the loader's
+        # end); in the first epoch its pinned block is new (the capture
+        # emptied the host allocator's cache), in the second it is reused
+        idle[epoch] = profile_train_step(
+            torch, lambda: fed.append(step(tuple(next(batches)))), card,
+            label=f"io-fed (epoch {epoch + 1})")
+        fed += [step(tuple(b)) for b in batches]
+    counts = ops.launch_counts()
+    n = epochs * n_seq // B
+    want = {k: n * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"io launch counts {counts}, expected {want}")
+    # the loader's cost to the step, unprofiled (the profiler's
+    # instrumentation of a graph launch moves the idle share it reports
+    # by several points from launch to launch): a third epoch's steps 2-4
+    # (step 1 forks the workers) against the same graph fed a batch that
+    # is on the card already, each step ending in its loss read
+    walls = {"loader": [], "direct": []}
+    batches = io.device_prefetch(loader, size=2)
+    step(tuple(next(batches)))
+    for _ in range(n_seq // B - 1):
+        walls["loader"].append(
+            _step_wall(torch, step, lambda: tuple(next(batches))))
+    on_card = (torch.from_numpy(ids[:B]).cuda(),
+               torch.from_numpy(labels[:B]).cuda())
+    for _ in range(3):
+        walls["direct"].append(_step_wall(torch, step, lambda: on_card))
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, model, opt = _llama_7b_width(torch)
+    step = TrainStep(model, _train_loss, opt)
+    direct = [step((torch.from_numpy(ids[i:i + B]).cuda(),
+                    torch.from_numpy(labels[i:i + B]).cuda()))
+              for _ in range(epochs) for i in range(0, n_seq, B)]
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(fed, direct)]
+    print(f"io: DataLoader(batch_size={B}, num_workers=2) over {n_seq} x "
+          f"{S} tokens from RandomState(0), {epochs} epochs, forked "
+          f"workers over the native shared-memory ring, "
+          f"device_prefetch(size=2) into the captured step: losses "
+          f"{', '.join(f'{float(x):.6f}' for x in fed)}; fed directly "
+          f"{', '.join(f'{float(x):.6f}' for x in direct)}; bit-equal "
+          f"{equal}; launches over {n} steps exact")
+    def pct(x):
+        return "not measured" if x is None else f"{100 * x:.1f}%"
+
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    added = 1 - med["direct"] / med["loader"]
+    print(f"[{card}] io step walls ms, loader-fed (epoch 3, steps 2-4): "
+          f"{', '.join(f'{1e3 * x:.3f}' for x in walls['loader'])}; fed "
+          f"from the card: {', '.join(f'{1e3 * x:.3f}' for x in walls['direct'])}"
+          f"; idle added by the loader {100 * added:.2f} points (gate: "
+          f"within 2). Profiled idle: loader-fed {pct(idle[1])} (epoch "
+          f"2), {pct(idle[0])} (epoch 1, its pinned block new); phase "
+          f"7's {pct(idle7)}")
+    if added > 0.02:
+        raise AssertionError(f"io: the loader adds {added:.4f} of idle to "
+                             f"the step ({med})")
+    if not all(equal):
+        raise AssertionError(f"io: loader-fed losses {fed} differ from the "
+                             f"directly fed {direct}")
+    print(f"phase 10 (io) took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
-def profile_train_step(torch, step, batch, card, label="train"):
+def _step_wall(torch, step, batch):
+    """Host wall seconds of ``step(batch())`` (fetching the batch
+    included; the call ends in its loss read), from a synchronized
+    start."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batch())
+    return time.perf_counter() - t0
+
+
+def profile_train_step(torch, run, card, label="train"):
     """Where one training step's time goes: device time by kernel and the
-    device's busy share of the step's host wall time."""
+    device's busy share of the host wall time of ``run()`` (one step).
+    Returns the idle share, or None when the profiler saw no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        run()
+        torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [(e.key, e.self_device_time_total, e.count)
                for e in prof.key_averages()
@@ -1887,7 +2175,7 @@ def profile_train_step(torch, step, batch, card, label="train"):
     if busy_us == 0:
         print(f"{label} step profile: the profiler saw no device time "
               "(device busy share not measured)")
-        return
+        return None
     print(f"[{card}] {label} step profile: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f}% busy, "
@@ -1903,6 +2191,14 @@ def profile_train_step(torch, step, batch, card, label="train"):
     print(f"  by family: " + "; ".join(
         f"{fam} {ms:.3f} ms ({100 * 1e3 * ms / busy_us:.1f}%, x{n})"
         for fam, (ms, n) in sorted(families.items(), key=lambda f: -f[1][0])))
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda k: -k[1])[:6]
+    print("  host, by self time (the step's end waits in its loss read): "
+          + "; ".join(f"{name[:48]} {t / 1e3:.3f} ms x{n}"
+                      for name, t, n in host))
+    return 1 - busy_us / wall_us
 
 
 # device kernel name fragments -> family, for the profiles' breakdown
@@ -2100,7 +2396,8 @@ def ernie_moe_path(torch, card):
     loss and the MoE data movement always take their kernels). Kernels
     vs plain versions first (batch 4), then 2 warm-up and 8 timed steps
     with exact launch counts per step, and one profiled step. Returns
-    the launch counts of the 10 steps."""
+    the launch counts of the 10 steps and the profiled step's idle
+    share."""
     import numpy as np
     from paddle_tpu_torch import amp, ops
     from paddle_tpu_torch.jit import TrainStep
@@ -2109,11 +2406,16 @@ def ernie_moe_path(torch, card):
     from paddle_tpu_torch.optimizer import AdamW
     cfg = ernie_moe_base_config(expert_parallel=False)
     B, S = 16, 1024
+
+    def build():
+        model = ErnieMoEForCausalLM(cfg, device="cuda", seed=0)
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters(), multi_precision=False)
+        return model, opt
+
     t0 = time.perf_counter()
-    model = ErnieMoEForCausalLM(cfg, device="cuda", seed=0)
-    amp.decorate(model, level="O2", dtype="bfloat16")
-    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
-                parameters=model.parameters(), multi_precision=False)
+    model, opt = build()
     step = TrainStep(model, _ernie_loss, opt)
     torch.cuda.synchronize()
     n_params, active = model.num_params(), model.active_params()
@@ -2127,6 +2429,12 @@ def ernie_moe_path(torch, card):
     batch = (torch.from_numpy(ids).cuda(),
              torch.from_numpy(labels).cuda())
     ernie_compare_plain(torch, model, cfg, (batch[0][:4], batch[1][:4]))
+    compared = 3
+    ref, ropt = build()
+    want_losses = _eager_steps(ref, _ernie_loss, ropt, [batch] * compared)
+    want = _snapshot(ref, ropt, device="cuda")
+    del ref, ropt
+    torch.cuda.empty_cache()
 
     L = cfg.num_hidden_layers
     n_moe = L // cfg.moe_every
@@ -2145,13 +2453,19 @@ def ernie_moe_path(torch, card):
     torch.cuda.reset_peak_memory_stats()
     warm, timed = 2, 8
     ops.reset_launch_counts()
-    losses, times = [], []
-    for _ in range(warm + timed):
+    losses, times, got_losses = [], [], []
+    for i in range(warm + timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(batch)                   # ends in the loss's host read
+        loss = step(batch)            # ends in the loss's host read
         times.append(time.perf_counter() - t0)
         losses.append(step.last_loss)
+        if i < compared:
+            got_losses.append(loss)
+        if i == compared - 1:
+            _check_captured(torch, "ernie", step, want_losses, want,
+                            got_losses)
+            del want
     counts = ops.launch_counts()
     want = {k: (warm + timed) * v for k, v in per_step.items()}
     if counts != want:
@@ -2171,15 +2485,59 @@ def ernie_moe_path(torch, card):
           f"(per step {per_step})")
     print(f"ernie moment dtypes: {sorted(str(d) for d in moments)}")
     print(f"ernie losses: {', '.join(f'{x:.6f}' for x in losses)}")
-    print(f"ernie step times ms: "
+    print(f"ernie step times ms (first: warm-up and capture): "
           f"{', '.join(f'{1e3 * x:.2f}' for x in times)}")
     print(f"[{card}] ernie step_ms={1e3 * step_s:.3f} "
           f"tokens_per_s={tokens / step_s:.1f} "
           f"tflop_per_step={flops / 1e12:.3f} (6 x active params x "
           f"tokens) mfu={flops / step_s / BF16_FLOPS:.4f} (vs 989 "
-          f"TFLOP/s bf16) peak_mem_gb={peak_gb:.3f}")
-    profile_train_step(torch, step, batch, card, label="ernie")
+          f"TFLOP/s bf16) peak_mem_gb={peak_gb:.3f} graph_pool_mib="
+          f"{step.graph_bytes / 2**20:.1f}")
+    idle = profile_train_step(torch, lambda: step(batch), card,
+                              label="ernie")
+    if idle is not None:
+        print(f"[{card}] ernie replayed step idle {100 * idle:.1f}% (the "
+              f"eager step's before the step was one graph: 16%)")
     return counts
+
+
+def _check_lr_reaches_replay(torch, label, step, batch):
+    """A scheduler's lr change between calls reaches the replayed graph,
+    read once a ``run_steps``: under ``PiecewiseDecay(boundaries=[1],
+    values=[1e-4, 0])`` two replayed steps move the parameters, then,
+    after ``scheduler.step()``, two more leave them bit-equal (lr 0) while
+    the step count goes on."""
+    import numpy as np
+    from paddle_tpu_torch.optimizer import lr as tlr
+    opt = step.optimizer
+    sched = tlr.PiecewiseDecay(boundaries=[1], values=[1e-4, 0.0])
+    opt.set_lr_scheduler(sched)
+    reads, get_lr = [], opt.get_lr
+    opt.get_lr = lambda: reads.append(1) or get_lr()
+    try:
+        before = [p.detach().clone() for p in step.model.parameters()]
+        step.run_steps(batch, 2)
+        lr1, n1 = float(opt._lr_tensor), len(reads)
+        moved = not all(torch.equal(p, q) for p, q in
+                        zip(step.model.parameters(), before))
+        sched.step()
+        before = [p.detach().clone() for p in step.model.parameters()]
+        s0 = int(opt._step_tensor)
+        step.run_steps(batch, 2)
+        lr2, n2 = float(opt._lr_tensor), len(reads) - n1
+        still = all(torch.equal(p, q) for p, q in
+                    zip(step.model.parameters(), before))
+        steps = int(opt._step_tensor) - s0
+    finally:
+        del opt.get_lr
+    print(f"{label}: lr by the scheduler: run_steps(2) at lr {lr1:.3g} "
+          f"({n1} lr read) moved the parameters: {moved}; after "
+          f"scheduler.step() run_steps(2) at lr {lr2:.3g} ({n2} lr read) "
+          f"left them bit-equal: {still}; device step +{steps}")
+    if not (moved and still and n1 == n2 == 1 and steps == 2
+            and lr1 == np.float32(1e-4) and lr2 == 0.0):
+        raise AssertionError(f"{label}: the scheduler's lr did not reach "
+                             "the replayed step")
 
 
 def headline_path(torch, card):
@@ -2216,8 +2574,23 @@ def headline_path(torch, card):
                      "flash_attention_bwd_dq": L,
                      "flash_attention_bwd_dkv": L, "adamw": 12})
     totals, stages = {k: 0 for k in per_step}, {}
+    n_steps = bench.WARMUP + bench.STEPS
     for gran, b in bench.STAGES.items():
-        def inspect(model, step, batch, gran=gran, b=b):
+        # the eager loop over the stage's steps first, its states kept on
+        # the host (the stage's peak memory is read from the card)
+        ref, ropt, data = bench.build_stage(gran, b)
+        eager = _eager_steps(ref, bench._loss, ropt, [data] * n_steps)
+        want_losses = [float(x) for x in eager[:bench.WARMUP]] \
+            + [float(eager[-1])]
+        want = _snapshot(ref, ropt)
+        del ref, ropt, data, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        idle = {}
+
+        def inspect(model, step, batch, result, gran=gran, b=b, want=want,
+                    want_losses=want_losses, idle=idle):
+            label = f"headline {gran} b{b}"
             if not all(torch.isfinite(p).all() for p in model.parameters()):
                 raise AssertionError(f"headline {gran}: a parameter went "
                                      "non-finite")
@@ -2225,8 +2598,20 @@ def headline_path(torch, card):
             if n_tensors != 12:
                 raise AssertionError(f"{n_tensors} parameter tensors, "
                                      "expected 12")
-            profile_train_step(torch, step, batch, card,
-                               label=f"headline {gran} b{b}")
+            _check_captured(torch, label, step, want_losses, want,
+                            result["losses"])
+            want.clear()
+            idle["share"] = profile_train_step(
+                torch, lambda: step(batch), card, label=label)
+            _check_lr_reaches_replay(torch, label, step, batch)
+            half = tuple(t[:, :t.shape[1] // 2].contiguous() for t in batch)
+            step(half)
+            print(f"{label}: a second batch shape {tuple(half[0].shape)} is "
+                  f"a second capture: captures {step.captures}; graph pool "
+                  f"{step.graph_bytes / 2**20:.1f} MiB")
+            if step.captures != 2:
+                raise AssertionError(f"{label}: {step.captures} captures "
+                                     "after a second batch shape")
 
         r = bench.bench_stage(gran, b, inspect=inspect)   # zeroes counts
         n = r["steps"]
@@ -2242,10 +2627,13 @@ def headline_path(torch, card):
         for k in totals:
             totals[k] += counts[k]
         stages[gran] = r
+        share = idle.get("share")
         print(f"[{card}] headline {gran} b{b}x{r['seq']} step_ms="
               f"{r['step_ms']:.3f} tokens_per_s={r['tokens_per_sec']:.1f} "
               f"mfu={r['mfu']:.4f} (vs 989 TFLOP/s bf16) peak_mem_gb="
-              f"{r['peak_mem_gb']:.3f} losses (warm-up, last) "
+              f"{r['peak_mem_gb']:.3f} idle="
+              f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
+              f" graph_pool_mib={r['graph_mib']:.1f} losses (warm-up, last) "
               f"{', '.join(f'{x:.6f}' for x in r['losses'])}; "
               f"launches over {n} steps exact ({per_step} per step)")
     print("headline bench line: " + json.dumps(bench.result_line(stages,
@@ -2313,7 +2701,7 @@ def _check_launches(engine, counts, kernel):
     2L + 1 times per prefill chunk and per unfused decode step, once
     (the final norm) per megakernel decode step. The steps and chunks
     are graph replays: each adds the launches its graph captured
-    (``serving.graphs``), so the formulas count launches the device ran.
+    (``graphs``), so the formulas count launches the device ran.
     With the megakernel, every layer of the last step went through
     it."""
     L = engine.backend.model.config.num_hidden_layers
@@ -3065,7 +3453,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    train = train_path(torch, card)
+    train, idle7 = train_path(torch, card)
+    torch.cuda.empty_cache()
+    loader = io_path(torch, card, idle7)
     torch.cuda.empty_cache()
     ernie = ernie_moe_path(torch, card)
     torch.cuda.empty_cache()
@@ -3073,7 +3463,7 @@ def main() -> int:
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, training=train, ernie_moe_training=ernie,
-                 headline_training=headline)
+                 headline_training=headline, io_training=loader)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))

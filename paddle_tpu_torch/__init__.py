@@ -24,7 +24,12 @@ headline training configuration: the stacked trunk
 (``LlamaConfig(scan_layers=True)``) with full or selective per-layer
 recompute, pure bf16 with bf16 AdamW moments, LR schedulers
 (``optimizer.lr``) and gradient clipping (``grad_clip=``,
-``nn.utils``)."""
+``nn.utils``). Slice 12 is the training harness: ``jit.TrainStep``
+(``__call__`` and ``run_steps``) and ``jit.EvalStep`` as one CUDA graph
+per batch signature (``graphs.CapturedProgram``), the optimizer's step
+and learning rate in device memory (the AdamW kernel reads them), and
+``io`` (datasets, samplers, the ``DataLoader`` with forked workers over
+the shared-memory ring of ``core``, and ``device_prefetch``)."""
 from .device import resolve_device
 
 __all__ = ["resolve_device"]

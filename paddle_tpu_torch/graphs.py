@@ -1,10 +1,12 @@
-"""A serving program over static tensors: one CUDA graph on the card,
-the same Python function run eagerly on the CPU.
+"""A program over static tensors: one CUDA graph on the card, the same
+Python function run eagerly on the CPU.
 
 Counterpart of ``jax.jit`` around the JAX engine's two programs
 (``paddle_tpu/serving/engine.py`` ``build_slot_block_fn`` and
-``build_paged_chunk_fn``): JAX traces each once per engine shape and
-then runs the compiled program; here :meth:`CapturedProgram.capture`
+``build_paged_chunk_fn``) and around the JAX training and evaluation
+steps (``paddle_tpu/jit/__init__.py`` ``TrainStep``, ``EvalStep``; the
+port's ``jit.py``): JAX traces each once per shape and then runs the
+compiled program; here :meth:`CapturedProgram.capture`
 runs the function once on a side stream (the warm-up: every buffer a
 wrapper makes lazily, such as the megakernel's scratch, its tickets and
 the occupancy caches, exists before capture, outside the graph's memory
@@ -25,10 +27,13 @@ import time
 
 import torch
 
-from .. import ops
-from ..ops.paged_attention import ticket_buffers
+from . import ops
+from .ops.paged_attention import ticket_buffers
 
 __all__ = ["CapturedProgram"]
+
+# (device, shared pool) -> the stream its programs capture on
+_CAPTURE_STREAMS = {}
 
 
 class CapturedProgram:
@@ -44,10 +49,12 @@ class CapturedProgram:
     ``pool`` (``torch.cuda.graph_pool_handle()``) capture into the same
     memory pool: only programs that never run concurrently and whose
     allocations all die within a run (their results land in static
-    tensors) may share one, and they may then replay in any order."""
+    tensors) may share one, and they may then replay in any order.
+    ``name`` names the program in a failed capture's error."""
 
-    def __init__(self, fn, device, pool=None):
+    def __init__(self, fn, device, pool=None, name="the program"):
         self._fn = fn
+        self.name = name
         self.device = torch.device(device)
         self.pool = pool
         self.graph = None
@@ -55,6 +62,7 @@ class CapturedProgram:
         self.capture_s = 0.0
         self.graph_bytes = 0
         self._launches = {}
+        self.warmup_launches = {}
         self._held = ()
 
     def capture(self):
@@ -73,14 +81,35 @@ class CapturedProgram:
         current.wait_stream(side)
         torch.cuda.synchronize(self.device)
         warm = ops.launch_counts()
+        self.warmup_launches = {k: warm[k] - counts[k] for k in warm
+                                if warm[k] != counts[k]}
         # the pool's bytes are what the capture reserves beyond an empty
         # cache (torch.cuda.graph empties the cache before it captures)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), \
-                torch.cuda.graph(graph, pool=self.pool):
-            self._fn()
+        stream = self._capture_stream()
+        try:
+            # entered here as well: a capture that fails leaves
+            # torch.cuda.graph's stream current, and this restores ours
+            with torch.cuda.device(self.device), torch.cuda.stream(stream), \
+                    torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                self._fn()
+        except RuntimeError as e:
+            # the failed capture leaves the caching allocator routing the
+            # stream's allocations to its pool: no capture uses it again
+            _CAPTURE_STREAMS.pop((self.device, self.pool), None)
+            cause = f"{e}" + (f" (after: {e.__context__})"
+                              if e.__context__ is not None else "")
+            raise RuntimeError(
+                f"capturing {self.name} as a CUDA graph failed: {cause}. "
+                "A captured program runs on the device alone: it may not "
+                "read a device value on the host (.item(), float(), "
+                ".tolist(), .cpu(), print, a data-dependent shape) or copy "
+                "from host memory (torch.tensor(..., device=...)); a "
+                "backward may not meet an autograd graph over the same "
+                "parameters that an eager run on another stream left alive "
+                "(a loss tensor kept from it: drop it first)") from e
         torch.cuda.synchronize(self.device)
         self.graph_bytes = torch.cuda.memory_reserved(self.device) - reserved
         after = ops.launch_counts()
@@ -96,6 +125,18 @@ class CapturedProgram:
         self._fn = None
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
+
+    def _capture_stream(self):
+        """The stream to capture on: one per shared pool, since the
+        caching allocator keeps a pool's blocks per stream and programs
+        sharing a pool reuse each other's memory only on one stream; a
+        program with a pool of its own gets a stream of its own."""
+        if self.pool is None:
+            return torch.cuda.Stream(self.device)
+        key = (self.device, self.pool)
+        if key not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[key] = torch.cuda.Stream(self.device)
+        return _CAPTURE_STREAMS[key]
 
     def __call__(self):
         if self.graph is None:

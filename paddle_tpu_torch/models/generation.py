@@ -128,7 +128,7 @@ def _write_dense(cache, k, v, pos):
         if s != 1:
             raise NotImplementedError(
                 "a per-row write of s > 1 positions is the speculative "
-                "verify window, not ported yet (ROADMAP A.6)")
+                "verify window, not ported yet (ROADMAP A.4)")
         rows = torch.arange(b, device=kc.device)
         idx = pos.long().clamp(0, T - 1)
         kc[rows, idx] = k[:, 0].to(kc.dtype)
@@ -275,7 +275,7 @@ class _GenerateStep:
     splits the key (``key, sub = split(key)``), runs the step with
     ``sub``, writes the token and advances the position by one.
 
-    On the card it is one CUDA graph (``serving.graphs.CapturedProgram``),
+    On the card it is one CUDA graph (``graphs.CapturedProgram``),
     captured when the step is built and replayed per token, and the
     fused RoPE kernel reads the position on the device; on the CPU the
     same function runs eagerly. The graph, its memory pool and the cache
@@ -287,7 +287,7 @@ class _GenerateStep:
 
     def __init__(self, model, batch: int, total: int, dtype,
                  sample_kwargs: dict, ragged: bool):
-        from ..serving.graphs import CapturedProgram
+        from ..graphs import CapturedProgram
         dev = model.device
         self.model = model
         self.sample_kwargs = dict(sample_kwargs)

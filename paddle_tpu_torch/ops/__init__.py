@@ -89,7 +89,7 @@ def launch_counts() -> dict:
 
 def add_launch_counts(deltas: dict):
     """Add ``{name: n}`` to the wrappers' counts: a replayed CUDA graph
-    adds the launches it captured (``serving.graphs``)."""
+    adds the launches it captured (``graphs``)."""
     wrappers = _wrappers()
     for name, n in deltas.items():
         wrappers[name].launches += n

@@ -229,7 +229,7 @@ class DecodeLayerScratch:
     zero). Both are kept across calls and grown when a call needs more,
     but never during a CUDA graph capture: a buffer made there would
     live in the graph's memory pool, so the caller runs the call once
-    before capturing it (``serving.graphs``), and a capture that would
+    before capturing it (``graphs``), and a capture that would
     grow one raises."""
 
     def __init__(self):

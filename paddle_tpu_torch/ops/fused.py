@@ -489,25 +489,6 @@ fused_rope.launches = 0
 # AdamW
 # ---------------------------------------------------------------------------
 
-def adamw_reference(p, g, m, v, lr, beta1, beta2, eps, weight_decay, bc1,
-                    bc2):
-    """The TPU ``_adamw_kernel`` arithmetic: every scalar an fp32 value
-    (as in its SMEM block, so ``1 - beta1`` is taken in fp32), the bias
-    corrections ``bc1 = 1 - beta1**step`` and ``bc2 = 1 - beta2**step``
-    given, m and v upcast to fp32 (as the TPU wrapper upcasts bf16
-    moments). Returns new ``(p, m, v)``: p in p's dtype, m and v fp32."""
-    pf, gf, m, v = p.float(), g.float(), m.float(), v.float()
-    lr, beta1, beta2, eps, weight_decay, bc1, bc2 = (
-        torch.tensor(x, dtype=torch.float32, device=p.device)
-        for x in (lr, beta1, beta2, eps, weight_decay, bc1, bc2))
-    m_new = beta1 * m + (1 - beta1) * gf
-    v_new = beta2 * v + (1 - beta2) * gf * gf
-    mhat = m_new / bc1
-    vhat = v_new / bc2
-    p_new = pf - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * pf)
-    return p_new.to(p.dtype), m_new, v_new
-
-
 def _pow_f32(base: float, step: int) -> np.float32:
     """fp32 ``base ** step`` by binary exponentiation: XLA's ``pow`` of
     an fp32 base and the optimizer's int32 step, bit for bit."""
@@ -520,12 +501,54 @@ def _pow_f32(base: float, step: int) -> np.float32:
     return acc
 
 
-def _bias_corrections(beta1, beta2, step):
-    """(1 - beta1**step, 1 - beta2**step) in fp32, as the JAX optimizer
-    computes them from its int32 step."""
-    one = np.float32(1)
-    return (float(one - _pow_f32(beta1, step)),
-            float(one - _pow_f32(beta2, step)))
+def _pow_f32_device(base: float, step: torch.Tensor) -> torch.Tensor:
+    """``_pow_f32`` of an int32 step tensor, on its device and with no
+    host read (a captured graph replays it): the same products in the
+    same order over the 31 bits of an int32, each ``base ** 2**k`` from
+    the host's squarings (a product with 1 for a clear bit is exact)."""
+    acc = torch.ones(step.shape, dtype=torch.float32, device=step.device)
+    b = np.float32(base)
+    for k in range(31):
+        acc = torch.where(((step >> k) & 1).bool(), acc * float(b), acc)
+        b = np.float32(b * b)
+    return acc
+
+
+def adamw_reference(p, g, m, v, lr, step, beta1, beta2, eps, weight_decay):
+    """The TPU ``_adamw_kernel`` arithmetic: every scalar an fp32 value
+    (as in its SMEM block, so ``1 - beta1`` is taken in fp32), the bias
+    corrections ``bc1 = 1 - beta1**step`` and ``bc2 = 1 - beta2**step``
+    in fp32 from the int32 ``step`` (``_pow_f32``), m and v upcast to
+    fp32 (as the TPU wrapper upcasts bf16 moments). ``lr`` (fp32) and
+    ``step`` (int32) are one-element tensors on p's device, as the
+    kernel reads them. Returns new ``(p, m, v)``: p in p's dtype, m and
+    v fp32."""
+    pf, gf, m, v = p.float(), g.float(), m.float(), v.float()
+    bc1, bc2 = (1 - _pow_f32_device(b, step).reshape(())
+                for b in (beta1, beta2))
+    lr = lr.reshape(())
+    beta1, beta2, eps, weight_decay = (
+        torch.tensor(x, dtype=torch.float32, device=p.device)
+        for x in (beta1, beta2, eps, weight_decay))
+    m_new = beta1 * m + (1 - beta1) * gf
+    v_new = beta2 * v + (1 - beta2) * gf * gf
+    mhat = m_new / bc1
+    vhat = v_new / bc2
+    p_new = pf - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * pf)
+    return p_new.to(p.dtype), m_new, v_new
+
+
+def _device_scalar(x, dtype, device, what):
+    """``x`` as the one-element ``dtype`` tensor on ``device`` that the
+    kernel reads: a tensor as it is (checked), a number by a fill on the
+    device (no copy from host memory)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((1,), x, dtype=dtype, device=device)
+    if x.dtype != dtype or x.device != device or x.numel() != 1:
+        raise ValueError(f"fused_adamw: {what} must be one {dtype} on "
+                         f"{device}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return x
 
 
 def fused_adamw(p, g, m, v, lr, beta1=0.9, beta2=0.999, eps=1e-8,
@@ -535,14 +558,18 @@ def fused_adamw(p, g, m, v, lr, beta1=0.9, beta2=0.999, eps=1e-8,
     are both fp32 or both bf16 (``multi_precision=False`` on a bf16
     parameter); p is fp32 or bf16; g is fp32 or bf16 and is cast to fp32
     in the kernel. The arithmetic is fp32 and each of p, m and v is
-    stored rounded once. A CPU tensor takes the plain version; a CUDA
-    tensor launches ``csrc/adamw.cu`` or raises. The JAX wrapper skips
-    its kernel below 1024 elements for the same math in jnp, in the
-    operands' dtypes; the port launches for every size."""
-    bc1, bc2 = _bias_corrections(beta1, beta2, step)
+    stored rounded once. ``lr`` and ``step`` are what the kernel reads
+    from device memory: a (1,) fp32 and a (1,) int32 tensor on p's
+    device (the optimizer's own, which a captured step replays with),
+    or numbers, filled into such tensors. A CPU tensor takes the plain
+    version; a CUDA tensor launches ``csrc/adamw.cu`` or raises. The JAX
+    wrapper skips its kernel below 1024 elements for the same math in
+    jnp, in the operands' dtypes; the port launches for every size."""
+    lr = _device_scalar(lr, torch.float32, p.device, "lr")
+    step = _device_scalar(step, torch.int32, p.device, "step")
     if p.device.type == "cpu" or plain_active():
-        np_, nm, nv = adamw_reference(p, g, m, v, lr, beta1, beta2, eps,
-                                      weight_decay, bc1, bc2)
+        np_, nm, nv = adamw_reference(p, g, m, v, lr, step, beta1, beta2,
+                                      eps, weight_decay)
         p.copy_(np_)
         m.copy_(nm)
         v.copy_(nv)
@@ -558,13 +585,13 @@ def fused_adamw(p, g, m, v, lr, beta1=0.9, beta2=0.999, eps=1e-8,
         return p, m, v
     fn = _kernel("adamw", "pt_adamw",
                  [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-                 + [ctypes.c_longlong] + [ctypes.c_float] * 7
-                 + [ctypes.c_void_p])
+                 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                 + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     rc = fn(_DTYPE_CODE[p.dtype], _DTYPE_CODE[g.dtype],
             _DTYPE_CODE[m.dtype], p.data_ptr(),
-            g.data_ptr(), m.data_ptr(), v.data_ptr(), n, float(lr),
-            float(beta1), float(beta2), float(eps), float(weight_decay),
-            bc1, bc2, _stream(p))
+            g.data_ptr(), m.data_ptr(), v.data_ptr(), n, lr.data_ptr(),
+            step.data_ptr(), float(beta1), float(beta2), float(eps),
+            float(weight_decay), _stream(p))
     if rc != 0:
         raise RuntimeError(f"fused_adamw kernel launch failed: CUDA error "
                            f"{rc}")

@@ -62,7 +62,10 @@ def build_index_maps(topi: torch.Tensor, num_expert: int, capacity: int):
     slots = torch.arange(e * cap, device=dev)
     ee, c = slots // cap, slots % cap
     src = starts[ee] + c
-    ends = torch.cat([starts[1:], torch.tensor([n], device=dev)])
+    # the end marker made on the device (a copy from host memory would
+    # break a captured training step)
+    ends = torch.cat([starts[1:], torch.full((1,), n, dtype=starts.dtype,
+                                             device=dev)])
     inv = torch.where(src < ends[ee], sidx[src.clamp(0, n - 1)],
                       torch.full_like(src, n))
     return slot.to(torch.int32), inv.to(torch.int32), keep

@@ -10,7 +10,18 @@ path, which runs ``ops.fused.fused_adamw`` once per parameter (the CUDA
 kernel on the GPU). The JAX optimizer is a pure update inside the
 jitted step; here ``step()`` clips the gradients, then updates the
 parameters and the states in place, on the parameters' own device. The
-other optimizers of the JAX module are not ported yet."""
+other optimizers of the JAX module are not ported yet.
+
+As in the JAX step, where the step count is a device int32 that the
+program increments (``functional_state``), the optimizer keeps its step
+count and its learning rate in (1,) int32 and fp32 tensors on the
+parameters' device, which the kernel reads: ``step()`` adds 1 to the
+step tensor on the device, so a CUDA graph of the training step
+(``jit.TrainStep``) replays the right bias corrections, and whoever
+replays it writes the learning rate first. The host ``_step_count``
+mirrors the step for ``state_dict()``. Loading a state copies into the
+tensors the optimizer already holds, so a captured graph keeps reading
+them."""
 from __future__ import annotations
 
 from typing import Dict, Iterable
@@ -25,6 +36,12 @@ __all__ = ["Optimizer", "AdamW", "lr", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm"]
 
 _LOW = (torch.bfloat16, torch.float16)
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether the current stream of ``device`` is being captured into a
+    CUDA graph (never on the CPU)."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +115,11 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         self._slots: Dict[int, dict] = {}   # id(param) -> state tensors
-        self._step_count = 0
+        self._step_count = 0                # host mirror of _step_tensor
+        dev = params[0].device if params else torch.device("cpu")
+        self._step_tensor = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._lr_tensor = torch.full((1,), self.get_lr(),
+                                     dtype=torch.float32, device=dev)
 
     def get_lr(self) -> float:
         if isinstance(self._learning_rate, LRScheduler):
@@ -118,11 +139,20 @@ class Optimizer:
         for p in self._param_list:
             p.grad = None
 
+    def write_lr(self):
+        """``get_lr()`` into the device lr tensor (a fill on the device:
+        no copy from host memory, no sync)."""
+        self._lr_tensor.fill_(self.get_lr())
+
     @torch.no_grad()
     def step(self):
         """One update of every parameter that holds a gradient, after
         ``grad_clip`` (applied to all of them together). The step count
-        starts at 1 for the first update, as in the JAX package."""
+        starts at 1 for the first update, as in the JAX package; it is
+        incremented on the device, with no host read. Run eagerly, the
+        step writes ``get_lr()`` into the lr tensor and moves the host
+        mirror; under CUDA stream capture it does neither (the replayer
+        writes the lr and moves the mirror at each replay)."""
         todo = {n: p for n, p in zip(self._param_names, self._param_list)
                 if p.grad is not None and p.requires_grad}
         if not todo:
@@ -130,11 +160,13 @@ class Optimizer:
         grads = {n: p.grad for n, p in todo.items()}
         if self._grad_clip is not None:
             grads = self._grad_clip.apply(grads)
-        lr = self.get_lr()
-        self._step_count += 1
+        if not _capturing(self._step_tensor.device):
+            self.write_lr()
+            self._step_count += 1
+        self._step_tensor.add_(1)
         for n, p in todo.items():
-            self._apply(p, grads[n], self._ensure_slots(p), lr,
-                        self._step_count)
+            self._apply(p, grads[n], self._ensure_slots(p), self._lr_tensor,
+                        self._step_tensor)
 
     def _init_slots(self, p) -> dict:
         return {}
@@ -154,19 +186,36 @@ class Optimizer:
     def _apply(self, p, g, slots, lr, step):
         raise NotImplementedError
 
+    def _set_slot(self, p, slot: str, value) -> None:
+        """Copy ``value`` into the state tensor the optimizer holds for
+        ``(p, slot)`` (its address stays, for a captured graph that reads
+        it); a new tensor on p's device where there is none yet."""
+        slots = self._slots.setdefault(id(p), {})
+        value = torch.as_tensor(value)
+        held = slots.get(slot)
+        if held is not None and held.shape == value.shape \
+                and held.dtype == value.dtype:
+            held.copy_(value)
+        else:
+            slots[slot] = value.to(p.device, copy=True).contiguous()
+
+    def _set_step(self, step: int) -> None:
+        self._step_count = int(step)
+        self._step_tensor.fill_(self._step_count)
+
     # -- state carried in from elsewhere (convert.adamw_state_from_jax) ---
     def load_state(self, state: dict,
                    named_parameters: Iterable) -> None:
         """Set the step count and the per-parameter states from
         ``{"step": int, "slots": {parameter name: {slot: tensor}}}``,
         naming parameters as ``named_parameters`` does; each tensor is
-        copied onto its parameter's device."""
+        copied onto its parameter's device, into the state tensor held
+        for it where there is one."""
         by_name = dict(named_parameters)
         for name, slots in state["slots"].items():
-            p = by_name[name]
-            self._slots[id(p)] = {k: v.to(p.device).contiguous()
-                                  for k, v in slots.items()}
-        self._step_count = int(state["step"])
+            for k, v in slots.items():
+                self._set_slot(by_name[name], k, v)
+        self._set_step(state["step"])
 
     # -- state dict (the JAX layout: "<param name>.<slot>" keys) ---------
     def state_dict(self) -> dict:
@@ -182,7 +231,9 @@ class Optimizer:
         return out
 
     def set_state_dict(self, state: dict) -> None:
-        self._step_count = int(state.get("@step", 0))
+        """The inverse of ``state_dict()``: states are copied into the
+        tensors held for them where there are some, as ``load_state``."""
+        self._set_step(state.get("@step", 0))
         if "LR_Scheduler" in state and isinstance(self._learning_rate,
                                                   LRScheduler):
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
@@ -191,9 +242,7 @@ class Optimizer:
             if k in ("@step", "LR_Scheduler"):
                 continue
             n, slot = k.rsplit(".", 1)
-            p = by_name[n]
-            self._slots.setdefault(id(p), {})[slot] = \
-                torch.as_tensor(v).to(p.device, copy=True).contiguous()
+            self._set_slot(by_name[n], slot, v)
 
 
 class AdamW(Optimizer):
@@ -221,6 +270,7 @@ class AdamW(Optimizer):
                 "moment2": torch.zeros_like(p, dtype=mdt)}
 
     def _apply(self, p, g, slots, lr, step):
+        """``lr`` and ``step``: the optimizer's device tensors."""
         target = slots.get("master", p)
         fused_adamw(target, g.contiguous(), slots["moment1"],
                     slots["moment2"], lr, self._beta1, self._beta2,

@@ -4,7 +4,7 @@
 from .engine import (ContinuousBatchingEngine, ModelStepBackend,
                      free_slot_state, init_slot_state, run_decode_block,
                      slot_sample_logits)
-from .graphs import CapturedProgram
+from ..graphs import CapturedProgram
 from .paging import BlockManager, PagedEngine, PagedModelStepBackend
 from .scheduler import Request, Scheduler
 from .server import Server

@@ -11,7 +11,7 @@ and the host logic of ``ContinuousBatchingEngine``, which
 compiles the block as one ``lax.scan`` program; here the block is a
 Python loop of ``decode_block`` steps over device tensors, which each
 backend captures as one CUDA graph on the card and replays
-(``serving.graphs``), and runs eagerly on the CPU. The host syncs ONCE
+(``graphs``), and runs eagerly on the CPU. The host syncs ONCE
 per block, as there. The JAX slot state is a pytree replaced by each
 program; here it is one dict of tensors that every block and every
 arm, cancel and reset updates in place, so the graph reads and writes
@@ -31,7 +31,7 @@ from .. import random as prng
 from ..models.generation import decode_step_logprobs
 from ..ops.decode_layer import FusedDecode
 from ..utils.flags import env_bool, env_flag
-from .graphs import CapturedProgram
+from ..graphs import CapturedProgram
 
 __all__ = ["slot_sample_logits", "init_slot_state", "free_slot_state",
            "run_decode_block", "ModelStepBackend",
@@ -314,8 +314,8 @@ class _SlotRun:
 def _refuse_unported(spec=None, tp=None, quant=None):
     """The engine arguments of the JAX API whose modules are not ported
     yet raise, naming their ROADMAP queue item."""
-    for name, value, item in (("spec", spec, "A.6"), ("quant", quant, "A.6"),
-                              ("tp", tp, "A.8")):
+    for name, value, item in (("spec", spec, "A.4"), ("quant", quant, "A.4"),
+                              ("tp", tp, "A.6")):
         if value not in (None, False):
             raise NotImplementedError(
                 f"{name}= is not ported yet (ROADMAP {item})")

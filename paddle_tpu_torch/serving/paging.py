@@ -11,7 +11,7 @@ block). ``PagedModelStepBackend`` owns the per-layer
 fp32 per-vector absmax scales (the EQuARX wire format; about 3.9x less
 KV memory at head_dim 128) — and runs the two programs of the paged
 engine: the decode block and the ``(1, prefill_chunk)`` prefill chunk,
-each captured once as a CUDA graph on the card (``serving.graphs``).
+each captured once as a CUDA graph on the card (``graphs``).
 ``PagedEngine`` admits requests (reserving blocks, reusing prefixes),
 streams prompts in chunks paced by the scheduler's token budget, arms
 slots and releases blocks at retirement."""
@@ -34,7 +34,7 @@ from ..utils.flags import env_bool, env_flag, env_int
 from .engine import (ContinuousBatchingEngine, _arm_fn, _checked_step,
                      _refuse_unported, _SlotRun, free_slot_state,
                      init_slot_state, run_decode_block, slot_sample_logits)
-from .graphs import CapturedProgram
+from ..graphs import CapturedProgram
 
 __all__ = ["BlockManager", "PagedModelStepBackend", "PagedEngine"]
 

@@ -214,7 +214,7 @@ def test_routing_and_unported_arguments(setups, monkeypatch):
         ContinuousBatchingEngine(backend=paged.backend)
     with pytest.raises(ValueError, match="paged=False"):
         PagedEngine(tm, paged=False, block_size=8, **kw)
-    for arg, item in (("spec", "A.6"), ("quant", "A.6"), ("tp", "A.8")):
+    for arg, item in (("spec", "A.4"), ("quant", "A.4"), ("tp", "A.6")):
         with pytest.raises(NotImplementedError, match=item):
             ContinuousBatchingEngine(tm, **{arg: 4}, **kw)
         with pytest.raises(NotImplementedError, match=item):

@@ -345,7 +345,7 @@ def test_cached_attention_per_row_chunk_refused():
     q, k, v = (torch.from_numpy(a) for a in _qkv(rs, B, 3))
     ck = torch.zeros(B, T, KVH, D)
     cos, sin = _tables()
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.4"):
         cached_attention(q, k, v, ck, ck.clone(),
                          torch.tensor([1, 2, 3], dtype=torch.int32),
                          scale=0.25, cos=cos, sin=sin)

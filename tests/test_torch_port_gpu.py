@@ -1736,6 +1736,9 @@ def test_stacked_train_step_on_gpu_matches_plain(dev, granularity):
     for n, g in out[0][1].items():
         assert float((g - out[1][1][n]).abs().max()) <= 1e-4, n
     m.zero_grad(set_to_none=True)
+    # the step is captured as a CUDA graph: an eager graph over the
+    # parameters (built on the default stream) may not stay alive
+    del loss
     opt = AdamW(learning_rate=1e-4, parameters=m.parameters())
     step = TrainStep(m, lambda mm, b: mm(*b)[0], opt)
     ops.reset_launch_counts()
@@ -1751,3 +1754,281 @@ def test_stacked_train_step_on_gpu_matches_plain(dev, granularity):
                  "adamw": 2 * 12})
     assert ops.launch_counts() == want
     assert all(math.isfinite(x) for x in losses) and losses[1] < losses[0]
+
+
+# -- the training harness: TrainStep / EvalStep as CUDA graphs, AdamW over
+# device scalars, device_prefetch ----------------------------------------
+
+def _harness_model(dev, kind):
+    """A tiny model of ``kind`` on the card from seed 0 and its loss."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import (ErnieMoEForCausalLM,
+                                         ernie_moe_tiny_config)
+    if kind == "ernie":
+        m = ErnieMoEForCausalLM(ernie_moe_tiny_config(num_hidden_layers=4),
+                                device=dev, seed=0)
+        amp.decorate(m, level="O2", dtype="bfloat16")
+
+        def loss_fn(mm, b):
+            with amp.auto_cast(dtype="bfloat16", level="O2"):
+                return mm(*b)[0]
+        return m, loss_fn
+    if kind == "llama":
+        cfg = llama_tiny_config()
+    else:
+        cfg = llama_tiny_config(scan_layers=True, recompute=True,
+                                recompute_granularity=kind)
+    return LlamaForCausalLM(cfg, device=dev, seed=0), \
+        (lambda mm, b: mm(*b)[0])
+
+
+def _harness_batches(dev, n, s=64):
+    rs = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, 512, (2, s)).astype(np.int32)
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in
+                         (ids, np.roll(ids, -1, 1).astype(np.int32))))
+    return out
+
+
+def _eager_steps(m, loss_fn, opt, batches):
+    """The hand-written eager loop a captured step must equal."""
+    losses = []
+    for b in batches:
+        opt.clear_grad()
+        loss = loss_fn(m, b)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach().clone())
+    return losses
+
+
+@pytest.mark.parametrize("kind", ["llama", "full", "selective", "ernie"])
+def test_captured_train_step_equals_eager_loop(dev, kind):
+    """Four steps on four batches of one signature through
+    ``TrainStep`` (a warm-up step, a capture, three replays) against
+    the eager loop on a second model from the same seed: losses, every
+    parameter, every optimizer state and the step count bit-equal; one
+    capture; the launches of four eager steps, exactly."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    batches = _harness_batches(dev, 4)
+    ref, loss_fn = _harness_model(dev, kind)
+    ropt = AdamW(learning_rate=1e-3, parameters=ref.parameters(),
+                 multi_precision=kind == "ernie")
+    ops.reset_launch_counts()
+    want = _eager_steps(ref, loss_fn, ropt, batches)
+    eager_counts = ops.launch_counts()
+    m, _ = _harness_model(dev, kind)
+    opt = AdamW(learning_rate=1e-3, parameters=m.parameters(),
+                multi_precision=kind == "ernie")
+    step = TrainStep(m, loss_fn, opt)
+    ops.reset_launch_counts()
+    got = [step(b) for b in batches]
+    torch.cuda.synchronize()
+    assert step.captures == 1
+    assert ops.launch_counts() == eager_counts
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), (float(a), float(b))
+    for (n, p), q in zip(m.named_parameters(), ref.parameters()):
+        assert torch.equal(p, q), n
+        for k, v in opt._slots[id(p)].items():
+            assert torch.equal(v, ropt._slots[id(q)][k]), (n, k)
+    assert int(opt._step_tensor) == int(ropt._step_tensor) == 4
+    assert opt.state_dict()["@step"] == 4
+
+
+def test_run_steps_replays_with_one_lr_read(dev):
+    """``run_steps`` replays n times after one lr write: a scheduler
+    step between calls reaches the replay (the graph reads the lr
+    tensor), and the result equals the eager loop with the lr changed
+    at the same points; a second batch shape is a second capture."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as tlr
+    batch = _harness_batches(dev, 1)[0]
+    models = []
+    for captured in (False, True):
+        m, loss_fn = _harness_model(dev, "llama")
+        sched = tlr.StepDecay(learning_rate=1e-3, step_size=1, gamma=0.5)
+        opt = AdamW(learning_rate=sched, parameters=m.parameters())
+        if captured:
+            step = TrainStep(m, loss_fn, opt)
+            step.run_steps(batch, 3)
+            sched.step()
+            last = step.run_steps(batch, 2)
+            assert float(opt._lr_tensor) == np.float32(5e-4)
+        else:
+            _eager_steps(m, loss_fn, opt, [batch] * 3)
+            sched.step()
+            last = _eager_steps(m, loss_fn, opt, [batch] * 2)[-1]
+        models.append((m, last))
+    (ref, want), (m, got) = models
+    assert torch.equal(got, want)
+    for p, q in zip(m.parameters(), ref.parameters()):
+        assert torch.equal(p, q)
+    assert step.captures == 1
+    step(_harness_batches(dev, 1, s=32)[0])
+    assert step.captures == 2
+
+
+def test_capture_failure_raises_with_cause(dev):
+    """A ``loss_fn`` that reads the loss on the host cannot be captured:
+    the call raises and names the cause (no eager fallback)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    m, _ = _harness_model(dev, "llama")
+
+    def reads_host(mm, b):
+        loss = mm(*b)[0]
+        if loss.item() > 1e9:
+            raise AssertionError
+        return loss
+
+    step = TrainStep(m, reads_host, AdamW(parameters=m.parameters()))
+    with pytest.raises(RuntimeError, match="(?s)CUDA graph failed.*host"):
+        step(_harness_batches(dev, 1)[0])
+
+
+def test_set_state_dict_after_capture_then_step(dev):
+    """A state loaded after the capture (``set_state_dict`` copies into
+    the tensors the graph reads), then a replayed step, equals the same
+    load and step in the eager loop."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    b0, b1, b2 = _harness_batches(dev, 3)
+    saved_m, loss_fn = _harness_model(dev, "llama")
+    sopt = AdamW(learning_rate=1e-3, parameters=saved_m.parameters())
+    _eager_steps(saved_m, loss_fn, sopt, [b2, b1])
+    sd, params = sopt.state_dict(), saved_m.state_dict()
+    out = []
+    for captured in (False, True):
+        m, _ = _harness_model(dev, "llama")
+        opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+        step = TrainStep(m, loss_fn, opt) if captured else None
+        for b in (b0, b1):
+            step(b) if captured else _eager_steps(m, loss_fn, opt, [b])
+        m.load_state_dict(params)
+        opt.set_state_dict(sd)
+        loss = step(b2) if captured else \
+            _eager_steps(m, loss_fn, opt, [b2])[0]
+        out.append((m, opt, loss))
+    (rm, ropt, rl), (m, opt, loss) = out
+    assert torch.equal(loss, rl)
+    assert int(opt._step_tensor) == 3 == opt._step_count
+    for p, q in zip(m.parameters(), rm.parameters()):
+        assert torch.equal(p, q)
+        for k, v in opt._slots[id(p)].items():
+            assert torch.equal(v, ropt._slots[id(q)][k])
+
+
+def test_eval_step_captured_equals_eager(dev):
+    """``EvalStep`` on the card: one graph per batch signature, outputs
+    copied out of static buffers, equal to the eager forward under
+    ``no_grad``; training mode restored."""
+    from paddle_tpu_torch.jit import EvalStep
+    m, _ = _harness_model(dev, "llama")
+    ev = EvalStep(m, lambda mm, b: mm(b[0]))
+    b0, b1 = _harness_batches(dev, 2)
+    outs = [ev(b0), ev(b1)]
+    assert ev.captures == 1 and m.training
+    with torch.no_grad():
+        m.eval()
+        want = [m(b0[0]), m(b1[0])]
+        m.train()
+    for a, b in zip(outs, want):
+        assert torch.equal(a, b)
+    assert outs[0].data_ptr() != outs[1].data_ptr()
+
+
+@pytest.mark.parametrize("step", [1, 2, 7, 1000])
+def test_adamw_kernel_reads_device_scalars(dev, step):
+    """The kernel with the lr and step in device memory against the
+    plain version over the same tensors (the tolerances of
+    ``test_adamw_kernel_matches_plain``); writing a new lr and step into
+    the same tensors changes the next launch's update."""
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    g = torch.Generator(device=dev).manual_seed(step)
+    n = 1_000_003
+    p = 0.02 * torch.randn(n, generator=g, device=dev)
+    grad = torch.randn(n, generator=g, device=dev).bfloat16()
+    m = 0.1 * torch.randn(n, generator=g, device=dev)
+    v = 0.01 * torch.rand(n, generator=g, device=dev)
+    lr = torch.full((1,), 1e-3, device=dev)
+    st = torch.full((1,), step, dtype=torch.int32, device=dev)
+    hp = (0.9, 0.999, 1e-8, 0.01)
+    kp, km, kv, p0 = p.clone(), m.clone(), v.clone(), p.clone()
+    fused_adamw(kp, grad, km, kv, lr, *hp, st)
+    with ops.plain_versions():
+        fused_adamw(p, grad, m, v, lr, *hp, st)
+    for got, want in ((km, m), (kv, v)):
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=2.0 ** -22 * float(want.abs().max()))
+    # p: one ulp of its largest entry, and two of the largest update
+    # (the contracted FMAs move m and v by their last bits, which the
+    # update carries; at step 1000 the update is near lr a step)
+    torch.testing.assert_close(
+        kp, p, rtol=0, atol=2.0 ** -23 * float(p.abs().max())
+        + 2.0 ** -22 * float((p - p0).abs().max()))
+    before = kp.clone()
+    lr.fill_(0.0)
+    st.fill_(step + 1)
+    fused_adamw(kp, grad, km, kv, lr, *hp, st)
+    assert torch.equal(kp, before)      # lr 0: p stays, read on the device
+
+
+def test_device_prefetch_pinned_copies(dev):
+    """``device_prefetch`` over CPU batches: order kept, every leaf on
+    the card and equal to its host batch, at most ``size`` in flight,
+    and the copies staged in pinned memory."""
+    from paddle_tpu_torch import io
+    staged = []
+    real = io._transfer
+
+    def counting(batch, device, stream):
+        out = real(batch, device, stream)
+        staged.extend(out[2])
+        return out
+
+    io._transfer = counting
+    try:
+        host = [(torch.full((4, 8), i, dtype=torch.int32),
+                 {"y": np.full((3,), i, np.float32)}) for i in range(6)]
+        got = list(io.device_prefetch(iter(host), size=2))
+    finally:
+        io._transfer = real
+    assert len(got) == 6 and len(staged) == 12
+    assert all(t.is_pinned() for t in staged)
+    for i, (a, b) in enumerate(got):
+        assert a.device.type == "cuda" and b["y"].device.type == "cuda"
+        assert int(a[0, 0]) == i and float(b["y"][0]) == i
+
+
+def test_capture_after_an_eager_moe_backward(dev):
+    """An eager forward and backward of the MoE model on the default
+    stream leaves ``MoELayer.l_aux`` holding its autograd graph (and the
+    parameters' gradient accumulators on that stream); the captured step
+    still captures, and equals the eager loop from the same point."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    b0, b1, b2 = _harness_batches(dev, 3)
+    out = []
+    for captured in (False, True):
+        m, loss_fn = _harness_model(dev, "ernie")
+        loss_fn(m, b0).backward()          # eager, on the default stream
+        m.zero_grad(set_to_none=True)
+        opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+        if captured:
+            step = TrainStep(m, loss_fn, opt)
+            losses = [step(b) for b in (b1, b2)]
+            assert step.captures == 1
+        else:
+            losses = _eager_steps(m, loss_fn, opt, [b1, b2])
+        out.append((m, losses))
+    (ref, want), (m, got) = out
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for p, q in zip(m.parameters(), ref.parameters()):
+        assert torch.equal(p, q)

@@ -2,7 +2,7 @@
 the CPU against the JAX paged engine.
 
 On the card the port captures the decode block and the prefill chunk as
-one CUDA graph each (``paddle_tpu_torch/serving/graphs.py``); on the CPU
+one CUDA graph each (``paddle_tpu_torch/graphs.py``); on the CPU
 the same Python functions run eagerly, so these tests run the code that
 is captured. At ``llama_tiny`` size, on the JAX model's weights:
 

@@ -10,10 +10,13 @@ the card from seed 0 (a pure-bf16 build: ``AdamW(learning_rate=1e-4,
 weight_decay=0.01, multi_precision=False)`` keeps bf16 moments), the
 stacked trunk with per-layer recompute, and ``TrainStep``. Ids come from
 ``np.random.randint(0, vocab, (b, s))`` after ``np.random.seed(0)``,
-labels are the ids rolled by one. Each stage runs 2 warm-up steps, then
-8 timed steps through ``TrainStep.run_steps`` (each step ends in the
-loss's host read), and frees its model before the next. Stages: "full"
-recompute at batch 8 x 2048 (the headline) and "selective" at 4 x 2048.
+labels are the ids rolled by one. Each stage runs 2 warm-up calls (the
+first runs a step and captures the step as a CUDA graph, the second
+replays it), then 8 timed steps through one ``TrainStep.run_steps``
+(8 replays, one lr write, one host read of the last loss, as bench.py's
+one program of 8 steps), and frees its model before the next. Stages:
+"full" recompute at batch 8 x 2048 (the headline) and "selective" at
+4 x 2048.
 
 It prints one JSON line with bench.py's keys (``metric``, ``value``,
 ``unit``, ``mfu``, ``model_params``, ``batch``, ``seq``, ``final_loss``,
@@ -21,7 +24,8 @@ It prints one JSON line with bench.py's keys (``metric``, ``value``,
 the stage of the higher MFU, as bench.py keeps the selective stage only
 when it beats full. Beside them: ``card``, the card's name and power
 limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-gives them, each stage's peak device memory and its kernel launches. MFU
+gives them, each stage's peak device memory, its graph pool's MiB and
+its kernel launches. MFU
 is against 989 TFLOP/s (bf16 dense, H100 SXM). Without a GPU it raises:
 there is no CPU run of this benchmark."""
 from __future__ import annotations
@@ -71,31 +75,40 @@ def _loss(model, batch):
     return loss
 
 
-def bench_stage(gran: str, batch: int, inspect=None) -> dict:
-    """One stage, built as ``bench.py`` builds it: ``bench.py``'s result
-    dict (tokens/s, MFU, parameters, batch, seq, final loss, step ms)
-    plus the peak device memory, the kernel launches of all its steps
-    and the losses (the warm-up steps' and the last).
-    ``inspect(model, step, batch)``, if given, runs after the timed
-    steps while the model is alive."""
+def build_stage(gran: str, batch: int):
+    """The stage's model, optimizer and batch, built as ``bench.py``
+    builds them (``chip_smoke.py`` steps a second one eagerly to hold
+    the captured step against)."""
     import numpy as np
     import torch
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     cfg = headline_big_config(gran)
-    torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(cfg, seed=0)          # on the GPU, or raises
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters(), multi_precision=False)
-    step = TrainStep(model, _loss, opt)
     np.random.seed(0)
     ids = np.random.randint(0, cfg.vocab_size, (batch, SEQ)).astype(
         np.int32)
     labels = np.roll(ids, -1, axis=1).astype(np.int32)
     data = (torch.from_numpy(ids).to(model.device),
             torch.from_numpy(labels).to(model.device))
+    return model, opt, data
+
+
+def bench_stage(gran: str, batch: int, inspect=None) -> dict:
+    """One stage, built as ``bench.py`` builds it: ``bench.py``'s result
+    dict (tokens/s, MFU, parameters, batch, seq, final loss, step ms)
+    plus the peak device memory, the graph pool's MiB, the kernel
+    launches of all its steps and the losses (the warm-up steps' and the
+    last). ``inspect(model, step, batch, result)``, if given, runs after
+    the timed steps while the model is alive."""
+    import torch
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.jit import TrainStep
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, data = build_stage(gran, batch)
+    step = TrainStep(model, _loss, opt)
     ops.reset_launch_counts()
     losses = [float(step(data)) for _ in range(WARMUP)]
     torch.cuda.synchronize()
@@ -113,9 +126,10 @@ def bench_stage(gran: str, batch: int, inspect=None) -> dict:
            "batch": batch, "seq": SEQ, "final_loss": final,
            "step_ms": dt / STEPS * 1000, "remat": gran,
            "peak_mem_gb": peak / 1e9, "launches": launches,
+           "graph_mib": step.graph_bytes / 2**20,
            "steps": WARMUP + STEPS, "losses": losses}
     if inspect is not None:
-        inspect(model, step, data)
+        inspect(model, step, data, out)
     del model, opt, step, data
     gc.collect()
     torch.cuda.empty_cache()
