@@ -139,6 +139,45 @@ Phases, each of which raises on failure (nothing is caught):
    first its pinned staging block is new: the capture emptied the host
    allocator's cache).
 
+11. Serving resilience and observability (run after phase 6, on its
+   7B model before it is freed; the dense engine of phase 6 freed
+   first). Phases 3-6 already serve through the same ``Server``, the NaN
+   sentinel on and faults disarmed; phase 3 prints its decode step ms
+   beside the one before the sentinel's flags. Four engines at
+   ``num_slots=8, max_len=256, decode_block=8`` (a 129-block arena,
+   2.2 GB): ``PagedEngine(block_size=16, prefill_chunk=32)`` fp32, the
+   same with ``kv_int8=True`` and with ``megakernel=True``, and
+   ``ContinuousBatchingEngine(prompt_buckets=(64, 128))``; 12 requests
+   of 16-128 prompt tokens from ``RandomState(0)``, 64 new tokens each,
+   two sharing a 64-token prefix, one sampled, a prefill budget of 64
+   tokens a tick. Each engine serves a clean run (the reference
+   streams; exact launches). Then (a) on the paged fp32 and the dense
+   engine a seeded chaos schedule (``serving.step_block``,
+   ``serving.harvest``, ``serving.prefill_tick``, ``serving.allocate``,
+   ``server.tick`` at p 0.05, seed 0): every stream token-identical to
+   the clean run, no block leaked, one capture per program, launches
+   exact for the blocks and chunks actually replayed, retries and step
+   failures printed; (b) on all four, ``serving.poison`` at the fourth
+   block: its request alone ends "poisoned", every other stream as in
+   the clean run (the NaN written into the static pool must reach the
+   sentinel through the card's kernels); (c) on the paged fp32 and the
+   dense engine: served tick by tick until a request is mid-prefill
+   (queued, dense) while another decodes, snapshot to a temporary
+   directory, the engine freed, a fresh one built (its graphs captured
+   anew), ``Server.restore`` into it and the run finished: streams
+   token-identical, one capture per program; the snapshot's bytes,
+   write and restore seconds printed, the file deleted. On the restored
+   fp32 engine: (d) ``serving.step_block:every=1``: every request ends
+   ``circuit_open``, the flight ring is dumped, every block comes back;
+   (e) two requests with ``deadline_ticks`` end as ``timeout`` (blocks
+   released exactly), and with ``max_queue_depth=6`` the other six are
+   shed; (f) the clean run again with request tracing armed, metrics on
+   and a host-only ``profiler.Profiler`` (the native host tracer): the
+   exported trace loads and holds one terminal per request, the token
+   and step counters equal ``Server.stats()``, the streams equal the
+   disarmed run's; tokens/s armed and disarmed are printed, not gated.
+   The phase prints its seconds.
+
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU the script
@@ -2824,6 +2863,9 @@ def serving_path(torch, card):
           f"chunks, launches {counts}")
     st = srv.stats()
     _print_serving(card, "", st)
+    print(f"[{card}] decode_step_ms={st['decode_step_ms']:.3f} with the "
+          f"sentinel's ok flags in the block; PERF.md before them: "
+          f"23.4-24.0 ms")
 
     _arm_fp32_check(engine, cfg)
     _check_step_logprobs(torch, model, engine, "")
@@ -3386,6 +3428,400 @@ def generate_path(torch, card, model, engine):
     return counts
 
 
+# -- phase 11: serving resilience and observability ---------------------------
+
+_RES_KW = dict(num_slots=8, max_len=256, decode_block=8)
+_RES_PAGED = dict(_RES_KW, block_size=16, prefill_chunk=32)
+_RES_BUDGET = 64
+_CHAOS = ("serving.step_block:p=0.05;serving.harvest:p=0.05;"
+          "serving.prefill_tick:p=0.05;serving.allocate:p=0.05;"
+          "server.tick:p=0.05")
+
+
+def _resilience_requests(rng, vocab):
+    """The phase's 12 requests: 16..128 prompt tokens, 64 new tokens
+    each; requests 1 and 7 share a 64-token prefix (7 arrives at tick
+    4); request 5 samples (temperature 0.8, top-k 50, seed 7). Returns
+    (prompt, max_new, sampling kwargs, arrival tick) per request."""
+    prefix = rng.randint(0, vocab, (64,))
+    lens = rng.randint(16, 129, size=12)
+    lens[1], lens[7] = 96, 112
+    out = []
+    for i, L in enumerate(lens):
+        p = rng.randint(0, vocab, (int(L),))
+        if i in (1, 7):
+            p[:64] = prefix
+        kw = dict(temperature=0.8, top_k=50, seed=7) if i == 5 else {}
+        out.append((p.astype("int32"), 64, kw, 4 if i == 7 else 0))
+    return out
+
+
+def _res_engine(torch, model, kind):
+    """One of the phase's four engines, built on the card (its programs
+    captured at construction; the dense prefills at first admission)."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine, PagedEngine
+    t0 = time.perf_counter()
+    if kind == "dense":
+        eng = ContinuousBatchingEngine(model, prompt_buckets=(64, 128),
+                                       device="cuda", **_RES_KW)
+    else:
+        eng = PagedEngine(model, kv_int8=kind == "int8",
+                          megakernel=kind == "megakernel", device="cuda",
+                          **_RES_PAGED)
+    torch.cuda.synchronize()
+    print(f"phase 11 {kind} engine built (programs captured) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return eng
+
+
+def _res_serve(torch, engine, reqs, spec=None, seed=0, res_kw=None,
+               obs=None, submit_kw=None, totals=None):
+    """Serve ``reqs`` on a reset engine through a fresh ``Server`` (the
+    fault schedule ``spec`` armed for the run, else disarmed), launch
+    counts zeroed just before and read just after (added to ``totals``).
+    Returns (server, results by request index, launch counts)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import ResilienceConfig, Scheduler, Server
+    from paddle_tpu_torch.utils import faults
+    engine.reset()
+    srv = Server(engine, Scheduler(prefill_token_budget=_RES_BUDGET),
+                 resilience=ResilienceConfig(**(res_kw or {})),
+                 observability=obs)
+    rids = [srv.submit(p, max_new_tokens=mn, arrival_step=arr,
+                       **kw, **((submit_kw or {}).get(i, {})))
+            for i, (p, mn, kw, arr) in enumerate(reqs)]
+    ops.reset_launch_counts()
+    with faults.injected(spec or "", seed=seed):
+        res = srv.run_until_idle(max_ticks=2000)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if totals is not None:
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+    if srv.scheduler.pending() or engine.has_live():
+        raise AssertionError("the server did not drain")
+    return srv, [res[r] for r in rids], counts
+
+
+def _res_check_pool(engine, label):
+    """No block leaked: the arena accounting holds and every usable
+    block is free or LRU-retained again."""
+    m = getattr(engine, "manager", None)
+    if m is None:
+        return
+    m.assert_consistent()
+    if m._ref or m.available() != m.usable_blocks():
+        raise AssertionError(f"{label}: blocks leaked ({m._ref})")
+
+
+def _res_check_compiles(engine, label):
+    dec = engine.decode_compile_count()
+    if hasattr(engine.backend, "prefill_programs"):      # dense
+        pre = [p.captures for p in
+               engine.backend.prefill_programs().values()]
+        ok = dec == 1 and all(c == 1 for c in pre)
+    else:
+        pre = engine.prefill_compile_count()
+        ok = dec == pre == 1
+    if not ok:
+        raise AssertionError(f"{label}: captures decode {dec}, prefill "
+                             f"{pre} (each program must be captured once)")
+
+
+def _res_same(label, got, want, skip=()):
+    """Every stream but ``skip`` token-identical to the clean run."""
+    import numpy as np
+    from paddle_tpu_torch.serving import RequestFailure
+    for i, (v, w) in enumerate(zip(got, want)):
+        if i in skip:
+            continue
+        if isinstance(v, RequestFailure) or not np.array_equal(v, w):
+            raise AssertionError(f"{label}: request {i} is {v!r}, not its "
+                                 "clean-run stream")
+
+
+def _res_launches(engine, counts, label):
+    """Exact launches of a run: the per-block (per-chunk, per-prefill)
+    launches times the blocks (chunks, prefills) actually replayed."""
+    if hasattr(engine, "manager"):
+        kernel = ("decode_layer" if engine.megakernel() else
+                  "paged_attention_decode") + \
+            ("_int8" if engine.kv_int8 else "")
+        _check_launches(engine, counts, kernel)
+    else:
+        _check_dense_launches(engine, counts)
+    print(f"{label} launches exact: {engine.steps} decode steps, "
+          f"{getattr(engine, 'prefill_chunks', engine.prefills)} prefill "
+          f"{'chunks' if hasattr(engine, 'manager') else 'calls'}: "
+          + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
+
+
+def _res_kill(torch, kind, engine, reqs, tmp, totals):
+    """(c), the kill: serve tick by tick until a request is mid-prefill
+    (paged; queued, dense) while another decodes, then snapshot. Returns
+    (path, bytes, write seconds)."""
+    import os
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import Scheduler, Server
+    engine.reset()
+    srv = Server(engine, Scheduler(prefill_token_budget=_RES_BUDGET))
+    for p, mn, kw, arr in reqs:
+        srv.submit(p, max_new_tokens=mn, arrival_step=arr, **kw)
+    ops.reset_launch_counts()
+    k = 0
+    while True:
+        srv.run_until_idle(max_ticks=1)
+        k += 1
+        waiting = bool(engine._jobs) if kind != "dense" \
+            else srv.scheduler.pending() > 0
+        if k >= 2 and waiting and engine.has_decoding():
+            break
+        if k > 50:
+            raise AssertionError(f"{kind}: no tick with a request waiting "
+                                 "and one decoding")
+    jobs = getattr(engine, "_jobs", [])
+    decoding = [r.request.request_id for s, r in engine.live_runs()
+                if s not in engine._prefill_slots]
+    print(f"phase 11 {kind} killed after {k} ticks: requests {decoding} "
+          f"decoding, {[j.run.request.request_id for j in jobs]} "
+          f"mid-prefill (prompt tokens resident "
+          f"{[(j.done, len(j.prompt)) for j in jobs]}), "
+          f"{srv.scheduler.pending()} queued, {len(srv.results)} done")
+    path = os.path.join(tmp, f"{kind}.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.snapshot(path)
+    write_s = time.perf_counter() - t0
+    for name, n in ops.launch_counts().items():
+        totals[name] = totals.get(name, 0) + n
+    return path, os.path.getsize(path), write_s
+
+
+def _res_restore(torch, model, kind, reqs, clean, card, snap, totals):
+    """(c), the restart: a fresh engine of the same configuration, the
+    snapshot restored into it, every stream finished. Returns the fresh
+    engine."""
+    import os
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import Scheduler, Server
+    path, nbytes, write_s = snap
+    fresh = _res_engine(torch, model, kind)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = Server.restore(path, fresh,
+                         Scheduler(prefill_token_budget=_RES_BUDGET))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    res = srv.run_until_idle(max_ticks=2000)
+    torch.cuda.synchronize()
+    for name, n in ops.launch_counts().items():
+        totals[name] = totals.get(name, 0) + n
+    _res_same(f"{kind} restored", [res[r] for r in range(len(reqs))], clean)
+    _res_check_compiles(fresh, f"{kind} restored")
+    _res_check_pool(fresh, f"{kind} restored")
+    os.remove(path)
+    os.remove(path + ".flight.json")
+    print(f"[{card}] phase 11 {kind} kill and restore: streams identical "
+          f"to the clean run; snapshot {nbytes} bytes "
+          f"({nbytes / 1e9:.3f} GB), written in {write_s:.3f} s "
+          f"({nbytes / 1e9 / write_s:.3f} GB/s), restored in "
+          f"{restore_s:.3f} s ({nbytes / 1e9 / restore_s:.3f} GB/s)")
+    return fresh
+
+
+def serving_resilience_path(torch, card, model):
+    """Phase 11 (see the module docstring). Returns the launch counts of
+    every run of the phase."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.serving import RequestFailure
+    t_phase = time.perf_counter()
+    reqs = _resilience_requests(np.random.RandomState(0),
+                                model.config.vocab_size)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    totals = {}
+    clean_runs = {}
+    chaos_cfg = dict(retry_attempts=12, retry_backoff_s=0.001,
+                     breaker_threshold=40, seed=0)
+    try:
+        for kind in ("fp32", "dense", "int8", "megakernel"):
+            engine = _res_engine(torch, model, kind)
+            label = f"phase 11 {kind}"
+            srv, clean, counts = _res_serve(torch, engine, reqs,
+                                            totals=totals)
+            clean_runs[kind] = (srv.stats(), clean)
+            _res_launches(engine, counts, f"{label} clean")
+            _res_check_compiles(engine, label)
+            _res_check_pool(engine, label)
+            if any(isinstance(v, RequestFailure) for v in clean):
+                raise AssertionError(f"{label}: the clean run failed "
+                                     "requests")
+            st = srv.stats()
+            print(f"[{card}] {label} clean: decode_step_ms="
+                  f"{st['decode_step_ms']:.3f} (with the ok flags; "
+                  f"PERF.md before them: 23.4-24.0 at 8 slots of 1024), "
+                  f"tokens_per_s={st['tokens_per_sec']:.1f}, "
+                  f"{st['decode_steps']} steps")
+            if kind in ("fp32", "dense"):
+                # (a) chaos
+                srv, got, counts = _res_serve(torch, engine, reqs,
+                                              spec=_CHAOS, seed=0,
+                                              res_kw=chaos_cfg,
+                                              totals=totals)
+                _res_same(f"{label} chaos", got, clean)
+                _res_check_pool(engine, f"{label} chaos")
+                _res_check_compiles(engine, f"{label} chaos")
+                _res_launches(engine, counts, f"{label} chaos")
+                st = srv.stats()
+                if not st["step_failures"] or st["breaker_open"]:
+                    raise AssertionError(f"{label} chaos: {st}")
+                print(f"{label} chaos ({_CHAOS}, seed 0): every stream "
+                      f"identical to the clean run; retries="
+                      f"{st['retries']} step_failures="
+                      f"{st['step_failures']} tick_faults="
+                      f"{st['tick_faults']} admissions deferred by "
+                      f"allocate faults: "
+                      f"{sum(1 for e in srv.flight.events() if e['kind'] == 'block_pool_defer')}"
+                      f" (flight ring)")
+            # (b) poison at the fourth block
+            srv, got, _ = _res_serve(torch, engine, reqs,
+                                     spec="serving.poison:at=4",
+                                     totals=totals)
+            fails = [i for i, v in enumerate(got)
+                     if isinstance(v, RequestFailure)]
+            if len(fails) != 1 or got[fails[0]].reason != "poisoned":
+                raise AssertionError(f"{label} poison: failures "
+                                     f"{[(i, got[i]) for i in fails]}")
+            _res_same(f"{label} poison", got, clean, skip=fails)
+            _res_check_pool(engine, f"{label} poison")
+            _res_check_compiles(engine, f"{label} poison")
+            print(f"{label} poison at block 4: request {fails[0]} alone "
+                  f"quarantined ({got[fails[0]].tokens_emitted} tokens), "
+                  f"{len(got) - 1} streams identical to the clean run")
+            if kind in ("fp32", "dense"):
+                # (c) kill, free the engine, restart
+                snap = _res_kill(torch, kind, engine, reqs, tmp, totals)
+                del engine, srv
+                gc.collect()
+                torch.cuda.empty_cache()
+                engine = _res_restore(torch, model, kind, reqs, clean, card,
+                                      snap, totals)
+                srv = None
+            if kind == "fp32":
+                _res_fp32_extra(torch, card, engine, reqs, clean, tmp,
+                                totals, clean_runs["fp32"][0])
+            del engine, srv
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 11 (serving resilience) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def _res_fp32_extra(torch, card, engine, reqs, clean, tmp, totals, st0):
+    """(d) breaker, (e) deadlines and shedding, (f) observability, on the
+    restored fp32 engine."""
+    import json as _json
+    import os
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import ObservabilityConfig, metrics
+    from paddle_tpu_torch.serving import RequestFailure
+    label = "phase 11 fp32"
+    # (d) breaker: every dispatch fails; the threshold is reached within
+    # one tick's retries (a prefill tick that succeeds resets the count)
+    dump_dir = os.path.join(tmp, "flight")
+    srv, got, _ = _res_serve(
+        torch, engine, reqs, spec="serving.step_block:every=1",
+        res_kw=dict(retry_attempts=3, retry_backoff_s=0.001,
+                    breaker_threshold=4),
+        obs=ObservabilityConfig(flight_dump_dir=dump_dir), totals=totals)
+    reasons = {v.reason if isinstance(v, RequestFailure) else "ok"
+               for v in got}
+    dump = srv.flight.last_dump_path
+    if reasons != {"circuit_open"} or not dump or not os.path.exists(dump):
+        raise AssertionError(f"{label} breaker: outcomes {reasons}, dump "
+                             f"{dump}")
+    _res_check_pool(engine, f"{label} breaker")
+    print(f"{label} breaker (serving.step_block:every=1): all "
+          f"{len(got)} requests circuit_open, flight ring dumped "
+          f"({os.path.getsize(dump)} bytes), every block back")
+    # (e) deadlines and shedding
+    srv, got, _ = _res_serve(torch, engine, reqs, totals=totals,
+                             submit_kw={2: dict(deadline_ticks=3),
+                                        9: dict(deadline_ticks=2)})
+    for i in (2, 9):
+        v = got[i]
+        if not (isinstance(v, RequestFailure) and v.reason == "timeout"):
+            raise AssertionError(f"{label} deadline: request {i} is {v!r}")
+    _res_same(f"{label} deadlines", got, clean, skip=(2, 9))
+    _res_check_pool(engine, f"{label} deadlines")
+    print(f"{label} deadlines: requests 2 (3 ticks, "
+          f"{got[2].tokens_emitted} tokens) and 9 (2 ticks, "
+          f"{got[9].tokens_emitted} tokens) timed out, blocks released "
+          f"at exact refcounts, 10 streams identical to the clean run")
+    srv, got, _ = _res_serve(torch, engine, reqs, totals=totals,
+                             res_kw=dict(max_queue_depth=6))
+    shed = [i for i, v in enumerate(got)
+            if isinstance(v, RequestFailure) and v.reason == "shed"]
+    if shed != list(range(6, 12)):
+        raise AssertionError(f"{label} shedding: shed {shed}")
+    _res_same(f"{label} shedding", got, clean, skip=shed)
+    _res_check_pool(engine, f"{label} shedding")
+    print(f"{label} shedding (max_queue_depth=6): requests {shed} shed, "
+          f"the 6 others identical to the clean run")
+    # (f) observability armed: request tracing, metrics, the profiler's
+    # host ring through the native tracer (host spans only: a device
+    # target would add CUPTI to every launch)
+    was = metrics.enabled()
+    metrics.REGISTRY.reset()
+    metrics.enable(True)
+    prof = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU])
+    prof._drain_events()
+    try:
+        with prof:
+            srv, got, _ = _res_serve(
+                torch, engine, reqs, totals=totals,
+                obs=ObservabilityConfig(trace_requests=True))
+    finally:
+        metrics.enable(was)
+    st = srv.stats()
+    _res_same(f"{label} armed", got, clean)
+    reg = metrics.REGISTRY
+    m_tok = reg.get("pt_engine_tokens_emitted_total").value()
+    m_steps = reg.get("pt_engine_decode_steps_total").value()
+    if (m_tok, m_steps) != (st["tokens_emitted"], st["decode_steps"]):
+        raise AssertionError(f"{label} metrics: tokens {m_tok}, steps "
+                             f"{m_steps}; stats {st['tokens_emitted']}, "
+                             f"{st['decode_steps']}")
+    path = srv.export_trace(os.path.join(tmp, "trace.json"), profiler=prof)
+    with open(path) as f:
+        events = _json.load(f)["traceEvents"]
+    rows = {e["tid"]: e["args"]["name"] for e in events
+            if e.get("ph") == "M" and
+            str(e["args"].get("name", "")).startswith("request ")}
+    terms = {}
+    for e in events:
+        if str(e.get("name", "")).startswith("terminal:"):
+            terms[e["tid"]] = terms.get(e["tid"], 0) + 1
+    host = sum(1 for e in events if e.get("name") == "serving.decode_block")
+    if len(rows) != len(reqs) or any(terms.get(t) != 1 for t in rows) \
+            or not host or not profiler._tracer():
+        raise AssertionError(f"{label} trace: {len(rows)} request rows, "
+                             f"terminals {terms}, {host} decode-block "
+                             "host spans (native tracer needed)")
+    print(f"[{card}] {label} observability armed: trace {len(events)} "
+          f"events ({os.path.getsize(path)} bytes), one terminal per "
+          f"request ({len(rows)}), {host} native decode-block host spans; "
+          f"metrics tokens={int(m_tok)} decode_steps={int(m_steps)} equal "
+          f"Server.stats(); streams identical armed and disarmed; "
+          f"tokens_per_s armed {st['tokens_per_sec']:.1f} vs disarmed "
+          f"{st0['tokens_per_sec']:.1f} (not gated)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3449,7 +3885,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense, dense_engine = serving_dense_path(torch, card, model, ref)
     gen = generate_path(torch, card, model, dense_engine)
-    del dense_engine, model
+    del dense_engine
+    torch.cuda.empty_cache()
+    resilience = serving_resilience_path(torch, card, model)
+    del model
     torch.cuda.empty_cache()
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -3462,7 +3901,8 @@ def main() -> int:
     headline = headline_path(torch, card)
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
-                 generate=gen, training=train, ernie_moe_training=ernie,
+                 generate=gen, resilience_serving=resilience,
+                 training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"

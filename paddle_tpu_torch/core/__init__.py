@@ -1,18 +1,21 @@
 """The port's native host runtime: the shared-memory ring that carries
-the DataLoader's batches from its forked workers.
+the DataLoader's batches from its forked workers, and the host span
+tracer under ``profiler.RecordEvent``.
 
 Counterpart of ``paddle_tpu/core/__init__.py`` (``load_native``,
 ``native_available``) and of the ``ShmQueue`` façade of
-``paddle_tpu/core/native_api.py`` (copied) for the ring part of its C
-library: the port
-keeps its own copy of that code in ``csrc/shm_ring.cc`` and builds it
-with ``g++`` at first use (never at import) into
-``paddle_tpu_torch/_build/``, under a name that carries a digest of the
-source and the flags, loaded with ``ctypes``. As in the JAX package, a
-machine without a compiler keeps every feature: ``ShmQueue`` then runs
-over a ``multiprocessing`` queue and ``native_available()`` is False.
-The JAX core's host tracer and ``TCPStore`` are not ported yet
-(``ROADMAP.md`` A.3 and A.6)."""
+``paddle_tpu/core/native_api.py`` (copied); its ``NativeTracer`` façade
+is the port's ``core/native_api.py``. The JAX package builds one C
+library for its ring, tracer and TCP store; the port keeps its own
+copy of each part it has in a source of its own (``csrc/shm_ring.cc``,
+``csrc/host_tracer.cc``) and builds it with ``g++`` at first use (never
+at import) into ``paddle_tpu_torch/_build/``, under a name that carries
+a digest of the source and the flags, loaded with ``ctypes``. As in the
+JAX package, a machine without a compiler keeps every feature:
+``ShmQueue`` then runs over a ``multiprocessing`` queue and
+``native_available()`` is False, and the tracer keeps its events in a
+Python list. The ``TCPStore`` is not ported yet (``ROADMAP.md``
+A.6)."""
 from __future__ import annotations
 
 import ctypes
@@ -26,69 +29,110 @@ import numpy as np
 
 from ..ops.build import BUILD_DIR, CSRC
 
-__all__ = ["load_native", "native_available", "ShmQueue"]
+__all__ = ["load_native", "load_host_tracer", "native_available",
+           "ShmQueue"]
 
-_SRC = CSRC / "shm_ring.cc"
+# library name -> its source under csrc/
+_SOURCES = {"shm_ring": "shm_ring.cc", "host_tracer": "host_tracer.cc"}
 _FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-pthread"]
 
-_lib = None
+_libs = {}
 _lib_lock = threading.Lock()
-_build_error = None
+_build_errors = {}
 
 
-def lib_path():
-    h = hashlib.sha1(" ".join(_FLAGS).encode() + _SRC.read_bytes())
-    return BUILD_DIR / f"shm_ring-{h.hexdigest()[:12]}.so"
+def lib_path(name: str = "shm_ring"):
+    src = CSRC / _SOURCES[name]
+    h = hashlib.sha1(" ".join(_FLAGS).encode() + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def _build(out):
+def _build(name, out):
     # per-pid temp name: concurrent first-use builds must not interleave
     # writes into one file
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
-                       check=True, capture_output=True, timeout=180)
+        subprocess.run(["g++", *_FLAGS, str(CSRC / _SOURCES[name]), "-o",
+                        str(tmp)], check=True, capture_output=True,
+                       timeout=180)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
 
 
+def _load(name, bind):
+    """Library ``name`` (built first if needed) with ``bind`` applied
+    to declare its functions, or None where it cannot be built or
+    loaded."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lib_lock:
+        if name in _libs:
+            return _libs[name]
+        if name in _build_errors:
+            return None
+        try:
+            out = lib_path(name)
+            if not out.exists():
+                _build(name, out)
+            lib = ctypes.CDLL(str(out))
+        except (OSError, subprocess.SubprocessError) as e:
+            _build_errors[name] = e
+            return None
+        bind(lib)
+        _libs[name] = lib
+        return lib
+
+
+def _bind_ring(lib):
+    lib.pt_shmq_create.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+    lib.pt_shmq_create.restype = ctypes.c_void_p
+    lib.pt_shmq_open.argtypes = [ctypes.c_char_p]
+    lib.pt_shmq_open.restype = ctypes.c_void_p
+    lib.pt_shmq_push.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                 ctypes.c_uint64, ctypes.c_int]
+    lib.pt_shmq_push.restype = ctypes.c_int
+    lib.pt_shmq_pop.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_uint64, ctypes.c_int]
+    lib.pt_shmq_pop.restype = ctypes.c_int64
+    lib.pt_shmq_size.argtypes = [ctypes.c_void_p]
+    lib.pt_shmq_size.restype = ctypes.c_uint64
+    lib.pt_shmq_close.argtypes = [ctypes.c_void_p]
+    lib.pt_shmq_close.restype = None
+
+
+def _bind_tracer(lib):
+    lib.pt_trace_enable.argtypes = [ctypes.c_int]
+    lib.pt_trace_enable.restype = None
+    lib.pt_trace_enabled.argtypes = []
+    lib.pt_trace_enabled.restype = ctypes.c_int
+    for fn in (lib.pt_trace_begin, lib.pt_trace_instant):
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = None
+    lib.pt_trace_end.argtypes = []
+    lib.pt_trace_end.restype = None
+    lib.pt_trace_counter.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.pt_trace_counter.restype = None
+    lib.pt_trace_event_count.argtypes = []
+    lib.pt_trace_event_count.restype = ctypes.c_int64
+    lib.pt_trace_clear.argtypes = []
+    lib.pt_trace_clear.restype = None
+    lib.pt_trace_dump.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.pt_trace_dump.restype = ctypes.c_int
+
+
 def load_native():
     """The ring's library (built first if needed), or None where it
     cannot be built or loaded."""
-    global _lib, _build_error
-    if _lib is not None:
-        return _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        if _build_error is not None:
-            return None
-        try:
-            out = lib_path()
-            if not out.exists():
-                _build(out)
-            lib = ctypes.CDLL(str(out))
-        except (OSError, subprocess.SubprocessError) as e:
-            _build_error = e
-            return None
-        lib.pt_shmq_create.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
-        lib.pt_shmq_create.restype = ctypes.c_void_p
-        lib.pt_shmq_open.argtypes = [ctypes.c_char_p]
-        lib.pt_shmq_open.restype = ctypes.c_void_p
-        lib.pt_shmq_push.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                     ctypes.c_uint64, ctypes.c_int]
-        lib.pt_shmq_push.restype = ctypes.c_int
-        lib.pt_shmq_pop.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_uint64, ctypes.c_int]
-        lib.pt_shmq_pop.restype = ctypes.c_int64
-        lib.pt_shmq_size.argtypes = [ctypes.c_void_p]
-        lib.pt_shmq_size.restype = ctypes.c_uint64
-        lib.pt_shmq_close.argtypes = [ctypes.c_void_p]
-        lib.pt_shmq_close.restype = None
-        _lib = lib
-        return _lib
+    return _load("shm_ring", _bind_ring)
+
+
+def load_host_tracer():
+    """The host tracer's library (built first if needed), or None where
+    it cannot be built or loaded."""
+    return _load("host_tracer", _bind_tracer)
 
 
 def native_available() -> bool:

@@ -155,10 +155,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// TF32 with round to nearest (ties away from zero) on the bits: the
-// 13 low mantissa bits cleared after adding half of their range.
+// TF32 with round to nearest (ties away from zero): the 13 low mantissa
+// bits cleared after adding half of their range, as the hardware's cvt
+// does it. On the bits alone the add would carry a NaN's mantissa (CUDA's
+// 0x7fffffff) into the sign and return a zero, so a NaN activation
+// would enter the products as 0 and the serving NaN sentinel would never
+// see it; cvt keeps a NaN a NaN, and is one instruction.
 __device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 __device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& lo) {

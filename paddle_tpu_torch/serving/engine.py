@@ -17,7 +17,17 @@ program; here it is one dict of tensors that every block and every
 arm, cancel and reset updates in place, so the graph reads and writes
 the same memory on every replay. Sampling draws from threefry keys
 (``paddle_tpu_torch.random``) on the JAX key schedule, so seeded sampled
-streams match the JAX package token for token."""
+streams match the JAX package token for token.
+
+The resilience mechanism is JAX's (``paddle_tpu/serving/engine.py``
+``step_block`` to ``restore``): the captured block also emits per-row
+NaN sentinel flags; a block is dispatched, then harvested, with the
+``serving.poison`` and ``serving.step_block`` fault sites before the
+replay and ``serving.harvest`` between the replay and the host read, so
+a retried harvest reads the parked static output without replaying; a
+NaN row is quarantined alone; and the whole engine state snapshots to
+host arrays and restores by copying into the tensors the captured
+graphs read."""
 from __future__ import annotations
 
 import time
@@ -29,9 +39,39 @@ import torch
 
 from .. import random as prng
 from ..models.generation import decode_step_logprobs
+from ..observability import metrics as _om
+from ..observability.tracing import now_us as _trace_now
 from ..ops.decode_layer import FusedDecode
+from ..profiler import RecordEvent
+from ..utils import faults
 from ..utils.flags import env_bool, env_flag
 from ..graphs import CapturedProgram
+
+# engine metric families (JAX's names; no-ops until metrics.enable() /
+# PT_METRICS)
+_M_STEPS = _om.counter("pt_engine_decode_steps_total",
+                       "decode-block steps executed")
+_M_TOKENS = _om.counter("pt_engine_tokens_emitted_total",
+                        "useful tokens emitted (prefill + decode)")
+_M_DECODE_TOKENS = _om.counter("pt_engine_decode_tokens_total",
+                               "live-slot decode tokens emitted")
+_M_COMPILES = _om.gauge("pt_engine_decode_compiles",
+                        "times the decode-block program was traced "
+                        "(static-shape invariant: stays 1)")
+_M_PREFILLS = _om.counter("pt_engine_prefills_total",
+                          "prefill dispatches (whole-prompt or chunk)")
+_M_BYTES = _om.counter(
+    "pt_serving_decode_bytes_read_total",
+    "estimated HBM bytes read by decode steps (weights + buffers + "
+    "KV pool, capacity-based — the quant-vs-fp32 A/B numerator)")
+_M_W_BYTES = _om.gauge(
+    "pt_serving_decode_weight_bytes",
+    "weight + buffer bytes one decode step reads (codes + scales "
+    "under weight-only quant)")
+_M_KV_BYTES = _om.gauge(
+    "pt_serving_decode_kv_bytes",
+    "KV pool bytes resident per decode step (codes + scales under "
+    "the int8 arena)")
 
 __all__ = ["slot_sample_logits", "init_slot_state", "free_slot_state",
            "run_decode_block", "ModelStepBackend",
@@ -117,11 +157,15 @@ def run_decode_block(step, state: Dict[str, torch.Tensor],
     the work depends on the engine's shapes alone (one captured graph
     serves any traffic), and the keys follow the JAX schedule. ``state``
     is updated in place at the block's end. ``out`` is the static
-    (2 * block + 1, S) int32 output: rows [0, block) the tokens, rows
+    (3 * block + 1, S) int32 output: rows [0, block) the tokens, rows
     [block, 2 * block) the start-of-step live masks (the host counts
     emissions from ``live``: an eos retirement zeroes ``remaining``),
-    the last row the remaining counters after the block."""
-    block = (out.shape[0] - 1) // 2
+    rows [2 * block, 3 * block) the ``ok`` flags (1 iff the row's
+    log-probs held no NaN — numerically impossible from finite weights
+    and cache, so a 0 means corrupted state; the sentinel the server
+    quarantines a poisoned slot by), the last row the remaining
+    counters after the block."""
+    block = (out.shape[0] - 1) // 3
     paged = "table" in state
     st = dict(state)
     for i in range(block):
@@ -137,12 +181,13 @@ def run_decode_block(step, state: Dict[str, torch.Tensor],
         rem = torch.where(hit, 0, rem)
         out[i].copy_(nxt)
         out[block + i].copy_(live)
+        out[2 * block + i].copy_(~torch.isnan(logp).any(dim=-1))
         st = dict(st, tok=torch.where(live, nxt, st["tok"]),
                   pos=st["pos"] + live.to(torch.int32),
                   remaining=rem, key=sp[:, 0], live=live & (rem > 0))
     for name in ("tok", "pos", "remaining", "key", "live"):
         state[name].copy_(st[name])
-    out[2 * block].copy_(state["remaining"])
+    out[3 * block].copy_(state["remaining"])
 
 
 def _cancel_fn(state: Dict[str, torch.Tensor], slot: int):
@@ -211,7 +256,7 @@ class ModelStepBackend:
         self.row = model.init_kv_cache(1, max_len)
         self.fused_decode = FusedDecode() if megakernel else None
         self.state = init_slot_state(num_slots, dev)
-        self._block_out = torch.zeros((2 * decode_block + 1, num_slots),
+        self._block_out = torch.zeros((3 * decode_block + 1, num_slots),
                                       dtype=torch.int32, device=dev)
         # the prefill's inputs besides the ids, filled by one copy:
         # (pad, top-k), then (temperature, top-p) as fp32 bits; the key
@@ -249,10 +294,15 @@ class ModelStepBackend:
 
     def decode_block(self) -> torch.Tensor:
         """Run one decode block over ``state`` (in place); returns the
-        static (2 * block + 1, S) int32 output of
+        static (3 * block + 1, S) int32 output of
         :func:`run_decode_block`, valid until the next block."""
         self.decode_program()
         return self._block_out
+
+    def caches(self) -> List[torch.Tensor]:
+        """The pool's tensors in the JAX cache order (each layer's k,
+        then v): what the decode graph reads and snapshots save."""
+        return [t for layer in self.cache for t in layer]
 
     def _run_prefill(self, ids):
         for layer in self.row:
@@ -396,6 +446,12 @@ class ContinuousBatchingEngine:
         self.num_slots = backend.num_slots
         self.max_len = backend.max_len
         self.decode_block = backend.block_size
+        # the host gate on the block's NaN flags (the flags are always
+        # computed: the same captured graph either way)
+        self.nan_sentinel = True
+        # set by the Server iff request tracing is armed (None keeps the
+        # hot paths at one `is None` check)
+        self.tracer = None
         self.reset()
 
     # -- lifecycle ---------------------------------------------------------
@@ -405,7 +461,10 @@ class ContinuousBatchingEngine:
         self._state = self.backend.reset_state()
         self._slots: List[Optional[_SlotRun]] = [None] * self.num_slots
         self._prefill_slots: set = set()
+        self._remaining_host = np.zeros((self.num_slots,), np.int64)
         self._finished: List[_SlotRun] = []
+        self._pending_block = None    # dispatched, not yet harvested
+        self._bytes_step = None       # decode_bytes_per_step memo
         self.steps = 0                # engine decode steps executed
         self.tokens_emitted = 0       # useful tokens (prefill's included)
         self.decode_tokens = 0        # live-slot decode tokens only
@@ -496,6 +555,31 @@ class ContinuousBatchingEngine:
         return sum(p.captures
                    for p in self.backend.prefill_programs().values())
 
+    def decode_bytes_per_step(self) -> dict:
+        """Estimated device bytes ONE decode step reads:
+        ``{"weights": ..., "kv": ..., "total": ...}`` — every weight and
+        buffer byte plus the KV pool's resident bytes (codes and scales
+        under the int8 arena). Capacity-based, as in JAX: the paged read
+        touches only live blocks, so the kv term is an upper bound."""
+        if self._bytes_step is None:
+            m = self.backend.model
+            w = sum(t.numel() * t.element_size()
+                    for t in list(m.parameters()) + list(m.buffers()))
+            kv = sum(t.numel() * t.element_size()
+                     for t in self.backend.caches())
+            self._bytes_step = {"weights": w, "kv": kv, "total": w + kv}
+        return self._bytes_step
+
+    def _note_decode_bytes(self, steps: int):
+        """Metrics hook on the decode dispatch path (one enabled-check
+        when metrics are off)."""
+        if not _om.enabled():
+            return
+        b = self.decode_bytes_per_step()
+        _M_BYTES.inc(b["total"] * steps)
+        _M_W_BYTES.set(b["weights"])
+        _M_KV_BYTES.set(b["kv"])
+
     # -- admission ---------------------------------------------------------
     def admit(self, request) -> bool:
         """Prefill the request's prompt (batch 1, left-padded to its
@@ -510,6 +594,10 @@ class ContinuousBatchingEngine:
                     None)
         if slot is None:
             raise RuntimeError("no free slot (scheduler bug)")
+        tr = self.tracer
+        if tr is not None:
+            tr.span_end(request.request_id, "queue_wait")
+            t_prefill = _trace_now()
         t0 = time.perf_counter()
         ids = np.zeros((1, Lb), np.int32)
         ids[0, Lb - L:] = prompt
@@ -518,8 +606,15 @@ class ContinuousBatchingEngine:
         # key and the first token's sub-key
         key, sub = prng.split(prng.prng_key(request.seed)) \
             .to(self.backend.device)
-        tok0 = int(self.backend.prefill(ids, pad0, sub, request.temperature,
-                                        request.top_k, request.top_p))
+        with RecordEvent("serving.prefill"):
+            tok0 = int(self.backend.prefill(ids, pad0, sub,
+                                            request.temperature,
+                                            request.top_k, request.top_p))
+        if tr is not None:
+            tr.span_at(request.request_id, "prefill", t_prefill, tokens=L,
+                       bucket=Lb)
+        _M_PREFILLS.inc()
+        _M_TOKENS.inc()
         self.prefills += 1
         self.prefill_s += time.perf_counter() - t0
         run = _SlotRun(request, tokens=[tok0], t_admit=time.perf_counter())
@@ -532,12 +627,16 @@ class ContinuousBatchingEngine:
             run.t_done = time.perf_counter()
             self._finished.append(run)
             return True
-        self.backend.splice(slot)
-        _arm_fn(self._state, slot, tok=tok0, pos=Lb, pad=pad0, live=True,
-                eos=-1 if eos is None else eos, remaining=rem0,
-                temp=request.temperature, topk=request.top_k,
-                topp=request.top_p, key=key)
+        with RecordEvent("serving.admit"):
+            self.backend.splice(slot)
+            _arm_fn(self._state, slot, tok=tok0, pos=Lb, pad=pad0,
+                    live=True, eos=-1 if eos is None else eos,
+                    remaining=rem0, temp=request.temperature,
+                    topk=request.top_k, topp=request.top_p, key=key)
+        if tr is not None:
+            tr.span_begin(request.request_id, "decode", slot=slot)
         self._slots[slot] = run
+        self._remaining_host[slot] = rem0
         return False
 
     def try_admit(self, request) -> bool:
@@ -548,40 +647,77 @@ class ContinuousBatchingEngine:
         return True
 
     # -- decode ------------------------------------------------------------
+    def has_pending_harvest(self) -> bool:
+        """A decode block was dispatched but its host read failed: the
+        next :meth:`step_block` retries just the harvest."""
+        return self._pending_block is not None
+
     def step_block(self):
-        """Run one decode block over the pool, then sync ONCE: pull the
-        block's static output (token matrix, live masks, remaining
-        counters), credit each live slot its emitted tokens, retire
-        finished slots."""
-        if not self.has_decoding():
-            return
-        t0 = time.perf_counter()
-        packed = self.backend.decode_block().cpu().numpy()
+        """Run one decode block over the pool (one replay of its graph),
+        then sync ONCE: pull the block's static output (tokens, live
+        masks, NaN flags, remaining counters), credit each live slot its
+        emitted tokens, retire finished slots.
+
+        Failure semantics (JAX's): ``serving.poison`` and
+        ``serving.step_block`` fire BEFORE the replay (state untouched —
+        a retry replays the identical block), and ``serving.harvest``
+        between the replay and the host read; the replayed block's
+        output stays parked in its static tensor (``_pending_block``),
+        so a retry reads it without replaying (no token is decoded twice
+        or dropped). A slot whose log-probs went NaN is quarantined
+        alone via :meth:`cancel_slot`."""
         B, S = self.decode_block, self.num_slots
+        if self._pending_block is None:
+            if not self.has_decoding():
+                return
+            if faults.should_fire("serving.poison"):
+                self._poison_live_slot()
+            faults.fault_point("serving.step_block")
+            t0 = time.perf_counter()
+            with RecordEvent("serving.decode_block"):
+                self._pending_block = self.backend.decode_block()
+            self.decode_s += time.perf_counter() - t0
+            self.steps += B
+            self.slot_steps += B * S
+            _M_STEPS.inc(B)
+            _M_COMPILES.set(self.decode_compile_count())
+            self._note_decode_bytes(B)
+        faults.fault_point("serving.harvest")
+        t0 = time.perf_counter()
+        packed = self._pending_block.cpu().numpy()   # ONE host sync/block
+        self.decode_s += time.perf_counter() - t0
+        self._pending_block = None
         toks_np = packed[:B]
         lives_np = packed[B:2 * B].astype(bool)
-        rem_np = packed[2 * B]
-        self.decode_s += time.perf_counter() - t0
-        self.steps += B
-        self.slot_steps += B * S
+        oks_np = packed[2 * B:3 * B].astype(bool)
+        rem_np = packed[3 * B]
         emitted = int(lives_np.sum())
         self.decode_tokens += emitted
         self.tokens_emitted += emitted
+        _M_DECODE_TOKENS.inc(emitted)
+        _M_TOKENS.inc(emitted)
         now = time.perf_counter()
         for slot, run in enumerate(self._slots):
             if run is None or slot in self._prefill_slots:
-                continue
+                continue     # mid-prefill slots are not decoding yet
             # live is monotone within a block (True rows are a prefix)
             n = int(lives_np[:, slot].sum())
-            run.tokens.extend(int(t) for t in toks_np[:n, slot])
+            if n > 0:
+                run.tokens.extend(int(t) for t in toks_np[:n, slot])
+            if self.nan_sentinel and n > 0 \
+                    and not bool(oks_np[:n, slot].all()):
+                self.cancel_slot(slot, "poisoned")
+                continue
+            self._remaining_host[slot] = rem_np[slot]
             if rem_np[slot] == 0:
                 self._retire(slot, run, now)
 
-    # -- cancellation ------------------------------------------------------
+    # -- cancellation / quarantine -----------------------------------------
     def cancel_slot(self, slot: int, reason: str) -> bool:
         """Cancel the request in ``slot`` mid-flight: kill the slot on
-        the device, release its resources, and surface the run through
-        ``drain_finished`` with ``failure=reason``."""
+        the device, release its resources (paged: arena blocks at
+        correct refcounts, pending prefill job dropped), and surface the
+        run through ``drain_finished`` with ``failure=reason``."""
         run = self._slots[slot]
         if run is None:
             return False
@@ -592,16 +728,186 @@ class ContinuousBatchingEngine:
         else:
             _cancel_fn(self._state, slot)
         self._retire(slot, run, time.perf_counter())
+        self._remaining_host[slot] = 0
         return True
 
     def _abort_prefill(self, slot):
-        """Drop a pending prefill (the paged engine's chunk jobs)."""
+        """Dense admission is synchronous — nothing to abort."""
+
+    def _poison_live_slot(self):
+        """Fault action of the ``serving.poison`` site: write NaN into
+        the FIRST decoding slot's row of every floating pool tensor, in
+        place (the decode graph reads these tensors), so its next
+        log-probs trip the sentinel. Only that slot's row is touched."""
+        for slot, run in enumerate(self._slots):
+            if run is not None and slot not in self._prefill_slots:
+                for t in self.backend.caches():
+                    if t.is_floating_point():
+                        t[slot].fill_(float("nan"))
+                return slot
+        return None
 
     def _retire(self, slot, run, now):
+        """Move a finished slot to the harvest list (the paged engine
+        also releases the slot's arena blocks here)."""
         run.t_done = now
+        if self.tracer is not None:
+            self.tracer.span_end(run.request.request_id, "decode",
+                                 tokens=len(run.tokens))
         self._finished.append(run)
         self._slots[slot] = None
 
     def drain_finished(self) -> List[_SlotRun]:
         done, self._finished = self._finished, []
         return done
+
+    # -- crash-safe snapshot / restore -------------------------------------
+    def _run_meta(self, run: _SlotRun) -> dict:
+        from .resilience import request_to_meta
+        return {"request": request_to_meta(run.request),
+                "tokens": [int(t) for t in run.tokens],
+                "t_admit": run.t_admit, "t_done": run.t_done,
+                "failure": run.failure,
+                "block_ids": None if run.block_ids is None
+                else [int(b) for b in run.block_ids]}
+
+    def _run_from_meta(self, meta: dict, prompt) -> _SlotRun:
+        from .resilience import request_from_meta
+        return _SlotRun(request=request_from_meta(meta["request"], prompt),
+                        tokens=list(meta["tokens"]),
+                        t_admit=meta["t_admit"], t_done=meta["t_done"],
+                        failure=meta["failure"],
+                        block_ids=None if meta["block_ids"] is None
+                        else list(meta["block_ids"]))
+
+    def _pool_specs(self):
+        return [[list(t.shape), str(t.dtype).replace("torch.", "")]
+                for t in self.backend.caches()]
+
+    def snapshot_state(self):
+        """(meta dict, host-array dict) capturing everything needed to
+        resume every in-flight stream: the KV pool, the slot state
+        (positions, rng keys, sampling parameters — and the paged block
+        tables riding it), copied to the host, and the host
+        bookkeeping. Taken at a tick boundary; the meta schema and the
+        array names are JAX's."""
+        if self._pending_block is not None:
+            raise RuntimeError(
+                "snapshot only at a tick boundary — a dispatched decode "
+                "block is awaiting harvest (call step_block first)")
+        arrays = {}
+        for i, t in enumerate(self.backend.caches()):
+            arrays[f"cache_{i}"] = _to_host(t)
+        for k, v in self._state.items():
+            arrays[f"state_{k}"] = _to_host(v)
+        slots_meta = []
+        for i, run in enumerate(self._slots):
+            if run is None:
+                slots_meta.append(None)
+                continue
+            arrays[f"slot{i}_prompt"] = np.asarray(
+                run.request.prompt, np.int32).reshape(-1)
+            slots_meta.append(self._run_meta(run))
+        fin_meta = []
+        for j, run in enumerate(self._finished):
+            arrays[f"fin{j}_prompt"] = np.asarray(
+                run.request.prompt, np.int32).reshape(-1)
+            fin_meta.append(self._run_meta(run))
+        meta = {
+            "engine_class": type(self).__name__,
+            "num_slots": self.num_slots, "max_len": self.max_len,
+            "decode_block": self.decode_block,
+            "pool_specs": self._pool_specs(),
+            "remaining": [int(r) for r in self._remaining_host],
+            "prefill_slots": sorted(self._prefill_slots),
+            "slots": slots_meta, "finished": fin_meta,
+            "counters": {"steps": self.steps,
+                         "tokens_emitted": self.tokens_emitted,
+                         "decode_tokens": self.decode_tokens,
+                         "slot_steps": self.slot_steps,
+                         "decode_s": self.decode_s,
+                         "prefills": self.prefills,
+                         "prefill_s": self.prefill_s},
+        }
+        return meta, arrays
+
+    def restore_state(self, meta: dict, arrays: dict):
+        """Inverse of :meth:`snapshot_state`, into a freshly constructed
+        engine of the SAME configuration. Every array is validated
+        (shape and dtype) and then copied INTO the tensor it came from —
+        the pool, the slot state, the block tables — never rebound: the
+        captured graphs read those tensors, and a replay would never see
+        a rebound one."""
+        want = self._pool_specs()
+        if meta["pool_specs"] != want:
+            raise ValueError(
+                "snapshot pool_specs do not match this engine — restore "
+                "needs the same model config / slots / max_len / paging "
+                f"layout (saved {meta['pool_specs'][:2]}..., engine "
+                f"{want[:2]}...)")
+        if meta["engine_class"] != type(self).__name__:
+            raise ValueError(
+                f"snapshot was taken by {meta['engine_class']}, this "
+                f"engine is {type(self).__name__} (dense/paged mismatch)")
+        pairs = [(f"cache_{i}", t)
+                 for i, t in enumerate(self.backend.caches())]
+        pairs += [(f"state_{k}", v) for k, v in self._state.items()]
+        for name, t in pairs:
+            a = arrays[name]
+            if tuple(a.shape) != tuple(t.shape) or a.dtype != _host_dtype(t):
+                raise ValueError(
+                    f"snapshot array {name} is {a.dtype}{list(a.shape)}, "
+                    f"this engine holds {_host_dtype(t)}{list(t.shape)} "
+                    "(a snapshot restores into the package and engine "
+                    "configuration that wrote it)")
+        self.reset()
+        for name, t in pairs:
+            _from_host(t, arrays[name])
+        self._slots = [
+            None if m is None
+            else self._run_from_meta(m, arrays[f"slot{i}_prompt"])
+            for i, m in enumerate(meta["slots"])]
+        self._finished = [
+            self._run_from_meta(m, arrays[f"fin{j}_prompt"])
+            for j, m in enumerate(meta["finished"])]
+        self._prefill_slots = set(meta["prefill_slots"])
+        self._remaining_host = np.asarray(meta["remaining"], np.int64)
+        c = meta["counters"]
+        self.steps = c["steps"]
+        self.tokens_emitted = c["tokens_emitted"]
+        self.decode_tokens = c["decode_tokens"]
+        self.slot_steps = c["slot_steps"]
+        self.decode_s = c["decode_s"]
+        self.prefills = c["prefills"]
+        self.prefill_s = c["prefill_s"]
+
+    def snapshot(self, path: str):
+        """Write a crash-safe engine snapshot (one npz file, atomic
+        tmp+rename)."""
+        from .resilience import save_snapshot
+        meta, arrays = self.snapshot_state()
+        save_snapshot(path, {"engine": meta}, arrays)
+
+    def restore(self, path: str):
+        from .resilience import load_snapshot
+        meta, arrays = load_snapshot(path)
+        self.restore_state(meta["engine"], arrays)
+
+
+def _host_dtype(t: torch.Tensor) -> np.dtype:
+    """The numpy dtype a tensor's snapshot array has: its own, and
+    bfloat16 (which numpy lacks) as its int16 bits."""
+    return np.dtype("int16") if t.dtype == torch.bfloat16 \
+        else torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.detach().cpu().numpy()
+
+
+def _from_host(t: torch.Tensor, a: np.ndarray):
+    """Copy a snapshot array into ``t`` in place."""
+    dst = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))

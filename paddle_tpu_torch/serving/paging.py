@@ -14,7 +14,11 @@ engine: the decode block and the ``(1, prefill_chunk)`` prefill chunk,
 each captured once as a CUDA graph on the card (``graphs``).
 ``PagedEngine`` admits requests (reserving blocks, reusing prefixes),
 streams prompts in chunks paced by the scheduler's token budget, arms
-slots and releases blocks at retirement."""
+slots and releases blocks at retirement. The resilience mechanism is
+JAX's: the ``serving.allocate`` and ``serving.prefill_tick`` fault
+sites, the pool gauges and prefix counters, the poison of a victim's
+block, and snapshots that carry the manager's free list, refcounts,
+prefix index, LRU and depth maps and the pending prefill jobs."""
 from __future__ import annotations
 
 import hashlib
@@ -28,17 +32,47 @@ import torch
 
 from .. import random as prng
 from ..models.generation import decode_step_logprobs
+from ..observability import metrics as _om
+from ..observability.tracing import now_us as _trace_now
 from ..ops.decode_layer import FusedDecode
 from ..ops.paged_attention import kv_int8_error_bound
+from ..profiler import RecordEvent
+from ..utils import faults
 from ..utils.flags import env_bool, env_flag, env_int
-from .engine import (ContinuousBatchingEngine, _arm_fn, _checked_step,
-                     _refuse_unported, _SlotRun, free_slot_state,
-                     init_slot_state, run_decode_block, slot_sample_logits)
+from .engine import (_M_PREFILLS, _M_TOKENS, ContinuousBatchingEngine,
+                     _arm_fn, _checked_step, _refuse_unported, _SlotRun,
+                     free_slot_state, init_slot_state, run_decode_block,
+                     slot_sample_logits)
 from ..graphs import CapturedProgram
 
 __all__ = ["BlockManager", "PagedModelStepBackend", "PagedEngine"]
 
 TRASH_BLOCK = 0
+
+# arena metric families (JAX's names; no-ops until metrics.enable() /
+# PT_METRICS)
+_M_BLK_FREE = _om.gauge("pt_paging_blocks_free",
+                        "arena blocks on the free list")
+_M_BLK_REF = _om.gauge("pt_paging_blocks_referenced",
+                       "arena blocks held at refcount >= 1")
+_M_BLK_CACHED = _om.gauge("pt_paging_blocks_cached",
+                          "released registered blocks LRU-retained for "
+                          "prefix reuse")
+_M_PFX_LOOKUPS = _om.counter("pt_paging_prefix_lookups_total",
+                             "prefix-index lookups at admission")
+_M_PFX_HITS = _om.counter("pt_paging_prefix_hit_blocks_total",
+                          "prompt blocks served from the prefix index")
+_M_ALLOC_FAIL = _om.counter("pt_paging_allocate_failures_total",
+                            "block allocations refused (pool exhausted "
+                            "or injected fault)")
+_M_BLK_EVICT = _om.counter("pt_blockmanager_evictions_total",
+                           "registered refcount-0 blocks evicted from "
+                           "the LRU prefix cache (allocate-pressure "
+                           "or fleet watermark)")
+_M_BLK_PRESSURE = _om.gauge("pt_blockmanager_block_pressure",
+                            "fraction of the usable pool NOT on the "
+                            "free list (referenced + LRU-cached) — the "
+                            "eviction tier's control signal")
 
 
 def _sha1_chain(parent_digest: bytes, tokens: Tuple[int, ...]) -> bytes:
@@ -76,6 +110,17 @@ class BlockManager:
         self.lookups = 0
         self.hit_blocks = 0
         self.evictions = 0
+        self._note_pool()
+
+    def _note_pool(self):
+        """Refresh the pool gauges (one metrics-enabled check; called
+        from the host-side accounting paths only)."""
+        if not _om.enabled():
+            return
+        _M_BLK_FREE.set(len(self._free))
+        _M_BLK_REF.set(len(self._ref))
+        _M_BLK_CACHED.set(len(self._cached))
+        _M_BLK_PRESSURE.set(self.block_pressure())
 
     # -- capacity ----------------------------------------------------------
     def available(self) -> int:
@@ -85,6 +130,11 @@ class BlockManager:
         """Pool capacity excluding the trash block — a request needing
         more than this can never be admitted."""
         return self.num_blocks - 1
+
+    def block_pressure(self) -> float:
+        """Fraction of the usable pool not on the free list (referenced
+        and LRU-cached blocks both count)."""
+        return 1.0 - len(self._free) / self.usable_blocks()
 
     def _evict_victim(self) -> int:
         """Pick and unregister the next cached block to evict: least
@@ -100,19 +150,27 @@ class BlockManager:
         self._depth.pop(digest, None)
         self._hits.pop(best, None)
         self.evictions += 1
+        _M_BLK_EVICT.inc()
         return best
 
     def allocate(self, n: int) -> Optional[List[int]]:
         """n fresh blocks at refcount 1, evicting cached prefix blocks if
         the free list runs short; None if the pool can't cover the
-        request (the caller re-queues)."""
+        request (the caller re-queues). The ``serving.allocate`` fault
+        site simulates transient exhaustion (None, the pool
+        untouched)."""
+        if faults.should_fire("serving.allocate"):
+            _M_ALLOC_FAIL.inc()
+            return None
         if self.available() < n:
+            _M_ALLOC_FAIL.inc()
             return None
         out = []
         for _ in range(n):
             b = self._free.pop() if self._free else self._evict_victim()
             self._ref[b] = 1
             out.append(b)
+        self._note_pool()
         return out
 
     # -- prefix sharing ----------------------------------------------------
@@ -143,6 +201,9 @@ class BlockManager:
             self._acquire(b)
             self._hits[b] = self._hits.get(b, 0) + 1
         self.hit_blocks += len(blocks)
+        _M_PFX_LOOKUPS.inc()
+        _M_PFX_HITS.inc(len(blocks))
+        self._note_pool()
         return blocks
 
     def _acquire(self, block_id: int):
@@ -189,6 +250,7 @@ class BlockManager:
                     self._cached[bid] = None
                 else:
                     self._free.append(bid)
+        self._note_pool()
 
     # -- invariants --------------------------------------------------------
     def assert_consistent(self):
@@ -271,7 +333,7 @@ class PagedModelStepBackend:
         self.state = init_slot_state(num_slots, dev)
         self.state["table"] = torch.zeros((num_slots, mb), dtype=torch.int32,
                                           device=dev)       # all-trash
-        self._block_out = torch.zeros((2 * decode_block + 1, num_slots),
+        self._block_out = torch.zeros((3 * decode_block + 1, num_slots),
                                       dtype=torch.int32, device=dev)
         # the chunk's inputs in one int32 buffer, filled by one copy, as
         # named slices: ids, the table row, (start position, last real
@@ -302,9 +364,14 @@ class PagedModelStepBackend:
     def kv_bytes_per_slot(self) -> int:
         """Device bytes of KV arena per slot (codes and scales under
         the int8 arena): the shared arena over the slot count."""
-        total = sum(t.numel() * t.element_size()
-                    for layer in self.cache for t in layer)
+        total = sum(t.numel() * t.element_size() for t in self.caches())
         return total // self.num_slots
+
+    def caches(self) -> List[torch.Tensor]:
+        """The arena's tensors in the JAX cache order (each layer's k,
+        v, then the int8 arena's k and v scales): what the graphs read
+        and snapshots save."""
+        return [t for layer in self.cache for t in layer]
 
     def _step(self, tok, pos, table):
         return _checked_step(self.model, self.cache, self.fused_decode, tok,
@@ -315,7 +382,7 @@ class PagedModelStepBackend:
 
     def decode_block(self) -> torch.Tensor:
         """Run one decode block over ``state`` (in place); returns the
-        static (2 * block + 1, S) int32 output of
+        static (3 * block + 1, S) int32 output of
         :func:`~.engine.run_decode_block`, valid until the next block."""
         self.decode_program()
         return self._block_out
@@ -531,6 +598,10 @@ class PagedEngine(ContinuousBatchingEngine):
             self.manager.release(shared)
             return False
         block_ids = shared + fresh
+        if self.tracer is not None:
+            self.tracer.span_end(request.request_id, "queue_wait",
+                                 shared_blocks=len(shared),
+                                 fresh_blocks=len(fresh), resumed=False)
         table_row = np.zeros((self.max_blocks,), np.int32)
         table_row[:len(block_ids)] = block_ids
         # the JAX key schedule (generate()'s): PRNGKey(seed), split into
@@ -554,30 +625,43 @@ class PagedEngine(ContinuousBatchingEngine):
         """Advance pending prefill jobs by up to ``token_budget`` prompt
         tokens (always at least one chunk when work is pending). Jobs
         run FIFO; a finished job arms its slot, or retires at once on
-        eos / max_new_tokens == 1."""
+        eos / max_new_tokens == 1. The ``serving.prefill_tick`` fault
+        site fires BEFORE a chunk's replay: the job's cursor has not
+        moved, so a retry replays the identical chunk, and a chunk is
+        never launched twice."""
         t0 = time.perf_counter()
         spent = 0
         C = self.prefill_chunk_len
-        while self._jobs and (token_budget is None or spent == 0
-                              or spent < token_budget):
-            job = self._jobs[0]
-            L = len(job.prompt)
-            n = min(C, L - job.done)
-            ids = np.zeros((1, C), np.int32)
-            ids[0, :n] = job.prompt[job.done:job.done + n]
-            req = job.run.request
-            tok0 = self.backend.prefill_chunk(
-                ids, job.table_row, job.done, n, job.sub, req.temperature,
-                req.top_k, req.top_p)
-            job.done += n
-            spent += n
-            self.prefill_chunks += 1
-            self.prefilled_tokens += n
-            if job.done >= L:
-                self._jobs.pop(0)
-                # the one host read of a prefill, on its last chunk
-                self._finish_prefill(job, int(tok0))
-        self.prefill_s += time.perf_counter() - t0
+        try:
+            while self._jobs and (token_budget is None or spent == 0
+                                  or spent < token_budget):
+                faults.fault_point("serving.prefill_tick")
+                job = self._jobs[0]
+                L = len(job.prompt)
+                n = min(C, L - job.done)
+                ids = np.zeros((1, C), np.int32)
+                ids[0, :n] = job.prompt[job.done:job.done + n]
+                req = job.run.request
+                tr = self.tracer
+                t_chunk = _trace_now() if tr is not None else 0.0
+                with RecordEvent("serving.prefill_chunk"):
+                    tok0 = self.backend.prefill_chunk(
+                        ids, job.table_row, job.done, n, job.sub,
+                        req.temperature, req.top_k, req.top_p)
+                job.done += n
+                spent += n
+                self.prefill_chunks += 1
+                self.prefilled_tokens += n
+                _M_PREFILLS.inc()
+                if tr is not None:
+                    tr.span_at(req.request_id, "prefill_chunk", t_chunk,
+                               tokens=n, done=job.done, total=L)
+                if job.done >= L:
+                    self._jobs.pop(0)
+                    # the one host read of a prefill, on its last chunk
+                    self._finish_prefill(job, int(tok0))
+        finally:
+            self.prefill_s += time.perf_counter() - t0
         return spent
 
     def _finish_prefill(self, job: _PrefillJob, tok0: int):
@@ -586,6 +670,7 @@ class PagedEngine(ContinuousBatchingEngine):
         job.run.tokens = [tok0]
         job.run.t_admit = now               # TTFT timestamp
         self.tokens_emitted += 1
+        _M_TOKENS.inc()
         eos = req.eos_token_id
         rem0 = req.max_new_tokens - 1
         if eos is not None and tok0 == eos:
@@ -604,6 +689,9 @@ class PagedEngine(ContinuousBatchingEngine):
                 temp=req.temperature, topk=req.top_k, topp=req.top_p,
                 key=job.key, table=torch.as_tensor(
                     job.table_row, device=self.backend.device))
+        if self.tracer is not None:
+            self.tracer.span_begin(req.request_id, "decode", slot=job.slot)
+        self._remaining_host[job.slot] = rem0
 
     def _retire(self, slot, run, now):
         super()._retire(slot, run, now)
@@ -618,8 +706,127 @@ class PagedEngine(ContinuousBatchingEngine):
                 self.manager.register_prefix(
                     seq, run.block_ids,
                     n_blocks=len(seq) // self.kv_block_size)
+            if run.failure == "poisoned":
+                self._scrub_poisoned(run.block_ids)
             self.manager.release(run.block_ids)
             run.block_ids = None     # the no-double-free invariant
 
+    # -- resilience hooks --------------------------------------------------
     def _abort_prefill(self, slot):
+        """Cancel a mid-prefill request: drop its pending job; its
+        blocks release through the shared ``_retire`` path. The slot
+        never armed, so there is no device state to kill."""
         self._jobs = [j for j in self._jobs if j.slot != slot]
+
+    def _poison_live_slot(self):
+        """Paged poison (JAX's): write NaN into the arena block holding
+        the victim's position ``pos - 1``, in every floating arena
+        tensor (the int8 arena's scales included), in place. That block
+        is within the slot's attended range, so the sentinel trips on
+        the next step, and it is a fresh block owned only by this slot:
+        its index ``(pos-1)//bs >= (L-1)//bs`` lies past both the shared
+        prefix and the registered range."""
+        for slot, run in enumerate(self._slots):
+            if run is not None and slot not in self._prefill_slots:
+                L = int(np.asarray(run.request.prompt).reshape(-1)
+                        .shape[0])
+                pos = L + len(run.tokens) - 1
+                blk = run.block_ids[(pos - 1) // self.kv_block_size]
+                for t in self.backend.caches():
+                    if t.is_floating_point():
+                        t[blk].fill_(float("nan"))
+                return slot
+        return None
+
+    def _scrub_poisoned(self, block_ids):
+        """Zero the blocks a quarantined run owned alone before they go
+        back to the free list. The NaN the run held (the poison, and
+        what it wrote while its flags were in flight) lies only in these
+        blocks — unregistered, refcount 1 — but a later owner's prefill
+        chunk reads its whole table through the gathered-dense sequence,
+        whose masked columns still multiply (0 × NaN): without the scrub
+        the request that reuses the blocks is quarantined too.
+        Deliberate difference from the JAX package, which releases them
+        as they are (``ROADMAP.md`` C)."""
+        m = self.manager
+        own = [b for b in block_ids
+               if m._ref.get(b) == 1 and b not in m._digest_of]
+        if own:
+            idx = torch.tensor(own, dtype=torch.long,
+                               device=self.backend.device)
+            for t in self.backend.caches():
+                t.index_fill_(0, idx, 0)
+
+    # -- snapshot / restore ------------------------------------------------
+    def snapshot_state(self):
+        meta, arrays = super().snapshot_state()
+        m = self.manager
+        meta["manager"] = {
+            "num_blocks": m.num_blocks, "block_size": m.block_size,
+            "free": list(m._free),
+            "ref": [[int(b), int(r)] for b, r in m._ref.items()],
+            "digest_of": [[int(b), d.hex()]
+                          for b, d in m._digest_of.items()],
+            "index": [[d.hex(), int(bid), [int(t) for t in chunk]]
+                      for d, (bid, chunk) in m._index.items()],
+            "cached": [int(b) for b in m._cached],   # LRU order
+            "lookups": m.lookups, "hit_blocks": m.hit_blocks,
+            "depth": [[d.hex(), int(n)] for d, n in m._depth.items()],
+            "evictions": m.evictions,
+            "hits": [[int(b), int(h)] for b, h in m._hits.items()],
+        }
+        jobs_meta = []
+        for j, job in enumerate(self._jobs):
+            arrays[f"job{j}_prompt"] = np.asarray(job.prompt, np.int32)
+            arrays[f"job{j}_table"] = np.asarray(job.table_row, np.int32)
+            arrays[f"job{j}_key"] = job.key.cpu().numpy()
+            arrays[f"job{j}_sub"] = job.sub.cpu().numpy()
+            jobs_meta.append({"slot": job.slot, "done": job.done})
+        meta["jobs"] = jobs_meta
+        meta["paged_counters"] = {
+            "prompt_tokens": self.prompt_tokens,
+            "shared_tokens": self.shared_tokens,
+            "prefilled_tokens": self.prefilled_tokens,
+            "prefill_chunks": self.prefill_chunks}
+        return meta, arrays
+
+    def restore_state(self, meta, arrays):
+        super().restore_state(meta, arrays)
+        mm = meta["manager"]
+        m = self.manager
+        if (mm["num_blocks"], mm["block_size"]) != (m.num_blocks,
+                                                   m.block_size):
+            raise ValueError(
+                f"snapshot arena {mm['num_blocks']}x{mm['block_size']} "
+                f"does not match this engine's "
+                f"{m.num_blocks}x{m.block_size}")
+        m._free = list(mm["free"])
+        m._ref = {int(b): int(r) for b, r in mm["ref"]}
+        m._digest_of = {int(b): bytes.fromhex(d)
+                        for b, d in mm["digest_of"]}
+        m._index = {bytes.fromhex(d): (int(bid), tuple(chunk))
+                    for d, bid, chunk in mm["index"]}
+        m._cached = OrderedDict((int(b), None) for b in mm["cached"])
+        m.lookups, m.hit_blocks = mm["lookups"], mm["hit_blocks"]
+        m._depth = {bytes.fromhex(d): int(n) for d, n in mm["depth"]
+                    if bytes.fromhex(d) in m._index}
+        m.evictions = int(mm["evictions"])
+        m._hits = {int(b): int(h) for b, h in mm["hits"]
+                   if int(b) in m._digest_of}
+        m.assert_consistent()
+        m._note_pool()
+        dev = self.backend.device
+        self._jobs = []
+        for j, jm in enumerate(meta["jobs"]):
+            self._jobs.append(_PrefillJob(
+                run=self._slots[jm["slot"]], slot=jm["slot"],
+                prompt=np.asarray(arrays[f"job{j}_prompt"], np.int32),
+                done=jm["done"],
+                table_row=np.asarray(arrays[f"job{j}_table"], np.int32),
+                key=torch.from_numpy(arrays[f"job{j}_key"]).to(dev),
+                sub=torch.from_numpy(arrays[f"job{j}_sub"]).to(dev)))
+        pc = meta["paged_counters"]
+        self.prompt_tokens = pc["prompt_tokens"]
+        self.shared_tokens = pc["shared_tokens"]
+        self.prefilled_tokens = pc["prefilled_tokens"]
+        self.prefill_chunks = pc["prefill_chunks"]

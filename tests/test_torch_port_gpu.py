@@ -2032,3 +2032,85 @@ def test_capture_after_an_eager_moe_backward(dev):
         assert torch.equal(a, b)
     for p, q in zip(m.parameters(), ref.parameters()):
         assert torch.equal(p, q)
+
+
+# -- serving resilience on the card --------------------------------------------
+
+def _resilience_engine(gpu, dev, kind):
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    if kind == "dense":
+        return ContinuousBatchingEngine(gpu, num_slots=2, max_len=64,
+                                        decode_block=4,
+                                        prompt_buckets=(8, 16, 32),
+                                        device=dev)
+    return PagedEngine(gpu, num_slots=2, max_len=64, decode_block=4,
+                       block_size=8, prefill_chunk=8, device=dev,
+                       kv_int8=kind == "int8", megakernel=kind == "mega")
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8", "mega", "dense"])
+def test_poison_quarantines_only_its_slot_on_gpu(dev, kind):
+    """The NaN the poison writes into the static pool reaches the
+    sentinel through the card's kernels (RMSNorm, the paged decode
+    kernels, the megakernel) inside the captured block: the victim alone
+    ends "poisoned", every other stream equals the clean run, nothing
+    leaks and nothing is recaptured."""
+    from paddle_tpu_torch.serving import RequestFailure
+    from paddle_tpu_torch.utils import faults
+    _, gpu = _tiny_pair(dev)
+    eng = _resilience_engine(gpu, dev, kind)
+    reqs = _graph_reqs(4)
+    runs = []
+    for spec in (None, "serving.poison:at=3"):
+        eng.reset()
+        srv = Server(eng)
+        rids = [srv.submit(p, **r) for p, r in reqs]
+        with faults.injected(spec or ""):
+            res = srv.run_until_idle()
+        runs.append([res[r] for r in rids])
+    clean, got = runs
+    fails = [i for i, v in enumerate(got) if isinstance(v, RequestFailure)]
+    assert len(fails) == 1 and got[fails[0]].reason == "poisoned"
+    for i, (v, w) in enumerate(zip(got, clean)):
+        if i not in fails:
+            np.testing.assert_array_equal(v, w)
+    assert eng.decode_compile_count() == 1
+    if kind != "dense":
+        eng.manager.assert_consistent()
+        assert not eng.manager._ref
+
+
+@pytest.mark.parametrize("kind", ["fp32", "dense"])
+def test_restore_copies_into_the_captured_graphs(dev, kind, tmp_path):
+    """Kill mid-stream, snapshot, restore into a freshly built engine on
+    the card: the state lands IN the tensors its graphs captured (their
+    addresses unchanged), so the replayed blocks finish every stream as
+    the uninterrupted run did, with one capture per program."""
+    _, gpu = _tiny_pair(dev)
+    reqs = _graph_reqs(5)
+    eng = _resilience_engine(gpu, dev, kind)
+    srv = Server(eng, Scheduler(prefill_token_budget=8))
+    rids = [srv.submit(p, **r) for p, r in reqs]
+    want = srv.run_until_idle()
+    eng.reset()
+    srv = Server(eng, Scheduler(prefill_token_budget=8))
+    for p, r in reqs:
+        srv.submit(p, **r)
+    for _ in range(40):              # kill with a stream decoding and
+        srv.run_until_idle(max_ticks=1)   # another one waiting
+        if eng.has_decoding() and (getattr(eng, "_jobs", None)
+                                   or srv.scheduler.pending()):
+            break
+    assert eng.has_decoding()
+    path = str(tmp_path / "snap.npz")
+    srv.snapshot(path)
+    fresh = _resilience_engine(gpu, dev, kind)
+    ptrs = [t.data_ptr() for t in fresh.backend.caches()] + \
+        [t.data_ptr() for t in fresh._state.values()]
+    srv2 = Server.restore(path, fresh, Scheduler(prefill_token_budget=8))
+    assert ptrs == [t.data_ptr() for t in fresh.backend.caches()] + \
+        [t.data_ptr() for t in fresh._state.values()]
+    got = srv2.run_until_idle()
+    for r in rids:
+        np.testing.assert_array_equal(got[r], want[r])
+    assert fresh.decode_compile_count() == 1

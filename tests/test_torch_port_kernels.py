@@ -162,8 +162,8 @@ class TestDeviceAndImportRules:
 
     def test_import_builds_nothing_and_loads_no_jax(self):
         """A fresh interpreter imports every module of the port: no
-        kernel is built or loaded, and neither jax nor paddle_tpu is
-        imported."""
+        kernel or native library is built or loaded, and neither jax nor
+        paddle_tpu is imported."""
         code = (
             "import sys\n"
             "import paddle_tpu_torch, paddle_tpu_torch.convert\n"
@@ -177,8 +177,16 @@ class TestDeviceAndImportRules:
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.amp\n"
             "import paddle_tpu_torch.jit\n"
             "import paddle_tpu_torch.random, paddle_tpu_torch.utils.flags\n"
+            "import paddle_tpu_torch.utils.faults\n"
+            "import paddle_tpu_torch.observability\n"
+            "import paddle_tpu_torch.profiler\n"
+            "import paddle_tpu_torch.serving.resilience\n"
+            "import paddle_tpu_torch.distributed.checkpoint\n"
+            "import paddle_tpu_torch.core.native_api\n"
+            "from paddle_tpu_torch import core\n"
             "from paddle_tpu_torch.ops import build\n"
             "assert not build._loaded, build._loaded\n"
+            "assert not core._libs, core._libs\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')]\n"

@@ -38,10 +38,12 @@ def _megakernel_tol(d, ff):
 # -- the megakernel's products -----------------------------------------------
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> TF32 rounded to nearest, ties away from zero, on the bits
-    (the kernel's ``tf32``: add 0x1000, clear the 13 low bits)."""
+    """fp32 -> TF32 rounded to nearest, ties away from zero (the
+    kernel's ``tf32``, ``cvt.rna.tf32.f32``): on the bits, add 0x1000 and
+    clear the 13 low bits; a NaN stays a NaN."""
     bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(x), x, r)
 
 
 def _emulated_product(x, w, kslice, terms=3):
