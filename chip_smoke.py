@@ -131,10 +131,11 @@ Phases, each of which raises on failure (nothing is caught):
    (size=2)`` (pinned staging, copies on a copy stream) into the
    captured step: the 8 losses bit-equal to the same batches fed
    directly to a second model's captured step, over 2 epochs, exact
-   launch counts; then a third epoch times its steps 2-4 (host clock,
-   unprofiled, the batch's fetch included) against steps of the same
-   graph fed a batch already on the card: the idle the loader adds must
-   stay within 2 points. The profiled idle shares of a loader-fed step
+   launch counts; then three more epochs time their steps 2-4 (host
+   clock, unprofiled, the batch's fetch included), each followed by a
+   step of the same graph fed a batch already on the card: the idle the
+   loader adds, from the medians of the 9 steps of each side, must stay
+   within 2 points. The profiled idle shares of a loader-fed step
    in each of the first two epochs are printed beside phase 7's (in the
    first its pinned staging block is new: the capture emptied the host
    allocator's cache).
@@ -177,6 +178,32 @@ Phases, each of which raises on failure (nothing is caught):
    and step counters equal ``Server.stats()``, the streams equal the
    disarmed run's; tokens/s armed and disarmed are printed, not gated.
    The phase prints its seconds.
+12. The decode features (run after phase 11, on phase 3's 7B model
+   before it is freed). (a) The weight-only product kernel
+   (``csrc/weight_only_gemm.cu``) against its plain version
+   (``dequantize_array`` + ``F.linear``) at every product of a 7B decode
+   step (4096->4096, 4096->11008, 11008->4096, 4096->32000), int8 per
+   channel and int4 with group 128, at 1, 8, 32 (the prefill chunk) and
+   40 (the verify step) rows, each within the summation-order bound and
+   timed beside its bound; the plain version and
+   ``torch._weight_int8pack_mm`` (if the build takes fp32 activations)
+   at 8 rows. On phase 3's engine shape: (c) ``spec=SpecConfig(k=4)``
+   on the paged and the dense engine serve phase 3's 12 requests and 3
+   repetitive prompts: greedy streams token-identical to phase 3's (and
+   to a plain paged engine's), one verify capture, exact launches,
+   acceptance rate, tokens a verify step and verify-step ms printed; (d)
+   a ``Frontend`` over the plain paged engine, tenants a and b weighted
+   2:1, 10 low-priority streams and one priority-5 arrival: exactly one
+   preemption and one resume, every stream identical to the unpreempted
+   run and delivered whole through its callback; (b) ``quant="int8"``
+   and ``QuantConfig("int4", group_size=128)`` paged engines serve the
+   12 requests with exact launches (weight-only 7L + 1 per decode step
+   and chunk, paged decode L per step), one capture per program, decode
+   step ms, weight bytes a step, the error bound and peak memory
+   printed; last, the model's linear weights are overwritten with each
+   engine's dequantized codes and the plain engine's greedy streams
+   must equal the quantized engine's (the dequant twin). The phase
+   prints its seconds.
 
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -1998,7 +2025,7 @@ def _llama_per_step(L, n_tensors):
             "rope": 2 * L, "adamw": n_tensors, "xent_fwd": 0,
             "xent_bwd": 0, "moe_gather": 0, "rms_norm_residual": 0,
             "decode_layer": 0, "decode_layer_int8": 0,
-            "rms_norm_bwd": 2 * L + 1}
+            "rms_norm_bwd": 2 * L + 1, "weight_only_gemm": 0}
 
 
 def train_path(torch, card):
@@ -2128,19 +2155,21 @@ def io_path(torch, card, idle7):
         raise AssertionError(f"io launch counts {counts}, expected {want}")
     # the loader's cost to the step, unprofiled (the profiler's
     # instrumentation of a graph launch moves the idle share it reports
-    # by several points from launch to launch): a third epoch's steps 2-4
-    # (step 1 forks the workers) against the same graph fed a batch that
-    # is on the card already, each step ending in its loss read
+    # by several points from launch to launch): three more epochs' steps
+    # 2-4 (step 1 forks the workers), each followed by a step of the same
+    # graph fed a batch that is on the card already, so host noise hits
+    # both sides alike; each step ends in its loss read, and each side's
+    # figure is the median of its 9 steps
     walls = {"loader": [], "direct": []}
-    batches = io.device_prefetch(loader, size=2)
-    step(tuple(next(batches)))
-    for _ in range(n_seq // B - 1):
-        walls["loader"].append(
-            _step_wall(torch, step, lambda: tuple(next(batches))))
     on_card = (torch.from_numpy(ids[:B]).cuda(),
                torch.from_numpy(labels[:B]).cuda())
     for _ in range(3):
-        walls["direct"].append(_step_wall(torch, step, lambda: on_card))
+        batches = io.device_prefetch(loader, size=2)
+        step(tuple(next(batches)))
+        for _ in range(n_seq // B - 1):
+            walls["loader"].append(
+                _step_wall(torch, step, lambda: tuple(next(batches))))
+            walls["direct"].append(_step_wall(torch, step, lambda: on_card))
     del step, model, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -2165,11 +2194,12 @@ def io_path(torch, card, idle7):
 
     med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
     added = 1 - med["direct"] / med["loader"]
-    print(f"[{card}] io step walls ms, loader-fed (epoch 3, steps 2-4): "
-          f"{', '.join(f'{1e3 * x:.3f}' for x in walls['loader'])}; fed "
-          f"from the card: {', '.join(f'{1e3 * x:.3f}' for x in walls['direct'])}"
-          f"; idle added by the loader {100 * added:.2f} points (gate: "
-          f"within 2). Profiled idle: loader-fed {pct(idle[1])} (epoch "
+    print(f"[{card}] io step walls ms, loader-fed (epochs 3-5, steps "
+          f"2-4): {', '.join(f'{1e3 * x:.3f}' for x in walls['loader'])}; "
+          f"fed from the card, interleaved: "
+          f"{', '.join(f'{1e3 * x:.3f}' for x in walls['direct'])}"
+          f"; idle added by the loader (medians of 9) {100 * added:.2f} "
+          f"points (gate: within 2). Profiled idle: loader-fed {pct(idle[1])} (epoch "
           f"2), {pct(idle[0])} (epoch 1, its pinned block new); phase "
           f"7's {pct(idle7)}")
     if added > 0.02:
@@ -2488,7 +2518,8 @@ def ernie_moe_path(torch, card):
                 "flash_attention_bwd_dkv": L, "rope": 0,
                 "adamw": n_tensors, "xent_fwd": 1, "xent_bwd": 1,
                 "moe_gather": 5 * n_moe, "rms_norm_residual": 0,
-                "decode_layer": 0, "decode_layer_int8": 0, "rms_norm_bwd": 0}
+                "decode_layer": 0, "decode_layer_int8": 0, "rms_norm_bwd": 0,
+                "weight_only_gemm": 0}
     torch.cuda.reset_peak_memory_stats()
     warm, timed = 2, 8
     ops.reset_launch_counts()
@@ -3822,6 +3853,352 @@ def _res_fp32_extra(torch, card, engine, reqs, clean, tmp, totals, st0):
           f"{st0['tokens_per_sec']:.1f} (not gated)")
 
 
+# -- phase 12: the decode features (weight-only quant, spec, front door) -----
+
+# the weight-only products of one Llama-2-7B decode step: (in, out)
+_WO_PRODUCTS = {"4096x4096": (4096, 4096), "4096x11008": (4096, 11008),
+                "11008x4096": (11008, 4096), "4096x32000": (4096, 32000)}
+# decode at 1 and 8 slots, the prefill chunk (32 rows), the verify step
+# at 8 slots x (k + 1) = 40 rows
+_WO_ROWS = (1, 8, 32, 40)
+
+
+def _wo_tolerance(torch, x, w):
+    """Per element: the kernel and the plain version compute the same
+    weights (a product, then a true division) and sum the same K terms
+    in other orders; any order lies within K u sum|x w| of the exact sum
+    (u = 2^-24), so the two within twice that."""
+    k = x.shape[-1]
+    return 2 * k * 2.0 ** -24 * torch.nn.functional.linear(x.abs(), w.abs())
+
+
+def check_weight_only(torch, results):
+    """Phase 12 (a): the weight-only kernel against its plain version at
+    every product of a 7B decode step, int8 per channel and int4 with
+    group 128, at every row count the phase's engines give it; the
+    kernel timed at each, the plain version and the library call at 8
+    rows. Fills ``results`` with the kernels line's keys (the main row:
+    int8, 4096 -> 4096, 8 rows) and every shape under ``shapes``."""
+    from paddle_tpu_torch.nn.quant import dequantize_array, quantize_array
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.weight_only import (weight_only_bytes,
+                                                  weight_only_matmul)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    shapes, worst = [], 0.0
+    for cfg_name, bits, group in (("int8", 8, -1), ("int4g128", 4, 128)):
+        for pname, (k, n) in _WO_PRODUCTS.items():
+            w = 0.02 * torch.randn(n, k, generator=g, device="cuda")
+            codes, scales = quantize_array(w, bits, group)
+            del w
+            wd = dequantize_array(codes, scales, bits, in_features=k)
+            for m in _WO_ROWS:
+                x = torch.randn(m, k, generator=g, device="cuda")
+                got = weight_only_matmul(x, codes, scales, bits, k)
+                with plain_versions():
+                    want = weight_only_matmul(x, codes, scales, bits, k)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                tol = _wo_tolerance(torch, x, wd)
+                if not bool((err <= tol).all()):
+                    raise AssertionError(
+                        f"weight_only {cfg_name} {pname} m={m}: error "
+                        f"{float(err.max()):.3e} over the summation bound")
+                share = float((err / tol.clamp_min(1e-30)).max())
+                worst = max(worst, share)
+                ms = _time_ms(lambda: weight_only_matmul(x, codes, scales,
+                                                         bits, k))
+                bound, by = _bound_ms(weight_only_bytes(x.shape, codes,
+                                                        scales, x.dtype),
+                                      2.0 * m * n * k, FP32_FLOPS)
+                row = dict(config=cfg_name, product=pname, rows=m,
+                           ms=round(ms, 5), bound_ms=round(bound, 5),
+                           bound_by=by, share_of_bound=round(bound / ms, 3),
+                           max_abs_err=float(err.max()))
+                if m == 8:
+                    with plain_versions():
+                        row["plain_ms"] = round(_time_eager(
+                            lambda: weight_only_matmul(x, codes, scales,
+                                                       bits, k), 5), 5)
+                    row["library_ms"] = _wo_library_ms(torch, x, codes,
+                                                       scales, bits)
+                shapes.append(row)
+            del codes, scales, wd
+            torch.cuda.empty_cache()
+    for r in shapes:
+        print(f"weight_only {r['config']:8s} {r['product']:11s} "
+              f"m={r['rows']:<3d} ms={r['ms']:.5f} bound={r['bound_ms']:.5f}"
+              f" ({r['bound_by']}, {r['share_of_bound']:.2f} of it) "
+              f"err={r['max_abs_err']:.2e}"
+              + (f" plain_ms={r['plain_ms']:.5f} library_ms="
+                 f"{r['library_ms']}" if "plain_ms" in r else ""))
+    print(f"weight_only: every shape within its summation bound (largest "
+          f"share {worst:.3f}; bound 2 K 2^-24 sum|x w| per element)")
+    main = next(r for r in shapes if r["config"] == "int8"
+                and r["product"] == next(iter(_WO_PRODUCTS))
+                and r["rows"] == 8)
+    results.update(ms=main["ms"], plain_ms=main["plain_ms"],
+                   bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                   library_ms=main["library_ms"],
+                   max_abs_err=max(r["max_abs_err"] for r in shapes),
+                   shapes=shapes)
+
+
+def _wo_library_ms(torch, x, codes, scales, bits):
+    """One PyTorch call computing the int8 per-channel product:
+    ``torch._weight_int8pack_mm(x, codes, scale / 127)`` with fp32
+    activations, timed if this build takes it (None otherwise, the
+    refusal printed); int4 with group 128 has no such call (None)."""
+    if bits != 8:
+        return None
+    try:
+        s = scales / 127.0
+        torch._weight_int8pack_mm(x, codes, s)
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        print(f"weight_only: torch._weight_int8pack_mm refuses fp32 "
+              f"activations on this build: {str(e).splitlines()[0][:160]}")
+        return None
+    return round(_time_ms(lambda: torch._weight_int8pack_mm(x, codes, s)),
+                 5)
+
+
+def _features_engine(torch, model, label, **kw):
+    """The phase's paged engine shape (phase 3's) with ``kw``; prints
+    its build seconds."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(model, num_slots=8, max_len=1024,
+                                   decode_block=8, paged=True,
+                                   block_size=16, prefill_chunk=32,
+                                   device="cuda", **kw)
+    torch.cuda.synchronize()
+    print(f"phase 12 {label} engine built (programs captured) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return eng
+
+
+def _features_serve(torch, engine, reqs, totals, scheduler=None):
+    """Serve (prompt, max_new, sampling kwargs, arrival) requests through
+    a fresh Server on the reset engine, launch counts zeroed just before
+    and read just after (added to ``totals``). Returns (rows, counts,
+    server)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import Scheduler, Server
+    engine.reset()
+    srv = Server(engine, scheduler or Scheduler(prefill_token_budget=256))
+    rids = [srv.submit(p, max_new_tokens=mn, arrival_step=arr, **kw)
+            for p, mn, kw, arr in reqs]
+    ops.reset_launch_counts()
+    res = srv.run_until_idle()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+    return [res[r] for r in rids], counts, srv
+
+
+def _repetitive_requests(rng, vocab):
+    """Three prompts whose greedy continuations the drafter can predict:
+    a 64-token run of one token, a 12-token phrase repeated 8 times, and
+    a 16-token phrase repeated 4 times; 64 new tokens each."""
+    import numpy as np
+    run = [rng.randint(0, vocab)] * 64
+    phrase = list(rng.randint(0, vocab, (12,))) * 8
+    short = list(rng.randint(0, vocab, (16,))) * 4
+    return [(np.asarray(p, np.int32), 64, {}, 0)
+            for p in (run, phrase, short)]
+
+
+def _same_greedy(label, reqs, got, want):
+    """``got[i]`` equals ``want[i]`` for every greedy request i in
+    ``want`` (a dict); returns the count compared."""
+    import numpy as np
+    bad = [i for i in want if not np.array_equal(got[i], want[i])]
+    if bad:
+        raise AssertionError(f"{label}: greedy streams {bad} differ")
+    return len(want)
+
+
+def decode_features_path(torch, card, model, ref):
+    """Phase 12 (see the module docstring): (a) the weight-only kernel,
+    then on phase 3's model and engine shape (c) the speculative
+    engines, (d) the front door with preemption over a plain paged
+    engine, and last (b) the quantized engines, whose dequant-twin check
+    overwrites the model's linear weights with the dequantized codes (the
+    model is freed after the phase). Returns (the kernel's row, the
+    launch counts of every served run)."""
+    import gc
+    import numpy as np
+    from paddle_tpu_torch.nn.quant import dequantize_array
+    from paddle_tpu_torch.serving import (Frontend, QuantConfig,
+                                          SpecConfig, TenantConfig,
+                                          WeightOnlyLinear)
+    t_phase = time.perf_counter()
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    row = {}
+    check_weight_only(torch, row)
+    print(f"phase 12 (a) took {time.perf_counter() - t_phase:.1f} s")
+    reqs = _prompts(np.random.RandomState(0), cfg.vocab_size)
+    greedy = ref["greedy"]                    # phase 3's greedy streams
+    rep = _repetitive_requests(np.random.RandomState(12), cfg.vocab_size)
+    totals = {}
+    plain = _features_engine(torch, model, "plain fp32")
+    rep_want, _, _ = _features_serve(torch, plain, rep, totals)
+
+    # (c) speculative decoding, dense and paged, k = 4
+    for kind in ("paged", "dense"):
+        t0 = time.perf_counter()
+        if kind == "paged":
+            eng = _features_engine(torch, model, "spec paged",
+                                   spec=SpecConfig(k=4))
+        else:
+            from paddle_tpu_torch.serving import ContinuousBatchingEngine
+            eng = ContinuousBatchingEngine(
+                model, num_slots=8, max_len=1024, decode_block=8,
+                prompt_buckets=(64, 128, 256, 512), spec=SpecConfig(k=4),
+                device="cuda")
+        got, counts, srv = _features_serve(torch, eng, reqs + rep, totals)
+        n = _same_greedy(f"spec {kind}", reqs, got, greedy)
+        for i, w in enumerate(rep_want):
+            if not np.array_equal(got[len(reqs) + i], w):
+                raise AssertionError(f"spec {kind}: repetitive stream {i} "
+                                     "differs from the plain engine's")
+        prefills = eng.prefill_chunks if kind == "paged" else eng.prefills
+        want = {"rms_norm": (2 * L + 1) * (eng.verify_steps + prefills),
+                "paged_attention_decode": 0, "weight_only_gemm": 0}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"spec {kind} launches {counts}, expected "
+                                 f"{want}")
+        if eng.decode_compile_count() != 1 or eng.draft_accepted <= 0:
+            raise AssertionError(f"spec {kind}: {eng.decode_compile_count()}"
+                                 f" verify captures, {eng.draft_accepted} "
+                                 "drafts accepted")
+        st = srv.stats()
+        prog = eng.backend.decode_program
+        emitted = eng.decode_tokens
+        print(f"[{card}] phase 12 (c) spec {kind} k=4: {n} greedy streams "
+              f"identical to phase 3's and 3 repetitive ones to the plain "
+              f"engine's; one verify capture ({prog.capture_s:.3f} s, pool "
+              f"{prog.graph_bytes / 2**20:.1f} MiB); acceptance_rate="
+              f"{eng.acceptance_rate():.4f} ({eng.draft_accepted}/"
+              f"{eng.draft_proposed}), tokens a verify step "
+              f"{eng.decode_tokens / eng.verify_steps:.3f} over the 8 "
+              f"slots, {emitted / max(emitted - eng.draft_accepted, 1):.3f}"
+              f" a live slot, "
+              f"verify_step_ms={st['decode_step_ms']:.3f} "
+              f"({eng.verify_steps} steps), decode_tokens_per_s="
+              f"{st['decode_tokens_per_sec']:.1f} (phase 3's plain "
+              f"{ref['stats']['decode_tokens_per_sec']:.1f}); took "
+              f"{time.perf_counter() - t0:.1f} s")
+        del eng, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) the front door over the plain paged engine: tenants a and b
+    # (weights 2:1), 10 low-priority streams fill the 8 slots, then a
+    # high-priority arrival preempts one
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(13)
+    low = [(rng.randint(0, cfg.vocab_size, (int(rng.randint(64, 257)),))
+            .astype(np.int32), 48, {}, 0) for _ in range(10)]
+    high = (rng.randint(0, cfg.vocab_size, (96,)).astype(np.int32), 32, {}, 0)
+    want, _, _ = _features_serve(torch, plain, low + [high], totals)
+    from paddle_tpu_torch import ops
+    plain.reset()
+    fe = Frontend(plain, tenants={"a": TenantConfig(weight=2.0),
+                                  "b": TenantConfig(weight=1.0)},
+                  preemption=True)
+    delivered = {}
+    streams = []
+    ops.reset_launch_counts()
+    for i, (p, mn, _, _) in enumerate(low):
+        got_i = delivered.setdefault(i, [])
+        streams.append(fe.submit(p, max_new_tokens=mn, tenant="ab"[i % 2],
+                                 on_token=got_i.append))
+    for _ in range(3):
+        fe.pump()
+    got_hi = delivered.setdefault(len(low), [])
+    streams.append(fe.submit(high[0], max_new_tokens=high[1], tenant="a",
+                             priority=5, on_token=got_hi.append))
+    res = fe.run_until_idle()
+    torch.cuda.synchronize()
+    for name, n in ops.launch_counts().items():
+        totals[name] = totals.get(name, 0) + n
+    st = fe.stats()
+    for i, (s, w) in enumerate(zip(streams, want)):
+        p_len = len((low + [high])[i][0])
+        if not np.array_equal(res[s.request_id], w):
+            raise AssertionError(f"front door: stream {i} differs from the "
+                                 "unpreempted run")
+        if delivered[i] != [int(t) for t in w[p_len:]] or not s.done:
+            raise AssertionError(f"front door: stream {i} delivered "
+                                 f"{len(delivered[i])} of {len(w) - p_len}")
+    if (st["preemptions"], st["resumes"]) != (1, 1):
+        raise AssertionError(f"front door: {st['preemptions']} preemptions, "
+                             f"{st['resumes']} resumes (expected 1 and 1)")
+    plain.manager.assert_consistent()
+    if plain.manager._ref or plain.decode_compile_count() != 1:
+        raise AssertionError("front door: blocks leaked or a recapture")
+    print(f"[{card}] phase 12 (d) front door (tenants a:b = 2:1, 10 "
+          f"low-priority streams, one priority-5 arrival): "
+          f"{st['preemptions']} preemption, {st['resumes']} resume, every "
+          f"stream identical to the unpreempted run and delivered whole "
+          f"({sum(len(v) for v in delivered.values())} tokens); streamed "
+          f"per tenant {st['tenant_stream_tokens']}; ttft_p95_s="
+          f"{st['ttft_p95_s']:.4f}; took {time.perf_counter() - t0:.1f} s")
+
+    # (b) quantized paged engines, then their dequant twins
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fp32_w = plain.decode_bytes_per_step()["weights"]
+    quant_runs = []
+    for label, q in (("int8", "int8"),
+                     ("int4 g128", QuantConfig("int4", group_size=128))):
+        eng = _features_engine(torch, model, f"quant {label}", quant=q)
+        got, counts, srv = _features_serve(torch, eng, reqs, totals)
+        _check_launches(eng, counts, "paged_attention_decode")
+        n_wo = (7 * L + 1) * (eng.steps + eng.prefill_chunks)
+        if counts["weight_only_gemm"] != n_wo:
+            raise AssertionError(f"quant {label}: weight_only_gemm "
+                                 f"{counts['weight_only_gemm']}, expected "
+                                 f"{n_wo}")
+        _check_graphs(eng, f"phase 12 quant {label} ")
+        st = srv.stats()
+        wb = eng.decode_bytes_per_step()["weights"]
+        print(f"[{card}] phase 12 (b) quant {label}: decode_step_ms="
+              f"{st['decode_step_ms']:.3f} (phase 3's fp32 "
+              f"{ref['stats']['decode_step_ms']:.3f}; PERF.md 23.4-24.1), "
+              f"decode_tokens_per_s={st['decode_tokens_per_sec']:.1f}, "
+              f"weight bytes a step {wb} ({wb / 1e9:.3f} GB; fp32 "
+              f"{fp32_w / 1e9:.3f} GB), weight_error_bound="
+              f"{eng.weight_error_bound():.6e}, launches exact "
+              f"(weight_only_gemm {n_wo} = {7 * L + 1} x ({eng.steps} steps "
+              f"+ {eng.prefill_chunks} chunks))")
+        quant_runs.append((label, eng, got))
+    print(f"phase 12 (b) peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB (the fp32 model, both quantized copies and three arenas)")
+    with torch.no_grad():
+        for label, eng, got in reversed(quant_runs):
+            for name, mod in eng.backend.model.named_modules():
+                if isinstance(mod, WeightOnlyLinear):
+                    model.get_submodule(name).weight.copy_(dequantize_array(
+                        mod.codes, mod.scales, mod.bits,
+                        in_features=mod.in_features))
+            twin, _, _ = _features_serve(torch, plain, reqs, totals)
+            k = _same_greedy(f"quant {label} vs its dequant twin", reqs, got,
+                             {i: twin[i] for i in greedy})
+            print(f"phase 12 (b) quant {label}: {k} greedy streams identical "
+                  f"to the fp32 engine over the dequantized weights")
+    print(f"phase 12 (b) took {time.perf_counter() - t0:.1f} s")
+    del quant_runs, eng, srv, plain, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 (decode features) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return row, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3831,6 +4208,7 @@ def main() -> int:
     from paddle_tpu_torch.ops import build
     from tools.port_train_bench import card_line
 
+    t_script = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3888,6 +4266,8 @@ def main() -> int:
     del dense_engine
     torch.cuda.empty_cache()
     resilience = serving_resilience_path(torch, card, model)
+    torch.cuda.empty_cache()
+    wo, features = decode_features_path(torch, card, model, ref)
     del model
     torch.cuda.empty_cache()
     print(f"after the serving paths: "
@@ -3902,7 +4282,7 @@ def main() -> int:
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, resilience_serving=resilience,
-                 training=train, ernie_moe_training=ernie,
+                 decode_features=features, training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
@@ -3960,6 +4340,11 @@ def main() -> int:
              source=src + "decode_layer.cu",
              replaces="paddle_tpu/ops/pallas/decode_layer.py:278",
              launches=counts["decode_layer_int8"], **mega8),
+        # no pallas_call: XLA fuses dequantize_array into the GEMM there
+        dict(name="weight_only_gemm", route="cuda",
+             source=src + "weight_only_gemm.cu",
+             replaces="paddle_tpu/serving/quant.py:169",
+             launches=counts["weight_only_gemm"], **wo),
     ]
     for k in kernels:
         if k["name"] in heads:      # the same keys at phase 9's shapes
@@ -3968,6 +4353,7 @@ def main() -> int:
     unused = [k["name"] for k in kernels if not k["launches"] > 0]
     if unused:
         raise AssertionError(f"kernels no path launched: {unused}")
+    print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

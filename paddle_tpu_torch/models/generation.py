@@ -9,7 +9,8 @@ Counterpart of ``paddle_tpu/models/generation.py``:
   (the paged engine), each read through the causal, pad and
   sliding-window mask;
 - ``sample_logits``, the pure step of ``build_decode_step`` (sampled or
-  log-prob head, with ``last_index`` for right-padded prefill chunks);
+  log-prob head, with ``last_index`` for right-padded prefill chunks,
+  and the all-positions head of the speculative verify step);
 - ``GenerationMixin.generate`` with greedy, sampled and beam decoding
   and left-padded ragged prompts.
 
@@ -118,17 +119,27 @@ def _rotate(q, k, cos, sin, pos, pad):
 
 def _write_dense(cache, k, v, pos):
     """k/v (b, s, kvh, d) into the dense (b, T, kvh, d) cache, in place:
-    per row at ``pos`` (b,) for s = 1, its start clamped into the cache
-    as ``dynamic_update_slice`` clamps it; or at one position for the
-    batch, clamped to [0, T - s]."""
+    per row at ``pos`` (b,) — for s = 1 its start clamped into the cache
+    as ``dynamic_update_slice`` clamps it; for s > 1 (the speculative
+    verify window) at ``pos .. pos + s - 1`` with the columns past the
+    cache dropped, as JAX's scatter drops them (a clamp would move them
+    back over valid entries) — or at one position for the batch,
+    clamped to [0, T - s]."""
     kc, vc = cache
     b, s = k.shape[:2]
     T = kc.shape[1]
-    if _per_row(pos):
-        if s != 1:
-            raise NotImplementedError(
-                "a per-row write of s > 1 positions is the speculative "
-                "verify window, not ported yet (ROADMAP A.4)")
+    if _per_row(pos) and s > 1:
+        rows = torch.arange(b, device=kc.device)[:, None]
+        tpos = pos.long()[:, None] + torch.arange(s, device=kc.device)
+        keep = tpos < T
+        # a dropped column repeats column 0's write (its index and
+        # value): the scatter stays in range, takes no data-dependent
+        # shape and changes no other entry
+        idx = torch.where(keep, tpos, tpos[:, :1].clamp(max=T - 1))
+        keep = keep[..., None, None]
+        kc[rows, idx] = torch.where(keep, k, k[:, :1]).to(kc.dtype)
+        vc[rows, idx] = torch.where(keep, v, v[:, :1]).to(vc.dtype)
+    elif _per_row(pos):
         rows = torch.arange(b, device=kc.device)
         idx = pos.long().clamp(0, T - 1)
         kc[rows, idx] = k[:, 0].to(kc.dtype)
@@ -228,7 +239,7 @@ def cached_attention(q, k, v, k_cache, v_cache, pos, *, scale, cos, sin,
 @torch.inference_mode()
 def decode_step(model, ids, cache, pos, *, block_table=None, pad=None,
                 last_index=None, key=None, sample_kwargs=None,
-                fused_decode=None) -> torch.Tensor:
+                fused_decode=None, all_positions=False) -> torch.Tensor:
     """The shared step of ``build_decode_step``: forward the (b, s)
     token block at ``pos`` (see :func:`cached_attention`) through the
     cache (updated in place) and take the last column's logits (or the
@@ -237,14 +248,20 @@ def decode_step(model, ids, cache, pos, *, block_table=None, pad=None,
     gather so that a CUDA graph can capture it) in fp32. With
     ``sample_kwargs`` (temperature, top_k, top_p) returns the (b,)
     int32 tokens drawn with ``key`` (:func:`sample_logits`); without,
-    the (b, V) log-softmax (the beam and serving head). With
-    ``fused_decode`` (``ops.decode_layer.FusedDecode``) each decode
-    layer goes through the fused decode-layer call; its counts are those
-    of this step."""
+    the (b, V) log-softmax (the beam and serving head), or with
+    ``all_positions`` the (b, s, V) log-softmax of every column (the
+    speculative verify head). With ``fused_decode``
+    (``ops.decode_layer.FusedDecode``) each decode layer goes through
+    the fused decode-layer call; its counts are those of this step."""
+    if all_positions and sample_kwargs is not None:
+        raise ValueError("all_positions=True returns raw log-probs; "
+                         "pass sample_kwargs=None")
     if fused_decode is not None:
         fused_decode.begin()
     logits = model(ids, cache=cache, pos=pos, pad=pad,
                    block_table=block_table, fused_decode=fused_decode)
+    if all_positions:
+        return torch.log_softmax(logits.float(), dim=-1)
     if last_index is None:
         lv = logits[:, -1]
     else:
@@ -259,12 +276,14 @@ def decode_step(model, ids, cache, pos, *, block_table=None, pad=None,
 
 def decode_step_logprobs(model, ids, cache, pos, block_table=None,
                          last_index=None, fused_decode=None,
-                         pad=None) -> torch.Tensor:
+                         pad=None, all_positions=False) -> torch.Tensor:
     """:func:`decode_step`'s log-prob head, the serving engines' step:
-    the fp32 (b, V) log-softmax at the last column (or ``last_index``)."""
+    the fp32 (b, V) log-softmax at the last column (or ``last_index``),
+    or (b, s, V) at every column with ``all_positions``."""
     return decode_step(model, ids, cache, pos, block_table=block_table,
                        pad=pad, last_index=last_index,
-                       fused_decode=fused_decode)
+                       fused_decode=fused_decode,
+                       all_positions=all_positions)
 
 
 class _GenerateStep:

@@ -248,6 +248,14 @@ class LlamaDecoderLayer(nn.Module):
                 and pos.dim() == 1
                 and self.self_attn.sliding_window is None)
 
+    def _plain_linears(self) -> bool:
+        """Whether the seven projections are ``nn.Linear``s (fp32 or
+        bf16 weights the fused call can read), not weight-only codes."""
+        a, m = self.self_attn, self.mlp
+        return all(isinstance(p, nn.Linear)
+                   for p in (a.q_proj, a.k_proj, a.v_proj, a.o_proj,
+                             m.gate_proj, m.up_proj, m.down_proj))
+
     def _decode_layer_weights(self):
         """The fused call's weights in ``ops.decode_layer.WEIGHT_NAMES``
         order, as ``nn.Linear`` stores them (out, in)."""
@@ -268,8 +276,12 @@ class LlamaDecoderLayer(nn.Module):
         where its kernel is not viable. Either way ``rewrites`` counts
         the layer."""
         fused.rewrites += 1
-        if block_table is None:
-            return self._decode_forward(x, cos, sin, cache, pos, None, pad)
+        if block_table is None or not self._plain_linears():
+            # the dense mode, or projections a weight-only quantized
+            # engine swapped for codes (the fused call reads fp32
+            # weights; JAX pins the unfused body under quant too)
+            return self._decode_forward(x, cos, sin, cache, pos,
+                                        block_table, pad)
         mode = "paged_int8" if len(cache) == 4 else "paged"
         wts = self._decode_layer_weights()
         if x.device.type == "cuda" and kernel_viable(mode, x, cache, wts):
@@ -451,7 +463,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         pool."""
         c = self.config
         shape = (batch, max_len, c.num_key_value_heads, c.head_dim)
-        dt = dtype or self.head_weight.dtype
+        dt = dtype or self.llama.embed_tokens.weight.dtype
         return [(torch.zeros(shape, dtype=dt, device=self.device),
                  torch.zeros(shape, dtype=dt, device=self.device))
                 for _ in range(c.num_hidden_layers)]
@@ -473,7 +485,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                      z(shape[:-1], torch.float32),
                      z(shape[:-1], torch.float32))
                     for _ in range(c.num_hidden_layers)]
-        dt = dtype or self.head_weight.dtype
+        dt = dtype or self.llama.embed_tokens.weight.dtype
         if dt not in (torch.float32, torch.bfloat16):
             raise TypeError(f"paged arenas are float32 or bfloat16, "
                             f"got {dt}")

@@ -60,6 +60,7 @@ def _wrappers():
     from .moe_dispatch import moe_gather
     from .paged_attention import (paged_attention_decode,
                                   paged_attention_decode_int8)
+    from .weight_only import weight_only_matmul
     from .xent import xent_bwd, xent_fwd
     return {"rms_norm": rms_norm,
             "paged_attention_decode": paged_attention_decode,
@@ -75,7 +76,8 @@ def _wrappers():
             "rms_norm_residual": rms_norm_residual,
             "decode_layer": decode_layer,
             "decode_layer_int8": decode_layer_int8,
-            "rms_norm_bwd": rms_norm_bwd}
+            "rms_norm_bwd": rms_norm_bwd,
+            "weight_only_gemm": weight_only_matmul}
 
 
 def reset_launch_counts():

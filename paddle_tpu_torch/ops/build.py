@@ -36,6 +36,7 @@ KERNEL_SOURCES = {
     "xent": "xent.cu",
     "moe_gather": "moe_gather.cu",
     "decode_layer": "decode_layer.cu",
+    "weight_only_gemm": "weight_only_gemm.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -27,7 +27,10 @@ replay and ``serving.harvest`` between the replay and the host read, so
 a retried harvest reads the parked static output without replaying; a
 NaN row is quarantined alone; and the whole engine state snapshots to
 host arrays and restores by copying into the tensors the captured
-graphs read."""
+graphs read. Preemption is JAX's mechanism too (``preempt_slot``,
+``can_resume``, the resume admission that re-prefills prompt and
+history); the weight-only quantized backends (``serving.quant``) and the
+speculative engines (``serving.spec``) build on these classes."""
 from __future__ import annotations
 
 import time
@@ -247,9 +250,10 @@ class ModelStepBackend:
     eagerly."""
 
     def __init__(self, model, num_slots: int, max_len: int,
-                 decode_block: int, megakernel: bool = False):
-        self.model = model
+                 decode_block: int, megakernel: bool = False, quant=None):
         self.device = dev = model.device
+        self.quant_cfg = quant
+        self.model, self.weight_bound = _serving_model(model, quant)
         self.num_slots, self.max_len = num_slots, max_len
         self.block_size = decode_block
         self.cache = model.init_kv_cache(num_slots, max_len)
@@ -267,9 +271,14 @@ class ModelStepBackend:
         self._prefills = {}        # bucket length -> (ids, program)
         self._prefill_pool = torch.cuda.graph_pool_handle() \
             if dev.type == "cuda" else None
-        self.decode_program = CapturedProgram(self._run_block, dev)
+        self.decode_program = CapturedProgram(self._decode_fn(), dev)
         self.decode_program.capture()
         self.reset_state()
+
+    def _decode_fn(self):
+        """The function the decode program captures: the decode block
+        (the speculative backends capture their verify step instead)."""
+        return self._run_block
 
     def reset_state(self):
         """Free every slot and zero the pool, in place (the JAX engine
@@ -348,6 +357,16 @@ class ModelStepBackend:
             pv[slot].copy_(rv[0])
 
 
+def _serving_model(model, quant):
+    """(the model the backend's programs run, the weight error bound):
+    the caller's model, or with a ``QuantConfig`` the backend's copy
+    whose serving linears hold codes (``serving.quant``)."""
+    if quant is None:
+        return model, 0.0
+    from .quant import quantize_backend_model
+    return quantize_backend_model(model, quant)
+
+
 @dataclass
 class _SlotRun:
     """Host bookkeeping for one in-flight request. ``t_admit`` is when
@@ -361,14 +380,22 @@ class _SlotRun:
     failure: Optional[str] = None
 
 
-def _refuse_unported(spec=None, tp=None, quant=None):
-    """The engine arguments of the JAX API whose modules are not ported
-    yet raise, naming their ROADMAP queue item."""
-    for name, value, item in (("spec", spec, "A.4"), ("quant", quant, "A.4"),
-                              ("tp", tp, "A.6")):
-        if value not in (None, False):
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP {item})")
+def _refuse_unported(tp=None):
+    """``tp=``, the engine argument of the JAX API whose module is not
+    ported yet, raises, naming its ROADMAP queue item."""
+    if tp not in (None, False):
+        raise NotImplementedError("tp= is not ported yet (ROADMAP A.6)")
+
+
+def _refuse_spec_outside_factory(engine, spec):
+    """Only the factory (``ContinuousBatchingEngine(...)``) routes
+    ``spec=`` to the speculative engines: a direct constructor of a
+    plain engine silently ignoring it would be a misconfiguration."""
+    if spec and not hasattr(engine, "spec_k"):
+        raise ValueError(
+            "spec= is only honored through the ContinuousBatchingEngine "
+            "factory (or construct serving.spec.SpecEngine/"
+            "SpecPagedEngine directly)")
 
 
 class ContinuousBatchingEngine:
@@ -389,13 +416,21 @@ class ContinuousBatchingEngine:
 
     ``paged=True`` (or ``PT_SERVING_PAGED=1`` when no backend is given)
     constructs the block-paged engine (``serving.paging.PagedEngine``)
-    instead; an explicit ``backend`` must be a ``ModelStepBackend``.
-    ``megakernel=True`` (or ``PT_SERVING_MEGAKERNEL=1``) routes every
-    decode layer through the fused decode-layer call, which the
-    dense mode never launches: :meth:`megakernel_rewrites` is the layer
-    count and :meth:`megakernel_kernel_calls` 0, as in JAX. ``spec``,
-    ``tp`` and ``quant`` are not ported yet and raise. ``device`` must
-    match the model's (default the GPU)."""
+    instead, and ``spec=`` (or ``PT_SERVING_SPEC=<k>``) the speculative
+    one (``serving.spec.SpecEngine`` / ``SpecPagedEngine``); an explicit
+    ``backend`` must be a ``ModelStepBackend`` (a speculative one routes
+    to ``SpecEngine``). ``quant=`` (or ``PT_SERVING_QUANT_WEIGHTS``)
+    serves int8/int4 weight-only quantized weights through the
+    weight-only product kernel (``serving.quant``); it is refused beside
+    an explicit backend, into which it is baked. ``megakernel=True`` (or
+    ``PT_SERVING_MEGAKERNEL=1``) routes every decode layer through the
+    fused decode-layer call, which the dense mode never launches:
+    :meth:`megakernel_rewrites` is the layer count and
+    :meth:`megakernel_kernel_calls` 0, as in JAX. ``tp`` is not ported
+    yet and raises (ROADMAP A.6). A preempted request (``resume``
+    state, ``serving.server``) re-admits through :meth:`admit`, which
+    re-prefills its prompt and history. ``device`` must match the
+    model's (default the GPU)."""
 
     def __new__(cls, *args, **kw):
         if cls is ContinuousBatchingEngine:
@@ -403,9 +438,16 @@ class ContinuousBatchingEngine:
             backend = kw.get("backend") if len(args) < 6 else args[5]
             if paged is None and backend is None:
                 paged = env_flag("PT_SERVING_PAGED")
+            from .spec import spec_requested
+            spec = spec_requested(kw.get("spec"), backend)
             if paged:
                 from .paging import PagedEngine
-                return object.__new__(PagedEngine)
+                from .spec import SpecPagedEngine
+                return object.__new__(SpecPagedEngine if spec
+                                      else PagedEngine)
+            if spec:
+                from .spec import SpecEngine
+                return object.__new__(SpecEngine)
         return object.__new__(cls)
 
     def __init__(self, model=None, num_slots: int = 4, max_len: int = 256,
@@ -414,19 +456,22 @@ class ContinuousBatchingEngine:
                  backend=None, *, paged: Optional[bool] = None, spec=None,
                  tp=None, quant=None, megakernel: Optional[bool] = None,
                  device=None):
-        _refuse_unported(spec, tp, quant)
+        _refuse_unported(tp)
+        _refuse_spec_outside_factory(self, spec)
         if backend is None:
             if model is None:
                 raise ValueError("pass a model or a step backend")
             from ..device import resolve_device
+            from .quant import resolve_quant_config
             dev = resolve_device(device)
             if model.device != dev:
                 raise ValueError(f"model is on {model.device}, engine "
                                  f"asked for {dev}")
             if megakernel is None:
                 megakernel = env_bool("PT_SERVING_MEGAKERNEL")
-            backend = ModelStepBackend(model, num_slots, max_len,
-                                       decode_block, bool(megakernel))
+            backend = self._build_backend(model, num_slots, max_len,
+                                          decode_block, bool(megakernel),
+                                          resolve_quant_config(quant))
         elif not isinstance(backend, ModelStepBackend):
             raise ValueError(
                 f"the dense engine runs a ModelStepBackend, not "
@@ -437,9 +482,21 @@ class ContinuousBatchingEngine:
                 "megakernel= cannot be set alongside an explicit "
                 "backend — the fused decode program is baked into the "
                 "backend at construction")
+        elif quant is not None:
+            # baked into the backend at construction; the env knob never
+            # reroutes an explicit backend either (it is read above only)
+            raise ValueError(
+                "quant= cannot be set alongside an explicit backend — "
+                "weight-only quantization is baked into the backend at "
+                "construction")
         self.prompt_buckets = tuple(sorted(prompt_buckets)) \
             if prompt_buckets else None
         self._init_engine(backend)
+
+    def _build_backend(self, model, num_slots, max_len, decode_block,
+                       megakernel, quant):
+        return ModelStepBackend(model, num_slots, max_len, decode_block,
+                                megakernel, quant)
 
     def _init_engine(self, backend):
         self.backend = backend
@@ -542,6 +599,28 @@ class ContinuousBatchingEngine:
                 f"({max_new_tokens}) exceeds the slot capacity "
                 f"({self.max_len}); raise max_len or shorten the request")
 
+    def kv_error_bound(self) -> float:
+        """Worst-case |dequant - fp32| over the KV cache: 0.0 on the dense
+        engine (fp32 rows); the paged engine's int8 arena overrides it."""
+        return 0.0
+
+    def weight_error_bound(self) -> float:
+        """Build-time worst-case elementwise |dequant - fp32| over the
+        weight-only quantized serving weights (half the largest
+        quantization step; 0.0 with quant off)."""
+        return float(self.backend.weight_bound)
+
+    def quant_error_bound(self) -> dict:
+        """``{"kv": ..., "weights": ...}``, each 0.0 where that half is
+        off; refreshes the ``pt_serving_{kv,weight}_error_bound``
+        gauges."""
+        kv, w = self.kv_error_bound(), self.weight_error_bound()
+        if _om.enabled():
+            from .quant import _M_KV_BOUND, _M_W_BOUND
+            _M_KV_BOUND.set(kv)
+            _M_W_BOUND.set(w)
+        return {"kv": kv, "weights": w}
+
     def decode_compile_count(self) -> int:
         """Captures of the decode block program: 1 on the card over any
         stream (one CUDA graph per engine shape), 0 on the CPU, where the
@@ -558,9 +637,11 @@ class ContinuousBatchingEngine:
     def decode_bytes_per_step(self) -> dict:
         """Estimated device bytes ONE decode step reads:
         ``{"weights": ..., "kv": ..., "total": ...}`` — every weight and
-        buffer byte plus the KV pool's resident bytes (codes and scales
-        under the int8 arena). Capacity-based, as in JAX: the paged read
-        touches only live blocks, so the kv term is an upper bound."""
+        buffer byte of the model the backend runs (codes and scales
+        under weight-only quant) plus the KV pool's resident bytes
+        (codes and scales under the int8 arena). Capacity-based, as in
+        JAX: the paged read touches only live blocks, so the kv term is
+        an upper bound."""
         if self._bytes_step is None:
             m = self.backend.model
             w = sum(t.numel() * t.element_size()
@@ -585,7 +666,12 @@ class ContinuousBatchingEngine:
         """Prefill the request's prompt (batch 1, left-padded to its
         bucket) and splice the row into a free slot. Returns True if the
         request already finished at admission (max_new_tokens == 1 or
-        eos as its first token): it then never occupies a slot."""
+        eos as its first token): it then never occupies a slot. A
+        request carrying preemption ``resume`` state re-prefills its
+        generated history instead (:meth:`_admit_resume`)."""
+        resume = getattr(request, "resume", None)
+        if resume is not None and resume.tokens:
+            return self._admit_resume(request, resume)
         prompt = np.asarray(request.prompt, np.int32).reshape(-1)
         L = int(prompt.shape[0])
         self.validate_request(L, request.max_new_tokens)
@@ -639,12 +725,127 @@ class ContinuousBatchingEngine:
         self._remaining_host[slot] = rem0
         return False
 
+    def _admit_resume(self, request, resume) -> bool:
+        """Re-admit a preempted request: re-prefill prompt + generated
+        history (the K/V the eviction dropped) into the row, splice it,
+        and arm the slot with the CARRIED stream state: ``tokens[-1]``
+        as the next token, the saved key, the remaining budget. The
+        prefill's own sample is discarded (the stream owns its next
+        token and its key must not advance), so resumed greedy and
+        seeded sampled streams equal an uninterrupted run: RoPE
+        positions are pad-corrected and masked columns contribute exact
+        zeros, as for any bucket-padded prompt."""
+        prompt = np.asarray(request.prompt, np.int32).reshape(-1)
+        toks = list(resume.tokens)
+        full = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])
+        pl = int(full.shape[0])
+        rem0 = request.max_new_tokens - len(toks)
+        self.validate_request(pl, rem0 + 1)
+        Lb = self.bucket_len(pl)
+        slot = next((i for i, s in enumerate(self._slots) if s is None),
+                    None)
+        if slot is None:
+            raise RuntimeError("no free slot (scheduler bug)")
+        tr = self.tracer
+        if tr is not None:
+            tr.span_end(request.request_id, "queue_wait", resumed=True)
+            t_prefill = _trace_now()
+        t0 = time.perf_counter()
+        ids = np.zeros((1, Lb), np.int32)
+        ids[0, Lb - pl:] = full
+        pad0 = Lb - pl
+        with RecordEvent("serving.prefill"):
+            self.backend.prefill(ids, pad0, prng.prng_key(0).to(
+                self.backend.device), 0.0, 0, 1.0)
+        if tr is not None:
+            tr.span_at(request.request_id, "prefill", t_prefill,
+                       tokens=pl, bucket=Lb, resumed=True)
+        _M_PREFILLS.inc()
+        self.prefills += 1
+        self.prefill_s += time.perf_counter() - t0
+        # t_admit carries over: TTFT keeps measuring the first admission
+        run = _SlotRun(request, tokens=toks, t_admit=resume.t_admit)
+        eos = request.eos_token_id
+        with RecordEvent("serving.admit"):
+            self.backend.splice(slot)
+            _arm_fn(self._state, slot, tok=toks[-1], pos=Lb, pad=pad0,
+                    live=True, eos=-1 if eos is None else eos,
+                    remaining=rem0, temp=request.temperature,
+                    topk=request.top_k, topp=request.top_p,
+                    key=_key_tensor(resume.key, self.backend.device))
+        if tr is not None:
+            tr.instant(request.request_id, "resume", slot=slot,
+                       reused_tokens=len(toks))
+            tr.span_begin(request.request_id, "decode", slot=slot)
+        self._slots[slot] = run
+        self._remaining_host[slot] = rem0
+        request.resume = None     # consumed; a later preemption rebuilds it
+        return False
+
     def try_admit(self, request) -> bool:
         """Admit if resources allow; False means "retry later" (the
         paged engine's block pool can run out with a slot free — the
         dense engine always admits into a free slot)."""
         self.admit(request)
         return True
+
+    # -- preemption --------------------------------------------------------
+    def can_resume(self, run: _SlotRun) -> bool:
+        """Whether a preempted ``run`` could be re-admitted: its prompt +
+        generated history must still fit the engine (dense: a prompt
+        bucket; paged: the block pool). The preemption policy asks
+        before evicting: a victim that could never come back would be a
+        silent kill, not a preemption."""
+        if not run.tokens:
+            return True          # mid-prefill: requeues as submitted
+        req = run.request
+        pl = int(np.asarray(req.prompt).reshape(-1).shape[0]) \
+            + len(run.tokens) - 1
+        try:
+            self.validate_request(pl, req.max_new_tokens
+                                  - len(run.tokens) + 1)
+        except ValueError:
+            return False
+        return True
+
+    def preempt_slot(self, slot: int):
+        """Evict the request in ``slot`` mid-flight WITHOUT failing it:
+        the slot is killed on the device as a deadline kills it, its
+        resources release (paged blocks at exact refcounts, the prefix
+        index kept, so the re-prefill is mostly cache hits), and the run
+        comes back with the slot's key so that the request can requeue
+        carrying ``ResumeState``. Returns ``(run, key)``: ``key`` (2,)
+        uint32, or None for a mid-prefill victim (nothing armed: it
+        requeues as submitted). Only at a tick boundary, like
+        snapshots."""
+        run = self._slots[slot]
+        if run is None:
+            raise RuntimeError(f"slot {slot} is empty")
+        if self._pending_block is not None:
+            raise RuntimeError(
+                "preempt only at a tick boundary — a dispatched decode "
+                "block is awaiting harvest (call step_block first)")
+        key = None
+        if slot in self._prefill_slots:
+            self._prefill_slots.discard(slot)
+            self._abort_prefill(slot)
+        else:
+            key = self._state["key"][slot].cpu().numpy().astype(np.uint32)
+            _cancel_fn(self._state, slot)
+        if self.tracer is not None:
+            rid = run.request.request_id
+            self.tracer.span_end(rid, "decode", preempted=True)
+            self.tracer.instant(rid, "preempt", slot=slot,
+                                tokens=len(run.tokens))
+        self._slots[slot] = None
+        self._remaining_host[slot] = 0
+        self._release_slot_resources(run)
+        return run, key
+
+    def _release_slot_resources(self, run: _SlotRun):
+        """Free what a preempted run held besides its slot: nothing on
+        the dense engine (its row belongs to the pool; the paged engine
+        releases the run's arena blocks)."""
 
     # -- decode ------------------------------------------------------------
     def has_pending_harvest(self) -> bool:
@@ -892,6 +1093,13 @@ class ContinuousBatchingEngine:
         from .resilience import load_snapshot
         meta, arrays = load_snapshot(path)
         self.restore_state(meta["engine"], arrays)
+
+
+def _key_tensor(key, device) -> torch.Tensor:
+    """A (2,) uint32 key (numpy, as ``ResumeState`` carries it) as the
+    slot state's (2,) int64 words on ``device``."""
+    return torch.from_numpy(np.asarray(key, np.uint32).astype(np.int64)) \
+        .to(device)
 
 
 def _host_dtype(t: torch.Tensor) -> np.dtype:

@@ -40,7 +40,8 @@ from ..profiler import RecordEvent
 from ..utils import faults
 from ..utils.flags import env_bool, env_flag, env_int
 from .engine import (_M_PREFILLS, _M_TOKENS, ContinuousBatchingEngine,
-                     _arm_fn, _checked_step, _refuse_unported, _SlotRun,
+                     _arm_fn, _checked_step, _key_tensor, _refuse_unported,
+                     _refuse_spec_outside_factory, _serving_model, _SlotRun,
                      free_slot_state, init_slot_state, run_decode_block,
                      slot_sample_logits)
 from ..graphs import CapturedProgram
@@ -314,11 +315,12 @@ class PagedModelStepBackend:
     def __init__(self, model, num_slots: int, max_len: int,
                  decode_block: int, block_size: int, num_blocks: int,
                  prefill_chunk: int, kv_int8: bool = False,
-                 megakernel: bool = False):
+                 megakernel: bool = False, quant=None):
         if max_len % block_size != 0:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
-        self.model = model
+        self.quant_cfg = quant
+        self.model, self.weight_bound = _serving_model(model, quant)
         self.device = dev = model.device
         self.num_slots, self.max_len = num_slots, max_len
         self.block_size = decode_block
@@ -348,11 +350,16 @@ class PagedModelStepBackend:
                                        device=dev)
         self._chunk_key = torch.zeros(2, dtype=torch.int64, device=dev)
         self._chunk_tok = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.decode_program = CapturedProgram(self._run_block, dev)
+        self.decode_program = CapturedProgram(self._decode_fn(), dev)
         self.prefill_program = CapturedProgram(self._run_chunk, dev)
         self.decode_program.capture()
         self.prefill_program.capture()
         self.reset_state()
+
+    def _decode_fn(self):
+        """The function the decode program captures: the decode block
+        (the speculative backend captures its verify step instead)."""
+        return self._run_block
 
     def reset_state(self):
         """Free every slot in place (all-trash tables); returns the
@@ -435,6 +442,10 @@ class _PrefillJob:
     table_row: np.ndarray          # (max_blocks,) int32
     key: torch.Tensor              # (2,) the slot's key once armed
     sub: torch.Tensor              # (2,) the first token's sampling key
+    # a preemption resume: ``prompt`` is the prompt plus the generated
+    # history and this the carried next token (the chunks' own samples
+    # are discarded)
+    resume_tok: Optional[int] = None
 
 
 class PagedEngine(ContinuousBatchingEngine):
@@ -464,6 +475,15 @@ class PagedEngine(ContinuousBatchingEngine):
       :meth:`prefill_compile_count` give 1 over any stream); on the CPU
       the same functions run eagerly and both counts are 0.
 
+    - ``quant=`` (or ``PT_SERVING_QUANT_WEIGHTS``) serves weight-only
+      int8/int4 codes through the weight-only product kernel
+      (``serving.quant``), also on a direct ``PagedEngine(quant=)``.
+    - a preempted request (``resume`` state) re-admits by prefilling its
+      prompt plus history in chunks, mostly prefix-cache hits (the
+      eviction keeps the index), and arms with its carried token and
+      key (:meth:`try_admit`); ``spec=`` is routed by the factory to
+      ``serving.spec.SpecPagedEngine``.
+
     ``block_size`` and ``prefill_chunk`` resolve as in the JAX engine:
     the argument, else ``PT_SERVING_BLOCK_SIZE`` /
     ``PT_SERVING_PREFILL_CHUNK``, else 16 / twice the block size (there
@@ -483,7 +503,9 @@ class PagedEngine(ContinuousBatchingEngine):
                  prefill_chunk: Optional[int] = None,
                  megakernel: Optional[bool] = None, device=None):
         from ..device import resolve_device
-        _refuse_unported(spec, tp, quant)
+        from .quant import resolve_quant_config
+        _refuse_unported(tp)
+        _refuse_spec_outside_factory(self, spec)
         if not paged:
             raise ValueError("PagedEngine is the paged engine; build the "
                              "dense one with ContinuousBatchingEngine("
@@ -515,10 +537,10 @@ class PagedEngine(ContinuousBatchingEngine):
                                     2 * block_size)
         if megakernel is None:
             megakernel = env_bool("PT_SERVING_MEGAKERNEL")
-        backend = PagedModelStepBackend(model, num_slots, max_len,
-                                        decode_block, block_size,
-                                        num_blocks, prefill_chunk,
-                                        bool(kv_int8), bool(megakernel))
+        backend = self._build_paged_backend(
+            model, num_slots, max_len, decode_block, block_size, num_blocks,
+            prefill_chunk, bool(kv_int8), bool(megakernel),
+            resolve_quant_config(quant))
         self.kv_int8 = backend.kv_int8
         self.kv_block_size = block_size
         self.num_kv_blocks = num_blocks
@@ -527,6 +549,13 @@ class PagedEngine(ContinuousBatchingEngine):
         self.manager = BlockManager(num_blocks, block_size)
         self.prompt_buckets = None
         self._init_engine(backend)
+
+    def _build_paged_backend(self, model, num_slots, max_len, decode_block,
+                             block_size, num_blocks, prefill_chunk, kv_int8,
+                             megakernel, quant):
+        return PagedModelStepBackend(model, num_slots, max_len, decode_block,
+                                     block_size, num_blocks, prefill_chunk,
+                                     kv_int8, megakernel, quant)
 
     # -- lifecycle ---------------------------------------------------------
     def reset(self):
@@ -585,14 +614,26 @@ class PagedEngine(ContinuousBatchingEngine):
     # -- admission ---------------------------------------------------------
     def try_admit(self, request) -> bool:
         prompt = np.asarray(request.prompt, np.int32).reshape(-1)
-        L = int(prompt.shape[0])
-        self.validate_request(L, request.max_new_tokens)
+        resume = getattr(request, "resume", None)
+        if resume is not None and resume.tokens:
+            # preemption resume: prefill the prompt plus the generated
+            # history minus the in-hand next token; its first blocks are
+            # usually still in the prefix index (the eviction kept them),
+            # so most of it is cache hits
+            full = np.concatenate([
+                prompt, np.asarray(resume.tokens[:-1], np.int32)])
+            mnt = request.max_new_tokens - len(resume.tokens) + 1
+        else:
+            resume = None
+            full, mnt = prompt, request.max_new_tokens
+        L = int(full.shape[0])
+        self.validate_request(L, mnt)
         slot = next((i for i, s in enumerate(self._slots) if s is None),
                     None)
         if slot is None:
             raise RuntimeError("no free slot (scheduler bug)")
-        shared = self.manager.match_prefix(prompt)
-        total = self.blocks_needed(L, request.max_new_tokens)
+        shared = self.manager.match_prefix(full)
+        total = self.blocks_needed(L, mnt)
         fresh = self.manager.allocate(total - len(shared))
         if fresh is None:            # pool exhausted: retry later
             self.manager.release(shared)
@@ -601,23 +642,36 @@ class PagedEngine(ContinuousBatchingEngine):
         if self.tracer is not None:
             self.tracer.span_end(request.request_id, "queue_wait",
                                  shared_blocks=len(shared),
-                                 fresh_blocks=len(fresh), resumed=False)
+                                 fresh_blocks=len(fresh),
+                                 resumed=resume is not None)
         table_row = np.zeros((self.max_blocks,), np.int32)
         table_row[:len(block_ids)] = block_ids
-        # the JAX key schedule (generate()'s): PRNGKey(seed), split into
-        # the slot's key and the first token's sub-key. Two words on the
-        # host, then one copy to the device.
-        key, sub = prng.split(prng.prng_key(request.seed)) \
-            .to(self.backend.device)
-        run = _SlotRun(request, block_ids=block_ids)
+        dev = self.backend.device
+        if resume is None:
+            # the JAX key schedule (generate()'s): PRNGKey(seed), split
+            # into the slot's key and the first token's sub-key. Two
+            # words on the host, then one copy to the device.
+            key, sub = prng.split(prng.prng_key(request.seed)).to(dev)
+            run = _SlotRun(request, block_ids=block_ids)
+            resume_tok = None
+        else:
+            # the saved key is the next step's split input: arming with
+            # it (and discarding the chunks' samples) keeps seeded
+            # sampled resumes bit-identical
+            key = _key_tensor(resume.key, dev)
+            sub = prng.prng_key(0).to(dev)          # a discarded draw
+            run = _SlotRun(request, tokens=list(resume.tokens),
+                           t_admit=resume.t_admit, block_ids=block_ids)
+            resume_tok = int(resume.tokens[-1])
         self._slots[slot] = run
         self._prefill_slots.add(slot)
         n_shared = len(shared) * self.kv_block_size
         self.prompt_tokens += L
         self.shared_tokens += n_shared
-        self._jobs.append(_PrefillJob(run=run, slot=slot, prompt=prompt,
+        self._jobs.append(_PrefillJob(run=run, slot=slot, prompt=full,
                                       done=n_shared, table_row=table_row,
-                                      key=key, sub=sub))
+                                      key=key, sub=sub,
+                                      resume_tok=resume_tok))
         return True
 
     # -- chunked prefill ---------------------------------------------------
@@ -659,7 +713,9 @@ class PagedEngine(ContinuousBatchingEngine):
                 if job.done >= L:
                     self._jobs.pop(0)
                     # the one host read of a prefill, on its last chunk
-                    self._finish_prefill(job, int(tok0))
+                    # (a resume discards the sample: no read)
+                    self._finish_prefill(job, None if job.resume_tok
+                                         is not None else int(tok0))
         finally:
             self.prefill_s += time.perf_counter() - t0
         return spent
@@ -667,14 +723,24 @@ class PagedEngine(ContinuousBatchingEngine):
     def _finish_prefill(self, job: _PrefillJob, tok0: int):
         req = job.run.request
         now = time.perf_counter()
-        job.run.tokens = [tok0]
-        job.run.t_admit = now               # TTFT timestamp
-        self.tokens_emitted += 1
-        _M_TOKENS.inc()
         eos = req.eos_token_id
-        rem0 = req.max_new_tokens - 1
-        if eos is not None and tok0 == eos:
-            rem0 = 0
+        if job.resume_tok is not None:
+            # preemption resume: the carried stream owns the next token;
+            # its tokens and TTFT stamp ride over from the evicted run
+            tok0 = job.resume_tok
+            rem0 = req.max_new_tokens - len(job.run.tokens)
+            req.resume = None
+            if self.tracer is not None:
+                self.tracer.instant(req.request_id, "resume", slot=job.slot,
+                                    reused_tokens=len(job.run.tokens))
+        else:
+            job.run.tokens = [tok0]
+            job.run.t_admit = now               # TTFT timestamp
+            self.tokens_emitted += 1
+            _M_TOKENS.inc()
+            rem0 = req.max_new_tokens - 1
+            if eos is not None and tok0 == eos:
+                rem0 = 0
         # the prompt's full blocks are resident now — index them so the
         # NEXT request with this prefix skips the compute
         self.manager.register_prefix(job.prompt, job.run.block_ids)
@@ -712,6 +778,15 @@ class PagedEngine(ContinuousBatchingEngine):
             run.block_ids = None     # the no-double-free invariant
 
     # -- resilience hooks --------------------------------------------------
+    def _release_slot_resources(self, run):
+        """Preemption release: the run's arena blocks drop one reference;
+        registered prompt-prefix blocks park in the LRU cache with their
+        prefix-index entries kept (the resume's re-prefill is mostly
+        cache hits), unregistered ones return to the free list."""
+        if run.block_ids is not None:
+            self.manager.release(run.block_ids)
+            run.block_ids = None
+
     def _abort_prefill(self, slot):
         """Cancel a mid-prefill request: drop its pending job; its
         blocks release through the shared ``_retire`` path. The slot
@@ -781,7 +856,8 @@ class PagedEngine(ContinuousBatchingEngine):
             arrays[f"job{j}_table"] = np.asarray(job.table_row, np.int32)
             arrays[f"job{j}_key"] = job.key.cpu().numpy()
             arrays[f"job{j}_sub"] = job.sub.cpu().numpy()
-            jobs_meta.append({"slot": job.slot, "done": job.done})
+            jobs_meta.append({"slot": job.slot, "done": job.done,
+                              "resume_tok": job.resume_tok})
         meta["jobs"] = jobs_meta
         meta["paged_counters"] = {
             "prompt_tokens": self.prompt_tokens,
@@ -824,7 +900,8 @@ class PagedEngine(ContinuousBatchingEngine):
                 done=jm["done"],
                 table_row=np.asarray(arrays[f"job{j}_table"], np.int32),
                 key=torch.from_numpy(arrays[f"job{j}_key"]).to(dev),
-                sub=torch.from_numpy(arrays[f"job{j}_sub"]).to(dev)))
+                sub=torch.from_numpy(arrays[f"job{j}_sub"]).to(dev),
+                resume_tok=jm.get("resume_tok")))
         pc = meta["paged_counters"]
         self.prompt_tokens = pc["prompt_tokens"]
         self.shared_tokens = pc["shared_tokens"]

@@ -4,9 +4,10 @@ queue with a max-wait batching gate and prefill-token pacing.
 Counterpart of ``paddle_tpu/serving/scheduler.py`` (``Request``,
 ``ResumeState`` and ``Scheduler``). The requests carry the JAX fields
 in full (deadlines, tenant, priority, resume state), so snapshots
-serialize what the JAX package's do; priority preemption, which sets
-``resume`` and ``wait_from``, and the fair scheduler come with
-``ROADMAP.md`` A.4."""
+serialize what the JAX package's do. The server's priority preemption
+sets ``resume`` and ``wait_from`` and requeues the victim; it runs only
+over a priority-aware scheduler (``serving.frontend.FairScheduler``,
+which also sheds at tenant quotas), never over this FIFO one."""
 from __future__ import annotations
 
 import bisect

@@ -19,8 +19,16 @@ crash-safe: a process killed between ticks resumes from the snapshot
 in a freshly built engine (its CUDA graphs captured anew) and finishes
 every stream token-identical to an uninterrupted run. Request traces,
 the metrics registry and the flight recorder (``observability``) hook
-in where the JAX server's do. Priority preemption comes with
-``ROADMAP.md`` A.4."""
+in where the JAX server's do.
+
+Priority preemption (``preemption=True`` over a priority-aware
+scheduler, ``serving.frontend.FairScheduler``): a strictly
+higher-priority request that would wait on a full pool evicts a
+lower-priority slot at a tick boundary (``engine.preempt_slot``); the
+victim requeues carrying its stream (``ResumeState``) and re-admits by
+re-prefilling its history, so its greedy and seeded sampled streams end
+as an uninterrupted run's. Preempt and resume are span events on the
+request's trace, never terminals."""
 from __future__ import annotations
 
 import time
@@ -33,12 +41,13 @@ from ..observability import (FlightRecorder, ObservabilityConfig,
 from ..observability import metrics as _om
 from ..observability.tracing import export_chrome_trace, now_us
 from ..utils import faults
+from ..utils.flags import env_bool
 from .engine import ContinuousBatchingEngine
 from .resilience import (RequestFailure, ResilienceConfig,
                          ResilienceState, load_snapshot,
                          request_from_meta, request_to_meta,
                          save_snapshot)
-from .scheduler import Request, Scheduler
+from .scheduler import Request, ResumeState, Scheduler
 
 __all__ = ["Server"]
 
@@ -74,8 +83,8 @@ _M_TTFT = _om.histogram("pt_server_ttft_seconds",
                         "submit -> first token per completed request")
 _M_OCC = _om.gauge("pt_server_slot_occupancy",
                    "fraction of decode slot-steps that emitted a token")
-# the per-tenant lifecycle families (the Server owns the accounting;
-# the front door that sets tenants comes with ROADMAP A.4)
+# the per-tenant lifecycle families (the front door, serving/frontend.py,
+# sets the tenants; the Server owns the accounting)
 _M_T_DONE = _om.counter("pt_server_tenant_completed_total",
                         "completed requests by tenant",
                         labels=("tenant",))
@@ -86,12 +95,23 @@ _M_T_SHED = _om.counter("pt_server_tenant_shed_total",
                         "submits shed at the global depth cap or the "
                         "tenant queue quota, by tenant",
                         labels=("tenant",))
+_M_T_PREEMPT = _om.counter("pt_server_tenant_preemptions_total",
+                           "priority preemptions (slot evicted "
+                           "mid-flight) by victim tenant",
+                           labels=("tenant",))
 _M_T_LAT = _om.histogram("pt_server_tenant_request_latency_seconds",
                          "submit -> harvest wall time per completed "
                          "request, by tenant", labels=("tenant",))
 _M_T_TTFT = _om.histogram("pt_server_tenant_ttft_seconds",
                           "submit -> first token per completed "
                           "request, by tenant", labels=("tenant",))
+_M_PREEMPT = _om.counter("pt_server_preemptions_total",
+                         "slots evicted mid-flight for higher-priority "
+                         "work (preempt/resume are span events, never "
+                         "request terminals)")
+_M_RESUMED = _om.counter("pt_server_resumes_total",
+                         "preempted requests re-admitted via history "
+                         "re-prefill")
 
 
 class Server:
@@ -101,24 +121,36 @@ class Server:
     generated ids, rows that hit eos padded with eos to
     ``max_new_tokens``, or a :class:`RequestFailure`.
 
-    ``preemption=True`` raises (priority preemption comes with
-    ``ROADMAP.md`` A.4); the ``PT_SERVING_PREEMPTION`` env knob, weaker
-    than an explicit argument, leaves it off, as the JAX server does
-    over a FIFO scheduler."""
+    ``preemption=True`` (or ``PT_SERVING_PREEMPTION=1`` when the
+    argument is None) arms priority preemption; it needs a
+    priority-aware scheduler (``FairScheduler``): an explicit request
+    over a FIFO scheduler is refused, the env knob, weaker than an
+    explicit argument, then leaves it off, as in JAX."""
 
     def __init__(self, engine: ContinuousBatchingEngine,
                  scheduler: Optional[Scheduler] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  observability: Optional[ObservabilityConfig] = None,
                  preemption: Optional[bool] = None):
-        if preemption:
-            raise NotImplementedError(
-                "priority preemption (preemption=True) is not ported yet "
-                "(ROADMAP A.4)")
         self.engine = engine
         self.scheduler = scheduler or Scheduler()
         self.resilience = resilience or ResilienceConfig()
-        self.preemption = False
+        env_armed = preemption is None
+        if env_armed:
+            preemption = env_bool("PT_SERVING_PREEMPTION")
+        if preemption and not getattr(self.scheduler, "priority_aware",
+                                      False):
+            # a FIFO scheduler hands the freed slot straight back to the
+            # front-inserted victim: eviction churn instead of lower TTFT
+            if env_armed:
+                preemption = False
+            else:
+                raise ValueError(
+                    "preemption=True needs a priority-aware scheduler "
+                    "(serving.frontend.FairScheduler): the FIFO "
+                    "scheduler would hand every freed slot back to the "
+                    "evicted victim")
+        self.preemption = bool(preemption)
         self.preemptions = 0
         self.resumes = 0
         # per-tenant lifecycle accounting
@@ -179,6 +211,15 @@ class Server:
             self.flight.record("shed", rid=rid, depth=depth)
             self._fail(rid, "shed",
                        f"queue depth at cap ({depth}); retry later")
+            return rid
+        quota = getattr(self.scheduler, "quota_exceeded", None)
+        if quota is not None and quota(tenant):
+            self._res.shed_requests += 1
+            _M_SHED.inc()
+            self.flight.record("shed", rid=rid, tenant=tenant)
+            self._fail(rid, "shed",
+                       f"tenant {tenant!r} queue quota exhausted; "
+                       "retry later")
             return rid
         self.scheduler.submit(Request(
             request_id=rid, prompt=prompt, max_new_tokens=max_new_tokens,
@@ -316,14 +357,97 @@ class Server:
             self._fail(r.request_id, reason,
                        "circuit breaker open: queue drained")
 
+    # -- priority preemption -----------------------------------------------
+    def _preempt_victim(self, below: int) -> bool:
+        """Evict ONE live run with priority strictly under ``below``:
+        lowest priority first, then fewest generated tokens (least
+        re-prefill lost), then highest slot. Only resumable victims
+        (``engine.can_resume``) qualify. False when none does."""
+        cands = [(run.request.priority, len(run.tokens), -slot, slot, run)
+                 for slot, run in self.engine.live_runs()
+                 if run.request.priority < below
+                 and self.engine.can_resume(run)]
+        if not cands:
+            return False
+        *_, slot, run = min(cands, key=lambda c: c[:3])
+        self._do_preempt(slot, run)
+        return True
+
+    def _do_preempt(self, slot: int, run):
+        """Evict through the engine, attach the carried stream to the
+        request and requeue it at the front of its arrival tick. The
+        request stays open: preempt and resume are span events on its
+        trace, never terminals."""
+        req = run.request
+        _, key = self.engine.preempt_slot(slot)
+        if key is not None:          # was decoding: carry the stream
+            req.resume = ResumeState(tokens=list(run.tokens),
+                                     key=np.asarray(key, np.uint32),
+                                     t_admit=run.t_admit)
+        # else mid-prefill: a fresh victim requeues as submitted, one
+        # mid-resume-prefill keeps its resume state
+        req.wait_from = self._clock      # queue wait restarts here
+        self.scheduler.requeue(req)
+        self.tracer.span_begin(req.request_id, "queue_wait", requeued=True)
+        self.preemptions += 1
+        tenant = req.tenant
+        self._tcount(tenant)["preemptions"] += 1
+        _M_PREEMPT.inc()
+        _M_T_PREEMPT.inc(tenant=tenant)
+        self.flight.record("preempt", rid=req.request_id, slot=slot,
+                           tokens=len(run.tokens), clock=self._clock)
+
+    def _preempt_for_priority(self):
+        """Admission-side preemption: walk the visible queue from the
+        highest priority down; each request that would otherwise wait on
+        a full pool evicts one strictly lower-priority victim. The
+        scheduler's pop then hands out the freed slots. Runs only when
+        the batching gate would release work (probed with one free
+        slot): evicting into a held gate idles the slot."""
+        gate = getattr(self.scheduler, "_gate_visible", None)
+        if gate is not None and gate(self._clock, 1,
+                                     not self.engine.has_live(),
+                                     None) is None:
+            return
+        vis = self.scheduler.visible(self._clock)
+        if not vis:
+            return
+        free = self.engine.free_slot_count()
+        if free >= len(vis):
+            return          # every waiter gets a slot without eviction
+        runs = self.engine.live_runs()
+        if not runs or min(r.request.priority for _, r in runs) >= \
+                max(r.priority for r in vis):
+            return          # nothing waiting outranks anything running
+        for req in sorted(vis, key=lambda r: -r.priority):
+            if free > 0:
+                free -= 1            # a free slot serves this request
+                continue
+            if not self._preempt_victim(below=req.priority):
+                break    # nothing evictable at this (or any lower) tier
+
     # -- the tick ----------------------------------------------------------
     def _tick(self):
         self._expire()
+        if self.preemption and not self.engine.has_pending_harvest():
+            # only at a clean block boundary: a dispatched block awaiting
+            # a harvest retry lands before any eviction
+            self._preempt_for_priority()
         admitted = self.scheduler.pop_ready(
             self._clock, self.engine.free_slot_count(),
             engine_idle=not self.engine.has_live())
         for i, req in enumerate(admitted):
-            if self.engine.try_admit(req):
+            resumed = req.resume is not None
+            ok = self.engine.try_admit(req)
+            while not ok and self.preemption and \
+                    not self.engine.has_pending_harvest() and \
+                    self._preempt_victim(below=req.priority):
+                # paged: the block pool, not the slots, was the limit
+                ok = self.engine.try_admit(req)
+            if ok:
+                if resumed:
+                    self.resumes += 1
+                    _M_RESUMED.inc()
                 continue
             # re-queue in reverse: requeue() front-inserts per arrival
             # tick, so forward order would flip same-tick FIFO

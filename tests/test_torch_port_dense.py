@@ -14,8 +14,9 @@ its programs run eagerly (the same functions the card captures), so:
   arrivals, a request finished at admission), and a GQA (kv heads 2)
   tied-head model at engine level;
 - bucket and capacity refusals are JAX's; ``paged=True`` and
-  ``PT_SERVING_PAGED=1`` build the paged engine; ``spec``/``tp``/
-  ``quant`` name their queue items; ``megakernel=True`` counts the
+  ``PT_SERVING_PAGED=1`` build the paged engine; ``spec`` and ``quant``
+  route to the speculative and quantized engines, ``tp`` names its
+  queue item; ``megakernel=True`` counts the
   rewrites and launches nothing in dense mode;
 - paged == dense (the north-star invariant): one decode step's
   log-probs over the same K/V history are bitwise equal through the
@@ -38,7 +39,9 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, decode_step_logprobs,
 from paddle_tpu_torch.ops.paged_attention import write_paged_kv
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                       ModelStepBackend, PagedEngine,
-                                      Request, Scheduler, Server)
+                                      QuantConfig, Request, Scheduler,
+                                      Server, SpecConfig, SpecEngine,
+                                      SpecPagedEngine)
 
 ENGINE_KW = dict(num_slots=2, max_len=64, decode_block=4,
                  prompt_buckets=(8, 16))
@@ -214,11 +217,20 @@ def test_routing_and_unported_arguments(setups, monkeypatch):
         ContinuousBatchingEngine(backend=paged.backend)
     with pytest.raises(ValueError, match="paged=False"):
         PagedEngine(tm, paged=False, block_size=8, **kw)
-    for arg, item in (("spec", "A.4"), ("quant", "A.4"), ("tp", "A.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousBatchingEngine(tm, **{arg: 4}, **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousBatchingEngine(tm, paged=True, **{arg: 4}, **kw)
+    # spec= and quant= route to their engines (ROADMAP A.4); tp= still
+    # names its queue item
+    for paged_kw in ({}, dict(paged=True, block_size=8)):
+        spec = ContinuousBatchingEngine(tm, spec=SpecConfig(k=4),
+                                        **paged_kw, **kw)
+        assert isinstance(spec, SpecPagedEngine if paged_kw else SpecEngine)
+        assert spec.spec_k == 4 and spec.decode_block == 1
+        quant = ContinuousBatchingEngine(tm, quant="int8", **paged_kw, **kw)
+        assert quant.backend.quant_cfg == QuantConfig("int8")
+        assert quant.weight_error_bound() > 0
+        with pytest.raises(NotImplementedError, match="A.6"):
+            ContinuousBatchingEngine(tm, tp=4, **paged_kw, **kw)
+    with pytest.raises(ValueError, match="factory"):
+        PagedEngine(tm, spec=SpecConfig(k=4), block_size=8, **kw)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ContinuousBatchingEngine(tm, num_slots=2, max_len=32)
 

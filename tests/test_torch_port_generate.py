@@ -340,12 +340,22 @@ def test_cached_attention_paged_window(s, window):
 
 
 def test_cached_attention_per_row_chunk_refused():
-    """A per-row write of s > 1 positions is speculative verify."""
+    """A per-row write of s > 1 positions (the speculative verify
+    window) against JAX's scatter:
+    rows with pad counts, the last one's window hanging two columns past
+    the cache (JAX drops those updates; a clamp would move them back over
+    valid entries): output and both caches within 1e-6, and every entry
+    outside the windows unchanged."""
     rs = np.random.RandomState(0)
-    q, k, v = (torch.from_numpy(a) for a in _qkv(rs, B, 3))
-    ck = torch.zeros(B, T, KVH, D)
-    cos, sin = _tables()
-    with pytest.raises(NotImplementedError, match="A.4"):
-        cached_attention(q, k, v, ck, ck.clone(),
-                         torch.tensor([1, 2, 3], dtype=torch.int32),
-                         scale=0.25, cos=cos, sin=sin)
+    q, k, v = _qkv(rs, B, 4)
+    ck = rs.randn(B, T, KVH, D).astype(np.float32)
+    cv = rs.randn(B, T, KVH, D).astype(np.float32)
+    pos = np.array([1, 9, T - 2], np.int32)
+    want, got = _jax_and_port(q, k, v, ck, cv, pos,
+                              pad=np.array([1, 0, 3], np.int32))
+    _close(want, got)
+    written = np.zeros((B, T), bool)
+    for r, p0 in enumerate(pos):
+        written[r, p0:min(p0 + 4, T)] = True
+    np.testing.assert_array_equal(got[1][~written], ck[~written])
+    np.testing.assert_array_equal(got[2][~written], cv[~written])

@@ -674,7 +674,8 @@ def test_train_step_on_gpu_goes_through_kernels(dev):
                       "xent_fwd": 0, "xent_bwd": 0, "moe_gather": 0,
                       "rms_norm_residual": 0, "decode_layer": 0,
                       "decode_layer_int8": 0,
-                      "rms_norm_bwd": 3 * (2 * L + 1)}
+                      "rms_norm_bwd": 3 * (2 * L + 1),
+                      "weight_only_gemm": 0}
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
 
 
@@ -980,7 +981,8 @@ def test_ernie_train_step_on_gpu_goes_through_kernels(dev, monkeypatch):
                       "xent_fwd": 3, "xent_bwd": 3,
                       "moe_gather": 3 * 5 * (L // cfg.moe_every),
                       "rms_norm_residual": 0, "decode_layer": 0,
-                      "decode_layer_int8": 0, "rms_norm_bwd": 0}
+                      "decode_layer_int8": 0, "rms_norm_bwd": 0,
+                      "weight_only_gemm": 0}
     np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
 
 
@@ -2114,3 +2116,201 @@ def test_restore_copies_into_the_captured_graphs(dev, kind, tmp_path):
     for r in rids:
         np.testing.assert_array_equal(got[r], want[r])
     assert fresh.decode_compile_count() == 1
+
+
+# ---------------------------------------------------------------------------
+# the weight-only product (csrc/weight_only_gemm.cu)
+# ---------------------------------------------------------------------------
+
+def _wo_tolerance(x, codes, scales, bits, k):
+    """Per element: the kernel and the plain version compute the same
+    weights (the same product and true division) and sum the same K
+    terms in other orders; any order lies within K u sum|x w| of the
+    exact sum (u = 2^-24), so the two within twice that. bf16 outputs
+    add half an ulp of each side."""
+    from paddle_tpu_torch.nn.quant import dequantize_array
+    w = dequantize_array(codes, scales, bits, in_features=k)
+    mag = torch.nn.functional.linear(x.float().abs(), w.abs())
+    tol = 2 * k * 2.0 ** -24 * mag
+    if x.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * mag
+    return tol
+
+
+@pytest.mark.parametrize("bits,group,k", [
+    (8, -1, 256), (8, 64, 256), (4, -1, 256), (4, 128, 512), (8, 8, 96),
+    (4, -1, 129), (8, -1, 130)])
+@pytest.mark.parametrize("m", [1, 5, 8, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_only_kernel_matches_plain(dev, bits, group, k, m, dtype):
+    """Every route of the kernel (16-byte and element loads, per-channel
+    and grouped scales, a group narrower than a lane's slice, odd K
+    with int4's pad nibble, 1 and 8 rows a tile, a ragged last tile)
+    against ``dequantize_array`` + ``F.linear`` on the same inputs."""
+    from paddle_tpu_torch.nn.quant import quantize_array
+    from paddle_tpu_torch.ops.weight_only import (
+        weight_only_matmul, weight_only_matmul_reference)
+    g = torch.Generator(device=dev).manual_seed(m * 1000 + k + bits)
+    n = 72
+    w = torch.randn(n, k, generator=g, device=dev)
+    codes, scales = quantize_array(w, bits, group)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    before = weight_only_matmul.launches
+    got = weight_only_matmul(x, codes, scales, bits, k)
+    torch.cuda.synchronize()
+    assert weight_only_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    want = weight_only_matmul_reference(x, codes, scales, bits, k)
+    tol = _wo_tolerance(x, codes, scales, bits, k)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize("bits,group", [(8, -1), (4, -1), (8, 32),
+                                        (4, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_only_kernel_dequantizes_exactly(dev, bits, group, dtype):
+    """One-hot activations make every output one weight times 1 plus
+    zeros: the weights the kernel computes (the magic-number decode, the
+    product with the scale, the fma-corrected division) equal
+    ``dequantize_array``'s bit for bit, over channels whose scales span
+    six decades (bf16 outputs: the weights rounded to bf16)."""
+    from paddle_tpu_torch.nn.quant import dequantize_array, quantize_array
+    from paddle_tpu_torch.ops.weight_only import weight_only_matmul
+    g = torch.Generator(device=dev).manual_seed(bits + group)
+    k, n = 96, 80
+    mag = 10.0 ** (6 * torch.rand(n, 1, generator=g, device=dev) - 3)
+    w = torch.randn(n, k, generator=g, device=dev) * mag
+    codes, scales = quantize_array(w, bits, group)
+    x = torch.eye(k, device=dev).to(dtype)
+    got = weight_only_matmul(x, codes, scales, bits, k)
+    want = dequantize_array(codes, scales, bits, in_features=k).t()
+    assert torch.equal(got, want.to(dtype))
+
+
+def test_weight_only_kernel_refuses(dev):
+    from paddle_tpu_torch.nn.quant import quantize_array
+    from paddle_tpu_torch.ops.weight_only import weight_only_matmul
+    w = torch.randn(32, 64, device=dev)
+    codes, scales = quantize_array(w, 8)
+    x = torch.randn(2, 64, device=dev)
+    with pytest.raises(TypeError):
+        weight_only_matmul(x.half(), codes, scales, 8, 64)
+    with pytest.raises(ValueError):
+        weight_only_matmul(x[:, :32], codes, scales, 8, 64)
+    with pytest.raises(ValueError):
+        weight_only_matmul(x, codes.cpu(), scales, 8, 64)
+
+
+# ---------------------------------------------------------------------------
+# the decode features on the card: weight-only quant, spec, preemption
+# ---------------------------------------------------------------------------
+
+def _feature_engine(gpu, dev, kind, **kw):
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    if kind == "dense":
+        return ContinuousBatchingEngine(gpu, num_slots=2, max_len=64,
+                                        decode_block=4,
+                                        prompt_buckets=(8, 16, 32),
+                                        device=dev, **kw)
+    return ContinuousBatchingEngine(gpu, num_slots=2, max_len=64,
+                                    decode_block=4, paged=True, block_size=8,
+                                    prefill_chunk=8, device=dev, **kw)
+
+
+def _serve_rows(eng, reqs, scheduler=None):
+    eng.reset()
+    srv = Server(eng, scheduler or Scheduler(prefill_token_budget=8))
+    rids = [srv.submit(p, **r) for p, r in reqs]
+    res = srv.run_until_idle()
+    return [res[r] for r in rids]
+
+
+def _greedy(reqs):
+    return [(p, {k: v for k, v in r.items() if k == "max_new_tokens"})
+            for p, r in reqs]
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4g32"])
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_quantized_engine_on_gpu(dev, kind, quant):
+    """Every product of the quantized engine's captured programs is one
+    weight-only kernel launch: 7L + 1 per decode step, per dense prefill
+    and per paged chunk (the head runs over every position); no fp32
+    weight product; one capture per program; greedy streams equal the
+    same quantized engine's on the CPU (the kernel and the plain version
+    differ only in summation order)."""
+    from paddle_tpu_torch.serving import QuantConfig
+    cpu, gpu = _tiny_pair(dev)
+    q = "int8" if quant == "int8" else QuantConfig("int4", group_size=32)
+    reqs = _greedy(_graph_reqs(21))
+    want = _serve_rows(_feature_engine(cpu, "cpu", kind, quant=q), reqs)
+    eng = _feature_engine(gpu, dev, kind, quant=q)
+    eng.reset()
+    srv = Server(eng, Scheduler(prefill_token_budget=8))
+    rids = [srv.submit(p, **r) for p, r in reqs]
+    ops.reset_launch_counts()
+    res = srv.run_until_idle()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    L = gpu.config.num_hidden_layers
+    prefills = eng.prefill_chunks if kind == "paged" else eng.prefills
+    assert counts["weight_only_gemm"] == (7 * L + 1) * (eng.steps + prefills)
+    for r, w in zip(rids, want):
+        np.testing.assert_array_equal(res[r], w)
+    assert eng.decode_compile_count() == 1
+    assert eng.weight_error_bound() > 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_spec_engine_on_gpu(dev, kind):
+    """The verify step is ONE captured program (no plain decode block is
+    captured): greedy and sampled streams equal the plain engine's on
+    the card, drafts are accepted on a repetitive prompt, and the
+    verify step's s = k + 1 read never takes the s = 1 decode kernel."""
+    from paddle_tpu_torch.serving import SpecConfig
+    _, gpu = _tiny_pair(dev)
+    reqs = _graph_reqs(22) + [(np.full((16,), 7, np.int32),
+                               dict(max_new_tokens=24))]
+    want = _serve_rows(_feature_engine(gpu, dev, kind), reqs)
+    eng = _feature_engine(gpu, dev, kind, spec=SpecConfig(k=4))
+    ops.reset_launch_counts()
+    got = _serve_rows(eng, reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert eng.decode_compile_count() == 1 and eng.draft_accepted > 0
+    L = gpu.config.num_hidden_layers
+    prefills = eng.prefill_chunks if kind == "paged" else eng.prefills
+    assert counts["paged_attention_decode"] == 0
+    assert counts["rms_norm"] == (2 * L + 1) * (eng.verify_steps + prefills)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_preempting_engine_on_gpu(dev, kind):
+    """Preemption on the card: the resume re-prefills through the
+    engine's captured programs (no new capture), greedy and seeded
+    sampled victims finish as the unpreempted run, nothing leaks."""
+    from paddle_tpu_torch.serving import Frontend
+    _, gpu = _tiny_pair(dev)
+    rs = np.random.RandomState(23)
+    prompts = [rs.randint(0, 512, (n,)).astype(np.int32) for n in (5, 9, 12)]
+    kws = [dict(max_new_tokens=20, temperature=0.9, top_k=40, seed=11),
+           dict(max_new_tokens=20), dict(max_new_tokens=4)]
+    eng = _feature_engine(gpu, dev, kind)
+    want = _serve_rows(eng, list(zip(prompts, kws)))
+    eng.reset()
+    fe = Frontend(eng, preemption=True)
+    low = [fe.submit(p, priority=0, **kw) for p, kw in zip(prompts[:2],
+                                                           kws[:2])]
+    for _ in range(3):
+        fe.pump()
+    hi = fe.submit(prompts[2], priority=5, **kws[2])
+    res = fe.run_until_idle()
+    assert fe.stats()["preemptions"] >= 1 and fe.stats()["resumes"] >= 1
+    for r, w in zip(low + [hi], want):
+        np.testing.assert_array_equal(res[r], w)
+    assert eng.decode_compile_count() == 1
+    if kind == "paged":
+        assert eng.prefill_compile_count() == 1 and not eng.manager._ref

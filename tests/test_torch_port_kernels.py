@@ -222,4 +222,5 @@ class TestDeviceAndImportRules:
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "rope": 0, "adamw": 0, "xent_fwd": 0, "xent_bwd": 0,
             "moe_gather": 0, "rms_norm_residual": 0, "decode_layer": 0,
-            "decode_layer_int8": 0, "rms_norm_bwd": 0}
+            "decode_layer_int8": 0, "rms_norm_bwd": 0,
+            "weight_only_gemm": 0}

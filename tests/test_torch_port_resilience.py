@@ -32,8 +32,9 @@ from paddle_tpu_torch.convert import params_from_jax
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.observability import ObservabilityConfig
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
-                                      PagedEngine, RequestFailure,
-                                      ResilienceConfig, Scheduler, Server)
+                                      FairScheduler, PagedEngine,
+                                      RequestFailure, ResilienceConfig,
+                                      Scheduler, Server)
 from paddle_tpu_torch.serving.resilience import load_snapshot, save_snapshot
 from paddle_tpu_torch.utils import faults as tfaults
 
@@ -468,8 +469,15 @@ def test_disarmed_is_inert(setup, kind):
 
 
 def test_preemption_is_refused(setup, monkeypatch):
+    """Preemption is refused only over a scheduler that is not
+    priority-aware (the FIFO one would hand the freed slot back to its
+    victim), as in JAX; the env knob then leaves it off, and over a
+    ``FairScheduler`` it arms."""
     engines, _ = setup
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(ValueError, match="priority-aware"):
         Server(engines["dense"][1], preemption=True)
+    assert Server(engines["dense"][1], FairScheduler(),
+                  preemption=True).preemption is True
     monkeypatch.setenv("PT_SERVING_PREEMPTION", "1")
     assert Server(engines["dense"][1]).preemption is False
+    assert Server(engines["dense"][1], FairScheduler()).preemption is True
