@@ -9,7 +9,9 @@ Phases, each of which raises on failure (nothing is caught):
    ``nvcc`` (one process per source, all started together), printing the
    build seconds and the ptxas register/shared-memory report; the bf16
    flash kernels' SASS must hold wgmma (``HGMMA``) and TMA (``UTMALDG``)
-   instructions, the decode-layer megakernel's TF32 wgmma.
+   instructions, the decode-layer megakernel's TF32 wgmma, every
+   instance of the weight-only product bf16 tensor-core products
+   (``HMMA``) and cp.async (``LDGSTS``).
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: max abs error within the stated tolerance,
    two calls bit-identical where the kernel promises it, and kernel /
@@ -183,9 +185,11 @@ Phases, each of which raises on failure (nothing is caught):
    (``csrc/weight_only_gemm.cu``) against its plain version
    (``dequantize_array`` + ``F.linear``) at every product of a 7B decode
    step (4096->4096, 4096->11008, 11008->4096, 4096->32000), int8 per
-   channel and int4 with group 128, at 1, 8, 32 (the prefill chunk) and
-   40 (the verify step) rows, each within the summation-order bound and
-   timed beside its bound; the plain version and
+   channel and int4 with group 128, at 1, 8, 32 (the prefill chunk), 40
+   (the verify step) and 64 (one full tile) rows, each within the
+   summation-order bound (its share printed) and timed beside its bound
+   (bytes, or the kernel's bf16 MMA operations: 6 x 2MNK for fp32 x at
+   989 TFLOP/s); the plain version and
    ``torch._weight_int8pack_mm`` (if the build takes fp32 activations)
    at 8 rows. On phase 3's engine shape: (c) ``spec=SpecConfig(k=4)``
    on the paged and the dense engine serve phase 3's 12 requests and 3
@@ -200,10 +204,11 @@ Phases, each of which raises on failure (nothing is caught):
    12 requests with exact launches (weight-only 7L + 1 per decode step
    and chunk, paged decode L per step), one capture per program, decode
    step ms, weight bytes a step, the error bound and peak memory
-   printed; last, the model's linear weights are overwritten with each
-   engine's dequantized codes and the plain engine's greedy streams
-   must equal the quantized engine's (the dequant twin). The phase
-   prints its seconds.
+   printed, and one int8 decode block profiled (the weight-only kernel's
+   share of the device's time); last, the model's linear weights are
+   overwritten with each engine's dequantized codes and the plain
+   engine's greedy streams must equal the quantized engine's (the
+   dequant twin). The phase prints its seconds.
 
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -367,6 +372,32 @@ def check_megakernel_sass():
     if found != {"fp32": [8, 16, 24, 32], "int8": [8, 16, 24, 32]}:
         raise AssertionError(f"megakernel without TF32 wgmma products: "
                              f"{found}")
+
+
+def check_weight_only_sass():
+    """The weight-only product as built: every instance (int8 and int4
+    codes, fp32 and bf16 x, the 8-row and the 64-row tile) runs its
+    products on the tensor cores (``HMMA`` with ``BF16`` operands in the
+    SASS that ``cuobjdump`` prints of the library) and streams its codes
+    with ``LDGSTS`` (cp.async)."""
+    import os
+    from paddle_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(build.lib_path("weight_only_gemm"))],
+                          capture_output=True, text=True, check=True).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        head = part.split("\n", 1)[0]
+        if "weight_only_gemm_kernel" in head:
+            hmma = len(re.findall(r"HMMA\.\S*BF16", part))
+            found[head.strip()] = (hmma, part.count("LDGSTS"))
+    print(f"weight_only_gemm in SASS: {len(found)} instances, (bf16 HMMA, "
+          f"LDGSTS) each: " + ", ".join(f"{h}/{g}" for h, g in
+                                        found.values()))
+    if len(found) != 8 or not all(h and g for h, g in found.values()):
+        raise AssertionError(f"weight_only_gemm instances without bf16 "
+                             f"tensor-core products or cp.async: {found}")
 
 
 def check_rms_norm(torch, results, main_shape):
@@ -2954,6 +2985,7 @@ _PATH_KERNELS = {
     "paged_attention_decode_int8": ("paged_decode_kernel<", "Int8KV"),
     "decode_layer": ("decode_layer_kernel<", "DenseKV"),
     "decode_layer_int8": ("decode_layer_kernel<", "Int8KV"),
+    "weight_only_gemm": ("weight_only_gemm_kernel<",),
 }
 
 
@@ -3056,6 +3088,14 @@ def profile_decode_block(torch, engine, card, arena=None):
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  {t / 1e3:9.3f} ms {100 * t / busy_us:5.1f}% "
               f"x{n:<6d} {name[:90]}")
+    wo = [(t, n) for name, t, n in kernels
+          if "weight_only_gemm_kernel" in name]
+    if wo:
+        t, n = sum(r[0] for r in wo), sum(r[1] for r in wo)
+        print(f"[{card}] {arena} weight-only kernel inside the replayed "
+              f"block: {n} launches, {t / 1e3:.3f} ms, {100 * t / busy_us:.1f}"
+              f"% of the device's busy time, {t / n:.3f} us each "
+              f"(profiler)")
     rms = [(t, n) for name, t, n in kernels if "rms_norm_kernel" in name]
     if rms:
         t, n = sum(r[0] for r in rms), sum(r[1] for r in rms)
@@ -3859,8 +3899,11 @@ def _res_fp32_extra(torch, card, engine, reqs, clean, tmp, totals, st0):
 _WO_PRODUCTS = {"4096x4096": (4096, 4096), "4096x11008": (4096, 11008),
                 "11008x4096": (11008, 4096), "4096x32000": (4096, 32000)}
 # decode at 1 and 8 slots, the prefill chunk (32 rows), the verify step
-# at 8 slots x (k + 1) = 40 rows
-_WO_ROWS = (1, 8, 32, 40)
+# at 8 slots x (k + 1) = 40 rows, one full 64-row tile
+_WO_ROWS = (1, 8, 32, 40, 64)
+# the kernel's precision scheme: x and w split by truncation into bf16
+# pieces, six (fp32 x) or three (bf16 x) products on the tensor cores
+_WO_SCHEME = "bf16 split, 6 products (fp32 x)"
 
 
 def _wo_tolerance(torch, x, w):
@@ -3875,10 +3918,13 @@ def _wo_tolerance(torch, x, w):
 def check_weight_only(torch, results):
     """Phase 12 (a): the weight-only kernel against its plain version at
     every product of a 7B decode step, int8 per channel and int4 with
-    group 128, at every row count the phase's engines give it; the
-    kernel timed at each, the plain version and the library call at 8
-    rows. Fills ``results`` with the kernels line's keys (the main row:
-    int8, 4096 -> 4096, 8 rows) and every shape under ``shapes``."""
+    group 128, at every row count the phase's engines give it and one
+    full 64-row tile; the kernel timed at each against its bound (the
+    bytes, or the MMA operations of its precision scheme, ``_WO_SCHEME``:
+    6 x 2MNK at the bf16 tensor-core rate), the plain version and the
+    library call at 8 rows. Fills ``results`` with the kernels line's
+    keys (the main row: int8, 4096 -> 4096, 8 rows) and every shape under
+    ``shapes``."""
     from paddle_tpu_torch.nn.quant import dequantize_array, quantize_array
     from paddle_tpu_torch.ops import plain_versions
     from paddle_tpu_torch.ops.weight_only import (weight_only_bytes,
@@ -3909,11 +3955,11 @@ def check_weight_only(torch, results):
                                                          bits, k))
                 bound, by = _bound_ms(weight_only_bytes(x.shape, codes,
                                                         scales, x.dtype),
-                                      2.0 * m * n * k, FP32_FLOPS)
+                                      6 * 2.0 * m * n * k, BF16_FLOPS)
                 row = dict(config=cfg_name, product=pname, rows=m,
                            ms=round(ms, 5), bound_ms=round(bound, 5),
                            bound_by=by, share_of_bound=round(bound / ms, 3),
-                           max_abs_err=float(err.max()))
+                           max_abs_err=float(err.max()), err_share=share)
                 if m == 8:
                     with plain_versions():
                         row["plain_ms"] = round(_time_eager(
@@ -3928,15 +3974,18 @@ def check_weight_only(torch, results):
         print(f"weight_only {r['config']:8s} {r['product']:11s} "
               f"m={r['rows']:<3d} ms={r['ms']:.5f} bound={r['bound_ms']:.5f}"
               f" ({r['bound_by']}, {r['share_of_bound']:.2f} of it) "
-              f"err={r['max_abs_err']:.2e}"
+              f"err={r['max_abs_err']:.2e} ({r['err_share']:.4f} of its "
+              f"summation bound)"
               + (f" plain_ms={r['plain_ms']:.5f} library_ms="
                  f"{r['library_ms']}" if "plain_ms" in r else ""))
     print(f"weight_only: every shape within its summation bound (largest "
-          f"share {worst:.3f}; bound 2 K 2^-24 sum|x w| per element)")
+          f"share {worst:.3f}; bound 2 K 2^-24 sum|x w| per element); time "
+          f"bound: bytes at 3.35 TB/s or {_WO_SCHEME} at 989 TFLOP/s")
     main = next(r for r in shapes if r["config"] == "int8"
                 and r["product"] == next(iter(_WO_PRODUCTS))
                 and r["rows"] == 8)
-    results.update(ms=main["ms"], plain_ms=main["plain_ms"],
+    results.update(bound_scheme=_WO_SCHEME, ms=main["ms"],
+                   plain_ms=main["plain_ms"],
                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                    library_ms=main["library_ms"],
                    max_abs_err=max(r["max_abs_err"] for r in shapes),
@@ -4175,6 +4224,9 @@ def decode_features_path(torch, card, model, ref):
               f"{eng.weight_error_bound():.6e}, launches exact "
               f"(weight_only_gemm {n_wo} = {7 * L + 1} x ({eng.steps} steps "
               f"+ {eng.prefill_chunks} chunks))")
+        if label == "int8":           # where the int8 step's time goes
+            _arm_fp32_check(eng, cfg)
+            profile_decode_block(torch, eng, card, arena="int8-weight")
         quant_runs.append((label, eng, got))
     print(f"phase 12 (b) peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB (the fp32 model, both quantized copies and three arenas)")
@@ -4228,6 +4280,7 @@ def main() -> int:
 
     check_flash_sass()
     check_megakernel_sass()
+    check_weight_only_sass()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -2137,16 +2137,22 @@ def _wo_tolerance(x, codes, scales, bits, k):
     return tol
 
 
-@pytest.mark.parametrize("bits,group,k", [
+_WO_CASES = [
     (8, -1, 256), (8, 64, 256), (4, -1, 256), (4, 128, 512), (8, 8, 96),
-    (4, -1, 129), (8, -1, 130)])
-@pytest.mark.parametrize("m", [1, 5, 8, 37])
+    (4, -1, 129), (8, -1, 130), (8, -1, 1040), (4, 32, 1056)]
+
+
+@pytest.mark.parametrize("bits,group,k", _WO_CASES)
+@pytest.mark.parametrize("m", [1, 5, 8, 37, 40, 41, 64, 65, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_weight_only_kernel_matches_plain(dev, bits, group, k, m, dtype):
-    """Every route of the kernel (16-byte and element loads, per-channel
+    """Every route of the kernel (16-byte and byte code loads, per-channel
     and grouped scales, a group narrower than a lane's slice, odd K
-    with int4's pad nibble, 1 and 8 rows a tile, a ragged last tile)
-    against ``dequantize_array`` + ``F.linear`` on the same inputs."""
+    with int4's pad nibble, K not a multiple of the 64/128-k chunk, K
+    split over a cluster of 1-8 CTAs; the 8-row tile and the 64-row one,
+    full and ragged, more row tiles past 64 rows; n = 72, not a multiple
+    of the 64-channel tile) against ``dequantize_array`` + ``F.linear``
+    on the same inputs."""
     from paddle_tpu_torch.nn.quant import quantize_array
     from paddle_tpu_torch.ops.weight_only import (
         weight_only_matmul, weight_only_matmul_reference)
@@ -2186,6 +2192,27 @@ def test_weight_only_kernel_dequantizes_exactly(dev, bits, group, dtype):
     got = weight_only_matmul(x, codes, scales, bits, k)
     want = dequantize_array(codes, scales, bits, in_features=k).t()
     assert torch.equal(got, want.to(dtype))
+
+
+@pytest.mark.parametrize("bits,group,k,m", [
+    (8, -1, 4096, 8), (4, 128, 4096, 8), (8, -1, 1040, 40),
+    (4, 32, 1056, 65), (8, 8, 96, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_only_kernel_is_deterministic(dev, bits, group, k, m, dtype):
+    """Two calls on the same inputs give the same bits: the K split over
+    a cluster's CTAs is reduced in a fixed rank order, with no atomics
+    (captured steps are held bit-equal to eager ones)."""
+    from paddle_tpu_torch.nn.quant import quantize_array
+    from paddle_tpu_torch.ops.weight_only import weight_only_matmul
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    n = 200
+    codes, scales = quantize_array(
+        torch.randn(n, k, generator=g, device=dev), bits, group)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    a = weight_only_matmul(x, codes, scales, bits, k)
+    b = weight_only_matmul(x, codes, scales, bits, k)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_weight_only_kernel_refuses(dev):
@@ -2239,7 +2266,9 @@ def test_quantized_engine_on_gpu(dev, kind, quant):
     and per paged chunk (the head runs over every position); no fp32
     weight product; one capture per program; greedy streams equal the
     same quantized engine's on the CPU (the kernel and the plain version
-    differ only in summation order)."""
+    use the same weights and differ in summation order and in the three
+    low-order products the kernel's bf16 split drops, under 8.02 u |x w|
+    each: both inside the summation-order bound)."""
     from paddle_tpu_torch.serving import QuantConfig
     cpu, gpu = _tiny_pair(dev)
     q = "int8" if quant == "int8" else QuantConfig("int4", group_size=32)

@@ -372,3 +372,134 @@ def test_kernel_division_is_the_true_division(qmax):
     assert not ((s == (g + up) / 2) | (s == (g + dn) / 2)).any()
     want = (a.astype(np.float64) / np.float64(b)).astype(np.float32)
     np.testing.assert_array_equal(got, want)
+
+
+def _split3(w):
+    """The weight-only kernel's split of fp32 values (``split3`` in
+    ``csrc/weight_only_gemm.cu``): w1 = w truncated to its top 16 bits,
+    r = w - w1, w2 = r truncated, w3 = r - w2, all in fp32."""
+    mask = np.uint32(0xFFFF0000)
+    w = np.asarray(w, np.float32)
+    w1 = (w.view(np.uint32) & mask).view(np.float32)
+    r = w - w1
+    w2 = (r.view(np.uint32) & mask).view(np.float32)
+    return w1, r, w2, r - w2
+
+
+def _significands():
+    """Every fp32 significand, as the values 1 + i 2^-23 in [1, 2)."""
+    return ((np.arange(2 ** 23, dtype=np.int64) + 2 ** 23).astype(np.float64)
+            * 2.0 ** -23).astype(np.float32)
+
+
+@pytest.mark.parametrize("source", ["significands", "q127", "q7"])
+def test_kernel_split_is_exact(source):
+    """The weight-only kernel feeds the tensor cores each fp32 weight (and
+    fp32 activation) as three bf16 pieces cut by truncation: over every
+    fp32 significand (``significands``), and over every quotient the
+    dequantization makes of one (a / qmax, ``q127`` and ``q7``), at
+    exponents 2^-60, 1 and 2^60, every other one negated (truncation is
+    symmetric in the sign), both subtractions are exact,
+    each piece is a bf16 (its low 16 bits zero), the pieces sum back to w
+    exactly, |w2 + w3| < 2^-7 |w| and |w3| < 2^-15 |w|: the bounds the
+    kernel's error argument uses."""
+    a = _significands()
+    if source != "significands":
+        a = a / np.float32(127.0 if source == "q127" else 7.0)
+    sign = np.where(np.arange(a.size) % 2, -1, 1).astype(np.float32)
+    for scale in (2.0 ** -60, 1.0, 2.0 ** 60):
+        w = a * sign * np.float32(scale)
+        w1, r, w2, w3 = _split3(w)
+        w64 = w.astype(np.float64)
+        np.testing.assert_array_equal(
+            r.astype(np.float64), w64 - w1.astype(np.float64))
+        np.testing.assert_array_equal(
+            w3.astype(np.float64),
+            r.astype(np.float64) - w2.astype(np.float64))
+        for piece in (w1, w2, w3):
+            assert not (piece.view(np.uint32) & 0xFFFF).any()
+        np.testing.assert_array_equal(
+            w1.astype(np.float64) + w2.astype(np.float64)
+            + w3.astype(np.float64), w64)
+        assert (np.abs(r.astype(np.float64))
+                < 2.0 ** -7 * np.abs(w64)).all()
+        assert (np.abs(w3.astype(np.float64))
+                < 2.0 ** -15 * np.abs(w64)).all()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_kernel_kept_products_within_bound(bits, x_dtype):
+    """The six products the kernel keeps (x3w1, x2w2, x1w3, x2w1, x1w2,
+    x1w1 of the truncated pieces; bf16 x is one piece and keeps x w3, x
+    w2, x w1), summed exactly in fp64, against the exact products: every
+    term within (2^-21 + 2^-30) |x w| (the dropped x2w3 + x3w2 + x3w3),
+    every bf16-x term exact, and a row's sum within that share of
+    sum|x w|, which is inside the 2 K 2^-24 sum|x w| summation bound
+    the kernel is held to on the card for K >= 9. Seeded codes, scales
+    spanning six decades and activations, plus activations and weights
+    whose significands are all ones (the largest pieces)."""
+    rng = np.random.RandomState(bits)
+    qmax = 2 ** (bits - 1) - 1
+    k, n = 4096, 16
+    q = rng.randint(-qmax - 1, qmax + 1, (n, k)).astype(np.float32)
+    s = (10.0 ** rng.uniform(-3, 3, (n, 1))).astype(np.float32)
+    w = (q * s) / np.float32(qmax)                  # dequantize_array's
+    x = (rng.randn(8, k) * 10.0 ** rng.uniform(-2, 2, (8, 1))) \
+        .astype(np.float32)
+    ones = np.float32(2.0 - 2.0 ** -23)             # all-ones significand
+    x[0] = ones * np.sign(x[0])
+    w[0] = ones * np.where(w[0] < 0, -1, 1) * s[0]
+    if x_dtype == "bfloat16":
+        x = (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    x1, _, x2, x3 = (p.astype(np.float64)[:, None, :] for p in _split3(x))
+    w1, _, w2, w3 = (p.astype(np.float64)[None] for p in _split3(w))
+    if x_dtype == "bfloat16":
+        np.testing.assert_array_equal(x2, 0.0)
+        kept = x1 * w3 + x1 * w2 + x1 * w1
+    else:
+        kept = x3 * w1 + x2 * w2 + x1 * w3 + x2 * w1 + x1 * w2 + x1 * w1
+    exact = x.astype(np.float64)[:, None, :] * w.astype(np.float64)[None]
+    mag = np.abs(exact)
+    share = 2.0 ** -21 + 2.0 ** -30
+    if x_dtype == "bfloat16":
+        np.testing.assert_array_equal(kept, exact)
+    assert (np.abs(kept - exact) <= share * mag).all()
+    # rows: fp64 sums of K terms add at most K 2^-53 sum|x w| each
+    err = np.abs(kept.sum(-1) - exact.sum(-1))
+    assert (err <= (share + 2 * k * 2.0 ** -53) * mag.sum(-1)).all()
+    assert share <= 2 * 9 * 2.0 ** -24 - 9 * 2.0 ** -24
+
+
+@pytest.mark.parametrize("j", [0, 1, 2, 3])
+def test_kernel_int4_nibble_decode_is_exact(j):
+    """The kernel decodes the j-th nibble of a half word with one masked
+    or, f = 2^23 + (q + 8) 16^j, and one subtraction, which gives q 16^j
+    exactly; it then divides by 7 16^j with fl(1/7) 16^-j. Every step is
+    the unscaled one times a power of two, so the weight is the same
+    bits as fl(fl(q s) / 7): the decode over all 16 codes; the
+    reciprocal's scaling; over every fp32 significand a (a' = a 16^j),
+    the first product's bits, and the remainder of the first fma, exact
+    in fp64, 16^j times the unscaled one and an fp32 (so the last fma
+    sees e' r' = e r exactly, and rounds the same sum)."""
+    scale = np.float32(16.0 ** j)
+    off = np.float32(2.0 ** 23 + 8 * 16.0 ** j)
+    u = np.arange(16, dtype=np.uint32)
+    f = ((u << np.uint32(4 * j)) | np.uint32(0x4B000000)).view(np.float32)
+    np.testing.assert_array_equal(
+        (f - off).astype(np.float64),
+        (u.astype(np.float64) - 8) * 16.0 ** j)
+    r = np.float32(1.0) / np.float32(7.0)
+    r_j = r * np.float32(16.0 ** -j)
+    assert np.float64(r_j) * 16.0 ** j == np.float64(r)
+    qm_j = np.float32(7.0) * scale
+    a = _significands()
+    a_j = a * scale
+    y0 = a * r
+    np.testing.assert_array_equal(a_j * r_j, y0)
+    e = a.astype(np.float64) - y0.astype(np.float64) * 7.0
+    e_j = a_j.astype(np.float64) - y0.astype(np.float64) \
+        * np.float64(qm_j)
+    np.testing.assert_array_equal(e_j, e * 16.0 ** j)
+    np.testing.assert_array_equal(e_j.astype(np.float32).astype(np.float64),
+                                  e_j)
