@@ -189,9 +189,10 @@ Phases, each of which raises on failure (nothing is caught):
    (the verify step) and 64 (one full tile) rows, each within the
    summation-order bound (its share printed) and timed beside its bound
    (bytes, or the kernel's bf16 MMA operations: 6 x 2MNK for fp32 x at
-   989 TFLOP/s); the plain version and
+   989 TFLOP/s); the plain version and the library call at 8 rows:
    ``torch._weight_int8pack_mm`` (if the build takes fp32 activations)
-   at 8 rows. On phase 3's engine shape: (c) ``spec=SpecConfig(k=4)``
+   for int8, ``torch._weight_int4pack_mm`` (bf16 activations, codes
+   packed by ``torch._convert_weight_to_int4pack``) for int4. On phase 3's engine shape: (c) ``spec=SpecConfig(k=4)``
    on the paged and the dense engine serve phase 3's 12 requests and 3
    repetitive prompts: greedy streams token-identical to phase 3's (and
    to a plain paged engine's), one verify capture, exact launches,
@@ -209,6 +210,34 @@ Phases, each of which raises on failure (nothing is caught):
    overwritten with each engine's dequantized codes and the plain
    engine's greedy streams must equal the quantized engine's (the
    dequant twin). The phase prints its seconds.
+
+13. The disaggregated serving fleet (``serving.fleet``; run after phase
+   12, on phase 3's 7B model rebuilt from seed 0, since phase 12's
+   dequant twins overwrote the linears). Every worker takes that one
+   model. (a) Two ``PrefillPagedEngine`` workers (4 slots, max_len 1024,
+   block 16, chunk 32; built without a decode program) and two decode
+   ``PagedEngine`` workers (8 slots, decode block 8) over the in-process
+   transport serve phase 3's 12 requests: every stream (the sampled one
+   too: its key travels) identical to phase 3's unified engine; exact
+   launches (paged decode L per decode step on the decode workers,
+   RMSNorm 2L + 1 per prefill chunk and per decode step, no other decode
+   kernel); captures (decode, chunk) (0, 1) per prefill worker and
+   (1, 1) per decode worker, whose chunk graph never replays; one handoff
+   a request; wire bytes and ms a handoff (extract, encode, transport,
+   decode, adopt) printed. (c) On (a)'s fleet: decode worker 1 killed
+   mid-decode (streams redriven, identical to (a)'s); the localhost
+   ``SocketTransport`` with ``transport.corrupt`` armed once (the same
+   streams, a CRC drop and a resend); affinity off with request 9 pinned
+   away from request 1's worker (at least one prefix fetch, the same
+   streams). (d) One open-loop ``loadgen`` trace (7B's vocabulary,
+   prompts 32-512, outputs 16-64, a 256-token shared prefix on half the
+   requests, a quarter sampled) replayed against one ``Server`` over
+   phase 3's engine shape and against (a)'s fleet: every request ends in
+   a result, the fleet's streams equal the server's, and TTFT p50/p95 in
+   ticks and seconds, decode tokens/s and the prefix hit rate printed
+   for each. (b) The ``kv_int8`` fleet on the 12 requests: streams
+   identical to a unified int8 server, int8 paged-decode launches exact,
+   the fp32/int8 payload ratio printed. The phase prints its seconds.
 
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -2933,7 +2962,8 @@ def serving_path(torch, card):
     _check_step_logprobs(torch, model, engine, "")
     idle = profile_decode_block(torch, engine, card)
     greedy = {i: res[rid] for i, rid in enumerate(rids) if not reqs[i][2]}
-    return counts, model, dict(stats=st, idle=idle, greedy=greedy)
+    return counts, model, dict(stats=st, idle=idle, greedy=greedy,
+                               rows=[res[rid] for rid in rids])
 
 
 def _arm_fp32_check(engine, cfg):
@@ -3966,7 +3996,8 @@ def check_weight_only(torch, results):
                             lambda: weight_only_matmul(x, codes, scales,
                                                        bits, k), 5), 5)
                     row["library_ms"] = _wo_library_ms(torch, x, codes,
-                                                       scales, bits)
+                                                       scales, bits, k,
+                                                       want)
                 shapes.append(row)
             del codes, scales, wd
             torch.cuda.empty_cache()
@@ -3992,13 +4023,49 @@ def check_weight_only(torch, results):
                    shapes=shapes)
 
 
-def _wo_library_ms(torch, x, codes, scales, bits):
-    """One PyTorch call computing the int8 per-channel product:
-    ``torch._weight_int8pack_mm(x, codes, scale / 127)`` with fp32
-    activations, timed if this build takes it (None otherwise, the
-    refusal printed); int4 with group 128 has no such call (None)."""
-    if bits != 8:
+def _wo_int4_library_ms(torch, x, codes, scales, k, want):
+    """One PyTorch call computing the int4 product with groups of 128:
+    ``torch._weight_int4pack_mm`` (the tinygemm kernel) over bf16
+    activations, the codes as unsigned nibbles q = c + 8 packed by
+    ``torch._convert_weight_to_int4pack`` (8 inner k-tiles), and bf16
+    (scale / 7, zero 0) per group — the same function up to the bf16
+    rounding of x and of the scales (its largest error against the plain
+    version, relative to the output's largest magnitude, is printed).
+    Timed if this build takes it; None otherwise, the refusal printed."""
+    from paddle_tpu_torch.nn.quant import _unpack_int4
+    try:
+        q = _unpack_int4(codes, k).to(torch.int32) + 8
+        try:           # torch >= 2.5: (N, K / 2) uint8, even column high
+            packed = torch._convert_weight_to_int4pack(
+                (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+        except RuntimeError:
+            packed = torch._convert_weight_to_int4pack(q, 8)
+        sz = torch.stack([(scales / 7.0).t(), torch.zeros_like(scales).t()],
+                         dim=-1).to(torch.bfloat16).contiguous()
+        xb = x.to(torch.bfloat16)
+        out = torch._weight_int4pack_mm(xb, packed, 128, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, NotImplementedError,
+            TypeError) as e:
+        print(f"weight_only: torch._weight_int4pack_mm refuses this int4 "
+              f"product: {str(e).splitlines()[0][:160]}")
         return None
+    rel = float((out.float() - want).abs().max() / want.abs().max())
+    ms = _time_ms(lambda: torch._weight_int4pack_mm(xb, packed, 128, sz))
+    print(f"weight_only: torch._weight_int4pack_mm {k}x{codes.shape[0]} "
+          f"m={x.shape[0]}: {ms:.5f} ms, max error {rel:.2e} of the "
+          f"output's largest magnitude (bf16 x and scales)")
+    return round(ms, 5)
+
+
+def _wo_library_ms(torch, x, codes, scales, bits, k=None, want=None):
+    """One PyTorch call computing the same product: int8 per channel
+    through ``torch._weight_int8pack_mm(x, codes, scale / 127)`` with
+    fp32 activations, int4 with group 128 through
+    :func:`_wo_int4_library_ms`; timed if this build takes it (None
+    otherwise, the refusal printed)."""
+    if bits == 4:
+        return _wo_int4_library_ms(torch, x, codes, scales, k, want)
     try:
         s = scales / 127.0
         torch._weight_int8pack_mm(x, codes, s)
@@ -4251,6 +4318,417 @@ def decode_features_path(torch, card, model, ref):
     return row, totals
 
 
+# -- phase 13: the disaggregated serving fleet -------------------------------
+
+# two prefill workers of 4 slots and two decode workers of 8, phase 3's
+# max_len, block, chunk and decode block; the prefill workers' schedulers
+# pace 256 prompt tokens a tick, as phase 3's server does
+_FLEET_PF = dict(num_slots=4, max_len=1024, decode_block=8, block_size=16,
+                 prefill_chunk=32)
+_FLEET_DC = dict(_FLEET_PF, num_slots=8)
+_FLEET_BUDGET = 256
+# the open-loop trace of (d): 7B's vocabulary, prompts 32-512, outputs
+# 16-64, a 256-token shared prefix on half the requests, a quarter sampled
+_FLEET_TRACE = dict(seed=0, vocab_size=32000, horizon=48, base_rate=0.5,
+                    prompt_lo=32, prompt_hi=512, output_lo=16,
+                    output_hi=64, shared_fraction=0.5, shared_len=256,
+                    sampled_fraction=0.25)
+
+
+def _fleet_engines(torch, model, device, kv_int8=False):
+    """The fleet's engines over ONE model: two prefill-only paged
+    engines (no decode program) and two decode paged engines."""
+    from paddle_tpu_torch.serving import PagedEngine, PrefillPagedEngine
+    t0 = time.perf_counter()
+    pf = [PrefillPagedEngine(model, kv_int8=kv_int8, device=device,
+                             **_FLEET_PF) for _ in range(2)]
+    dc = [PagedEngine(model, kv_int8=kv_int8, device=device, **_FLEET_DC)
+          for _ in range(2)]
+    arena = [sum(t.numel() * t.element_size() for t in e.backend.caches())
+             for e in pf + dc]
+    print(f"phase 13 {'int8' if kv_int8 else 'fp32'} fleet built "
+          f"(programs captured) in {time.perf_counter() - t0:.2f} s: "
+          f"arenas prefill {arena[0] / 2**30:.2f} GiB x 2 "
+          f"({pf[0].num_kv_blocks} blocks), decode {arena[2] / 2**30:.2f}"
+          f" GiB x 2 ({dc[0].num_kv_blocks} blocks); "
+          f"{_allocated_gib(torch):.2f} GiB allocated")
+    return pf, dc
+
+
+def _allocated_gib(torch):
+    return torch.cuda.memory_allocated() / 2**30 \
+        if torch.cuda.is_available() else 0.0
+
+
+def _fleet(pf, dc, **kw):
+    from paddle_tpu_torch.serving import (DecodeWorker, Fleet,
+                                          PrefillWorker, Scheduler)
+    for e in pf + dc:
+        e.reset()
+    return Fleet([PrefillWorker(e, scheduler=Scheduler(
+        prefill_token_budget=_FLEET_BUDGET)) for e in pf],
+        [DecodeWorker(e) for e in dc], **kw)
+
+
+def _fleet_serve(torch, pf, dc, reqs, totals, spec="", kill=None,
+                 fetch=None, **kw):
+    """Serve phase 3's (prompt, max_new, sampling, arrival) requests
+    through a fresh fleet over the reset engines, launch counts zeroed
+    just before and read just after (added to ``totals``). ``kill``: the
+    decode worker killed once it holds live streams; ``fetch=(a, b)``:
+    request b is pinned to the prefill worker request a did not land on
+    (a remote prefix fetch). Returns (fleet, rows, launch counts, wall
+    s)."""
+    import numpy as np
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.utils import faults
+    fleet = _fleet(pf, dc, **kw)
+    rids = []
+    for i, (p, mn, skw, arr) in enumerate(reqs):
+        pin = None
+        if fetch is not None and i == fetch[1]:
+            owner = fleet._requests[rids[fetch[0]]]["worker"]
+            pin = next(w.name for w in fleet.prefill if w.name != owner)
+        rids.append(fleet.submit(p, max_new_tokens=mn, arrival_step=arr,
+                                 prefill_worker=pin, **skw))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with faults.injected(spec, seed=0):
+        if kill is not None:
+            for _ in range(200):
+                if fleet.decode[kill].engine.has_live():
+                    break
+                fleet.tick()
+            else:
+                raise AssertionError(f"decode worker {kill} never held a "
+                                     "stream")
+            fleet.kill_decode_worker(kill)
+        res = fleet.run_until_idle(max_ticks=4000)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+    if fleet.busy():
+        raise AssertionError("the fleet did not drain")
+    rows = [res[r] for r in rids]
+    for (p, mn, _, _), row in zip(reqs, rows):
+        if not isinstance(row, np.ndarray) or len(row) != len(p) + mn:
+            raise AssertionError(f"fleet request: {row!r}")
+    return fleet, rows, counts, wall
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _fleet_launches(fleet, counts, kernel, label):
+    """Exact launches: ``kernel`` once per layer and decode step on the
+    decode workers, RMSNorm 2L + 1 per prefill chunk (prefill workers)
+    and per decode step (decode workers), no other decode kernel; no
+    prefill worker decodes and no decode worker prefills."""
+    pf = [w.engine for w in fleet.prefill]
+    dc = [d.engine for d in fleet.decode]
+    if any(e.steps for e in pf) or any(e.prefill_chunks for e in dc):
+        raise AssertionError(f"{label}: a prefill worker decoded or a "
+                             "decode worker prefilled")
+    L = dc[0].backend.model.config.num_hidden_layers
+    steps = sum(e.steps for e in dc)
+    chunks = sum(e.prefill_chunks for e in pf)
+    want = {k: 0 for k in ("paged_attention_decode",
+                           "paged_attention_decode_int8", "decode_layer",
+                           "decode_layer_int8", "rms_norm_bwd")}
+    want["rms_norm"] = (2 * L + 1) * (chunks + steps)
+    want[kernel] = L * steps
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got}, expected "
+                             f"{want}")
+    print(f"{label}: launches exact ({kernel} {want[kernel]} = {L} x "
+          f"{steps} decode steps, rms_norm {want['rms_norm']} = {2 * L + 1}"
+          f" x ({chunks} chunks + {steps} steps))")
+
+
+def _fleet_graphs(fleet, label):
+    """One decode graph per decode worker, one chunk graph per prefill
+    worker and no decode graph there; the decode workers' stock chunk
+    graph (captured when the engine was built) is never replayed."""
+    pf = [(w.engine.decode_compile_count(), w.engine.prefill_compile_count())
+          for w in fleet.prefill]
+    dc = [(d.engine.decode_compile_count(), d.engine.prefill_compile_count())
+          for d in fleet.decode]
+    if any(c != (0, 1) for c in pf) or any(c != (1, 1) for c in dc):
+        raise AssertionError(f"{label}: captures (decode, chunk) prefill "
+                             f"workers {pf}, decode workers {dc}")
+    print(f"{label}: captures (decode, chunk) prefill workers {pf}, decode "
+          f"workers {dc} (the decode workers' chunk graphs replayed 0 "
+          f"times)")
+
+
+def _fleet_pools(fleet, label):
+    for w in fleet.prefill + fleet.decode:
+        if fleet._alive(w.name):
+            _res_check_pool(w.engine, f"{label} {w.name}")
+
+
+def _fleet_same(label, got, want):
+    import numpy as np
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{label}: request {i} differs")
+
+
+def _fleet_print(card, label, fleet, wall):
+    import numpy as np
+    st = fleet.stats()
+    dec = sum(d.engine.decode_tokens for d in fleet.decode)
+    ttft = [t for d in fleet.decode for t in d.server.ttft.values()]
+    ms = st["handoff_ms_mean"]
+    print(f"[{card}] {label}: {st['handoffs']} handoffs, wire bytes a "
+          f"handoff {st['handoff_wire_bytes_mean']:.0f} (KV "
+          f"{st['handoff_kv_bytes_mean']:.0f}); ms a handoff: "
+          + ", ".join(f"{p} {v:.3f}" for p, v in ms.items())
+          + f" (sum {sum(ms.values()):.3f}); {st['ticks']} ticks, "
+          f"{wall:.2f} s, decode_tokens_per_s={dec / wall:.1f}, "
+          f"ttft_p50_s={np.percentile(ttft, 50):.4f} ttft_p95_s="
+          f"{np.percentile(ttft, 95):.4f}, prefix_hit_rate="
+          f"{st['prefix_hit_rate']:.4f}, prefix_fetches="
+          f"{st['prefix_fetches']}")
+
+
+def _first_tokens(engines, results, shipped, ids, arrivals, first, clock):
+    """Record the tick at which each submitted request's first token
+    exists: a live run holding tokens, a shipped handoff, a result."""
+    live = {run.request.request_id for e in engines
+            for _, run in e.live_runs() if run.tokens}
+    for tid, rid in ids.items():
+        if tid not in first and (rid in live or rid in results
+                                 or rid in shipped):
+            first[tid] = clock - arrivals[tid]
+
+
+def _open_loop(torch, card, label, trace, submit, tick, busy, engines,
+               results, shipped, totals):
+    """Replay ``trace`` open loop (``loadgen.replay``); returns (ids,
+    TTFT ticks by trace id, wall s, launch counts)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import replay
+    arrivals = {r.request_id: r.arrival_step for r in trace.requests}
+    first, ids = {}, {}
+
+    def sub(req):
+        rid = submit(req)
+        ids[req.request_id] = rid
+        return rid
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = replay(trace, sub, tick, busy, max_ticks=4000,
+                 on_tick=lambda c: _first_tokens(
+                     engines, results(), shipped(), ids, arrivals, first, c))
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+    if got != ids or busy():
+        raise AssertionError(f"{label}: the replay did not drain")
+    missing = [t for t, r in ids.items() if r not in results()]
+    if missing:
+        raise AssertionError(f"{label}: requests {missing} ended in neither "
+                             "a result nor a failure")
+    return ids, first, wall, counts
+
+
+def fleet_path(torch, card, ref, device="cuda"):
+    """Phase 13 (see the module docstring). Returns the launch counts of
+    every served run."""
+    import gc
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.serving import (PagedEngine, RequestFailure,
+                                          Scheduler, Server,
+                                          SocketTransport, TraceConfig,
+                                          generate_trace)
+    t_phase = time.perf_counter()
+    cfg = llama_7b_config()
+    # phase 12's dequant twins overwrote the model's linears: phase 3's
+    # model is rebuilt from its seed
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    print(f"phase 13 model rebuilt from seed 0 in "
+          f"{time.perf_counter() - t_phase:.2f} s; "
+          f"{_allocated_gib(torch):.2f} GiB allocated")
+    reqs = _prompts(np.random.RandomState(0), cfg.vocab_size)
+    totals = {}
+
+    # (a) the fp32 fleet
+    pf, dc = _fleet_engines(torch, model, device)
+    fleet, rows, counts, wall = _fleet_serve(torch, pf, dc, reqs, totals)
+    _fleet_same("phase 13 (a) fp32 fleet vs phase 3's engine", rows,
+                ref["rows"])
+    _fleet_launches(fleet, counts, "paged_attention_decode",
+                    "phase 13 (a)")
+    _fleet_graphs(fleet, "phase 13 (a)")
+    _fleet_pools(fleet, "phase 13 (a)")
+    if fleet.handoffs != len(reqs):
+        raise AssertionError(f"phase 13 (a): {fleet.handoffs} handoffs for "
+                             f"{len(reqs)} requests")
+    fp32_kv = fleet.stats()["handoff_kv_bytes_mean"]
+    print(f"phase 13 (a): {len(reqs)} streams (11 greedy, 1 sampled) "
+          f"identical to phase 3's unified engine, one handoff a request")
+    _fleet_print(card, "phase 13 (a) fp32 fleet", fleet, wall)
+
+    # (c) failures on (a)'s fleet
+    t0 = time.perf_counter()
+    fleet, got, counts, wall = _fleet_serve(torch, pf, dc, reqs, totals,
+                                            kill=1)
+    _fleet_same("phase 13 (c) decode worker killed", got, rows)
+    _fleet_launches(fleet, counts, "paged_attention_decode",
+                    "phase 13 (c) kill")
+    _fleet_pools(fleet, "phase 13 (c) kill")
+    st = fleet.stats()
+    if st["workers_lost"] != 1 or st["redrives"] < 1:
+        raise AssertionError(f"phase 13 (c): {st['workers_lost']} workers "
+                             f"lost, {st['redrives']} redrives")
+    print(f"[{card}] phase 13 (c) decode1 killed mid-decode: "
+          f"{st['redrives']} streams redriven, all {len(reqs)} identical to "
+          f"(a)'s; redrive latency p50 {st['redrive_latency_p50_s']} s p95 "
+          f"{st['redrive_latency_p95_s']} s; {wall:.2f} s")
+    t = SocketTransport("fleet", retry_backoff_s=0.001)
+    try:
+        fleet, got, counts, wall = _fleet_serve(
+            torch, pf, dc, reqs, totals, spec="transport.corrupt:at=1",
+            transport=t)
+        ts = t.stats()
+    finally:
+        t.close()
+    _fleet_same("phase 13 (c) socket transport, one frame corrupted",
+                got, rows)
+    _fleet_launches(fleet, counts, "paged_attention_decode",
+                    "phase 13 (c) socket")
+    if ts["crc_drops"] < 1 or ts["resends"] < 1:
+        raise AssertionError(f"phase 13 (c) socket: {ts}")
+    _fleet_print(card, "phase 13 (c) socket transport", fleet, wall)
+    print(f"phase 13 (c) socket transport: {ts}")
+    fleet, got, counts, wall = _fleet_serve(torch, pf, dc, reqs, totals,
+                                            affinity=False, fetch=(1, 9))
+    _fleet_same("phase 13 (c) affinity off", got, rows)
+    _fleet_launches(fleet, counts, "paged_attention_decode",
+                    "phase 13 (c) affinity off")
+    _fleet_pools(fleet, "phase 13 (c) affinity off")
+    st = fleet.stats()
+    if st["prefix_fetches"] < 1:
+        raise AssertionError("phase 13 (c) affinity off: no prefix fetch")
+    print(f"[{card}] phase 13 (c) affinity off: {st['prefix_fetches']} "
+          f"prefix fetches ({st['prefix_fetch_blocks']} blocks, "
+          f"{st['prefix_fetch_kv_bytes_mean']:.0f} KV bytes a fetch), "
+          f"streams identical; took {time.perf_counter() - t0:.1f} s")
+
+    # (d) open-loop arrivals: one Server over phase 3's engine shape, then
+    # (a)'s fleet, on the same trace
+    t0 = time.perf_counter()
+    trace = generate_trace(TraceConfig(**_FLEET_TRACE))
+    print(f"phase 13 (d) trace: {json.dumps(trace.stats())}")
+
+    def submit_kw(r):
+        return dict(max_new_tokens=r.max_new_tokens,
+                    temperature=r.temperature, top_k=r.top_k, seed=r.seed,
+                    tenant=r.tenant, priority=r.priority)
+
+    eng = PagedEngine(model, device=device, **dict(_FLEET_DC))
+    srv = Server(eng, Scheduler(prefill_token_budget=_FLEET_BUDGET))
+    s_ids, s_first, s_wall, counts = _open_loop(
+        torch, card, "phase 13 (d) server", trace,
+        lambda r: srv.submit(r.prompt, **submit_kw(r)),
+        lambda: srv.run_until_idle(max_ticks=1),
+        lambda: bool(srv.scheduler.pending() or eng.has_live()), [eng],
+        lambda: srv.results, lambda: (), totals)
+    _check_launches(eng, counts, "paged_attention_decode")
+    s_rows = {t: srv.results[r] for t, r in s_ids.items()}
+    out = {"server": (s_first, s_wall, eng.decode_tokens,
+                      list(srv.ttft.values()),
+                      eng.prefix_cache_hit_rate())}
+    del srv, eng
+    gc.collect()
+    fleet = _fleet(pf, dc)
+    f_ids, f_first, f_wall, counts = _open_loop(
+        torch, card, "phase 13 (d) fleet", trace,
+        lambda r: fleet.submit(r.prompt, **submit_kw(r)), fleet.tick,
+        fleet.busy, pf + dc, lambda: fleet.results,
+        lambda: fleet._progress, totals)
+    _fleet_launches(fleet, counts, "paged_attention_decode",
+                    "phase 13 (d) fleet")
+    _fleet_pools(fleet, "phase 13 (d) fleet")
+    f_rows = {t: fleet.results[r] for t, r in f_ids.items()}
+    failed = [t for t, v in f_rows.items() if isinstance(v, RequestFailure)]
+    same = sum(1 for t in s_rows if not isinstance(s_rows[t], RequestFailure)
+               and np.array_equal(s_rows[t], f_rows[t]))
+    if failed or same != len(s_rows):
+        raise AssertionError(f"phase 13 (d): {same}/{len(s_rows)} streams "
+                             f"equal the server's, failures {failed}")
+    ttft = [t for d in fleet.decode for t in d.server.ttft.values()] \
+        + [t for w in fleet.prefill for t in w.server.ttft.values()]
+    out["fleet"] = (f_first, f_wall,
+                    sum(d.engine.decode_tokens for d in fleet.decode), ttft,
+                    fleet.prefix_hit_rate())
+    for name, (first, wall, dtok, ttft_s, hit) in out.items():
+        ticks = list(first.values())
+        print(f"[{card}] phase 13 (d) open loop, {name}: {len(trace)} "
+              f"requests over {trace.config.horizon} ticks, every one "
+              f"completed; ttft_ticks p50 {np.percentile(ticks, 50):.1f} "
+              f"p95 {np.percentile(ticks, 95):.1f}; ttft_s p50 "
+              f"{np.percentile(ttft_s, 50):.4f} p95 "
+              f"{np.percentile(ttft_s, 95):.4f}; decode_tokens_per_s="
+              f"{dtok / wall:.1f} ({dtok} decode tokens in {wall:.2f} s); "
+              f"prefix_hit_rate={hit:.4f}")
+    print(f"phase 13 (d): all {same} streams of the fleet identical to the "
+          f"server's; took {time.perf_counter() - t0:.1f} s")
+    del fleet, pf, dc
+    gc.collect()
+    _empty_cache(torch)
+
+    # (b) the int8 fleet against a unified int8 server
+    t0 = time.perf_counter()
+    eng = PagedEngine(model, kv_int8=True, device=device, **_FLEET_DC)
+    srv = Server(eng, Scheduler(prefill_token_budget=_FLEET_BUDGET))
+    rids = [srv.submit(p, max_new_tokens=mn, arrival_step=arr, **kw)
+            for p, mn, kw, arr in reqs]
+    res = srv.run_until_idle()
+    want = [res[r] for r in rids]
+    del srv, eng
+    gc.collect()
+    _empty_cache(torch)
+    pf, dc = _fleet_engines(torch, model, device, kv_int8=True)
+    fleet, got, counts, wall = _fleet_serve(torch, pf, dc, reqs, totals)
+    _fleet_same("phase 13 (b) int8 fleet vs a unified int8 server", got,
+                want)
+    _fleet_launches(fleet, counts, "paged_attention_decode_int8",
+                    "phase 13 (b)")
+    _fleet_graphs(fleet, "phase 13 (b)")
+    _fleet_pools(fleet, "phase 13 (b)")
+    if fleet.handoffs != len(reqs):
+        raise AssertionError(f"phase 13 (b): {fleet.handoffs} handoffs")
+    int8_kv = fleet.stats()["handoff_kv_bytes_mean"]
+    _fleet_print(card, "phase 13 (b) int8 fleet", fleet, wall)
+    print(f"[{card}] phase 13 (b): {len(reqs)} streams identical to a "
+          f"unified int8 server; payload KV bytes fp32/int8 "
+          f"{fp32_kv / int8_kv:.3f} (4d/(d+4) = "
+          f"{4 * cfg.head_dim / (cfg.head_dim + 4):.3f} at head_dim "
+          f"{cfg.head_dim}); took {time.perf_counter() - t0:.1f} s")
+    del fleet, pf, dc, model
+    gc.collect()
+    _empty_cache(torch)
+    print(f"phase 13 (fleet serving) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def _empty_cache(torch):
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4322,7 +4800,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     wo, features = decode_features_path(torch, card, model, ref)
     del model
+    gc.collect()          # the serving phases' engines form cycles
     torch.cuda.empty_cache()
+    fleet = fleet_path(torch, card, ref)
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     train, idle7 = train_path(torch, card)
@@ -4335,7 +4815,8 @@ def main() -> int:
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, resilience_serving=resilience,
-                 decode_features=features, training=train, ernie_moe_training=ernie,
+                 decode_features=features, fleet_serving=fleet,
+                 training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"

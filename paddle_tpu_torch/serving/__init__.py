@@ -5,7 +5,11 @@ policies of ``resilience`` (deadlines, shedding, retry and breaker, the
 NaN quarantine, crash-safe snapshots), the decode features of ``quant``
 (weight-only int8/int4) and ``spec`` (speculative decoding), and the
 multi-tenant front door of ``frontend`` (streams, weighted-fair
-queueing, priority preemption)."""
+queueing, priority preemption), and the disaggregated serving fleet of
+``fleet`` (prefill and decode workers, the KV handoff wire format of
+``handoff`` over the transports of ``transport``, prefix-affinity
+routing, the fleet-wide prefix cache of ``prefix_cache``, failure
+redrive) with the open-loop load generator of ``loadgen``."""
 from .engine import (ContinuousBatchingEngine, ModelStepBackend,
                      free_slot_state, init_slot_state, run_decode_block,
                      slot_sample_logits)
@@ -18,13 +22,28 @@ from .server import Server
 from .spec import (SpecConfig, SpecEngine, SpecModelStepBackend,
                    SpecPagedEngine, SpecPagedStepBackend, ngram_propose)
 from .frontend import FairScheduler, Frontend, TenantConfig, TokenStream
+from .fleet import (DecodeWorker, Fleet, FleetRouter, PrefillDenseEngine,
+                    PrefillPagedEngine, PrefillWorker)
+from .handoff import (KVHandoff, decode_handoff, encode_handoff,
+                      reshard_kv_chunks)
+from .loadgen import Trace, TraceConfig, generate_trace, replay
+from .prefix_cache import (PrefixCacheDirectory, adopt_prefix,
+                           extract_prefix)
+from .transport import (InProcessTransport, SocketTransport, Transport,
+                        TransportError)
 
 __all__ = ["BlockManager", "CapturedProgram", "ContinuousBatchingEngine",
-           "FairScheduler", "Frontend", "ModelStepBackend", "PagedEngine",
-           "PagedModelStepBackend", "QuantConfig", "Request",
+           "DecodeWorker", "FairScheduler", "Fleet", "FleetRouter",
+           "Frontend", "InProcessTransport", "KVHandoff",
+           "ModelStepBackend", "PagedEngine", "PagedModelStepBackend",
+           "PrefillDenseEngine", "PrefillPagedEngine", "PrefillWorker",
+           "PrefixCacheDirectory", "QuantConfig", "Request",
            "RequestFailure", "ResilienceConfig", "ResumeState", "Scheduler",
-           "Server", "SpecConfig", "SpecEngine", "SpecModelStepBackend",
-           "SpecPagedEngine", "SpecPagedStepBackend", "TenantConfig",
-           "TokenStream", "WeightOnlyLinear", "free_slot_state",
-           "init_slot_state", "ngram_propose", "run_decode_block",
-           "slot_sample_logits"]
+           "Server", "SocketTransport", "SpecConfig", "SpecEngine",
+           "SpecModelStepBackend", "SpecPagedEngine",
+           "SpecPagedStepBackend", "TenantConfig", "TokenStream", "Trace",
+           "TraceConfig", "Transport", "TransportError",
+           "WeightOnlyLinear", "adopt_prefix", "decode_handoff",
+           "encode_handoff", "extract_prefix", "free_slot_state",
+           "generate_trace", "init_slot_state", "ngram_propose", "replay",
+           "reshard_kv_chunks", "run_decode_block", "slot_sample_logits"]

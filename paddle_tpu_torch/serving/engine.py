@@ -247,10 +247,12 @@ class ModelStepBackend:
     and the static token), so an engine without buckets, which captures
     one per prompt length, holds the pool of its longest prefill, not
     one pool per length. On the CPU each call runs the same function
-    eagerly."""
+    eagerly. With ``decode=False`` (the fleet's prefill-only engine,
+    ``serving.fleet``) no decode program is built."""
 
     def __init__(self, model, num_slots: int, max_len: int,
-                 decode_block: int, megakernel: bool = False, quant=None):
+                 decode_block: int, megakernel: bool = False, quant=None,
+                 decode: bool = True):
         self.device = dev = model.device
         self.quant_cfg = quant
         self.model, self.weight_bound = _serving_model(model, quant)
@@ -271,9 +273,17 @@ class ModelStepBackend:
         self._prefills = {}        # bucket length -> (ids, program)
         self._prefill_pool = torch.cuda.graph_pool_handle() \
             if dev.type == "cuda" else None
-        self.decode_program = CapturedProgram(self._decode_fn(), dev)
+        self.decode_program = _decode_program(self._decode_fn(), dev,
+                                              decode)
         self.decode_program.capture()
         self.reset_state()
+
+    @property
+    def pool_specs(self):
+        """``((shape, dtype name), ...)`` of the pool's tensors in the
+        JAX cache order (the JAX backend's ``pool_specs``, dtypes by
+        name): the layout a snapshot or a fleet handoff must match."""
+        return _pool_specs(self.caches())
 
     def _decode_fn(self):
         """The function the decode program captures: the decode block
@@ -355,6 +365,33 @@ class ModelStepBackend:
         for (pk, pv), (rk, rv) in zip(self.cache, self.row):
             pk[slot].copy_(rk[0])
             pv[slot].copy_(rv[0])
+
+
+class _NoDecodeProgram:
+    """The decode program of a prefill-only backend (the fleet's prefill
+    engines, ``serving.fleet``): nothing is captured, so no graph pool
+    holds memory, and a call raises — such an engine arms no slot, and a
+    decode block run eagerly on the card would be a quiet fallback."""
+    captures = 0
+    capture_s = 0.0
+    graph_bytes = 0
+
+    def capture(self):
+        pass
+
+    def __call__(self):
+        raise RuntimeError("this backend was built without a decode "
+                           "program (a prefill-only engine decodes "
+                           "nothing)")
+
+
+def _decode_program(fn, device, decode: bool):
+    return CapturedProgram(fn, device) if decode else _NoDecodeProgram()
+
+
+def _pool_specs(caches) -> tuple:
+    return tuple((tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                 for t in caches)
 
 
 def _serving_model(model, quant):
@@ -982,8 +1019,7 @@ class ContinuousBatchingEngine:
                         else list(meta["block_ids"]))
 
     def _pool_specs(self):
-        return [[list(t.shape), str(t.dtype).replace("torch.", "")]
-                for t in self.backend.caches()]
+        return [[list(s), d] for s, d in self.backend.pool_specs]
 
     def snapshot_state(self):
         """(meta dict, host-array dict) capturing everything needed to

@@ -40,7 +40,8 @@ from ..profiler import RecordEvent
 from ..utils import faults
 from ..utils.flags import env_bool, env_flag, env_int
 from .engine import (_M_PREFILLS, _M_TOKENS, ContinuousBatchingEngine,
-                     _arm_fn, _checked_step, _key_tensor, _refuse_unported,
+                     _arm_fn, _checked_step, _decode_program, _key_tensor,
+                     _pool_specs, _refuse_unported,
                      _refuse_spec_outside_factory, _serving_model, _SlotRun,
                      free_slot_state, init_slot_state, run_decode_block,
                      slot_sample_logits)
@@ -174,6 +175,19 @@ class BlockManager:
         self._note_pool()
         return out
 
+    def evict_cached(self, n: int) -> int:
+        """Evict up to ``n`` retained registered blocks back to the free
+        list (the fleet's watermark eviction drives this), least-reused
+        first with LRU tiebreak (:meth:`_evict_victim`). Referenced
+        blocks are untouchable; returns the count actually evicted."""
+        done = 0
+        while done < n and self._cached:
+            self._free.append(self._evict_victim())
+            done += 1
+        if done:
+            self._note_pool()
+        return done
+
     # -- prefix sharing ----------------------------------------------------
     def _shareable_blocks(self, prompt) -> int:
         # whole blocks only, and never the one holding the LAST prompt
@@ -233,6 +247,12 @@ class BlockManager:
                 self._digest_of[bid] = digest
             self._depth[digest] = j + 1
             parent = digest
+
+    def registered_chains(self) -> Dict[bytes, int]:
+        """``{digest: covered_blocks}`` for every registered block — what
+        a fleet worker publishes to the prefix-cache directory on each
+        heartbeat (a digest at chain position j covers j+1 blocks)."""
+        return {d: self._depth.get(d, 0) for d in self._index}
 
     def release(self, block_ids: Sequence[int]):
         """Drop one reference per block. At refcount 0 a registered
@@ -310,12 +330,15 @@ class PagedModelStepBackend:
     0 (``decode_program``, ``prefill_program``); on the CPU each call
     runs the same function eagerly. The prefill chunk stays unfused
     under ``megakernel``, as in JAX
-    (``paddle_tpu/serving/paging.py:452-454``)."""
+    (``paddle_tpu/serving/paging.py:452-454``). With ``decode=False``
+    (the fleet's prefill-only engine, ``serving.fleet``) no decode
+    program is built."""
 
     def __init__(self, model, num_slots: int, max_len: int,
                  decode_block: int, block_size: int, num_blocks: int,
                  prefill_chunk: int, kv_int8: bool = False,
-                 megakernel: bool = False, quant=None):
+                 megakernel: bool = False, quant=None,
+                 decode: bool = True):
         if max_len % block_size != 0:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
@@ -350,7 +373,8 @@ class PagedModelStepBackend:
                                        device=dev)
         self._chunk_key = torch.zeros(2, dtype=torch.int64, device=dev)
         self._chunk_tok = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.decode_program = CapturedProgram(self._decode_fn(), dev)
+        self.decode_program = _decode_program(self._decode_fn(), dev,
+                                              decode)
         self.prefill_program = CapturedProgram(self._run_chunk, dev)
         self.decode_program.capture()
         self.prefill_program.capture()
@@ -367,6 +391,14 @@ class PagedModelStepBackend:
         free_slot_state(self.state)
         self.state["table"].zero_()
         return self.state
+
+    @property
+    def pool_specs(self):
+        """``((shape, dtype name), ...)`` of the arena's tensors in the
+        JAX cache order (the JAX backend's ``pool_specs``, dtypes by
+        name): the layout a snapshot, a handoff or a prefix fetch must
+        match."""
+        return _pool_specs(self.caches())
 
     def kv_bytes_per_slot(self) -> int:
         """Device bytes of KV arena per slot (codes and scales under
@@ -573,6 +605,7 @@ class PagedEngine(ContinuousBatchingEngine):
         self.prefilled_tokens = 0      # actually computed
         self.prefill_chunks = 0        # chunk programs dispatched
         self.prefill_s = 0.0           # host wall in prefill_tick
+        self.fetched_tokens = 0        # of shared: remote-fetched KV
 
     # -- introspection -----------------------------------------------------
     def prefill_compile_count(self) -> int:
@@ -632,7 +665,7 @@ class PagedEngine(ContinuousBatchingEngine):
                     None)
         if slot is None:
             raise RuntimeError("no free slot (scheduler bug)")
-        shared = self.manager.match_prefix(full)
+        shared = self._match_prefix_for_admission(full)
         total = self.blocks_needed(L, mnt)
         fresh = self.manager.allocate(total - len(shared))
         if fresh is None:            # pool exhausted: retry later
@@ -673,6 +706,14 @@ class PagedEngine(ContinuousBatchingEngine):
                                       key=key, sub=sub,
                                       resume_tok=resume_tok))
         return True
+
+    def _match_prefix_for_admission(self, full) -> List[int]:
+        """Admission-time prefix match against the LOCAL index; the
+        fleet's prefill engine (``serving.fleet.PrefillPagedEngine``)
+        also fetches a longer chain another worker registered. Either
+        way the returned blocks are ref-acquired for the admitting
+        request and its prefill starts past them."""
+        return self.manager.match_prefix(full)
 
     # -- chunked prefill ---------------------------------------------------
     def prefill_tick(self, token_budget: Optional[int] = None) -> int:
@@ -863,7 +904,8 @@ class PagedEngine(ContinuousBatchingEngine):
             "prompt_tokens": self.prompt_tokens,
             "shared_tokens": self.shared_tokens,
             "prefilled_tokens": self.prefilled_tokens,
-            "prefill_chunks": self.prefill_chunks}
+            "prefill_chunks": self.prefill_chunks,
+            "fetched_tokens": self.fetched_tokens}
         return meta, arrays
 
     def restore_state(self, meta, arrays):
@@ -907,3 +949,4 @@ class PagedEngine(ContinuousBatchingEngine):
         self.shared_tokens = pc["shared_tokens"]
         self.prefilled_tokens = pc["prefilled_tokens"]
         self.prefill_chunks = pc["prefill_chunks"]
+        self.fetched_tokens = pc.get("fetched_tokens", 0)

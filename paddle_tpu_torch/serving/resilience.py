@@ -20,12 +20,12 @@ Failure taxonomy (the ``reason`` on every :class:`RequestFailure`):
 ``"circuit_open"`` (the breaker tripped after N consecutive step
 failures; everything in flight and queued is drained).
 
-Deliberate difference from the JAX package: the retry loop treats only
-:class:`InjectedFault` as transient. The fleet transport's
-``TransportError`` joins it with the fleet (``ROADMAP.md`` A.5). A CUDA
-error is NOT retried: a sticky CUDA error poisons the process's
-context, so every later launch fails too, and retrying would hide the
-fault behind the breaker instead of surfacing it.
+Deliberate difference from the JAX package: the retry loop treats
+:class:`InjectedFault` and the fleet transport's ``TransportError`` as
+transient, but not a device error. A CUDA error is NOT retried: a sticky
+CUDA error poisons the process's context, so every later launch fails
+too, and retrying would hide the fault behind the breaker instead of
+surfacing it.
 
 Snapshots are single npz files written atomically (tmp + rename via
 ``distributed.checkpoint.atomic_savez``) holding the engine's device
@@ -69,10 +69,12 @@ class RequestFailure:
 
 def _transient_types() -> Tuple[type, ...]:
     """Exception types the retry loop treats as transient: injected
-    faults only (see the module docstring for why a CUDA error is not
-    one, and ``ROADMAP.md`` A.5 for the transport's). Programming
-    errors (ValueError and friends) always propagate."""
-    return (InjectedFault,)
+    faults and the fleet transport's wire failure (a send that exhausted
+    its reconnect budget — the network being down is operational, not a
+    bug); see the module docstring for why a CUDA error is not one.
+    Programming errors (ValueError and friends) always propagate."""
+    from .transport import TransportError
+    return (InjectedFault, TransportError)
 
 
 @dataclass

@@ -21,8 +21,9 @@ Zero overhead when disarmed: every entry point checks one module-level
 bool first; no site bookkeeping, no RNG draw, no dict lookup happens
 unless a schedule is armed.
 
-Sites the port threads (the serving sites of the JAX package; the
-fleet, transport and journal sites come with their modules):
+Sites the port threads (the serving, fleet and transport sites of the
+JAX package; its journal, checkpoint and spill sites come with the
+fleet's durable control plane, ROADMAP A.5 (b)):
 
 ====================== ============================== ==================
 site                   fires in                       failure simulated
@@ -33,6 +34,15 @@ serving.harvest        engine pending-harvest         host transfer loss
 serving.prefill_tick   paged chunked prefill          chunk dispatch err
 serving.allocate       BlockManager.allocate          pool exhaustion
 serving.poison         engine step (KV NaN)           poisoned slot
+fleet.serialize        handoff.encode_handoff         serializer crash
+fleet.transport        Transport.send (both kinds)    wire refuses send
+fleet.adopt            DecodeWorker.adopt             adopt-side crash
+fleet.fetch            Fleet._fetch_prefix op         fetch-op crash
+fleet.directory        Fleet._beat_one publish        one publish lost
+fleet.scale            Fleet add/drain/remove decode  scale action fails
+transport.partial_write SocketTransport frame write   torn TCP write
+transport.corrupt      SocketTransport frame write    flipped wire byte
+transport.disconnect   SocketTransport ack wait       ack loss/conn drop
 ====================== ============================== ==================
 """
 from __future__ import annotations
