@@ -239,6 +239,40 @@ Phases, each of which raises on failure (nothing is caught):
    identical to a unified int8 server, int8 paged-decode launches exact,
    the fp32/int8 payload ratio printed. The phase prints its seconds.
 
+14. The fleet's durable control plane and its SLO autoscaler
+   (``serving.durability``, ``serving.autoscaler``; run after phase 13,
+   on phase 3's 7B model rebuilt from seed 0). Two prefill engines (2
+   slots, max_len 512, block 16, chunk 32) and two decode engines (4
+   slots), phase 3's requests 0-7 (request 5 samples); every durability
+   directory is a fresh temporary directory, removed when its arm ends.
+   (a) A clean run gives the reference rows (equal to phase 3's engine);
+   then a durable run takes requests 0-3, is checkpointed once one
+   stream decodes while another is still being prefilled, takes requests
+   4-7, runs two ticks and dies: its engines are freed, and
+   ``Fleet.recover`` rebuilds every worker on engines built anew. Gates:
+   every recovered row equals the clean run's, one terminal a request,
+   no leaked block, captures (decode, chunk) (0, 1) a prefill worker and
+   (1, 1) a decode worker, launches exact over the recovered run.
+   Printed: the checkpoint's bytes and seconds, ``recover``'s seconds by
+   part, the records replayed and streams redriven, journal appends and
+   ms an append. (b) The same over ``kv_int8`` engines with
+   ``journal.torn_tail`` armed once after the checkpoint: the recovery
+   warns, reports the torn tail, and its rows equal a clean int8 run.
+   (c) (a)'s shape with affinity off, watermarks 0.05/0.02 and a 4 GiB
+   spill tier: evicted chains go to disk; request 1's prompt,
+   resubmitted once its chain left every arena, is a spill hit with the
+   same stream; spill bytes and ms a write and a read + adopt printed.
+   (d) A kill-and-burst ``loadgen`` trace (7B's vocabulary, prompts
+   32-256, outputs 16-48, one burst at 5x) through three static decode
+   workers and through an autoscaled pool (min 1, max 3, queue-driven,
+   engines built before the trace, one decode worker killed inside the
+   burst): every request ends in a result or an explicit failure, the
+   rows of both arms are identical, the pool scales up, is repaired by
+   the next scale-up after the kill and drains back to 1, one decode
+   graph an engine; decode worker-ticks and the TTFT share under twice
+   the static arm's p50 printed for each arm. The phase prints its
+   seconds and the largest directory's bytes.
+
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU the script
@@ -4423,19 +4457,25 @@ def _sync(torch):
         torch.cuda.synchronize()
 
 
-def _fleet_launches(fleet, counts, kernel, label):
+def _fleet_launches(fleet, counts, kernel, label, base=None):
     """Exact launches: ``kernel`` once per layer and decode step on the
     decode workers, RMSNorm 2L + 1 per prefill chunk (prefill workers)
     and per decode step (decode workers), no other decode kernel; no
-    prefill worker decodes and no decode worker prefills."""
+    prefill worker decodes and no decode worker prefills. ``base``
+    ({id(engine): (steps, chunks)}, from :func:`_engine_marks`) counts
+    only the steps and chunks run since (a restored engine carries its
+    snapshot's counters)."""
+    def since(e, i):
+        return (e.steps, e.prefill_chunks)[i] \
+            - (base or {}).get(id(e), (0, 0))[i]
     pf = [w.engine for w in fleet.prefill]
     dc = [d.engine for d in fleet.decode]
-    if any(e.steps for e in pf) or any(e.prefill_chunks for e in dc):
+    if any(since(e, 0) for e in pf) or any(since(e, 1) for e in dc):
         raise AssertionError(f"{label}: a prefill worker decoded or a "
                              "decode worker prefilled")
     L = dc[0].backend.model.config.num_hidden_layers
-    steps = sum(e.steps for e in dc)
-    chunks = sum(e.prefill_chunks for e in pf)
+    steps = sum(since(e, 0) for e in dc)
+    chunks = sum(since(e, 1) for e in pf)
     want = {k: 0 for k in ("paged_attention_decode",
                            "paged_attention_decode_int8", "decode_layer",
                            "decode_layer_int8", "rms_norm_bwd")}
@@ -4724,6 +4764,523 @@ def fleet_path(torch, card, ref, device="cuda"):
     return totals
 
 
+# -- phase 14: the fleet's durable control plane and its SLO autoscaler -----
+
+# two prefill engines of 2 slots and two decode engines of 4, max_len 512:
+# 1 GiB and 2 GiB of fp32 arena at 7B's width. The prefill workers'
+# schedulers pace 64 prompt tokens a tick, so a checkpoint finds streams
+# in every state
+_DUR_PF = dict(num_slots=2, max_len=512, decode_block=8, block_size=16,
+               prefill_chunk=32)
+_DUR_DC = dict(_DUR_PF, num_slots=4)
+_DUR_BUDGET = 64
+# the kill-and-burst trace of (d): 7B's vocabulary, prompts 32-256,
+# outputs 16-48, one burst at 5x the base rate, a quarter sampled
+_DUR_TRACE = dict(seed=0, vocab_size=32000, horizon=20, base_rate=0.25,
+                  bursts=1, burst_mult=5.0, burst_len=(6, 9), prompt_lo=32,
+                  prompt_hi=256, output_lo=16, output_hi=48,
+                  sampled_fraction=0.25)
+# queue-driven: a TTFT in seconds on the card is not one on the CPU
+_DUR_SCALER = dict(min_decode=1, max_decode=3, queue_high=1,
+                   interval_ticks=2, ttft_slo_s=1e9, breach_intervals=2,
+                   clear_intervals=3, up_cooldown=2, down_cooldown=2)
+
+
+def _dur_engine(model, device, role, kv_int8=False):
+    from paddle_tpu_torch.serving import PagedEngine, PrefillPagedEngine
+    if role == "prefill":
+        return PrefillPagedEngine(model, kv_int8=kv_int8, device=device,
+                                  **_DUR_PF)
+    return PagedEngine(model, kv_int8=kv_int8, device=device, **_DUR_DC)
+
+
+def _dur_engines(torch, model, device, label, kv_int8=False, n_dc=2):
+    t0 = time.perf_counter()
+    pf = [_dur_engine(model, device, "prefill", kv_int8) for _ in range(2)]
+    dc = [_dur_engine(model, device, "decode", kv_int8)
+          for _ in range(n_dc)]
+    arena = [sum(t.numel() * t.element_size() for t in e.backend.caches())
+             for e in (pf[0], dc[0])]
+    print(f"{label}: engines built (programs captured) in "
+          f"{time.perf_counter() - t0:.2f} s: arenas prefill "
+          f"{arena[0] / 2**30:.2f} GiB x 2, decode {arena[1] / 2**30:.2f} "
+          f"GiB x {n_dc}; {_allocated_gib(torch):.2f} GiB allocated")
+    return pf, dc
+
+
+def _dur_fleet(pf, dc, **kw):
+    from paddle_tpu_torch.serving import (DecodeWorker, Fleet,
+                                          PrefillWorker, Scheduler)
+    for e in pf + dc:
+        e.reset()
+    return Fleet([PrefillWorker(e, scheduler=Scheduler(
+        prefill_token_budget=_DUR_BUDGET)) for e in pf],
+        [DecodeWorker(e) for e in dc], **kw)
+
+
+def _dur_submit(fleet, reqs):
+    return [fleet.submit(p, max_new_tokens=mn, **kw)
+            for p, mn, kw, _ in reqs]
+
+
+def _dur_run(torch, fleet, totals):
+    """Run the fleet until idle with the launch counters zeroed just
+    before and read just after (added to ``totals``); returns (launch
+    counts, wall s)."""
+    from paddle_tpu_torch import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fleet.run_until_idle(max_ticks=4000)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+    if fleet.busy():
+        raise AssertionError("the fleet did not drain")
+    return counts, wall
+
+
+def _dur_rows(fleet, rids, reqs, label):
+    import numpy as np
+    res = fleet.results
+    rows = [res.get(r) for r in rids]
+    for (p, mn, _, _), row in zip(reqs, rows):
+        if not isinstance(row, np.ndarray) or len(row) != len(p) + mn:
+            raise AssertionError(f"{label}: request ended in {row!r}")
+    return rows
+
+
+def _engine_marks(fleet):
+    """{id(engine): (steps, chunks)} of every worker's engine now."""
+    return {id(w.engine): (w.engine.steps, w.engine.prefill_chunks)
+            for w in fleet.prefill + fleet.decode}
+
+
+def _dir_bytes(d):
+    import os
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def _free_engines(torch, *holders):
+    for h in holders:
+        h.clear()
+    gc.collect()
+    _empty_cache(torch)
+
+
+def _dur_recovery_arm(torch, card, model, device, reqs, want, kv_int8,
+                      totals, dirs):
+    """(a) / (b): a clean run, then a durable run checkpointed mid-
+    traffic, fed more, killed two ticks later (its engines freed), and
+    recovered onto engines built anew; the recovered rows must equal the
+    clean run's (and ``want``, when given)."""
+    import tempfile
+    import warnings
+    from paddle_tpu_torch.serving import Fleet
+    from paddle_tpu_torch.utils import faults
+    import shutil
+    label = "phase 14 (b) int8" if kv_int8 else "phase 14 (a) fp32"
+    kernel = "paged_attention_decode_int8" if kv_int8 \
+        else "paged_attention_decode"
+    pf, dc = _dur_engines(torch, model, device, label, kv_int8)
+    fleet = _dur_fleet(pf, dc)
+    rids = _dur_submit(fleet, reqs)
+    counts, wall = _dur_run(torch, fleet, totals)
+    clean = _dur_rows(fleet, rids, reqs, f"{label} clean")
+    _fleet_launches(fleet, counts, kernel, f"{label} clean run")
+    _fleet_pools(fleet, f"{label} clean run")
+    if want is not None:
+        _fleet_same(f"{label} clean run vs phase 3's engine", clean, want)
+    print(f"[{card}] {label} clean run: {len(reqs)} streams in "
+          f"{wall:.2f} s, {fleet.stats()['ticks']} ticks")
+
+    # the durable run: requests 0-3, a checkpoint once a stream decodes
+    # while another is still being prefilled, requests 4-7, two ticks,
+    # then the whole fleet dies
+    d = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    dirs.append(d)
+    fleet = _dur_fleet(pf, dc, durability=d)
+    ids = _dur_submit(fleet, reqs[:4])
+    for _ in range(200):
+        fleet.tick()
+        decoding = any(w.engine.has_live() for w in fleet.decode)
+        behind = [r for r in ids if r not in fleet._handoffs
+                  and not fleet._terminal(r)]
+        if decoding and behind:
+            break
+    else:
+        raise AssertionError(f"{label}: no tick had one stream decoding "
+                             "and another not yet shipped")
+    j = fleet._journal
+    appends, append_s, jbytes = j.appends, j.append_s, j.bytes_written
+    _sync(torch)
+    t0 = time.perf_counter()
+    fleet.checkpoint()
+    ck_s = time.perf_counter() - t0
+    ck = fleet.last_checkpoint
+    peak = _dir_bytes(d)
+    print(f"[{card}] {label} checkpoint at tick {fleet._clock} "
+          f"({len(ids) - len(behind)} streams shipped, {len(behind)} "
+          f"queued or prefilling): {ck['bytes']} bytes in {ck_s:.3f} s "
+          f"({ck['bytes'] / ck_s / 1e9:.3f} GB/s; snapshots "
+          f"{ck['snapshot_s']:.3f} s, manifest commit "
+          f"{ck['commit_s'] * 1e3:.3f} ms)")
+    ids += _dur_submit(fleet, reqs[4:])
+    torn = "journal.torn_tail:at=1" if kv_int8 else ""
+    with faults.injected(torn):
+        for _ in range(2):
+            fleet.tick()
+    j = fleet._journal
+    appends, append_s = appends + j.appends, append_s + j.append_s
+    jbytes += j.bytes_written
+    print(f"[{card}] {label} journal: {appends} appends, {jbytes} bytes, "
+          f"{append_s / max(appends, 1) * 1e3:.4f} ms an append (fsync "
+          "each)" + (" ; journal.torn_tail armed once after the "
+                     "checkpoint" if torn else ""))
+    del fleet, j
+    _free_engines(torch, pf, dc)
+
+    # recovery onto new engines (each captures its programs anew)
+    built = []
+
+    def factory(role, name):
+        e = _dur_engine(model, device, role, kv_int8)
+        built.append(e)
+        return e
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        fleet = Fleet.recover(d, engine_factory=factory)
+        _sync(torch)
+        rec_s = time.perf_counter() - t0
+    lr = fleet.last_recovery
+    torn_warned = any("torn" in str(w.message) for w in warned)
+    if kv_int8 and not (torn_warned and lr["torn_tail"]):
+        raise AssertionError(f"{label}: the torn tail was not reported "
+                             f"({lr})")
+    if lr["redriven"] < 1:
+        raise AssertionError(f"{label}: nothing redriven ({lr})")
+    for w in fleet.prefill:
+        w.server.scheduler.prefill_token_budget = _DUR_BUDGET
+    sec = lr["seconds"]
+    print(f"[{card}] {label} recover: {rec_s:.3f} s (manifest "
+          f"{sec['manifest'] * 1e3:.3f} ms, journal replay "
+          f"{sec['replay'] * 1e3:.3f} ms, engine builds {sec['build']:.3f} "
+          f"s, worker restore {sec['restore']:.3f} s, registries "
+          f"{sec['registries'] * 1e3:.3f} ms, redrive "
+          f"{sec['redrive'] * 1e3:.3f} ms); {lr['replayed']} records "
+          f"replayed, {lr['redriven']} streams redriven, torn tail "
+          f"{lr['torn_tail']}, {lr['workers']} workers")
+    base = _engine_marks(fleet)
+    counts, wall = _dur_run(torch, fleet, totals)
+    rows = _dur_rows(fleet, ids, reqs, f"{label} recovered")
+    _fleet_same(f"{label} recovered vs clean run", rows, clean)
+    for r in ids:
+        n = sum(1 for w in fleet.prefill + fleet.decode
+                if r in w.server.results) + (r in fleet._local_results) \
+            + (r in fleet._failures)
+        if n != 1:
+            raise AssertionError(f"{label}: request {r} has {n} terminals")
+    _fleet_launches(fleet, counts, kernel, f"{label} recovered", base)
+    _fleet_graphs(fleet, f"{label} recovered")
+    _fleet_pools(fleet, f"{label} recovered")
+    print(f"[{card}] {label}: all {len(reqs)} recovered rows (greedy and "
+          f"the sampled one) identical to the clean run"
+          + (" and to phase 3's engine" if want is not None else "")
+          + f"; one terminal each; recovered fleet ran {wall:.2f} s, "
+          f"{fleet.stats()['ticks']} ticks")
+    del fleet
+    _free_engines(torch, built)
+    shutil.rmtree(d, ignore_errors=True)
+    return peak, clean
+
+
+def _dur_spill_arm(torch, card, model, device, reqs, rows, totals, dirs):
+    """(c): watermark eviction with the disk spill tier on; request 1's
+    prompt resubmitted after its chain left every arena is served from
+    disk."""
+    import shutil
+    import tempfile
+    import numpy as np
+    pf, dc = _dur_engines(torch, model, device, "phase 14 (c) spill")
+    d = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    dirs.append(d)
+    fleet = _dur_fleet(pf, dc, durability=d, affinity=False,
+                       evict_high=0.05, evict_low=0.02,
+                       spill_max_bytes=4 << 30)
+    rids = _dur_submit(fleet, reqs)
+    _dur_run(torch, fleet, totals)
+    got = _dur_rows(fleet, rids, reqs, "phase 14 (c)")
+    _fleet_same("phase 14 (c) spill fleet vs (a)'s clean run", got, rows)
+    fleet.tick()                     # an idle tick evicts the rest
+    spill = fleet._spill
+    p1 = reqs[1][0]
+    head = _sha1_head(pf[0], p1)
+    if any(head in w.engine.manager._index
+           for w in fleet.prefill + fleet.decode):
+        raise AssertionError("phase 14 (c): request 1's chain is still in "
+                             "an arena")
+    fetch = fleet._spill_fetch
+    took = []
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = fetch(*a)
+        _sync(torch)
+        if out is not None:
+            took.append(time.perf_counter() - t0)
+        return out
+    fleet._spill_fetch = timed
+    hits0 = spill.hits
+    p, mn, kw, _ = reqs[1]
+    rid = fleet.submit(p, max_new_tokens=mn, **kw)
+    base = _engine_marks(fleet)
+    counts, _ = _dur_run(torch, fleet, totals)
+    again = fleet.results[rid]
+    if not np.array_equal(again, rows[1]):
+        raise AssertionError("phase 14 (c): the resubmitted stream differs "
+                             "from its first run")
+    st = spill.stats()
+    if st["writes"] < 1 or spill.hits - hits0 < 1 or not took:
+        raise AssertionError(f"phase 14 (c): spill {st}")
+    _fleet_launches(fleet, counts, "paged_attention_decode",
+                    "phase 14 (c) resubmission", base)
+    _fleet_pools(fleet, "phase 14 (c)")
+    print(f"[{card}] phase 14 (c) spill tier: {st['writes']} chains "
+          f"spilled ({st['bytes']} bytes on disk, "
+          f"{spill.write_s / st['writes'] * 1e3:.2f} ms a spill write "
+          f"with its device-to-host copy excluded), {fleet.prefix_evictions}"
+          f" blocks evicted; request 1 resubmitted: a spill hit of "
+          f"{fleet.prefix_fetch_blocks} blocks, read + adopt "
+          f"{took[0] * 1e3:.2f} ms (read {spill.read_s * 1e3:.2f} ms), "
+          f"stream identical to its first run")
+    peak = _dir_bytes(d)
+    del fleet, spill, fetch
+    _free_engines(torch, pf, dc)
+    shutil.rmtree(d, ignore_errors=True)
+    return peak
+
+
+def _sha1_head(engine, prompt):
+    """The digest a manager indexes ``prompt``'s first block under."""
+    bs = engine.kv_block_size
+    return engine.manager.hash_fn(b"", tuple(int(t) for t in prompt[:bs]))
+
+
+def _dur_autoscale_arm(torch, trace, pool, totals, autoscale):
+    """(d): replay the trace through a fleet of pre-built engines; the
+    autoscaled arm starts from one decode worker, scales through a
+    factory handing out the rest of ``pool`` and has one decode worker
+    killed inside the burst; the static arm runs three decode workers.
+    Returns (fleet, scaler, rows, ttft s by trace id, decode
+    worker-ticks, kill/death ticks)."""
+    import numpy as np
+    from types import SimpleNamespace
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import (Autoscaler, AutoscalerConfig,
+                                          RequestFailure, replay)
+    pf, dcs = pool
+    n0 = 1 if autoscale else 3
+    fleet = _dur_fleet(pf, dcs[:n0], lease_misses=2, spill_depth=100)
+    spares = list(dcs[n0:])
+
+    def factory():
+        if not spares:
+            raise AssertionError("phase 14 (d): the engine pool ran out")
+        e = spares.pop(0)
+        e.reset()
+        return e
+    scaler = Autoscaler(fleet, factory,
+                        config=AutoscalerConfig(**_DUR_SCALER)) \
+        if autoscale else None
+    b0, b1 = trace.burst_windows[0]
+    kill_at = (b0 + b1) // 2
+    state = {"clock": 0, "killed": None, "dead": None, "worker_ticks": 0}
+    ids, t_sub, first = {}, {}, {}
+
+    def submit(r):
+        t_sub[r.request_id] = time.perf_counter()
+        rid = fleet.submit(r.prompt, max_new_tokens=r.max_new_tokens,
+                           temperature=r.temperature, top_k=r.top_k,
+                           seed=r.seed, tenant=r.tenant,
+                           priority=r.priority)
+        ids[r.request_id] = rid
+        return rid
+
+    def on_tick(clock):
+        state["clock"] = clock
+        now = time.perf_counter()
+        live = {run.request.request_id for w in fleet.prefill + fleet.decode
+                for _, run in w.engine.live_runs() if run.tokens}
+        res = fleet.results
+        for tid, rid in ids.items():
+            if tid not in first and (rid in live or rid in res
+                                     or rid in fleet._progress):
+                first[tid] = now - t_sub[tid]
+        state["worker_ticks"] += sum(1 for d in fleet.decode
+                                     if fleet._alive(d.name)
+                                     and not d.killed)
+        if autoscale and state["killed"] is None and clock >= kill_at:
+            live_dc = [i for i, d in enumerate(fleet.decode)
+                       if not d.killed]
+            if len(live_dc) > 1:
+                fleet.kill_decode_worker(live_dc[-1])
+                state["killed"] = clock
+        if state["killed"] is not None and state["dead"] is None \
+                and fleet.workers_lost:
+            state["dead"] = clock
+        if scaler is not None:
+            scaler.on_tick(clock)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    replay(trace, submit, fleet.tick, fleet.busy, max_ticks=2000,
+           on_tick=on_tick)
+    while state["clock"] < trace.config.horizon + 40:
+        fleet.tick()
+        on_tick(state["clock"] + 1)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+    label = f"phase 14 (d) {'autoscaled' if autoscale else 'static peak'}"
+    used = [e for e in dcs if e not in spares]
+    workers = SimpleNamespace(
+        prefill=[SimpleNamespace(engine=e) for e in pf],
+        decode=[SimpleNamespace(engine=e) for e in used])
+    _fleet_launches(workers, counts, "paged_attention_decode", label)
+    res = fleet.results
+    rows, failed = {}, {}
+    for tid, rid in ids.items():
+        v = res.get(rid)
+        if v is None:
+            raise AssertionError(f"{label}: request {tid} ended in neither "
+                                 "a result nor a failure")
+        if isinstance(v, RequestFailure):
+            failed[tid] = v.reason
+        else:
+            rows[tid] = np.asarray(v)
+    for w in fleet.prefill + fleet.decode:
+        if fleet._alive(w.name):
+            _res_check_pool(w.engine, f"{label} {w.name}")
+    _fleet_graphs(workers, label)
+    return dict(fleet=fleet, scaler=scaler, rows=rows, failed=failed,
+                first=first, wall=wall, state=state, used=len(used))
+
+
+def durable_path(torch, card, ref, device="cuda"):
+    """Phase 14 (see the module docstring). Returns the launch counts of
+    every served run."""
+    import shutil
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.serving import TraceConfig, generate_trace
+    t_phase = time.perf_counter()
+    cfg = llama_7b_config()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    print(f"phase 14 model rebuilt from seed 0 in "
+          f"{time.perf_counter() - t_phase:.2f} s; "
+          f"{_allocated_gib(torch):.2f} GiB allocated")
+    reqs = _prompts(np.random.RandomState(0), cfg.vocab_size)[:8]
+    totals, dirs, peaks = {}, [], []
+    try:
+        t0 = time.perf_counter()
+        peak, rows = _dur_recovery_arm(torch, card, model, device, reqs,
+                                       ref["rows"][:8], False, totals, dirs)
+        peaks.append(peak)
+        print(f"phase 14 (a) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        peak, _ = _dur_recovery_arm(torch, card, model, device, reqs, None,
+                                    True, totals, dirs)
+        peaks.append(peak)
+        print(f"phase 14 (b) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        peaks.append(_dur_spill_arm(torch, card, model, device, reqs, rows,
+                                    totals, dirs))
+        print(f"phase 14 (c) took {time.perf_counter() - t0:.1f} s")
+
+        # (d) the autoscaler: every engine built before the trace starts
+        t0 = time.perf_counter()
+        trace = generate_trace(TraceConfig(**_DUR_TRACE))
+        print(f"phase 14 (d) trace: {json.dumps(trace.stats())}")
+        pf, dcs = _dur_engines(torch, model, device, "phase 14 (d)",
+                               n_dc=4)
+        arms = {}
+        for name, auto in (("static peak", False), ("autoscaled", True)):
+            arms[name] = _dur_autoscale_arm(torch, trace, (pf, dcs), totals,
+                                            auto)
+        a, s = arms["autoscaled"], arms["static peak"]
+        sc, st = a["scaler"], a["state"]
+        both = set(a["rows"]) & set(s["rows"])
+        diff = [t for t in both
+                if not np.array_equal(a["rows"][t], s["rows"][t])]
+        if diff or s["failed"]:
+            raise AssertionError(f"phase 14 (d): streams {diff} differ, "
+                                 f"static failures {s['failed']}")
+        every = _DUR_SCALER["interval_ticks"]
+        ups_after = [(i + 1) * every for i, d in enumerate(sc.decisions)
+                     if st["dead"] is not None
+                     and (i + 1) * every >= st["dead"]
+                     and d.action == "up" and d.acted]
+        live_end = len(a["fleet"]._live_decode())
+        # min_decode=1 keeps one survivor above the floor, so the repair
+        # is the queue's next scale-up, as soon as the up-cooldown lets
+        # it act
+        soon = (_DUR_SCALER["up_cooldown"] + 1) * every
+        if not (sc.scale_ups >= 1 and st["killed"] is not None
+                and st["killed"] <= trace.burst_windows[0][1]
+                and ups_after and ups_after[0] - st["dead"] <= soon
+                and live_end == 1
+                and sc.scale_downs >= 1 and sc.removals >= 1):
+            raise AssertionError(
+                f"phase 14 (d): scaler {sc.stats()}, kill at "
+                f"{st['killed']} (detected {st['dead']}), live at the end "
+                f"{live_end}")
+        p50 = float(np.percentile(list(s["first"].values()), 50))
+        timeline = [(2 * (i + 1), d.action, d.reason)
+                    for i, d in enumerate(sc.decisions)
+                    if d.action != "hold"]
+        print(f"phase 14 (d): burst ticks {trace.burst_windows[0]}, decode "
+              f"worker killed at tick {st['killed']} (dead at "
+              f"{st['dead']}, repaired by the scale-up at tick "
+              f"{ups_after[0]}); decisions (tick, action, reason): "
+              f"{timeline}; {sc.stats()}")
+        for name, arm in arms.items():
+            ttft = list(arm["first"].values())
+            share = sum(1 for t in ttft if t < 2 * p50) / len(ttft)
+            fl = arm["fleet"]
+            peak_size = arm["scaler"].peak_size if arm["scaler"] else 3
+            print(f"[{card}] phase 14 (d) {name}: {len(arm['rows'])} of "
+                  f"{len(trace)} requests completed, {len(arm['failed'])} "
+                  f"failed explicitly {sorted(set(arm['failed'].values()))};"
+                  f" decode workers peak {peak_size}, end "
+                  f"{len(fl._live_decode())}; decode worker-ticks "
+                  f"{arm['state']['worker_ticks']}; TTFT p50 "
+                  f"{np.percentile(ttft, 50):.4f} s p95 "
+                  f"{np.percentile(ttft, 95):.4f} s; share under 2x the "
+                  f"static arm's p50 ({2 * p50:.4f} s) {share:.4f}; "
+                  f"{arm['wall']:.2f} s, {fl.stats()['ticks']} ticks, "
+                  f"{arm['used']} decode engines used")
+        print(f"phase 14 (d): {len(both)} streams completed in both arms, "
+              f"all identical; one decode graph per engine; took "
+              f"{time.perf_counter() - t0:.1f} s")
+        del arms, a, s, sc, pf, dcs
+    finally:
+        print(f"phase 14: the largest durability directory held "
+              f"{max(peaks or [0])} bytes at its peak")
+        for d in dirs:      # each arm removes its own; this on a failure
+            shutil.rmtree(d, ignore_errors=True)
+    del model
+    gc.collect()
+    _empty_cache(torch)
+    print(f"phase 14 (durable control plane, autoscaler) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def _empty_cache(torch):
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -4803,6 +5360,7 @@ def main() -> int:
     gc.collect()          # the serving phases' engines form cycles
     torch.cuda.empty_cache()
     fleet = fleet_path(torch, card, ref)
+    durable = durable_path(torch, card, ref)
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     train, idle7 = train_path(torch, card)
@@ -4816,6 +5374,7 @@ def main() -> int:
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, resilience_serving=resilience,
                  decode_features=features, fleet_serving=fleet,
+                 durable_fleet=durable,
                  training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}

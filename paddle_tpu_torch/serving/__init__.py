@@ -9,7 +9,10 @@ queueing, priority preemption), and the disaggregated serving fleet of
 ``fleet`` (prefill and decode workers, the KV handoff wire format of
 ``handoff`` over the transports of ``transport``, prefix-affinity
 routing, the fleet-wide prefix cache of ``prefix_cache``, failure
-redrive) with the open-loop load generator of ``loadgen``."""
+redrive) with the open-loop load generator of ``loadgen``, its durable
+control plane of ``durability`` (write-ahead journal, checkpoint
+manifests, the disk prefix spill, whole-fleet recovery) and the SLO
+autoscaler of ``autoscaler``."""
 from .engine import (ContinuousBatchingEngine, ModelStepBackend,
                      free_slot_state, init_slot_state, run_decode_block,
                      slot_sample_logits)
@@ -27,23 +30,27 @@ from .fleet import (DecodeWorker, Fleet, FleetRouter, PrefillDenseEngine,
 from .handoff import (KVHandoff, decode_handoff, encode_handoff,
                       reshard_kv_chunks)
 from .loadgen import Trace, TraceConfig, generate_trace, replay
+from .durability import PrefixSpillStore, WriteAheadJournal
+from .autoscaler import (Autoscaler, AutoscalerConfig, DecisionKernel,
+                         Observation)
 from .prefix_cache import (PrefixCacheDirectory, adopt_prefix,
                            extract_prefix)
 from .transport import (InProcessTransport, SocketTransport, Transport,
                         TransportError)
 
-__all__ = ["BlockManager", "CapturedProgram", "ContinuousBatchingEngine",
-           "DecodeWorker", "FairScheduler", "Fleet", "FleetRouter",
-           "Frontend", "InProcessTransport", "KVHandoff",
-           "ModelStepBackend", "PagedEngine", "PagedModelStepBackend",
+__all__ = ["Autoscaler", "AutoscalerConfig", "BlockManager", "CapturedProgram",
+           "ContinuousBatchingEngine", "DecisionKernel", "DecodeWorker",
+           "FairScheduler", "Fleet", "FleetRouter", "Frontend",
+           "InProcessTransport", "KVHandoff", "ModelStepBackend",
+           "Observation", "PagedEngine", "PagedModelStepBackend",
            "PrefillDenseEngine", "PrefillPagedEngine", "PrefillWorker",
-           "PrefixCacheDirectory", "QuantConfig", "Request",
-           "RequestFailure", "ResilienceConfig", "ResumeState", "Scheduler",
-           "Server", "SocketTransport", "SpecConfig", "SpecEngine",
-           "SpecModelStepBackend", "SpecPagedEngine",
+           "PrefixCacheDirectory", "PrefixSpillStore", "QuantConfig",
+           "Request", "RequestFailure", "ResilienceConfig", "ResumeState",
+           "Scheduler", "Server", "SocketTransport", "SpecConfig",
+           "SpecEngine", "SpecModelStepBackend", "SpecPagedEngine",
            "SpecPagedStepBackend", "TenantConfig", "TokenStream", "Trace",
-           "TraceConfig", "Transport", "TransportError",
-           "WeightOnlyLinear", "adopt_prefix", "decode_handoff",
+           "TraceConfig", "Transport", "TransportError", "WeightOnlyLinear",
+           "WriteAheadJournal", "adopt_prefix", "decode_handoff",
            "encode_handoff", "extract_prefix", "free_slot_state",
            "generate_trace", "init_slot_state", "ngram_propose", "replay",
            "reshard_kv_chunks", "run_decode_block", "slot_sample_logits"]

@@ -49,6 +49,7 @@ from ..profiler import RecordEvent
 from ..utils import faults
 from ..utils.flags import env_bool, env_flag
 from ..graphs import CapturedProgram
+from .handoff import _BF16_WIRE, leaf_to_wire
 
 # engine metric families (JAX's names; no-ops until metrics.enable() /
 # PT_METRICS)
@@ -1026,8 +1027,10 @@ class ContinuousBatchingEngine:
         resume every in-flight stream: the KV pool, the slot state
         (positions, rng keys, sampling parameters — and the paged block
         tables riding it), copied to the host, and the host
-        bookkeeping. Taken at a tick boundary; the meta schema and the
-        array names are JAX's."""
+        bookkeeping. Taken at a tick boundary. The meta schema, the array
+        names and the dtypes are JAX's (slot keys as uint32 words, a bf16
+        pool as npz ``|V2`` words), so either package restores the file;
+        the port's own counters ride along as extra keys."""
         if self._pending_block is not None:
             raise RuntimeError(
                 "snapshot only at a tick boundary — a dispatched decode "
@@ -1036,7 +1039,7 @@ class ContinuousBatchingEngine:
         for i, t in enumerate(self.backend.caches()):
             arrays[f"cache_{i}"] = _to_host(t)
         for k, v in self._state.items():
-            arrays[f"state_{k}"] = _to_host(v)
+            arrays[f"state_{k}"] = _to_host(v, words=k == "key")
         slots_meta = []
         for i, run in enumerate(self._slots):
             if run is None:
@@ -1052,6 +1055,8 @@ class ContinuousBatchingEngine:
             fin_meta.append(self._run_meta(run))
         meta = {
             "engine_class": type(self).__name__,
+            # JAX's AOT-artifact fingerprint; a model-backed engine has none
+            "backend_artifact": None,
             "num_slots": self.num_slots, "max_len": self.max_len,
             "decode_block": self.decode_block,
             "pool_specs": self._pool_specs(),
@@ -1070,11 +1075,13 @@ class ContinuousBatchingEngine:
 
     def restore_state(self, meta: dict, arrays: dict):
         """Inverse of :meth:`snapshot_state`, into a freshly constructed
-        engine of the SAME configuration. Every array is validated
-        (shape and dtype) and then copied INTO the tensor it came from —
-        the pool, the slot state, the block tables — never rebound: the
-        captured graphs read those tensors, and a replay would never see
-        a rebound one."""
+        engine of the SAME configuration, from a file of either package.
+        Every array is validated (shape, and a dtype that holds the
+        tensor's values exactly: :func:`_host_array`) before any state is
+        touched, and then copied INTO the tensor it came from — the pool,
+        the slot state, the block tables — never rebound: the captured
+        graphs read those tensors, and a replay would never see a
+        rebound one."""
         want = self._pool_specs()
         if meta["pool_specs"] != want:
             raise ValueError(
@@ -1089,17 +1096,20 @@ class ContinuousBatchingEngine:
         pairs = [(f"cache_{i}", t)
                  for i, t in enumerate(self.backend.caches())]
         pairs += [(f"state_{k}", v) for k, v in self._state.items()]
+        host = []
         for name, t in pairs:
             a = arrays[name]
-            if tuple(a.shape) != tuple(t.shape) or a.dtype != _host_dtype(t):
+            h = _host_array(t, a)
+            if tuple(a.shape) != tuple(t.shape) or h is None:
                 raise ValueError(
                     f"snapshot array {name} is {a.dtype}{list(a.shape)}, "
-                    f"this engine holds {_host_dtype(t)}{list(t.shape)} "
-                    "(a snapshot restores into the package and engine "
-                    "configuration that wrote it)")
+                    f"this engine holds {t.dtype}{list(t.shape)} (a "
+                    "snapshot restores into the engine configuration that "
+                    "wrote it)")
+            host.append(h)
         self.reset()
-        for name, t in pairs:
-            _from_host(t, arrays[name])
+        for (_, t), h in zip(pairs, host):
+            _from_host(t, h)
         self._slots = [
             None if m is None
             else self._run_from_meta(m, arrays[f"slot{i}_prompt"])
@@ -1114,9 +1124,10 @@ class ContinuousBatchingEngine:
         self.tokens_emitted = c["tokens_emitted"]
         self.decode_tokens = c["decode_tokens"]
         self.slot_steps = c["slot_steps"]
-        self.decode_s = c["decode_s"]
-        self.prefills = c["prefills"]
-        self.prefill_s = c["prefill_s"]
+        # the port's own counters: a JAX file has none of them
+        self.decode_s = c.get("decode_s", 0.0)
+        self.prefills = c.get("prefills", 0)
+        self.prefill_s = c.get("prefill_s", 0.0)
 
     def snapshot(self, path: str):
         """Write a crash-safe engine snapshot (one npz file, atomic
@@ -1138,20 +1149,33 @@ def _key_tensor(key, device) -> torch.Tensor:
         .to(device)
 
 
-def _host_dtype(t: torch.Tensor) -> np.dtype:
-    """The numpy dtype a tensor's snapshot array has: its own, and
-    bfloat16 (which numpy lacks) as its int16 bits."""
-    return np.dtype("int16") if t.dtype == torch.bfloat16 \
-        else torch.empty(0, dtype=t.dtype).numpy().dtype
+def _to_host(t: torch.Tensor, words: bool = False) -> np.ndarray:
+    """A tensor as its snapshot array in the JAX package's dtypes: bf16
+    as npz ``|V2`` words (:func:`handoff.leaf_to_wire`) and, with
+    ``words``, int64 key words as the uint32 words a JAX key holds."""
+    if words:
+        return t.detach().cpu().numpy().astype(np.uint32)
+    return leaf_to_wire(t.detach())
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
+def _host_array(t: torch.Tensor, a: np.ndarray) -> Optional[np.ndarray]:
+    """Snapshot array ``a`` in ``t``'s host dtype (bf16 as its int16
+    bits), converted exactly, or None when ``a``'s dtype does not hold
+    ``t``'s values. Taken: the JAX package's dtypes (uint32 words for the
+    int64 key words, npz ``|V2`` words for bf16) and the port's older
+    files' (int64 keys, int16 bf16 words); nothing else."""
     if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.detach().cpu().numpy()
+        return a.view(np.int16) if a.dtype in (_BF16_WIRE, np.int16) \
+            else None
+    if a.dtype == torch.empty(0, dtype=t.dtype).numpy().dtype:
+        return a
+    if t.dtype == torch.int64 and a.dtype == np.uint32:
+        return a.astype(np.int64)
+    return None
 
 
 def _from_host(t: torch.Tensor, a: np.ndarray):
-    """Copy a snapshot array into ``t`` in place."""
+    """Copy a host array of ``t``'s host dtype (:func:`_host_array`) into
+    ``t`` in place."""
     dst = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
     dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))

@@ -1,12 +1,12 @@
 """Disaggregated prefill/decode serving fleet: prefill workers, decode
 workers, KV-block handoff, prefix-affinity routing, the fleet-wide
-prefix cache, failure redrive and live migration.
+prefix cache, failure redrive, live migration and the durable control
+plane.
 
-Counterpart of ``paddle_tpu/serving/fleet.py`` (its durable control
-plane aside: ``durability=``, ``Fleet.checkpoint`` and ``Fleet.recover``
-raise, ROADMAP A.5 (b)). Prefill is compute-bound and decode
-bandwidth-bound; at scale they want different hardware pools. This
-module splits the Server into replicas of two specialties and a router:
+Counterpart of ``paddle_tpu/serving/fleet.py``. Prefill is compute-bound
+and decode bandwidth-bound; at scale they want different hardware pools.
+This module splits the Server into replicas of two specialties and a
+router:
 
 - **PrefillWorker**: a Server over a prefill-only engine
   (:class:`PrefillDenseEngine` / :class:`PrefillPagedEngine`). Prompts
@@ -67,7 +67,17 @@ module splits the Server into replicas of two specialties and a router:
   unreferenced registered blocks.
 - **Live migration / scale**: ``migrate_decode_worker`` (Server
   snapshot/restore into a fresh engine), ``add_decode_worker``,
-  ``drain_*`` / ``remove_*``.
+  ``drain_*`` / ``remove_*`` (``serving.autoscaler`` drives them).
+- **Durable control plane** (``serving.durability``, ``durability=<dir>``):
+  every control-plane transition is appended to an fsync'd write-ahead
+  journal, :meth:`Fleet.checkpoint` snapshots every live worker and
+  commits a manifest, and :meth:`Fleet.recover` rebuilds a whole killed
+  fleet from the directory — the newest manifest plus the journal's
+  tail — and redrives every stream that was in flight, completing
+  identical to a run that was never killed. The directory is the JAX
+  package's format: either package recovers the other's. Watermark-
+  evicted prefix chains spill to disk under it (``spill_max_bytes``)
+  and are fetched back from there.
 
 Every worker's engine may take the SAME model object: engines hold the
 model by reference (the weight-only quantized backends, ``quant=``, hold
@@ -83,6 +93,7 @@ eviction watermarks ``PT_SERVING_FLEET_EVICT_HIGH`` / ``_LOW`` (default
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -98,11 +109,12 @@ from ..profiler import RecordEvent
 from ..utils import faults
 from ..utils.flags import env_bool, env_float, env_int
 from .engine import (_M_PREFILLS, _M_TOKENS, ContinuousBatchingEngine,
-                     ModelStepBackend, _arm_fn, _from_host, _key_tensor,
-                     _SlotRun, _to_host)
+                     ModelStepBackend, _arm_fn, _key_tensor, _SlotRun,
+                     _to_host)
 from .handoff import (KVHandoff, decode_handoff, encode_handoff,
                       leaf_to_wire, wire_to_tensor)
 from .paging import PagedEngine, PagedModelStepBackend, _sha1_chain
+from . import durability as _dur
 from . import prefix_cache as _pc
 from .prefix_cache import (PrefixCacheDirectory, adopt_prefix, copy_rows,
                            extract_prefix, gather_rows, leaf_specs)
@@ -117,10 +129,6 @@ from .transport import (InProcessTransport, SocketTransport, Transport,
 __all__ = ["DecodeWorker", "Fleet", "FleetRouter", "InProcessTransport",
            "PrefillDenseEngine", "PrefillPagedEngine", "PrefillWorker",
            "SocketTransport", "Transport", "TransportError"]
-
-_NOT_PORTED = ("the fleet's durable control plane (write-ahead journal, "
-               "manifests, the disk prefix spill, checkpoint/recover) is "
-               "not ported yet (ROADMAP A.5 (b))")
 
 # fleet metric families (JAX's names; no-ops until metrics.enable() /
 # PT_METRICS)
@@ -185,6 +193,13 @@ def _replay_key(key0, n: int) -> np.ndarray:
 def _key_words(key: torch.Tensor) -> np.ndarray:
     """A slot key (int64 words, any device) as the wire's (2,) uint32."""
     return key.cpu().numpy().astype(np.uint32)
+
+
+def _plain(v):
+    """A submit keyword as plain JSON for the journal and the manifest:
+    numpy scalars become Python ints and floats (``json`` refuses
+    them)."""
+    return v.item() if isinstance(v, np.generic) else v
 
 
 def _stamp_resume_meta(meta: dict, ph: "_PendingHandoff"):
@@ -286,13 +301,11 @@ class _PrefillEngineMixin:
                 continue
             row = None
             if e["row"]:
-                row = []
-                for i, t in enumerate(leaves):
-                    a = arrays[f"ob{k}_row{i}"]
-                    r = torch.empty(a.shape, dtype=t.dtype, device=dev)
-                    _from_host(r, a)
-                    row.append(r)
-                row = tuple(row)
+                # bf16 rows as JAX's npz |V2 words or the port's older
+                # int16 bits
+                row = tuple(wire_to_tensor(arrays[f"ob{k}_row{i}"],
+                                           t.dtype, dev)
+                            for i, t in enumerate(leaves))
             self._outbox.append(_PendingHandoff(
                 run=run, slot=int(e["slot"]),
                 prompt=np.asarray(arrays[f"ob{k}_prompt"], np.int32),
@@ -930,9 +943,6 @@ class Fleet:
                  evict_low: Optional[float] = None,
                  durability: Optional[str] = None,
                  spill_max_bytes: Optional[int] = None):
-        if durability is not None or spill_max_bytes is not None:
-            raise NotImplementedError(
-                f"durability=/spill_max_bytes=: {_NOT_PORTED}")
         if not prefill_workers or not decode_workers:
             raise ValueError("need at least one prefill and one decode "
                              "worker")
@@ -1030,6 +1040,59 @@ class Fleet:
         # rid -> detection wall time, for redriven streams still open
         self._redrive_t0: Dict[int, float] = {}
         self._clock = 0
+        # -- durable control plane --
+        self.durability_dir: Optional[str] = None
+        self._dur_epoch = 0
+        self._journal: Optional[_dur.WriteAheadJournal] = None
+        self._spill: Optional[_dur.PrefixSpillStore] = None
+        # rid -> journaled token high-water mark / terminals written
+        self._journaled_progress: Dict[int, int] = {}
+        self._journaled_terminals: set = set()
+        self.recoveries = 0
+        self.last_recovery: Optional[dict] = None
+        self.last_checkpoint: Optional[dict] = None
+        if spill_max_bytes is None:
+            spill_max_bytes = env_int("PT_SERVING_SPILL_MAX_BYTES", 1 << 28)
+        self._spill_max_bytes = int(spill_max_bytes)
+        if durability is not None:
+            self._attach_durability(durability, epoch=0)
+            if self._journal.empty():
+                self._jrec({"k": "genesis",
+                            "prefill": [w.name for w in self.prefill],
+                            "decode": [d.name for d in self.decode]})
+
+    def _attach_durability(self, dirname: str, epoch: int):
+        """Open (or, in recovery, reopen) the journal segment of ``epoch``
+        and the spill tier under ``dirname``."""
+        os.makedirs(dirname, exist_ok=True)
+        self.durability_dir = dirname
+        self._dur_epoch = int(epoch)
+        self._journal = _dur.WriteAheadJournal(
+            _dur.journal_path(dirname, epoch))
+        if self.prefix_cache_enabled:
+            self._spill = _dur.PrefixSpillStore(
+                os.path.join(dirname, "spill"),
+                max_bytes=self._spill_max_bytes)
+
+    def _jrec(self, rec: dict):
+        """Append one control-plane record, retrying transient failures
+        with the fleet's seeded backoff. A journal that still fails past
+        the retry budget raises: a fleet without its log is a crashed
+        fleet, never a silently forgetful one."""
+        if self._journal is None:
+            return
+        last = None
+        for attempt in range(self.resilience.retry_attempts + 1):
+            try:
+                self._journal.append(rec)
+                return
+            except (faults.InjectedFault, OSError) as e:
+                last = e
+                if attempt < self.resilience.retry_attempts:
+                    time.sleep(self._res.backoff_s(attempt))
+        raise RuntimeError(
+            f"write-ahead journal append failed past the retry budget: "
+            f"{type(last).__name__}: {last}")
 
     def _check_compat(self):
         """Every engine in the fleet must share the KV layout — a payload
@@ -1059,14 +1122,6 @@ class Fleet:
             raise ValueError(
                 "paged arena geometry mismatch across the fleet "
                 "(block_size/kv_int8)")
-
-    # -- the durable control plane (not ported) ----------------------------
-    def checkpoint(self) -> str:
-        raise NotImplementedError(f"Fleet.checkpoint: {_NOT_PORTED}")
-
-    @classmethod
-    def recover(cls, *args, **kw) -> "Fleet":
-        raise NotImplementedError(f"Fleet.recover: {_NOT_PORTED}")
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 20,
@@ -1116,6 +1171,12 @@ class Fleet:
             "prompt": prompt.copy(), "worker": w.name,
             "t_submit": time.perf_counter(),
             "kw": dict(kw, max_new_tokens=max_new_tokens)}
+        if self._journal is not None:
+            self._jrec({"k": "submit", "rid": int(rid),
+                        "prompt": [int(t) for t in prompt],
+                        "worker": w.name,
+                        "kw": {k: _plain(v) for k, v in
+                               self._requests[rid]["kw"].items()}})
         return rid
 
     # -- liveness views ----------------------------------------------------
@@ -1244,6 +1305,15 @@ class Fleet:
             "base_len": len(toks), "tokens0": list(toks),
             "t_admit": float(h.meta["t_admit"])}
         self._progress[rid] = toks
+        if self._journal is not None:
+            # the key as the wire's uint32 words, a JSON int list
+            self._jrec({
+                "k": "ship", "rid": int(rid), "dst": dst, "seq": int(seq),
+                "key0": [int(x) for x in np.asarray(
+                    h.arrays["key"], np.uint32).reshape(-1)],
+                "base_len": len(toks), "tokens0": list(toks),
+                "t_admit": float(h.meta["t_admit"])})
+            self._journaled_progress[rid] = len(toks)
 
     def _deliver(self, d: DecodeWorker):
         if d.killed:        # a dead process runs no receive loop; its
@@ -1280,6 +1350,10 @@ class Fleet:
                     time.perf_counter() - t0)
                 q.popleft()
                 self._assigned[d.name] -= 1
+                if self._journal is not None:
+                    self._jrec({"k": "adopt", "rid": int(h.request_id),
+                                "worker": d.name,
+                                "seq": int(h.meta.get("seq", 0))})
                 continue
             if ok and status == DecodeWorker.DUPLICATE:
                 q.popleft()           # the first copy already counted
@@ -1334,6 +1408,13 @@ class Fleet:
         depth, owners = self.directory.deepest_covered(
             full, eng.kv_block_size, eng.manager.hash_fn,
             exclude=exclude)
+        if self._spill is not None:
+            # the disk tier competes with live owners: strictly deeper
+            # spilled coverage wins (a tie goes to the fresher live
+            # owner); any spill failure falls through to the remote path
+            got = self._spill_fetch(w, full, local_blocks, depth)
+            if got is not None:
+                return got
         if depth <= n_local:
             return None                  # nothing beyond the local match
         if self._res.breaker_open:
@@ -1408,26 +1489,79 @@ class Fleet:
                                clock=self._clock)
         return fetched
 
+    def _spill_fetch(self, w: PrefillWorker, full, local_blocks,
+                     dir_depth: int) -> Optional[List[int]]:
+        """Serve a prefix fetch from the disk spill tier: the deepest
+        spilled chain on the prompt's digest path, CRC-verified,
+        token-compared, re-skipped past the local match and adopted
+        through the SAME copy as a live fetch (bit-identical state either
+        way). Every failure (an armed ``spill.read``, an unreadable file,
+        a CRC or token mismatch, a full pool) counts a miss and returns
+        None: the caller falls back to a live owner or local prefill."""
+        eng = w.engine
+        n_local = len(local_blocks)
+        sdepth, digest = self._spill.lookup(
+            full, eng.kv_block_size, eng.manager.hash_fn)
+        if digest is None or sdepth <= max(dir_depth, n_local):
+            return None
+        try:
+            h = self._spill.read(digest)
+        except (faults.InjectedFault, OSError, ValueError):
+            self._spill.note_miss()
+            self._note_fetch_fail("spill")
+            return None
+        bs = eng.kv_block_size
+        stored = [int(t) for t in h.arrays["tokens"][:sdepth * bs]]
+        if stored != [int(t) for t in full[:sdepth * bs]] \
+                or int(h.meta.get("n_blocks", 0)) != sdepth:
+            self._spill.note_miss()      # hash collision / stale file
+            self._note_fetch_fail("spill")
+            return None
+        try:
+            got = adopt_prefix(eng, _dur.slice_prefix_payload(h, n_local),
+                               local_blocks, full)
+        except ValueError:
+            self._spill.note_miss()      # incompatible payload
+            self._note_fetch_fail("spill")
+            return None
+        if got is None:
+            self._spill.note_miss()
+            self._note_fetch_fail("pool_full")
+            return None
+        self._spill.note_hit()
+        self.prefix_fetches += 1
+        self.prefix_fetch_blocks += len(got)
+        self.flight.record("prefix_spill_hit", worker=w.name,
+                           blocks=len(got), depth=sdepth,
+                           clock=self._clock)
+        return got
+
     def _evict_tick(self):
         """Watermark eviction: when fleet-global block pressure exceeds
         ``evict_high``, evict LRU unreferenced registered blocks — most
         pressured arenas first — until it is back at ``evict_low``.
         Referenced blocks are untouchable; the owners' next heartbeats
-        retract the evicted digests from the directory."""
-        pool = [w.engine for w in self.prefill if self._alive(w.name)] \
-            + [d.engine for d in self.decode if self._alive(d.name)]
-        usable = sum(e.manager.usable_blocks() for e in pool)
+        retract the evicted digests from the directory. With a spill
+        tier the chains about to go are copied to disk first."""
+        pool = [(w.engine, w.name) for w in self.prefill
+                if self._alive(w.name)] \
+            + [(d.engine, d.name) for d in self.decode
+               if self._alive(d.name)]
+        usable = sum(e.manager.usable_blocks() for e, _ in pool)
         if not usable:
             return
-        free = sum(len(e.manager._free) for e in pool)
+        free = sum(len(e.manager._free) for e, _ in pool)
         if 1.0 - free / usable <= self.evict_high:
             return
         need = int(np.ceil((1.0 - self.evict_low) * usable)) - free
         done = 0
-        for e in sorted(pool, key=lambda e: e.manager.block_pressure(),
-                        reverse=True):
+        for e, name in sorted(pool,
+                              key=lambda p: p[0].manager.block_pressure(),
+                              reverse=True):
             if need <= 0:
                 break
+            if self._spill is not None:
+                self._spill_victims(e, name, need)
             n = e.manager.evict_cached(need)
             need -= n
             done += n
@@ -1435,6 +1569,38 @@ class Fleet:
             self.prefix_evictions += done
             self.flight.record("prefix_evict", blocks=done,
                                clock=self._clock)
+
+    def _spill_victims(self, engine, name: str, n: int):
+        """Copy the chains about to be watermark-evicted from
+        ``engine``'s arena into the spill tier — BEFORE ``evict_cached``
+        frees them, through the side-effect-free preview and extraction
+        (the spill must not change which blocks the eviction picks).
+        Deepest chains only, deduplicated by prefix containment; a failed
+        spill write is a lost optimization, never a failed eviction."""
+        m = engine.manager
+        victims = set(m.eviction_victims(n))
+        if not victims:
+            return
+        tok_map = m.chain_tokens_map()
+        cands = []
+        for b in victims:
+            d = m._digest_of.get(b)
+            t = tok_map.get(d) if d is not None else None
+            if t is not None:
+                cands.append((m._depth.get(d, 0), d, t))
+        cands.sort(key=lambda c: (-c[0], c[1]))
+        kept = []
+        for depth, d, t in cands:
+            if any(kt[:len(t)] == t for _, _, kt in kept):
+                continue            # covered by a deeper kept chain
+            kept.append((depth, d, t))
+        for depth, d, t in kept:
+            try:
+                h = _dur.extract_chain(engine, t, depth, source=name)
+                if h is not None:
+                    self._spill.put(d, h)
+            except (faults.InjectedFault, OSError, ValueError):
+                continue            # the spill is best effort
 
     def tick(self):
         """One fleet tick: prefill advance → ship → deliver/adopt →
@@ -1462,6 +1628,11 @@ class Fleet:
             self._evict_tick()
         if self._redrive_t0:
             self._settle_redrives()
+        if self._journal is not None:
+            # terminals are journaled BEFORE the gc can drop their
+            # records: a crash after the gc must still know the stream
+            # concluded
+            self._journal_terminals()
         if self._clock % 64 == 0:
             self._gc_records()
         if _om.enabled():
@@ -1523,6 +1694,17 @@ class Fleet:
             for rid, toks in hb["progress"].items():
                 if rid in self._handoffs:
                     self._progress[rid] = list(toks)
+                    if self._journal is not None:
+                        n0 = self._journaled_progress.get(rid, 0)
+                        if len(toks) > n0:
+                            # high-water marks journal as deltas; the
+                            # only-extend replay guard makes them
+                            # idempotent over a newer manifest
+                            self._jrec({
+                                "k": "progress", "rid": int(rid),
+                                "base": int(n0),
+                                "ext": [int(t) for t in toks[n0:]]})
+                            self._journaled_progress[rid] = len(toks)
 
     def _declare_dead(self, worker, role: str):
         h = self._health[worker.name]
@@ -1534,6 +1716,12 @@ class Fleet:
                            role=role, clock=self._clock,
                            lease_misses=self.lease_misses)
         self.directory.drop_worker(worker.name)
+        if self._journal is not None:
+            # recovery must not restore a worker that died after the
+            # checkpoint: its streams redrive below, and their fresh ship
+            # records would conflict with the restored corpse
+            self._jrec({"k": "scale", "action": "dead",
+                        "worker": worker.name, "role": role})
         if role == "decode":
             self._recover_decode_streams(worker)
         else:
@@ -1553,6 +1741,54 @@ class Fleet:
         return (rid in self._failures or rid in self._local_results
                 or any(rid in w.server.results for w in self.prefill)
                 or any(rid in d.server.results for d in self.decode))
+
+    def _terminal_value(self, rid: int):
+        """The terminal row or failure of ``rid``, or None while the
+        stream is open."""
+        if rid in self._failures:
+            return self._failures[rid]
+        if rid in self._local_results:
+            return self._local_results[rid]
+        for w in list(self.prefill) + list(self.decode):
+            v = w.server.results.get(rid)
+            if v is not None:
+                return v
+        return None
+
+    def _journal_terminals(self):
+        """Journal every terminal not yet written: completed ROWS ride
+        the journal (first write wins), so finished results survive a
+        whole-process crash without decoding again."""
+        for rid in list(self._requests):
+            if rid in self._journaled_terminals:
+                continue
+            v = self._terminal_value(rid)
+            if v is None:
+                continue
+            self._jrec_terminal(rid, v)
+            self._journaled_terminals.add(rid)
+            self._journaled_progress.pop(rid, None)
+
+    def _jrec_terminal(self, rid: int, v):
+        if isinstance(v, RequestFailure):
+            self._jrec({"k": "terminal", "rid": int(rid), "failure": {
+                "reason": v.reason, "message": v.message,
+                "tokens_emitted": int(v.tokens_emitted)}})
+        else:
+            self._jrec({"k": "terminal", "rid": int(rid),
+                        "tokens": [int(t) for t in
+                                   np.asarray(v).reshape(-1)]})
+
+    def _jrec_removed_results(self, worker):
+        """Journal every result of a worker leaving the fleet. A
+        checkpoint holds a worker's results only in that worker's
+        snapshot, which recovery no longer restores once the journal
+        says it was removed, so each goes into the journal again (a
+        terminal replays first write wins). The JAX package skips the
+        ones its checkpoint marked journaled, and a recovery there loses
+        them (``ROADMAP.md`` C)."""
+        for rid, v in worker.server.results.items():
+            self._jrec_terminal(rid, v)
 
     def _recover_decode_streams(self, d: DecodeWorker):
         """Every stream the dead decode worker owned — adopted, in flight
@@ -1672,6 +1908,8 @@ class Fleet:
             self._requests.pop(rid, None)
             self._handoffs.pop(rid, None)
             self._progress.pop(rid, None)
+            self._journaled_progress.pop(rid, None)
+        self._journaled_terminals &= set(self._requests)
 
     def _settle_redrives(self):
         for rid in list(self._redrive_t0):
@@ -1747,7 +1985,17 @@ class Fleet:
                               for n, h in sorted(self._health.items())},
             "transport": self.transport.stats()
             if hasattr(self.transport, "stats") else None,
-            "durability": None,
+            "durability": None if self.durability_dir is None else {
+                "dir": self.durability_dir,
+                "epoch": self._dur_epoch,
+                "journal_seq": self._journal.seq,
+                "journal_appends": self._journal.appends,
+                "journal_bytes": self._journal.bytes_written,
+                "journal_append_s": self._journal.append_s,
+                "recoveries": self.recoveries,
+                "last_recovery": self.last_recovery,
+                "spill": self._spill.stats()
+                if self._spill is not None else None},
             "prefill_workers": [
                 {"name": w.name, "state": self._health[w.name]["state"],
                  "queue": w.queue_depth(),
@@ -1770,6 +2018,385 @@ class Fleet:
                 for d in self.decode],
         }
 
+    # -- the durable control plane: checkpoint / recover -------------------
+    def checkpoint(self) -> str:
+        """Coordinated fleet checkpoint at a tick boundary: snapshot every
+        live worker's Server (un-shipped outboxes ride it), then commit
+        the fleet's registries, topology and flight ring by renaming the
+        epoch's manifest into place. The rename is THE commit: only after
+        it does the journal rotate to a fresh segment (the old one is
+        absorbed) and older epochs get pruned. A crash anywhere before it
+        recovers from the previous epoch's manifest and journal. Returns
+        the manifest path; ``last_checkpoint`` holds its bytes and the
+        seconds of the snapshots and of the commit."""
+        if self.durability_dir is None:
+            raise RuntimeError(
+                "fleet has no durability directory — construct with "
+                "durability=<dir> to enable checkpoints")
+        d = self.durability_dir
+        epoch = self._dur_epoch + 1
+        t0 = time.perf_counter()
+        # recorded BEFORE the ring is captured, so the recovered fleet's
+        # history includes it
+        self.flight.record("checkpoint", epoch=epoch, clock=self._clock)
+        workers, nbytes = [], 0
+        for i, w in enumerate(self.prefill):
+            if w.killed or not self._alive(w.name):
+                continue        # a corpse's state is unreadable by
+            snap = os.path.basename(    # contract; its streams redrive
+                _dur.snapshot_path(d, epoch, w.name))
+            w.server.snapshot(os.path.join(d, snap))
+            nbytes += os.path.getsize(os.path.join(d, snap))
+            workers.append({"name": w.name, "role": "prefill",
+                            "snapshot": snap,
+                            "draining": i in self._draining})
+        for dw in self.decode:
+            if dw.killed or not self._alive(dw.name):
+                continue
+            snap = os.path.basename(_dur.snapshot_path(d, epoch, dw.name))
+            dw.server.snapshot(os.path.join(d, snap))
+            nbytes += os.path.getsize(os.path.join(d, snap))
+            workers.append({"name": dw.name, "role": "decode",
+                            "snapshot": snap,
+                            "draining": dw.name in self._draining_decode})
+        t1 = time.perf_counter()
+        manifest = {
+            "clock": self._clock,
+            "workers": workers,
+            "requests": {str(rid): {
+                "prompt": [int(t) for t in rec["prompt"]],
+                "worker": rec["worker"],
+                "kw": {k: _plain(v) for k, v in rec["kw"].items()}}
+                for rid, rec in self._requests.items()},
+            "handoffs": {str(rid): {
+                "dst": h["dst"],
+                "key0": [int(x) for x in np.asarray(h["key0"]).reshape(-1)],
+                "base_len": int(h["base_len"]),
+                "tokens0": [int(t) for t in h["tokens0"]],
+                "t_admit": float(h["t_admit"])}
+                for rid, h in self._handoffs.items()},
+            "progress": {str(rid): [int(t) for t in toks]
+                         for rid, toks in self._progress.items()},
+            "failures": {str(rid): {
+                "reason": f.reason, "message": f.message,
+                "tokens_emitted": int(f.tokens_emitted)}
+                for rid, f in self._failures.items()},
+            "local_results": {str(rid): [int(t) for t in
+                                         np.asarray(v).reshape(-1)]
+                              for rid, v in self._local_results.items()},
+            "router": {"affinity_routes": self.router.affinity_routes,
+                       "spillovers": self.router.spillovers},
+            "handoff_seq": self._handoff_seq,
+            "fetch_seq": self._fetch_seq,
+            "counters": {
+                "handoffs": self.handoffs,
+                "migrations": self.migrations,
+                "redrives": self.redrives,
+                "workers_lost": self.workers_lost,
+                "prefix_evictions": self.prefix_evictions,
+                "prefix_fetches": self.prefix_fetches,
+                "prefix_fetch_blocks": self.prefix_fetch_blocks,
+                "recoveries": self.recoveries},
+            "flight": self.flight.to_meta(),
+        }
+        path = _dur.write_manifest(d, epoch, manifest)
+        nbytes += os.path.getsize(path)
+        # the commit landed: rotate to the fresh segment and remember what
+        # the manifest already absorbed, so nothing is journaled twice
+        self._journal.close()
+        self._attach_durability(d, epoch)
+        self._journaled_terminals = {
+            rid for rid in self._requests if self._terminal(rid)}
+        self._journaled_progress = {
+            rid: len(toks) for rid, toks in self._progress.items()}
+        self._prune_durability(epoch)
+        self.last_checkpoint = {"epoch": epoch, "bytes": nbytes,
+                                "snapshot_s": t1 - t0,
+                                "commit_s": time.perf_counter() - t1}
+        return path
+
+    def _prune_durability(self, keep_epoch: int):
+        """Delete the manifests, journals and snapshots of epochs older
+        than ``keep_epoch`` (orphans of checkpoints that crashed before
+        their commit included). ``keep_epoch`` is the epoch just
+        committed or just recovered from: never deleted."""
+        d = self.durability_dir
+        for name in os.listdir(d):
+            for pfx in ("manifest-", "journal-", "ckpt-"):
+                if not name.startswith(pfx):
+                    continue
+                stem = name[len(pfx):].split("-", 1)[0].split(".", 1)[0]
+                if stem.isdigit() and int(stem) < keep_epoch:
+                    try:
+                        os.remove(os.path.join(d, name))
+                    except OSError:
+                        pass
+
+    @classmethod
+    def recover(cls, dirname: str, *, engine_factory,
+                transport: Optional[Transport] = None,
+                **fleet_kw) -> "Fleet":
+        """Cold-start recovery of a whole killed fleet from a durability
+        directory written by either package: load the newest VALID
+        manifest (torn ones discarded with a warning), replay the
+        journal's tail (a torn tail truncated with a warning), rebuild
+        every worker through ``engine_factory(role, name)`` and
+        ``Server.restore`` (which copies the state into the tensors the
+        engine's graphs captured), purge the streams the journal knows
+        concluded, and REDRIVE every stream that was in flight — queued,
+        mid-prefill, shipped, adopted — with the host-replayed key, so the
+        rows it completes equal a run that was never killed. The fleet
+        goes on journaling into the same epoch's segment.
+        ``last_recovery`` holds the records replayed, the streams
+        redriven and the seconds of each part (manifest, replay, build,
+        restore, redrive)."""
+        t0 = time.perf_counter()
+        epoch, manifest = _dur.load_latest_manifest(dirname)
+        if manifest is None:
+            epochs = _dur.list_epochs(dirname, "journal") \
+                if os.path.isdir(dirname) else []
+            if not epochs:
+                raise FileNotFoundError(
+                    f"no checkpoint manifest or journal under {dirname!r} "
+                    "— nothing to recover")
+            epoch = epochs[-1]
+        t1 = time.perf_counter()
+        records, torn = _dur.WriteAheadJournal.replay(
+            _dur.journal_path(dirname, epoch))
+        t2 = time.perf_counter()
+        # -- topology: the manifest's workers (or the journal's genesis),
+        # then the journal's scale and death records in order --
+        if manifest is not None:
+            spec = [dict(e) for e in manifest["workers"]]
+        else:
+            gen = next((r for r in records if r.get("k") == "genesis"),
+                       None)
+            if gen is None:
+                raise RuntimeError(
+                    f"journal epoch {epoch} has no genesis record and no "
+                    "manifest — cannot derive the fleet topology")
+            spec = [{"name": n, "role": "prefill", "snapshot": None,
+                     "draining": False} for n in gen["prefill"]] \
+                + [{"name": n, "role": "decode", "snapshot": None,
+                    "draining": False} for n in gen["decode"]]
+        for r in records:
+            if r.get("k") != "scale":
+                continue
+            a, n = r["action"], r["worker"]
+            if a == "add_decode":
+                spec.append({"name": n, "role": "decode",
+                             "snapshot": None, "draining": False})
+            elif a in ("remove_decode", "remove_prefill", "dead"):
+                spec = [e for e in spec if e["name"] != n]
+            elif a in ("drain_decode", "drain_prefill"):
+                for e in spec:
+                    if e["name"] == n:
+                        e["draining"] = True
+            elif a == "undrain_decode":
+                for e in spec:
+                    if e["name"] == n:
+                        e["draining"] = False
+        pws: List[PrefillWorker] = []
+        dws: List[DecodeWorker] = []
+        build_s = restore_s = 0.0
+        for e in spec:
+            tb = time.perf_counter()
+            eng = engine_factory(e["role"], e["name"])
+            tr = time.perf_counter()
+            build_s += tr - tb
+            srv = None
+            if e.get("snapshot"):
+                srv = Server.restore(os.path.join(dirname, e["snapshot"]),
+                                     eng)
+            restore_s += time.perf_counter() - tr
+            if e["role"] == "prefill":
+                pws.append(PrefillWorker(eng, name=e["name"], server=srv))
+            else:
+                dws.append(DecodeWorker(eng, name=e["name"], server=srv))
+        t3 = time.perf_counter()
+        fleet = cls(pws, dws, transport=transport, **fleet_kw)
+        # -- registries: the manifest's, then the journal's records in
+        # order (idempotent: progress only extends, terminals first write
+        # wins) --
+        if manifest is not None:
+            fleet._clock = int(manifest.get("clock", 0))
+            now = time.perf_counter()
+            for rid_s, m in manifest["requests"].items():
+                fleet._requests[int(rid_s)] = {
+                    "prompt": np.asarray(m["prompt"], np.int32),
+                    "worker": m["worker"], "t_submit": now,
+                    "kw": dict(m["kw"])}
+            for rid_s, m in manifest["handoffs"].items():
+                fleet._handoffs[int(rid_s)] = {
+                    "dst": m["dst"],
+                    "key0": np.asarray(m["key0"], np.uint32),
+                    "base_len": int(m["base_len"]),
+                    "tokens0": list(m["tokens0"]),
+                    "t_admit": float(m["t_admit"])}
+            fleet._progress = {int(r): list(t) for r, t in
+                               manifest["progress"].items()}
+            for rid_s, m in manifest["failures"].items():
+                rid = int(rid_s)
+                fleet._failures[rid] = RequestFailure(
+                    request_id=rid, reason=m["reason"],
+                    message=m["message"],
+                    tokens_emitted=int(m["tokens_emitted"]))
+            fleet._local_results = {
+                int(r): np.asarray(t, np.int32)
+                for r, t in manifest["local_results"].items()}
+            fleet.router.affinity_routes = \
+                int(manifest["router"]["affinity_routes"])
+            fleet.router.spillovers = int(manifest["router"]["spillovers"])
+            fleet._handoff_seq = int(manifest["handoff_seq"])
+            fleet._fetch_seq = int(manifest["fetch_seq"])
+            c = manifest.get("counters", {})
+            fleet.handoffs = int(c.get("handoffs", 0))
+            fleet.migrations = int(c.get("migrations", 0))
+            fleet.redrives = int(c.get("redrives", 0))
+            fleet.workers_lost = int(c.get("workers_lost", 0))
+            fleet.prefix_evictions = int(c.get("prefix_evictions", 0))
+            fleet.prefix_fetches = int(c.get("prefix_fetches", 0))
+            fleet.prefix_fetch_blocks = int(c.get("prefix_fetch_blocks", 0))
+            fleet.recoveries = int(c.get("recoveries", 0))
+            # the fleet's flight ring survives the crash with continuing
+            # seqs
+            fleet.flight.restore_meta(manifest["flight"])
+        name_to_pi = {w.name: i for i, w in enumerate(fleet.prefill)}
+        for e in spec:
+            if e.get("draining"):
+                if e["role"] == "prefill":
+                    fleet._draining.add(name_to_pi[e["name"]])
+                else:
+                    fleet._draining_decode.add(e["name"])
+        now = time.perf_counter()
+        for r in records:
+            k = r.get("k")
+            if k == "submit":
+                fleet._requests[int(r["rid"])] = {
+                    "prompt": np.asarray(r["prompt"], np.int32),
+                    "worker": r["worker"], "t_submit": now,
+                    "kw": dict(r["kw"])}
+            elif k == "ship":
+                rid = int(r["rid"])
+                fleet._handoffs[rid] = {
+                    "dst": r["dst"],
+                    "key0": np.asarray(r["key0"], np.uint32),
+                    "base_len": int(r["base_len"]),
+                    "tokens0": list(r["tokens0"]),
+                    "t_admit": float(r["t_admit"])}
+                fleet._progress[rid] = list(r["tokens0"])
+                fleet._handoff_seq = max(fleet._handoff_seq, int(r["seq"]))
+            elif k == "progress":
+                rid = int(r["rid"])
+                cur = fleet._progress.get(rid)
+                base = int(r["base"])
+                if cur is None or base > len(cur):
+                    continue        # its ship record fell in a torn tail:
+                cand = cur[:base] + list(r["ext"])  # the redrive uses
+                if len(cand) > len(cur):            # what stands
+                    fleet._progress[rid] = cand
+            elif k == "terminal":
+                rid = int(r["rid"])
+                if fleet._terminal(rid):
+                    continue                # first write wins
+                if "failure" in r:
+                    f = r["failure"]
+                    fleet._failures[rid] = RequestFailure(
+                        request_id=rid, reason=f["reason"],
+                        message=f["message"],
+                        tokens_emitted=int(f["tokens_emitted"]))
+                else:
+                    fleet._local_results[rid] = np.asarray(r["tokens"],
+                                                           np.int32)
+        # fresh submissions never reuse a pre-crash id: every prefill
+        # server's allocator moves past the ids its range is known to
+        # have issued (the snapshots cover their own; ids issued after
+        # the checkpoint exist only in the journal)
+        known = set(fleet._requests) | set(fleet._failures) \
+            | set(fleet._local_results)
+        for i, w in enumerate(fleet.prefill):
+            base, hi = (i + 1) * 1_000_000, (i + 2) * 1_000_000
+            mx = max((rid for rid in known if base <= rid < hi),
+                     default=None)
+            if mx is not None and w.server._next_id <= mx:
+                w.server._next_id = mx + 1
+        fleet._attach_durability(dirname, epoch)
+        fleet._journaled_progress = {
+            rid: len(toks) for rid, toks in fleet._progress.items()}
+        fleet._journaled_terminals = {
+            rid for rid in fleet._requests if fleet._terminal(rid)}
+        # -- purge: a stream the control plane knows concluded must not
+        # decode again on a restored worker (one terminal per request
+        # across the crash) --
+        fleet._purge_terminal_streams()
+        t4 = time.perf_counter()
+        # -- redrive: everything in flight that no restored worker owns
+        # is rebuilt from the records, as if its owner alone had died --
+        owned = fleet._owned_rids()
+        redriven = 0
+        for rid in sorted(fleet._requests):
+            if rid in owned or fleet._terminal(rid):
+                continue
+            redriven += 1
+            if rid in fleet._handoffs:
+                fleet._redrive(rid)
+            else:
+                fleet._reinject(rid, None)
+        t5 = time.perf_counter()
+        fleet.recoveries += 1
+        fleet.last_recovery = {
+            "epoch": int(epoch), "replayed": len(records),
+            "torn_tail": bool(torn), "redriven": redriven,
+            "workers": len(spec),
+            "seconds": {"manifest": t1 - t0, "replay": t2 - t1,
+                        "build": build_s, "restore": restore_s,
+                        "registries": t4 - t3, "redrive": t5 - t4}}
+        _dur._M_J_REPLAYS.inc(len(records))
+        _dur._M_CKPT_RECOVERIES.inc()
+        fleet.flight.record("recovered", epoch=int(epoch),
+                            clock=fleet._clock, replayed=len(records),
+                            redriven=redriven)
+        return fleet
+
+    def _owned_rids(self) -> set:
+        """Every id a restored worker holds live — queued, mid-prefill,
+        parked in an outbox (its run occupies the slot) or decoding.
+        Owned streams finish on their own, bit for bit: the decode block
+        is a pure function of the restored state."""
+        owned = set()
+        for worker in list(self.prefill) + list(self.decode):
+            for r in worker.server.scheduler._queue:
+                owned.add(r.request_id)
+            for _slot, run in worker.engine.live_runs():
+                owned.add(run.request.request_id)
+        return owned
+
+    def _purge_terminal_streams(self):
+        done = [rid for rid in self._requests if self._terminal(rid)]
+        for rid in done:
+            for w in self.prefill:
+                self._purge_from_worker(w, rid, prefill=True)
+            for d in self.decode:
+                self._purge_from_worker(d, rid, prefill=False)
+
+    def _purge_from_worker(self, worker, rid: int, prefill: bool):
+        """Remove every live trace of a concluded stream from a restored
+        worker — queue entry, outbox hold, occupied slot — and the
+        cancel's own result, so the server never harvests a SECOND
+        terminal for the id."""
+        eng = worker.engine
+        worker.server.scheduler.drop_where(lambda r: r.request_id == rid)
+        if prefill:
+            for ph in list(eng._outbox):
+                if ph.run.request.request_id == rid:
+                    eng._outbox.remove(ph)
+                    eng.release_handoff(ph)
+        for slot, run in eng.live_runs():
+            if run.request.request_id == rid:
+                eng.cancel_slot(slot, "recovered_terminal")
+        eng._finished = [r for r in eng._finished
+                         if r.request.request_id != rid]
+
     # -- scale / migration -------------------------------------------------
     def add_decode_worker(self, worker: DecodeWorker):
         """Scale up the decode pool mid-stream; the least-loaded pick
@@ -1787,6 +2414,9 @@ class Fleet:
         self._assigned[worker.name] = 0
         self._health[worker.name] = {"state": "live", "misses": 0}
         _M_WORKER_STATE.set(1, worker=worker.name)
+        if self._journal is not None:
+            self._jrec({"k": "scale", "action": "add_decode",
+                        "worker": worker.name})
 
     def _decode_index_name(self, idx: int) -> str:
         if not 0 <= idx < len(self.decode):
@@ -1809,6 +2439,9 @@ class Fleet:
                              "worker")
         self._draining_decode.add(name)
         self.flight.record("decode_drain", worker=name, clock=self._clock)
+        if self._journal is not None:
+            self._jrec({"k": "scale", "action": "drain_decode",
+                        "worker": name})
 
     def undrain_decode_worker(self, idx: int):
         """Cancel a pending drain: the worker becomes routable again."""
@@ -1818,6 +2451,9 @@ class Fleet:
             self._draining_decode.discard(name)
             self.flight.record("decode_undrain", worker=name,
                                clock=self._clock)
+            if self._journal is not None:
+                self._jrec({"k": "scale", "action": "undrain_decode",
+                            "worker": name})
 
     def remove_decode_worker(self, idx: int) -> DecodeWorker:
         """Scale down: remove a DRAINED decode worker. Refused while the
@@ -1850,6 +2486,11 @@ class Fleet:
         _M_WORKER_STATE.set(0, worker=d.name)
         self.flight.record("decode_remove", worker=d.name,
                            clock=self._clock)
+        if self._journal is not None:
+            self._jrec_removed_results(d)
+            self._journal_terminals()
+            self._jrec({"k": "scale", "action": "remove_decode",
+                        "worker": d.name})
         return d
 
     def migrate_decode_worker(self, idx: int, engine,
@@ -1886,6 +2527,9 @@ class Fleet:
             raise ValueError("cannot drain the last routable prefill "
                              "worker")
         self._draining.add(idx)
+        if self._journal is not None:
+            self._jrec({"k": "scale", "action": "drain_prefill",
+                        "worker": self.prefill[idx].name})
 
     def remove_prefill_worker(self, idx: int):
         if self.prefill[idx].busy():
@@ -1902,4 +2546,8 @@ class Fleet:
         self._fetch_endpoints.discard(ep)
         self._draining = {i - 1 if i > idx else i
                           for i in self._draining}
+        if self._journal is not None:
+            self._jrec_removed_results(w)
+            self._jrec({"k": "scale", "action": "remove_prefill",
+                        "worker": w.name})
         return w

@@ -43,8 +43,8 @@ from .engine import (_M_PREFILLS, _M_TOKENS, ContinuousBatchingEngine,
                      _arm_fn, _checked_step, _decode_program, _key_tensor,
                      _pool_specs, _refuse_unported,
                      _refuse_spec_outside_factory, _serving_model, _SlotRun,
-                     free_slot_state, init_slot_state, run_decode_block,
-                     slot_sample_logits)
+                     _to_host, free_slot_state, init_slot_state,
+                     run_decode_block, slot_sample_logits)
 from ..graphs import CapturedProgram
 
 __all__ = ["BlockManager", "PagedModelStepBackend", "PagedEngine"]
@@ -187,6 +187,41 @@ class BlockManager:
         if done:
             self._note_pool()
         return done
+
+    def eviction_victims(self, n: int) -> List[int]:
+        """The next ``n`` blocks :meth:`evict_cached` would pick, in
+        eviction order, without evicting them: the spill tier copies
+        exactly the chains about to go. Hit counts and LRU order stay
+        untouched (a preview that moved them would pick other blocks
+        than the eviction that follows it)."""
+        scored = sorted((self._hits.get(b, 0), pos, b)
+                        for pos, b in enumerate(self._cached))
+        return [b for _, _, b in scored[:n]]
+
+    def chain_tokens_map(self) -> Dict[bytes, Tuple[int, ...]]:
+        """``{digest: tokens of the whole chain ending at it}`` for every
+        registered digest reachable from the root. The index stores one
+        block's chunk per digest; the chains are stitched depth by depth
+        by re-deriving each digest from a candidate parent. A chain whose
+        head was evicted is omitted (it could be neither matched nor
+        spilled). Reads only."""
+        by_depth: Dict[int, List[Tuple[bytes, Tuple[int, ...]]]] = {}
+        for d, (_bid, chunk) in self._index.items():
+            by_depth.setdefault(self._depth.get(d, 0), []).append(
+                (d, chunk))
+        toks: Dict[bytes, Tuple[int, ...]] = {}
+        for d, chunk in by_depth.get(1, ()):
+            if self.hash_fn(b"", chunk) == d:
+                toks[d] = tuple(chunk)
+        for k in sorted(x for x in by_depth if x > 1):
+            prev = [(pd, pt) for pd, pt in toks.items()
+                    if self._depth.get(pd) == k - 1]
+            for d, chunk in by_depth[k]:
+                for pd, pt in prev:
+                    if self.hash_fn(pd, chunk) == d:
+                        toks[d] = pt + tuple(chunk)
+                        break
+        return toks
 
     # -- prefix sharing ----------------------------------------------------
     def _shareable_blocks(self, prompt) -> int:
@@ -893,12 +928,20 @@ class PagedEngine(ContinuousBatchingEngine):
         }
         jobs_meta = []
         for j, job in enumerate(self._jobs):
+            req = job.run.request
             arrays[f"job{j}_prompt"] = np.asarray(job.prompt, np.int32)
             arrays[f"job{j}_table"] = np.asarray(job.table_row, np.int32)
-            arrays[f"job{j}_key"] = job.key.cpu().numpy()
-            arrays[f"job{j}_sub"] = job.sub.cpu().numpy()
-            jobs_meta.append({"slot": job.slot, "done": job.done,
-                              "resume_tok": job.resume_tok})
+            arrays[f"job{j}_key"] = _to_host(job.key, words=True)
+            arrays[f"job{j}_sub"] = _to_host(job.sub, words=True)
+            # JAX's job schema: the sampling scalars as its float32/int32
+            # job fields hold them, and its first-token field (None
+            # until the last chunk, as here)
+            jobs_meta.append({
+                "slot": job.slot, "done": job.done,
+                "temp": float(np.float32(req.temperature)),
+                "topk": int(req.top_k),
+                "topp": float(np.float32(req.top_p)), "tok0": None,
+                "resume_tok": job.resume_tok})
         meta["jobs"] = jobs_meta
         meta["paged_counters"] = {
             "prompt_tokens": self.prompt_tokens,
@@ -909,6 +952,16 @@ class PagedEngine(ContinuousBatchingEngine):
         return meta, arrays
 
     def restore_state(self, meta, arrays):
+        keys = {}
+        for j in range(len(meta.get("jobs", ()))):
+            for part in ("key", "sub"):
+                a = arrays[f"job{j}_{part}"]
+                if a.shape != (2,) or a.dtype not in (np.uint32, np.int64):
+                    raise ValueError(
+                        f"snapshot array job{j}_{part} is "
+                        f"{a.dtype}{list(a.shape)}, a key is (2,) uint32 "
+                        "(or the port's older int64) words")
+                keys[j, part] = a.astype(np.int64)
         super().restore_state(meta, arrays)
         mm = meta["manager"]
         m = self.manager
@@ -941,8 +994,8 @@ class PagedEngine(ContinuousBatchingEngine):
                 prompt=np.asarray(arrays[f"job{j}_prompt"], np.int32),
                 done=jm["done"],
                 table_row=np.asarray(arrays[f"job{j}_table"], np.int32),
-                key=torch.from_numpy(arrays[f"job{j}_key"]).to(dev),
-                sub=torch.from_numpy(arrays[f"job{j}_sub"]).to(dev),
+                key=torch.from_numpy(keys[j, "key"]).to(dev),
+                sub=torch.from_numpy(keys[j, "sub"]).to(dev),
                 resume_tok=jm.get("resume_tok")))
         pc = meta["paged_counters"]
         self.prompt_tokens = pc["prompt_tokens"]

@@ -21,9 +21,7 @@ Zero overhead when disarmed: every entry point checks one module-level
 bool first; no site bookkeeping, no RNG draw, no dict lookup happens
 unless a schedule is armed.
 
-Sites the port threads (the serving, fleet and transport sites of the
-JAX package; its journal, checkpoint and spill sites come with the
-fleet's durable control plane, ROADMAP A.5 (b)):
+Sites the port threads (every site of the JAX package):
 
 ====================== ============================== ==================
 site                   fires in                       failure simulated
@@ -43,6 +41,10 @@ fleet.scale            Fleet add/drain/remove decode  scale action fails
 transport.partial_write SocketTransport frame write   torn TCP write
 transport.corrupt      SocketTransport frame write    flipped wire byte
 transport.disconnect   SocketTransport ack wait       ack loss/conn drop
+journal.write          WriteAheadJournal.append       journal IO error
+journal.torn_tail      WriteAheadJournal.append       crash mid-append
+checkpoint.commit      durability.write_manifest      die before commit
+spill.read             PrefixSpillStore.read          spill file unread
 ====================== ============================== ==================
 """
 from __future__ import annotations

@@ -567,17 +567,17 @@ class TestCompatAndRefusals:
             with pytest.raises(NotImplementedError, match="resume"):
                 e.try_admit(req)
 
-    def test_durability_refused_naming_the_item(self, setup):
+    def test_durability_refused_naming_the_item(self, setup, tmp_path):
+        """The durable control plane is ported: what it still refuses is
+        a checkpoint without ``durability=`` (naming the keyword) and a
+        recovery from a directory holding nothing to recover."""
         _, port, _, _ = setup
-        for kw in (dict(durability="/nonexistent"),
-                   dict(spill_max_bytes=1)):
-            with pytest.raises(NotImplementedError, match=r"A\.5 \(b\)"):
-                _fleet([port["pf"][0]], [port["dc"][0]], **kw)
         fleet = _fleet([port["pf"][0]], [port["dc"][0]])
-        with pytest.raises(NotImplementedError, match=r"A\.5 \(b\)"):
+        assert fleet.stats()["durability"] is None
+        with pytest.raises(RuntimeError, match="durability="):
             fleet.checkpoint()
-        with pytest.raises(NotImplementedError, match=r"A\.5 \(b\)"):
-            Fleet.recover("/nonexistent")
+        with pytest.raises(FileNotFoundError, match="nothing to recover"):
+            Fleet.recover(str(tmp_path / "none"), engine_factory=None)
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])

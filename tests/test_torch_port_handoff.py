@@ -320,8 +320,8 @@ class TestSocketTransport:
 class TestFaultSiteTable:
     def test_every_armed_site_appears_in_the_docstring_table(self):
         """The faults docstring table is the site catalog; every site the
-        port threads appears in it, and they are the JAX package's sites
-        less the durable control plane's (ROADMAP A.5 (b))."""
+        port threads appears in it, and they are the JAX package's sites,
+        the durable control plane's included."""
         pat = re.compile(
             r"(?:fault_point|should_fire)\(\s*[\"']([a-z_.]+)[\"']")
 
@@ -337,12 +337,11 @@ class TestFaultSiteTable:
         port, jax_sites = sites("paddle_tpu_torch"), sites("paddle_tpu")
         missing = {s for s in port if s not in tfaults.__doc__}
         assert not missing, sorted(missing)
-        durable = {s for s in jax_sites
-                   if s.split(".")[0] in ("journal", "checkpoint",
-                                          "spill")}
-        assert port == jax_sites - durable
+        assert port == jax_sites
         for s in ("fleet.serialize", "fleet.transport", "fleet.adopt",
                   "fleet.fetch", "fleet.directory", "fleet.scale",
                   "transport.partial_write", "transport.corrupt",
-                  "transport.disconnect"):
+                  "transport.disconnect", "journal.write",
+                  "journal.torn_tail", "checkpoint.commit", "spill.read"):
             assert s in port
+            assert s in jfaults.__doc__

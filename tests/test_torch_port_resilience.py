@@ -415,8 +415,8 @@ def test_kill_and_restore(setup, kind, kill, tmp_path):
 
 
 def test_restore_refuses_a_mismatched_engine(setup, tmp_path):
-    """A dense snapshot into the paged engine, a JAX-typed key array
-    (uint32 where the port holds int64) and a different pool are all
+    """A dense snapshot into the paged engine, a key array of a dtype
+    that does not hold key words (float32) and a different pool are all
     refused before any state is touched."""
     engines, fresh = setup
     te = engines["dense"][1]
@@ -426,7 +426,7 @@ def test_restore_refuses_a_mismatched_engine(setup, tmp_path):
     with pytest.raises(ValueError, match="pool_specs|mismatch"):
         engines["paged"][1].restore(path)
     meta, arrays = load_snapshot(path)
-    arrays["state_key"] = arrays["state_key"].astype(np.uint32)
+    arrays["state_key"] = arrays["state_key"].astype(np.float32)
     save_snapshot(path, meta, arrays)
     with pytest.raises(ValueError, match="state_key"):
         te.restore(path)
