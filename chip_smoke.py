@@ -273,6 +273,40 @@ Phases, each of which raises on failure (nothing is caught):
    the static arm's p50 printed for each arm. The phase prints its
    seconds and the largest directory's bytes.
 
+15. Tensor-parallel serving (``serving.tp``; run after phase 14, on
+   phase 3's 7B model rebuilt from seed 0) over a 2-way mesh whose two
+   logical devices are this one card (``build_device_mesh({"mp": 2},
+   devices=[cuda:0, cuda:0])``): each shard holds half of the q/k/v,
+   gate/up and lm_head rows and half of the KV heads. (a) A paged exact
+   ``tp=2`` engine with phase 3's geometry serves phase 3's 12 requests:
+   every stream equal to phase 3's, captures (1, 1), exact launches
+   (RMSNorm 2 (2L + 1) a step and a chunk, paged decode 2 L a step,
+   RoPE none: per-row positions rotate in torch ops), each shard's arena
+   half of phase 3's, the decode step's ms and a replayed block's idle
+   share beside phase 3's; on 8 armed slots, one step of the sharded
+   model's kernels against its plain versions (the kernels at the shard
+   shapes) and against the unsharded model on the same K/V (the global
+   arena gathered), each within 2e-3. (b) The int8 arena: launches,
+   captures and the same two one-step checks; its streams against an
+   unsharded int8 engine's are printed, not gated (a K/V an ulp apart
+   moves an int8 code), and the cause is shown: one prompt prefilled
+   on fp32 and int8 arenas at tp=1 and tp=2, layer 0's int8 rows
+   ``quantize_kv`` of the fp32 twin's bit for bit, the fp32 K/V under
+   half a step apart, the codes one apart at most; as a control, an
+   unsharded int8 engine prefilling in chunks of 64 (no tensor
+   parallelism) against the same streams and codes. (c) A dense exact ``tp=2`` engine (buckets
+   64-512) on requests 0-7 against phase 3's greedy streams (phase 6
+   holds the unsharded dense engine to them). (d) ``mode="psum"``: one
+   request's step log-probs against the exact engine's (max |delta|
+   printed), then ``int8=True``: the runtime bound, one measured hop's
+   |int8 - fp32| hidden state within it, and a budget below it refused
+   twice. (e) ``quant="int8"`` with exact ``tp=2``: streams equal to
+   phase 12 (b)'s int8 streams, weight-only launches 2 (7L + 1) a step
+   and a chunk, one step's kernels against the plain versions. (f) A snapshot of (a) mid-stream restored onto a fresh
+   ``tp=2`` engine, and a prefix fetch from the ``tp=2`` owner adopted
+   by a ``tp=1`` engine: streams equal. The phase prints its seconds and
+   its peak memory.
+
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU the script
@@ -282,6 +316,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -543,7 +578,7 @@ def check_paged_attention(torch, results, main_kvh):
     from paddle_tpu_torch.ops.paged_attention import (
         paged_attention_decode, paged_attention_reference)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    S, h, d, bs, mb = 8, 32, 128, 16, 64
+    S, d, bs, mb = 8, 128, 16, 64
     nb = 1 + S * mb
     # ragged: length 1, partial last blocks, a full table; the last row
     # is dead (table all trash block 0) as the engine leaves it
@@ -563,7 +598,8 @@ def check_paged_attention(torch, results, main_kvh):
     # bf16 before the PV product (the JAX order), the kernel keeps fp32
     tol = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
     for dtype in (torch.float32, torch.bfloat16):
-        for kvh in (32, 8):
+        # Llama-2-7B's heads, GQA, and one shard's of a tp=2 engine
+        for h, kvh in ((32, 32), (32, 8), (16, 16)):
             q = torch.randn(S, h, d, generator=gen, device="cuda").to(dtype)
             ka = torch.randn(nb, bs, kvh, d, generator=gen,
                              device="cuda").to(dtype)
@@ -597,7 +633,7 @@ def check_paged_attention(torch, results, main_kvh):
                   f"kvh={kvh} d={d} bs={bs} mb={mb}: max_abs_err={err:.3e} "
                   f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
                   f"library_ms=none bound_ms={bound_ms:.6f} (bytes)")
-            if (dtype, kvh) == (torch.float32, main_kvh):
+            if (dtype, h, kvh) == (torch.float32, 32, main_kvh):
                 results.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by="bytes",
                                library_ms=None)
@@ -608,7 +644,8 @@ def check_paged_attention_int8(torch, results):
     per-block loop of the JAX ``_int8_decode_fallback``): the main shape
     of the int8 serving path (32 slots, h = kvh = 32, d 128, block 16,
     every slot at length 2048: 128 table entries), GQA kvh = 8, bf16 q,
-    and a ragged case (lengths 1 and 17, trash entries, a dead row).
+    a ragged case (lengths 1 and 17, trash entries, a dead row) and one
+    shard's heads of a tp=2 engine (h = kvh = 16).
     fp32 q: 1e-5 absolute (the JAX suite's pin; the online softmax sums
     in another order). bf16 q: both sides compute in fp32 and round the
     output once, so each element within 1e-5 plus one bf16 ulp of its
@@ -619,13 +656,13 @@ def check_paged_attention_int8(torch, results):
         paged_attention_decode_int8, quantize_kv)
     gen = torch.Generator(device="cuda").manual_seed(9)
     d, bs, mb = 128, 16, 128
-    cases = [("main", 32, 32, [mb * bs] * 32, torch.float32),
-             ("gqa", 32, 8, [mb * bs] * 32, torch.float32),
-             ("bf16", 32, 32, [mb * bs] * 32, torch.bfloat16),
-             ("ragged", 8, 32, [1, 17, 1, 17, 300, 2048, 17, 5],
-              torch.float32)]
-    for name, S, kvh, lengths_h, dtype in cases:
-        h = 32
+    cases = [("main", 32, 32, 32, [mb * bs] * 32, torch.float32),
+             ("gqa", 32, 32, 8, [mb * bs] * 32, torch.float32),
+             ("bf16", 32, 32, 32, [mb * bs] * 32, torch.bfloat16),
+             ("ragged", 8, 32, 32, [1, 17, 1, 17, 300, 2048, 17, 5],
+              torch.float32),
+             ("tp=2 shard", 32, 16, 16, [mb * bs] * 32, torch.float32)]
+    for name, S, h, kvh, lengths_h, dtype in cases:
         nb = 1 + S * mb
         q = torch.randn(S, h, d, generator=gen, device="cuda").to(dtype)
         kc, ks = quantize_kv(torch.randn(nb, bs, kvh, d, generator=gen,
@@ -4326,6 +4363,7 @@ def decode_features_path(torch, card, model, ref):
               f"(weight_only_gemm {n_wo} = {7 * L + 1} x ({eng.steps} steps "
               f"+ {eng.prefill_chunks} chunks))")
         if label == "int8":           # where the int8 step's time goes
+            ref["quant_int8_rows"] = got          # phase 15 (e) reads them
             _arm_fp32_check(eng, cfg)
             profile_decode_block(torch, eng, card, arena="int8-weight")
         quant_runs.append((label, eng, got))
@@ -5281,6 +5319,563 @@ def durable_path(torch, card, ref, device="cuda"):
     return totals
 
 
+# -- phase 15: tensor-parallel serving ----------------------------------------
+
+_TP_PAGED = dict(num_slots=8, max_len=1024, decode_block=8, paged=True,
+                 block_size=16, prefill_chunk=32)
+_TP_DENSE = dict(num_slots=8, max_len=1024, decode_block=8,
+                 prompt_buckets=(64, 128, 256, 512))
+
+
+def _tp_engine(torch, model, device, label, **kw):
+    """An engine over phase 3's model (phase 3's paged geometry unless
+    ``kw`` overrides it); prints its build seconds (programs captured)."""
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    geo = dict(_TP_DENSE if kw.pop("dense", False) else _TP_PAGED)
+    geo.update(kw)
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(model, device=device, **geo)
+    _sync(torch)
+    print(f"phase 15 {label} engine built in "
+          f"{time.perf_counter() - t0:.2f} s; {_allocated_gib(torch):.2f} "
+          f"GiB allocated")
+    return eng
+
+
+def _tp_launches(engine, counts, kernel, label):
+    """Exact launches of a served run at degree d: every shard runs its
+    own RMSNorms (2L + 1 a step, a chunk or a dense prefill) and its own
+    paged decode at kvh / d heads (L a step); RoPE never runs its kernel
+    on the slot pools (per-row positions rotate in torch ops); with
+    weight-only quant every shard's 7L + 1 products launch the kernel."""
+    L = engine.backend.model.config.num_hidden_layers
+    d = engine.tp_degree()
+    per = engine.steps + (engine.prefill_chunks
+                          if hasattr(engine, "prefill_chunks")
+                          else engine.prefills)
+    want = {k: 0 for k in ("paged_attention_decode",
+                           "paged_attention_decode_int8", "decode_layer",
+                           "decode_layer_int8", "rope", "rms_norm_bwd")}
+    want["rms_norm"] = d * (2 * L + 1) * per
+    if kernel is not None:
+        want[kernel] = d * L * engine.steps
+    want["weight_only_gemm"] = d * (7 * L + 1) * per \
+        if engine.backend.quant_cfg is not None else 0
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label} launch counts {got}, expected {want}")
+    return want
+
+
+def _tp_serve(torch, engine, reqs, totals, label, kernel, budget=256):
+    """Serve ``reqs`` through a fresh Server on the reset engine with the
+    launch counts zeroed just before and read just after (added to
+    ``totals``); checks outputs, block accounting and exact launches.
+    Returns (rows, stats, wall s)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import Scheduler, Server
+    engine.reset()
+    srv = Server(engine, Scheduler(prefill_token_budget=budget))
+    rids = [srv.submit(p, max_new_tokens=mn, arrival_step=arr, **kw)
+            for p, mn, kw, arr in reqs]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = srv.run_until_idle()
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+    rows = [res[r] for r in rids]
+    for r, (p, mn, _, _) in zip(rows, reqs):
+        if len(r) != len(p) + mn:
+            raise AssertionError(f"{label}: bad output length")
+    manager = getattr(engine, "manager", None)
+    if manager is not None:
+        manager.assert_consistent()
+        if manager._ref:
+            raise AssertionError(f"{label}: blocks leaked {manager._ref}")
+    _tp_launches(engine, counts, kernel, label)
+    st = srv.stats()
+    if st.get("tp_degree") != engine.tp_degree():
+        raise AssertionError(f"{label}: stats tp_degree "
+                             f"{st.get('tp_degree')}")
+    return rows, st, wall
+
+
+def _tp_same(label, got, want, which):
+    import numpy as np
+    bad = [i for i in which if not np.array_equal(got[i], want[i])]
+    if bad:
+        raise AssertionError(f"{label}: streams {bad} differ")
+    return len(which)
+
+
+def _tp_graphs(engine, label):
+    counts = (engine.decode_compile_count(), engine.prefill_compile_count())
+    if counts[0] != 1 or (hasattr(engine, "prefill_chunks")
+                          and counts[1] != 1):
+        raise AssertionError(f"{label}: captures (decode, prefill) "
+                             f"{counts}")
+
+
+def _tp_step_delta(torch, model, engine):
+    """One decode step on the engine's armed slots: the sharded model's
+    log-probs against the unsharded model's over the same K/V (each
+    leaf's shards gathered into one global arena). Returns max |delta|
+    and the argmax agreement."""
+    from paddle_tpu_torch.models import decode_step_logprobs
+    s = engine._state
+    b = engine.backend
+    table = torch.where(s["live"][:, None], s["table"], 0)
+    glob = [tuple(leaf.detach() for leaf in layer) for layer in b.cache]
+    one = decode_step_logprobs(model, s["tok"][:, None], glob, s["pos"],
+                               block_table=table)
+    del glob
+    sharded = decode_step_logprobs(b.model, s["tok"][:, None], b.cache,
+                                   s["pos"], block_table=table)
+    live = s["live"]
+    delta = float((sharded - one)[live].abs().max())
+    agree = int((sharded.argmax(-1) == one.argmax(-1))[live].sum())
+    if not torch.isfinite(sharded).all():
+        raise AssertionError("tp=2 step log-probs are not finite")
+    return delta, agree, int(live.sum())
+
+
+def tp_path(torch, card, ref, device="cuda"):
+    """Phase 15 (see the module docstring). Returns the launch counts of
+    every served run."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.distributed.mesh import build_device_mesh
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.serving import (PagedEngine, Server, adopt_prefix,
+                                          extract_prefix)
+    from paddle_tpu_torch.serving.tp import TPConfig
+    t_phase = time.perf_counter()
+    _tp_free(torch)                 # phase 14's model and engines
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    cfg = llama_7b_config()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    print(f"phase 15 model rebuilt from seed 0 in "
+          f"{time.perf_counter() - t_phase:.2f} s; "
+          f"{_allocated_gib(torch):.2f} GiB allocated")
+    mesh = build_device_mesh({"mp": 2}, devices=[device, device])
+    exact = TPConfig(mesh=mesh)
+    reqs = _prompts(np.random.RandomState(0), cfg.vocab_size)
+    every = list(range(len(reqs)))
+    greedy = sorted(ref["greedy"])
+    totals = {}
+
+    # (a) the paged exact tp=2 engine against phase 3
+    t0 = time.perf_counter()
+    a = _tp_engine(torch, model, device, "(a) paged exact tp=2", tp=exact)
+    rows, st, wall = _tp_serve(torch, a, reqs, totals, "phase 15 (a)",
+                               "paged_attention_decode")
+    n = _tp_same("phase 15 (a) vs phase 3", rows, ref["rows"], every)
+    _tp_graphs(a, "phase 15 (a)")
+    shard_kv = a.backend.shard_kv_bytes()
+    kv3 = ref["stats"]["kv_bytes_per_slot"] * a.num_slots
+    if any(2 * b != kv3 for b in shard_kv):
+        raise AssertionError(f"phase 15 (a): shard arenas {shard_kv} B, "
+                             f"phase 3's arena {kv3} B")
+    acc = a.backend.collective_accounting()
+    print(f"[{card}] phase 15 (a) paged exact tp=2: {n} streams (11 greedy,"
+          f" 1 sampled) identical to phase 3's; captures (1, 1); launches "
+          f"exact; each shard's arena {shard_kv[0]} B (phase 3's {kv3} B); "
+          f"decode_step_ms={st['decode_step_ms']:.3f} (phase 3's "
+          f"{ref['stats']['decode_step_ms']:.3f} in this run), "
+          f"decode_tokens_per_s={st['decode_tokens_per_sec']:.1f} (phase "
+          f"3's {ref['stats']['decode_tokens_per_sec']:.1f}); collectives "
+          f"{acc['calls_per_dispatch']} a dispatch, "
+          f"{acc['bytes_per_token']} B a token; served in {wall:.2f} s")
+    _arm_fp32_check(a, cfg)
+    _check_step_logprobs(torch, a.backend.model, a, "phase 15 (a) tp=2 ")
+    delta, agree, live = _tp_step_delta(torch, model, a)
+    if not delta <= 2e-3:
+        raise AssertionError(f"phase 15 (a): one step, tp=2 vs the "
+                             f"unsharded model, differs by {delta:.3e} "
+                             "(tolerance 2e-3)")
+    print(f"[{card}] phase 15 (a) one step, {live} slots: tp=2 vs the "
+          f"unsharded model on the same K/V: max |delta log-prob| "
+          f"{delta:.3e} (tolerance 2e-3, as kernels vs plain: the shards' "
+          f"narrower products sum in another order), argmax agree "
+          f"{agree}/{live}")
+    if device == "cuda":
+        idle = profile_decode_block(torch, a, card, arena="tp=2 fp32")
+        print(f"[{card}] phase 15 (a) replayed block idle "
+              f"{100 * idle:.1f}% (phase 3's {100 * ref['idle']:.1f}%)")
+    print(f"phase 15 (a) took {time.perf_counter() - t0:.1f} s")
+
+    # (f) snapshot of (a) mid-stream onto a fresh tp=2 engine; a prefix
+    # fetch from the tp=2 owner into a tp=1 requester
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pt-tp-")
+    try:
+        # requests 0-7 need 104 blocks: a 160-block arena keeps the
+        # snapshot at 2.7 GB (phase 3's whole arena is 8.6 GB)
+        small = dict(tp=exact, num_blocks=160)
+        killed = _tp_engine(torch, model, device, "(f) 160-block tp=2",
+                            **small)
+        killed.reset()
+        srv = Server(killed, _scheduler())
+        rids = [srv.submit(p, max_new_tokens=mn, arrival_step=arr, **kw)
+                for p, mn, kw, arr in reqs[:8]]
+        srv.run_until_idle(max_ticks=3)
+        path = os.path.join(tmp, "tp.npz")
+        srv.snapshot(path)
+        del killed, srv
+        _tp_free(torch)
+        fresh = _tp_engine(torch, model, device, "(f) fresh 160-block tp=2",
+                           **small)
+        res = Server.restore(path, fresh).run_until_idle()
+        _tp_same("phase 15 (f) restored", [res[r] for r in rids],
+                 ref["rows"], range(8))
+        snap_b = os.path.getsize(path)
+        del fresh, res
+        _tp_free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    i = 1                                  # shares the 256-token prefix
+    prompt, mn = reqs[i][0], reqs[i][1]
+    _tp_serve(torch, a, [reqs[i]], totals, "phase 15 (f) owner",
+              "paged_attention_decode")
+    nb = (len(prompt) - 1) // a.kv_block_size
+    h = extract_prefix(a, prompt, nb)
+    if h is None or h.meta["src_tp_degree"] != 2 or "kv_0_p1" not in h.arrays:
+        raise AssertionError("phase 15 (f): no per-shard fetch payload")
+    req = PagedEngine(model, num_slots=2, max_len=1024, decode_block=8,
+                      block_size=16, prefill_chunk=32, device=device)
+    req.reset()
+    fetched = adopt_prefix(req, h, [], prompt)
+    req.manager.release(fetched)
+    srv = Server(req)
+    rid = srv.submit(prompt, max_new_tokens=mn)
+    out = srv.run_until_idle()[rid]
+    if not np.array_equal(out, ref["rows"][i]) \
+            or req.shared_tokens != nb * req.kv_block_size:
+        raise AssertionError("phase 15 (f): the fetched prefix's stream "
+                             "differs or was not reused")
+    print(f"[{card}] phase 15 (f) snapshot of a 160-block tp=2 engine "
+          f"mid-stream ({snap_b} B, the global arena) restored onto a fresh "
+          f"one: 8 streams "
+          f"identical; a {nb}-block prefix fetched from the tp=2 owner "
+          f"({len([k for k in h.arrays if k.startswith('kv_')])} per-shard "
+          f"chunks) adopted by a tp=1 engine: stream identical; took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del req, srv, h
+    _tp_free(torch)
+
+    # (d) psum: one request's step against the exact engine's; int8 hop
+    t0 = time.perf_counter()
+    prompt = reqs[3][0]
+    psum = _tp_engine(torch, model, device, "(d) psum tp=2",
+                      tp=TPConfig(mode="psum", mesh=mesh))
+    _tp_arm_one(a, prompt)
+    _tp_arm_one(psum, prompt)
+    logp = {"exact": _tp_live_logprobs(torch, a),
+            "psum": _tp_live_logprobs(torch, psum)}
+    if int(a._state["tok"][0]) != int(psum._state["tok"][0]):
+        raise AssertionError("phase 15 (d): psum and exact prefills sampled "
+                             "different first tokens")
+    dl = float((logp["psum"] - logp["exact"]).abs().max())
+    if not math.isfinite(dl):
+        raise AssertionError("phase 15 (d): psum log-probs not finite")
+    print(f"[{card}] phase 15 (d) psum tp=2 vs exact tp=2, one request's "
+          f"first decode step after its prefill: max |delta log-prob| "
+          f"{dl:.3e}")
+    del psum
+    a.reset()
+    del a
+    _tp_free(torch)
+    p8 = _tp_engine(torch, model, device, "(d) psum int8 tp=2",
+                    tp=TPConfig(mode="psum", int8=True, mesh=mesh))
+    _tp_arm_one(p8, prompt)
+    bound = p8.tp_int8_error_bound()
+    err, hop_bound = _tp_hop_error(p8)
+    if not (0 < err <= hop_bound <= bound):
+        raise AssertionError(f"phase 15 (d): hop |int8 - fp32| {err}, its "
+                             f"bound {hop_bound}, the step's {bound}")
+    import dataclasses
+    backend = p8.backend
+    backend.tp = dataclasses.replace(backend.tp, int8_max_error=bound / 2)
+    backend._int8_gate_pending = True
+    refused = 0
+    for _ in range(2):
+        try:
+            p8.step_block()
+        except RuntimeError as e:
+            if "error bound" not in str(e):
+                raise
+            refused += 1
+    if refused != 2 or not backend._int8_gate_pending:
+        raise AssertionError(f"phase 15 (d): the gate refused {refused} of "
+                             "2 blocks over budget")
+    print(f"[{card}] phase 15 (d) psum int8 tp=2: runtime bound "
+          f"{bound:.4e} (tp_int8_error_bound), the first hop's measured "
+          f"|int8 - fp32| hidden state {err:.4e} within its bound "
+          f"{hop_bound:.4e}; a budget of bound / 2 refused twice, the gate "
+          f"still armed; took {time.perf_counter() - t0:.1f} s")
+    del p8, backend
+    _tp_free(torch)
+
+    # (b) the int8 arena against an unsharded int8 engine
+    t0 = time.perf_counter()
+    u8 = _tp_engine(torch, model, device, "(b) unsharded int8", kv_int8=True)
+    want8 = _tp_rows(u8, reqs)
+    _arm_fp32_check(u8, cfg)      # the baseline of (b)'s one-step checks
+    _check_step_logprobs(torch, model, u8, "phase 15 (b) unsharded int8 ")
+    del u8
+    _tp_free(torch)
+    # the control: no tensor parallelism, other prefill product shapes
+    c8 = _tp_engine(torch, model, device, "(b) unsharded int8, chunk 64",
+                    kv_int8=True, prefill_chunk=64)
+    same_c, diverge_c = _tp_agreement(reqs, _tp_rows(c8, reqs), want8)
+    del c8
+    _tp_free(torch)
+    t8 = _tp_engine(torch, model, device, "(b) int8 tp=2", kv_int8=True,
+                    tp=exact)
+    got8, st8, _ = _tp_serve(torch, t8, reqs, totals, "phase 15 (b)",
+                             "paged_attention_decode_int8")
+    _tp_graphs(t8, "phase 15 (b)")
+    same, diverge = _tp_agreement(reqs, got8, want8)
+    _arm_fp32_check(t8, cfg)
+    _check_step_logprobs(torch, t8.backend.model, t8, "phase 15 (b) tp=2 ")
+    delta, agree, live = _tp_step_delta(torch, model, t8)
+    if not delta <= 2e-3:
+        raise AssertionError(f"phase 15 (b): one step on the same int8 "
+                             f"arena differs by {delta:.3e} (tolerance "
+                             "2e-3)")
+    print(f"[{card}] phase 15 (b) int8 arena tp=2: launches and captures "
+          f"exact; one step on the same int8 arena (the shards' codes and "
+          f"scales gathered) against the unsharded model: max |delta "
+          f"log-prob| {delta:.3e} (tolerance 2e-3, phase 3's kernels vs "
+          f"plain), argmax agree {agree}/{live}; streams against the "
+          f"unsharded int8 engine (reported: an int8 code flips where the "
+          f"K/V differ by an ulp): {len(same)}/{len(reqs)} identical, "
+          f"first divergence at generated token {diverge}; an unsharded "
+          f"int8 engine prefilling in chunks of 64 against the same "
+          f"streams: {len(same_c)}/{len(reqs)} identical, first divergence "
+          f"at {diverge_c}; decode_step_ms={st8['decode_step_ms']:.3f}; took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del t8
+    _tp_free(torch)
+    _tp_int8_cause(torch, model, exact, reqs[8][0], card, device)
+
+    # (c) the dense exact tp=2 engine on requests 0-7
+    t0 = time.perf_counter()
+    dense = _tp_engine(torch, model, device, "(c) dense exact tp=2",
+                       dense=True, tp=exact)
+    got, std, _ = _tp_serve(torch, dense, reqs[:8], totals, "phase 15 (c)",
+                            None)
+    n = _tp_same("phase 15 (c) dense tp=2 vs phase 3", got, ref["rows"],
+                 [i for i in greedy if i < 8])
+    print(f"[{card}] phase 15 (c) dense exact tp=2: {n} greedy streams "
+          f"identical to phase 3's; decode captured once, "
+          f"{dense.prefill_compile_count()} bucket prefills; "
+          f"decode_step_ms={std['decode_step_ms']:.3f}; took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del dense
+    _tp_free(torch)
+
+    # (e) weight-only int8 with exact tp=2 against phase 12 (b)
+    t0 = time.perf_counter()
+    q = _tp_engine(torch, model, device, "(e) quant int8 tp=2",
+                   quant="int8", tp=exact)
+    got, stq, _ = _tp_serve(torch, q, reqs, totals, "phase 15 (e)",
+                            "paged_attention_decode")
+    _tp_graphs(q, "phase 15 (e)")
+    n = _tp_same("phase 15 (e) quant int8 tp=2 vs phase 12 (b)", got,
+                 ref["quant_int8_rows"], greedy)
+    _arm_fp32_check(q, cfg)
+    _check_step_logprobs(torch, q.backend.model, q, "phase 15 (e) tp=2 ")
+    print(f"[{card}] phase 15 (e) quant int8 exact tp=2: {n} greedy "
+          f"streams identical to phase 12 (b)'s int8 engine; weight_only_gemm"
+          f" launches exact at the shard shapes; decode_step_ms="
+          f"{stq['decode_step_ms']:.3f}; took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del q, model
+    gc.collect()
+    _empty_cache(torch)
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if torch.cuda.is_available() else 0.0
+    print(f"phase 15 (tensor-parallel serving) took "
+          f"{time.perf_counter() - t_phase:.1f} s, peak memory "
+          f"{peak:.2f} GB")
+    return totals
+
+
+def _scheduler():
+    from paddle_tpu_torch.serving import Scheduler
+    return Scheduler(prefill_token_budget=256)
+
+
+def _tp_free(torch):
+    """Free the engines just dropped (they form reference cycles)."""
+    gc.collect()
+    _empty_cache(torch)
+
+
+def _tp_rows(engine, reqs):
+    """The rows of ``reqs`` served on the reset engine (no checks)."""
+    from paddle_tpu_torch.serving import Server
+    engine.reset()
+    srv = Server(engine, _scheduler())
+    rids = [srv.submit(p, max_new_tokens=mn, arrival_step=arr, **kw)
+            for p, mn, kw, arr in reqs]
+    res = srv.run_until_idle()
+    return [res[r] for r in rids]
+
+
+def _tp_agreement(reqs, got, want):
+    """(indices of identical streams, {index: first differing generated
+    token} of the others)."""
+    import numpy as np
+    same, diverge = [], {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        if np.array_equal(g, w):
+            same.append(i)
+        else:
+            p = len(reqs[i][0])
+            diverge[i] = int(np.flatnonzero(g[p:] != w[p:])[0])
+    return same, diverge
+
+
+def _tp_prompt_rows(torch, engine, n):
+    """Per layer, the global arena leaves' rows of slot 0's first ``n``
+    positions: (k, v) fp32, or (k codes, v codes, k scales, v scales)."""
+    bs = engine.kv_block_size
+    idx = engine._state["table"][0, :-(-n // bs)].long()
+    return [[leaf.index_select(0, idx).flatten(0, 1)[:n] for leaf in layer]
+            for layer in engine.backend.cache]
+
+
+def _tp_int8_cause(torch, model, exact, prompt, card, device):
+    """Why the int8-arena streams of (b) fork while the fp32 ones do not:
+    one prompt prefilled on four 80-block engines, fp32 and int8 arenas,
+    unsharded and tp=2, and their arenas' rows of the prompt compared.
+    Gates: at layer 0 (whose K/V no arena read precedes) each int8
+    engine's codes and scales are ``quantize_kv`` of its fp32 twin's K/V
+    bit for bit, so the two int8 arenas differ only where the two fp32
+    K/V differ; those differ by less than half a quantization step
+    (absmax / 127), so a code moves by one at most, and only where the
+    boundary between two codes lies between the two fp32 values. The
+    fp32 differences are given in ulps of each row's absmax and in
+    steps. A control with no tensor parallelism: an unsharded int8
+    engine prefilling in chunks of 64 against the one in chunks of 32
+    (other product shapes, so other roundings); the moved codes of both
+    pairs are printed by layer."""
+    from paddle_tpu_torch.ops.paged_attention import quantize_kv
+    t0 = time.perf_counter()
+    n = len(prompt)
+    rows = {}
+    for name, kw in (("u32", {}), ("t32", dict(tp=exact)),
+                     ("u8", dict(kv_int8=True)),
+                     ("t8", dict(kv_int8=True, tp=exact)),
+                     ("c8", dict(kv_int8=True, prefill_chunk=64))):
+        e = _tp_engine(torch, model, device, f"(b) cause {name}",
+                       num_blocks=80, **kw)
+        _tp_arm_one(e, prompt)
+        rows[name] = _tp_prompt_rows(torch, e, n)
+        del e
+        _tp_free(torch)
+    fp_steps, fp_ulps, flips, dcode = [], [], [], []
+    by_layer = {"tp=2": [], "chunk 64": []}
+    for l, (u, t, c, ct, cc) in enumerate(zip(
+            rows["u32"], rows["t32"], rows["u8"], rows["t8"], rows["c8"])):
+        by_layer["tp=2"].append(int((c[0] != ct[0]).sum()
+                                    + (c[1] != ct[1]).sum()))
+        by_layer["chunk 64"].append(int((c[0] != cc[0]).sum()
+                                        + (c[1] != cc[1]).sum()))
+        for j in range(2):                       # k, v
+            delta = (t[j] - u[j]).abs()
+            top = u[j].abs().amax(-1, keepdim=True)       # the row's absmax
+            ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
+            fp_steps.append(float((delta / (top / 127)).max()))
+            fp_ulps.append(float((delta / ulp).max()))
+            flips.append(int((c[j] != ct[j]).sum()))
+            dcode.append(int((c[j].int() - ct[j].int()).abs().max()))
+            if l:
+                continue
+            for fp, q in ((u, c), (t, ct)):
+                codes, scales = quantize_kv(fp[j])
+                if not (torch.equal(codes, q[j])
+                        and torch.equal(scales, q[2 + j])):
+                    raise AssertionError(
+                        "phase 15 (b) cause: an int8 arena's layer-0 rows "
+                        "are not quantize_kv of its fp32 twin's")
+    total = rows["u8"][0][0].numel()
+    if not (fp_steps[0] < 0.5 and fp_steps[1] < 0.5
+            and max(dcode[:2]) <= 1):
+        raise AssertionError(f"phase 15 (b) cause: layer 0 fp32 K/V differ "
+                             f"by {fp_steps[:2]} steps, codes by "
+                             f"{dcode[:2]}")
+    print(f"[{card}] phase 15 (b) cause, one {n}-token prompt prefilled on "
+          f"fp32 and int8 arenas, tp=1 and tp=2: layer 0's int8 rows are "
+          f"quantize_kv of the fp32 twin's K/V bit for bit; the fp32 K/V "
+          f"(tp=2 vs tp=1) differ at layer 0 by at most {fp_ulps[0]:.1f} / "
+          f"{fp_ulps[1]:.1f} ulp of the row's absmax (k / v), "
+          f"{fp_steps[0]:.2e} / "
+          f"{fp_steps[1]:.2e} of a step, over all 32 layers by "
+          f"{max(fp_ulps):.1f} ulp, {max(fp_steps):.2e} of a step; int8 "
+          f"codes moved at layer 0: {flips[0]} / {flips[1]} of {total} "
+          f"each, by at most {max(dcode[:2])}; "
+          f"over all layers {sum(flips)} moved codes of {64 * total}, "
+          f"by at most {max(dcode)}; took {time.perf_counter() - t0:.1f} s")
+    for name, moved in by_layer.items():
+        print(f"[{card}] phase 15 (b) cause: unsharded chunk-32 int8 arena "
+              f"vs {name}: moved codes by layer (of {2 * total} each) "
+              f"{moved}")
+
+
+def _tp_arm_one(engine, prompt):
+    """Reset the engine and arm one greedy request through its prefill
+    (its first token sampled, its first decode step next)."""
+    from paddle_tpu_torch.serving import Request
+    engine.reset()
+    engine.try_admit(Request(request_id=3000, prompt=prompt,
+                             max_new_tokens=32))
+    engine.prefill_tick(None)
+
+
+def _tp_live_logprobs(torch, engine):
+    """One decode step's log-probs on the engine's live slots."""
+    from paddle_tpu_torch.models import decode_step_logprobs
+    s, b = engine._state, engine.backend
+    table = torch.where(s["live"][:, None], s["table"], 0)
+    out = decode_step_logprobs(b.model, s["tok"][:, None], b.cache,
+                               s["pos"], block_table=table)
+    return out[s["live"]]
+
+
+def _tp_hop_error(engine):
+    """The first int8 hop of one probed step: its |int8 - fp32| all-reduce
+    against the fp32 one on the same partial sums, and its bound."""
+    from paddle_tpu_torch.distributed.collectives.hierarchical import (
+        hier_all_reduce)
+    from paddle_tpu_torch.distributed.collectives.quantized import (
+        quantized_all_reduce)
+    from paddle_tpu_torch.utils import tp_hooks
+    seen = []
+    orig = tp_hooks.maybe_reduce
+
+    def spy(ts):
+        if not seen:
+            seen.append([t.clone() for t in ts])
+        return orig(ts)
+    tp_hooks.maybe_reduce = spy
+    try:
+        engine.tp_int8_error_bound()
+    finally:
+        tp_hooks.maybe_reduce = orig
+    plan = engine.backend.tp_plan
+    fp32 = hier_all_reduce(seen[0], plan)[0]
+    q, bound = quantized_all_reduce(seen[0], plan, return_error_bound=True)
+    return float((q[0] - fp32).abs().max()), float(bound)
+
+
 def _empty_cache(torch):
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -5361,6 +5956,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet = fleet_path(torch, card, ref)
     durable = durable_path(torch, card, ref)
+    torch.cuda.empty_cache()
+    tp = tp_path(torch, card, ref)
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     train, idle7 = train_path(torch, card)
@@ -5374,7 +5971,7 @@ def main() -> int:
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, resilience_serving=resilience,
                  decode_features=features, fleet_serving=fleet,
-                 durable_fleet=durable,
+                 durable_fleet=durable, tp_serving=tp,
                  training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}

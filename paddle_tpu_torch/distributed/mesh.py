@@ -1,0 +1,163 @@
+"""The device mesh: named parallelism axes over ``torch.device``s.
+
+Counterpart of ``paddle_tpu/distributed/mesh.py``. The JAX package lays
+its parallelism dimensions out as the named axes of one
+``jax.sharding.Mesh``; a "communication group" is (mesh, axis name) and
+one controller drives every device of it. The port keeps that
+single-controller design: :class:`Mesh` is the axis names over an
+ndarray of ``torch.device``, and the sharded programs
+(``serving.tp``) run each shard's part on its device from one Python
+process.
+
+The default devices are every visible CUDA device. An explicit list may
+name a device more than once (``[torch.device("cuda:0")] * 2``, or
+``["cpu"] * 8``): each entry is one logical device of the mesh, as
+XLA's simulated host devices are in the JAX package's tests. On one
+card a 2-way mesh then runs both shards there.
+
+``HybridCommunicateGroup`` and ``CommunicateTopology`` come only as far
+as building and setting a mesh: the process groups, ranks and per-axis
+groups of a multi-process run are not part of this module yet."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["AXIS_ORDER", "Mesh", "HybridCommunicateGroup",
+           "get_hybrid_communicate_group", "build_device_mesh",
+           "CommunicateTopology", "set_current_mesh", "get_current_mesh",
+           "axis_devices"]
+
+# axis order: outermost (slowest link) -> innermost (fastest link), as in
+# the JAX package: pp stages communicate least per step, mp/sep most
+AXIS_ORDER = ("pp", "dp", "sharding", "sep", "mp")
+
+_HCG: Optional["HybridCommunicateGroup"] = None
+_CURRENT_MESH: Optional["Mesh"] = None
+
+
+class Mesh:
+    """Named axes over an ndarray of ``torch.device`` (JAX's
+    ``jax.sharding.Mesh``): ``devices`` has one dimension per name of
+    ``axis_names``; ``shape`` maps each name to its size."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        devices = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f"{devices.ndim}-D devices for "
+                             f"{len(axis_names)} axis names {axis_names}")
+        self.devices = devices
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.reshape(-1)]})")
+
+
+def set_current_mesh(mesh: Optional[Mesh]):
+    global _CURRENT_MESH
+    _CURRENT_MESH = mesh
+
+
+def get_current_mesh() -> Optional[Mesh]:
+    return _CURRENT_MESH
+
+
+def build_device_mesh(axis_dims: dict, devices=None,
+                      allow_subset: bool = False) -> Mesh:
+    """axis_dims: {"dp": 2, "mp": 4, ...}; missing axes get degree 1.
+    ``devices``: the mesh's devices in linear (row-major over
+    :data:`AXIS_ORDER`) order, default every visible CUDA device; an
+    entry may repeat (one logical device each). With ``allow_subset``
+    the first prod(dims) devices are used; otherwise a size mismatch is
+    an error (silently idling devices hides configuration typos)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass devices= (e.g. "
+                "[\"cpu\"] * 8) to build a mesh of CPU devices")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    dims = [int(axis_dims.get(a, 1)) for a in AXIS_ORDER]
+    unknown = set(axis_dims) - set(AXIS_ORDER)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}; expected "
+                         f"names from {AXIS_ORDER}")
+    total = int(np.prod(dims))
+    if total > len(devices) or (total < len(devices) and not allow_subset):
+        raise ValueError(
+            f"topology {dict(zip(AXIS_ORDER, dims))} needs {total} devices, "
+            f"have {len(devices)} (pass allow_subset=True to use a prefix)")
+    arr = np.empty(total, dtype=object)
+    arr[:] = devices[:total]
+    return Mesh(arr.reshape(dims), AXIS_ORDER)
+
+
+class CommunicateTopology:
+    """The topology's names and degrees (the JAX package's parity shim
+    of ``fleet.base.topology.CommunicateTopology``)."""
+
+    def __init__(self, hybrid_group_names, dims):
+        self._names = list(hybrid_group_names)
+        self._dims = list(dims)
+
+    def get_hybrid_group_names(self):
+        return self._names
+
+    def get_dim(self, name):
+        return self._dims[self._names.index(name)]
+
+    def world_size(self):
+        return int(np.prod(self._dims))
+
+
+class HybridCommunicateGroup:
+    """Builds the dp x pp x sharding x sep x mp mesh and makes it the
+    current one (what ``serving.tp`` shards over by default)."""
+
+    def __init__(self, dp_degree=1, mp_degree=1, pp_degree=1,
+                 sharding_degree=1, sep_degree=1, devices=None,
+                 allow_subset=False):
+        self._dims = {"dp": dp_degree, "mp": mp_degree, "pp": pp_degree,
+                      "sharding": sharding_degree, "sep": sep_degree}
+        self.mesh = build_device_mesh(self._dims, devices,
+                                      allow_subset=allow_subset)
+        self._topo = CommunicateTopology(list(AXIS_ORDER),
+                                         [self._dims.get(a, 1)
+                                          for a in AXIS_ORDER])
+        global _HCG
+        _HCG = self
+        set_current_mesh(self.mesh)
+
+    def axis_size(self, axis: str) -> int:
+        return self._dims.get(axis, 1)
+
+    def topology(self):
+        return self._topo
+
+
+def get_hybrid_communicate_group() -> Optional[HybridCommunicateGroup]:
+    return _HCG
+
+
+def axis_devices(mesh: Mesh, axes: Sequence[str]) -> list:
+    """The devices of ``mesh`` along ``axes`` in linear-index order
+    (outer-major over ``axes`` in mesh order), at index 0 of every other
+    axis: one device per shard of a program sharded over ``axes``. (A
+    JAX ``shard_map`` also runs the replicas along the other axes, which
+    compute the same values; one controller needs only one of them.)"""
+    names = mesh.axis_names
+    index = tuple(slice(None) if a in axes else 0 for a in names)
+    return list(mesh.devices[index].reshape(-1))

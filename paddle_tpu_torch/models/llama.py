@@ -34,6 +34,7 @@ from ..nn import functional as PF
 from ..ops import plain_active, plain_as
 from ..ops.decode_layer import decode_layer, kernel_viable
 from ..ops.fused import fused_rope
+from ..utils import tp_hooks
 from .generation import GenerationMixin, cached_attention
 
 __all__ = ["LlamaConfig", "LlamaDecoderStack", "LlamaForCausalLM",
@@ -53,10 +54,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    # the mesh fields, with the JAX defaults and checks. On one card
-    # tensor_parallel is inert (as in JAX without a mesh) and
+    # the mesh fields, with the JAX defaults and checks. tensor_parallel
+    # gives the partition table a sharded serving engine reads
+    # (partition_specs; inert on one device, as in JAX without a mesh);
     # pipeline_parallel builds the stacked trunk and runs it as one stage;
-    # sequence_parallel and virtual_pp > 1 raise (a mesh is not ported)
+    # sequence_parallel and virtual_pp > 1 raise (the trunk over a mesh is
+    # not ported)
     tensor_parallel: bool = True
     sequence_parallel: bool = False
     sequence_parallel_mode: str = "megatron"
@@ -166,6 +169,9 @@ class LlamaAttention(nn.Module):
         self.sliding_window = config.sliding_window
         self.head_dim = config.head_dim
         h = config.hidden_size
+        # the full width of the heads in front of o_proj (a tensor-
+        # parallel shard holds a slice of them: tp_hooks.maybe_gather)
+        self.width = h
         kv = config.num_key_value_heads * self.head_dim
         kw = dict(bias=False, device=device, dtype=dtype)
         self.q_proj = nn.Linear(h, h, **kw)
@@ -175,6 +181,16 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
                 pad=None):
+        return self.o_proj(self._attend(x, cos, sin, cache, pos,
+                                        block_table, pad))
+
+    def _attend(self, x, cos, sin, cache=None, pos=None, block_table=None,
+                pad=None):
+        """Everything in front of o_proj: q/k/v, RoPE and the attention
+        of this module's heads, (b, s, heads * head_dim). The head count
+        comes from the projections' widths, so a tensor-parallel shard
+        (``serving.tp``) runs its slice of the heads over its slice of
+        the KV cache."""
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, -1, self.head_dim)
         k = self.k_proj(x).view(b, s, -1, self.head_dim)
@@ -184,7 +200,7 @@ class LlamaAttention(nn.Module):
             q, k = _apply_rope(q, k, cos, sin)
             out = PF.scaled_dot_product_attention(
                 q, k, v, is_causal=True, sliding_window=self.sliding_window)
-            return self.o_proj(out.reshape(b, s, -1))
+            return out.reshape(b, s, -1)
         # a dense (k, v) cache, (k, v) arenas, or int8 (k, v) codes +
         # (k, v) scales
         out = cached_attention(q, k, v, cache[0], cache[1], pos,
@@ -192,20 +208,26 @@ class LlamaAttention(nn.Module):
                                cos=cos, sin=sin, block_table=block_table,
                                kv_scales=cache[2:] or None,
                                window=self.sliding_window, pad=pad)
-        return self.o_proj(out.reshape(b, s, -1))
+        return out.reshape(b, s, -1)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         h, ff = config.hidden_size, config.intermediate_size
+        self.width = ff         # the activation's full width, as above
         kw = dict(bias=False, device=device, dtype=dtype)
         self.gate_proj = nn.Linear(h, ff, **kw)
         self.up_proj = nn.Linear(h, ff, **kw)
         self.down_proj = nn.Linear(ff, h, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(self._act(x))
+
+    def _act(self, x):
+        """The activation in front of down_proj (a tensor-parallel
+        shard's columns of it)."""
+        return F.silu(self.gate_proj(x)) * self.up_proj(x)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -224,18 +246,40 @@ class LlamaDecoderLayer(nn.Module):
         """The layer; with a ``FusedDecode`` request
         (``ops.decode_layer``) the slot-pool decode shape goes through
         the fused decode-layer call instead (:meth:`_fused_decode`)."""
+        return tp_hooks.run_local(self._phases(x, cos, sin, cache, pos,
+                                               block_table, pad,
+                                               fused_decode))
+
+    def _decode_forward(self, x, cos, sin, cache, pos, block_table,
+                        pad=None):
+        return tp_hooks.run_local(self._phases(x, cos, sin, cache, pos,
+                                               block_table, pad))
+
+    def _phases(self, x, cos, sin, cache, pos, block_table, pad=None,
+                fused_decode=None):
+        """The layer as a generator split at the tensor-parallel hook
+        sites of the JAX layer (``paddle_tpu/models/llama.py`` 223-225
+        and 236-238 in front of and behind o_proj, 284-285 around
+        down_proj): each ``yield`` hands ``(hook, tensor, *args)`` to
+        the loop that runs it and resumes with the hook's result
+        (``utils.tp_hooks``: :func:`~paddle_tpu_torch.utils.tp_hooks
+        .run_local` for one device, ``run_shards`` for a mesh). A call
+        the fused decode layer takes (:meth:`_fusable`) returns its
+        result without yielding: the megakernel is never sharded."""
         if fused_decode is not None and self._fusable(x, cache, pos,
                                                       block_table, pad):
             return self._fused_decode(x, cos, sin, cache, pos, block_table,
                                       fused_decode, pad)
-        return self._decode_forward(x, cos, sin, cache, pos, block_table,
-                                    pad)
-
-    def _decode_forward(self, x, cos, sin, cache, pos, block_table,
-                        pad=None):
-        h = x + self.self_attn(self.input_layernorm(x), cos, sin, cache,
-                               pos, block_table, pad)
-        return h + self.mlp(self.post_attention_layernorm(h))
+        attn, mlp = self.self_attn, self.mlp
+        a = attn._attend(self.input_layernorm(x), cos, sin, cache, pos,
+                         block_table, pad)
+        a = yield tp_hooks.maybe_gather, a, attn.width
+        o = yield tp_hooks.maybe_reduce, attn.o_proj(a)
+        h = x + o
+        m = mlp._act(self.post_attention_layernorm(h))
+        m = yield tp_hooks.maybe_gather, m, mlp.width
+        d = yield tp_hooks.maybe_reduce, mlp.down_proj(m)
+        return h + d
 
     def _fusable(self, x, cache, pos, block_table, pad=None) -> bool:
         """Whether this call is the slot-pool decode shape the fused
@@ -388,20 +432,31 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, cos, sin, cache=None, pos=None,
                 block_table=None, fused_decode=None, pad=None):
-        stacked = isinstance(self.layers, LlamaDecoderStack)
-        if stacked and cache is not None:
+        if cache is not None:
+            return tp_hooks.run_local(self._phases(
+                input_ids, cos, sin, cache, pos, block_table, fused_decode,
+                pad))
+        x = self.embed_tokens(input_ids)
+        if isinstance(self.layers, LlamaDecoderStack):
+            return self.norm(self.layers(x, cos, sin))
+        for layer in self.layers:
+            x = layer(x, cos, sin)
+        return self.norm(x)
+
+    def _phases(self, input_ids, cos, sin, cache, pos, block_table,
+                fused_decode=None, pad=None):
+        """The cache path as a generator over the layers' hook sites
+        (:meth:`LlamaDecoderLayer._phases`)."""
+        if isinstance(self.layers, LlamaDecoderStack):
             raise ValueError(
                 "KV-cache decode is not supported with the stacked "
                 "pipeline/scan trunk; build the model with "
                 "pipeline_parallel=False, scan_layers=False for "
                 "generation")
         x = self.embed_tokens(input_ids)
-        if stacked:
-            return self.norm(self.layers(x, cos, sin))
-        caches = cache if cache is not None else [None] * len(self.layers)
-        for layer, layer_cache in zip(self.layers, caches):
-            x = layer(x, cos, sin, layer_cache, pos, block_table,
-                      fused_decode, pad)
+        for layer, c in zip(self.layers, cache):
+            x = yield from layer._phases(x, cos, sin, c, pos, block_table,
+                                         pad, fused_decode)
         return self.norm(x)
 
 
@@ -508,19 +563,65 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         and without labels the logits. ``fused_decode``
         (``ops.decode_layer.FusedDecode``) routes each decode layer of an
         s = 1 cache step through the fused decode-layer call."""
-        h = self.llama(input_ids, self.rope_cos, self.rope_sin, cache, pos,
-                       block_table, fused_decode, pad)
+        if cache is not None:
+            return tp_hooks.run_local(self._phases(
+                input_ids, cache, pos, block_table, fused_decode, pad))
+        h = self.llama(input_ids, self.rope_cos, self.rope_sin)
         c = self.config
-        if cache is None and labels is not None and c.fused_head_ce:
+        if labels is not None and c.fused_head_ce:
             loss = fused_linear_cross_entropy(
                 h, self.head_weight, labels,
                 num_chunks=c.fused_head_ce_chunks)
             return loss, None
-        logits = h @ self.head_weight.t() if self.lm_head is None \
-            else self.lm_head(h)
-        if cache is not None or labels is None:
+        logits = self._head(h)
+        if labels is None:
             return logits
         return PF.cross_entropy(logits, labels), logits
+
+    def _head(self, h):
+        return h @ self.head_weight.t() if self.lm_head is None \
+            else self.lm_head(h)
+
+    def _phases(self, input_ids, cache, pos=None, block_table=None,
+                fused_decode=None, pad=None):
+        """The cache-path forward as a generator over its hook sites
+        (``utils.tp_hooks``): the layers' four a layer, then the logits
+        gather of a vocab-sharded head (JAX ``llama.py:713``). A mesh
+        runs one per shard in lockstep (``serving.tp``)."""
+        h = yield from self.llama._phases(
+            input_ids, self.rope_cos, self.rope_sin, cache, pos,
+            block_table, fused_decode, pad)
+        logits = yield (tp_hooks.maybe_gather_logits, self._head(h),
+                        self.config.vocab_size)
+        return logits
+
+    def partition_specs(self) -> dict:
+        """The tensor-parallel split of every parameter, the port's copy
+        of the ``_sharding_spec`` the JAX layers attach under
+        ``tensor_parallel`` (empty without it): ``{name: spec}``, spec a
+        tuple with "mp" at the sharded dim of the port's layout and None
+        elsewhere, or None for a replicated parameter. JAX's linear
+        weights are (in, out) and ``nn.Linear``'s (out, in), so JAX's
+        ``P(None, "mp")`` (column: q/k/v, gate/up, lm_head) is dim 0
+        here and its ``P("mp", None)`` (row: o/down) dim 1; the
+        embedding table is (vocab, hidden) in both, ``("mp", None)``;
+        norms replicate."""
+        if not self.config.tensor_parallel:
+            return {}
+        column, row = ("mp", None), (None, "mp")
+        out = {}
+        for name, _ in self.named_parameters():
+            leaf = name.rsplit(".", 2)[-2] if "." in name else name
+            if leaf in ("q_proj", "k_proj", "v_proj", "gate_proj",
+                        "up_proj", "lm_head"):
+                out[name] = column
+            elif leaf in ("o_proj", "down_proj"):
+                out[name] = row
+            elif leaf == "embed_tokens":
+                out[name] = ("mp", None)
+            else:
+                out[name] = None
+        return out
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

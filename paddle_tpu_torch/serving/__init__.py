@@ -12,7 +12,8 @@ routing, the fleet-wide prefix cache of ``prefix_cache``, failure
 redrive) with the open-loop load generator of ``loadgen``, its durable
 control plane of ``durability`` (write-ahead journal, checkpoint
 manifests, the disk prefix spill, whole-fleet recovery) and the SLO
-autoscaler of ``autoscaler``."""
+autoscaler of ``autoscaler``; and tensor-parallel serving over a mesh
+(``tp``: ``TPConfig``, the sharded backends)."""
 from .engine import (ContinuousBatchingEngine, ModelStepBackend,
                      free_slot_state, init_slot_state, run_decode_block,
                      slot_sample_logits)
@@ -37,6 +38,8 @@ from .prefix_cache import (PrefixCacheDirectory, adopt_prefix,
                            extract_prefix)
 from .transport import (InProcessTransport, SocketTransport, Transport,
                         TransportError)
+from .tp import (ShardedModelStepBackend, ShardedPagedStepBackend,
+                 TPConfig)
 
 __all__ = ["Autoscaler", "AutoscalerConfig", "BlockManager", "CapturedProgram",
            "ContinuousBatchingEngine", "DecisionKernel", "DecodeWorker",
@@ -48,7 +51,9 @@ __all__ = ["Autoscaler", "AutoscalerConfig", "BlockManager", "CapturedProgram",
            "Request", "RequestFailure", "ResilienceConfig", "ResumeState",
            "Scheduler", "Server", "SocketTransport", "SpecConfig",
            "SpecEngine", "SpecModelStepBackend", "SpecPagedEngine",
-           "SpecPagedStepBackend", "TenantConfig", "TokenStream", "Trace",
+           "ShardedModelStepBackend", "ShardedPagedStepBackend",
+           "SpecPagedStepBackend", "TPConfig", "TenantConfig",
+           "TokenStream", "Trace",
            "TraceConfig", "Transport", "TransportError", "WeightOnlyLinear",
            "WriteAheadJournal", "adopt_prefix", "decode_handoff",
            "encode_handoff", "extract_prefix", "free_slot_state",

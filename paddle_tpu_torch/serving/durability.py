@@ -62,7 +62,7 @@ from ..distributed.checkpoint import atomic_json_dump
 from ..observability import metrics as _om
 from ..utils import faults
 from .handoff import FETCH_FORMAT, KVHandoff, decode_handoff, encode_handoff
-from .prefix_cache import gather_rows, leaf_specs
+from .prefix_cache import leaf_specs, payload_rows
 
 __all__ = ["JOURNAL_MAGIC", "MANIFEST_FORMAT", "PrefixSpillStore",
            "WriteAheadJournal", "extract_chain", "journal_path",
@@ -351,22 +351,22 @@ def extract_chain(engine, tokens, n_blocks: int,
     ``tokens``'s chain, the arena rows read on the device and copied to
     the host at storage dtype (bf16 as ``|V2`` words). The meta has the
     fetch's shape, so ``adopt_prefix`` takes a spilled payload as it
-    takes a live fetch. The port's engines are single-device
-    (``src_tp_degree`` 1)."""
+    takes a live fetch. A tensor-parallel engine's payload carries its
+    per-shard chunks and ``src_tp_degree`` (JAX's, through
+    ``prefix_cache.payload_rows``)."""
     bs = engine.kv_block_size
     blocks = _chain_block_ids(engine.manager, tokens, n_blocks)
     if blocks is None:
         return None
     arrays: Dict[str, np.ndarray] = {
         "tokens": np.asarray(tokens[:n_blocks * bs], np.int32)}
-    for i, rows in enumerate(gather_rows(engine, blocks)):
-        arrays[f"kv_{i}"] = rows
+    src_tp = payload_rows(engine, arrays, blocks)
     meta = {
         "format": FETCH_FORMAT, "kind": "prefix",
         "n_blocks": int(n_blocks), "skip": 0,
         "block_size": int(bs), "kv_int8": bool(engine.kv_int8),
         "leaf_specs": leaf_specs(engine.backend),
-        "src_tp_degree": 1,
+        "src_tp_degree": int(src_tp),
         "source": {"worker": source, "spilled": True},
     }
     return KVHandoff(meta=meta, arrays=arrays)

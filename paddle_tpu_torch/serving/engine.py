@@ -256,11 +256,11 @@ class ModelStepBackend:
                  decode: bool = True):
         self.device = dev = model.device
         self.quant_cfg = quant
-        self.model, self.weight_bound = _serving_model(model, quant)
+        self.model, self.weight_bound = self._serving_copy(model, quant)
         self.num_slots, self.max_len = num_slots, max_len
         self.block_size = decode_block
-        self.cache = model.init_kv_cache(num_slots, max_len)
-        self.row = model.init_kv_cache(1, max_len)
+        self.cache = self.model.init_kv_cache(num_slots, max_len)
+        self.row = self.model.init_kv_cache(1, max_len)
         self.fused_decode = FusedDecode() if megakernel else None
         self.state = init_slot_state(num_slots, dev)
         self._block_out = torch.zeros((3 * decode_block + 1, num_slots),
@@ -278,6 +278,12 @@ class ModelStepBackend:
                                               decode)
         self.decode_program.capture()
         self.reset_state()
+
+    def _serving_copy(self, model, quant):
+        """(the model the programs run, the weight error bound): see
+        :func:`_serving_model` (the tensor-parallel backends return
+        their sharded model, ``serving.tp``)."""
+        return _serving_model(model, quant)
 
     @property
     def pool_specs(self):
@@ -418,11 +424,18 @@ class _SlotRun:
     failure: Optional[str] = None
 
 
-def _refuse_unported(tp=None):
-    """``tp=``, the engine argument of the JAX API whose module is not
-    ported yet, raises, naming its ROADMAP queue item."""
-    if tp not in (None, False):
-        raise NotImplementedError("tp= is not ported yet (ROADMAP A.6)")
+def _resolve_tp(tp, megakernel):
+    """The engine's ``tp`` argument (``serving.tp.resolve_tp_config``);
+    ``megakernel=True`` beside it is refused, as in JAX (the env knob is
+    not read under ``tp=``: the sharded backends never fuse)."""
+    from .tp import resolve_tp_config
+    cfg = resolve_tp_config(tp)
+    if cfg is not None and megakernel:
+        raise NotImplementedError(
+            "megakernel decode is not yet composed with tensor-parallel "
+            "serving (the sharded programs run the unfused layers) — "
+            "drop megakernel= or tp= (ROADMAP follow-up)")
+    return cfg
 
 
 def _refuse_spec_outside_factory(engine, spec):
@@ -464,11 +477,17 @@ class ContinuousBatchingEngine:
     ``PT_SERVING_MEGAKERNEL=1``) routes every decode layer through the
     fused decode-layer call, which the dense mode never launches:
     :meth:`megakernel_rewrites` is the layer count and
-    :meth:`megakernel_kernel_calls` 0, as in JAX. ``tp`` is not ported
-    yet and raises (ROADMAP A.6). A preempted request (``resume``
-    state, ``serving.server``) re-admits through :meth:`admit`, which
-    re-prefills its prompt and history. ``device`` must match the
-    model's (default the GPU)."""
+    :meth:`megakernel_kernel_calls` 0, as in JAX. ``tp=TPConfig(...)``
+    (or ``PT_SERVING_TP=1`` without a backend) shards the programs over
+    a mesh (``serving.tp.ShardedModelStepBackend``; refused beside
+    ``megakernel=``, and with ``quant=`` in psum mode, as in JAX). A
+    preempted request (``resume`` state, ``serving.server``) re-admits
+    through :meth:`admit`, which re-prefills its prompt and history.
+    ``device`` must match the model's (default the GPU)."""
+
+    # whether the engine's backend builds a decode program (the fleet's
+    # prefill-only engines build none)
+    _decodes = True
 
     def __new__(cls, *args, **kw):
         if cls is ContinuousBatchingEngine:
@@ -494,7 +513,6 @@ class ContinuousBatchingEngine:
                  backend=None, *, paged: Optional[bool] = None, spec=None,
                  tp=None, quant=None, megakernel: Optional[bool] = None,
                  device=None):
-        _refuse_unported(tp)
         _refuse_spec_outside_factory(self, spec)
         if backend is None:
             if model is None:
@@ -505,11 +523,18 @@ class ContinuousBatchingEngine:
             if model.device != dev:
                 raise ValueError(f"model is on {model.device}, engine "
                                  f"asked for {dev}")
-            if megakernel is None:
-                megakernel = env_bool("PT_SERVING_MEGAKERNEL")
-            backend = self._build_backend(model, num_slots, max_len,
-                                          decode_block, bool(megakernel),
-                                          resolve_quant_config(quant))
+            tp_cfg = _resolve_tp(tp, megakernel)
+            if tp_cfg is not None:
+                from .tp import ShardedModelStepBackend
+                backend = ShardedModelStepBackend(
+                    model, num_slots, max_len, decode_block, tp_cfg,
+                    resolve_quant_config(quant), decode=self._decodes)
+            else:
+                if megakernel is None:
+                    megakernel = env_bool("PT_SERVING_MEGAKERNEL")
+                backend = self._build_backend(
+                    model, num_slots, max_len, decode_block,
+                    bool(megakernel), resolve_quant_config(quant))
         elif not isinstance(backend, ModelStepBackend):
             raise ValueError(
                 f"the dense engine runs a ModelStepBackend, not "
@@ -608,6 +633,18 @@ class ContinuousBatchingEngine:
 
     def live_runs(self):
         return [(i, r) for i, r in enumerate(self._slots) if r is not None]
+
+    def tp_degree(self) -> int:
+        """Devices the programs are sharded over (1 = TP off)."""
+        return getattr(self.backend, "tp_degree", 1)
+
+    def tp_int8_error_bound(self) -> float:
+        """Runtime worst-case elementwise error of the tensor-parallel
+        int8 hidden-state all-reduce, probed against the LIVE cache and
+        slot state (0.0 unless a psum-mode TP backend with the int8 hop
+        is armed — see ``serving.tp``)."""
+        fn = getattr(self.backend, "tp_int8_error_bound", None)
+        return 0.0 if fn is None else fn()
 
     def bucket_len(self, prompt_len: int) -> int:
         """The prompt bucket a prompt is left-padded to: the smallest of

@@ -239,6 +239,8 @@ class _PendingHandoff:
 class _PrefillEngineMixin:
     """Outbox plumbing shared by the dense and paged prefill engines."""
 
+    _decodes = False          # a sharded backend builds no decode program
+
     def reset(self):
         super().reset()
         self._outbox: List[_PendingHandoff] = []
@@ -423,7 +425,7 @@ class PrefillPagedEngine(_PrefillEngineMixin, PagedEngine):
             "block_size": bs, "kv_int8": bool(self.kv_int8),
             "leaf_specs": leaf_specs(self.backend),
             "t_admit": float(ph.run.t_admit),
-            "source": {"worker": source, "tp_degree": 1},
+            "source": {"worker": source, "tp_degree": self.tp_degree()},
         }
         _stamp_resume_meta(meta, ph)
         return KVHandoff(meta=meta, arrays=arrays)
@@ -558,7 +560,7 @@ class PrefillDenseEngine(_PrefillEngineMixin, ContinuousBatchingEngine):
             "rem0": ph.rem0,
             "leaf_specs": leaf_specs(self.backend),
             "t_admit": float(ph.run.t_admit),
-            "source": {"worker": source, "tp_degree": 1},
+            "source": {"worker": source, "tp_degree": self.tp_degree()},
         }
         _stamp_resume_meta(meta, ph)
         return KVHandoff(meta=meta, arrays=arrays)

@@ -40,9 +40,9 @@ from ..profiler import RecordEvent
 from ..utils import faults
 from ..utils.flags import env_bool, env_flag, env_int
 from .engine import (_M_PREFILLS, _M_TOKENS, ContinuousBatchingEngine,
-                     _arm_fn, _checked_step, _decode_program, _key_tensor,
-                     _pool_specs, _refuse_unported,
-                     _refuse_spec_outside_factory, _serving_model, _SlotRun,
+                     ModelStepBackend, _arm_fn, _checked_step,
+                     _decode_program, _key_tensor, _pool_specs, _resolve_tp,
+                     _refuse_spec_outside_factory, _SlotRun,
                      _to_host, free_slot_state, init_slot_state,
                      run_decode_block, slot_sample_logits)
 from ..graphs import CapturedProgram
@@ -378,7 +378,7 @@ class PagedModelStepBackend:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
         self.quant_cfg = quant
-        self.model, self.weight_bound = _serving_model(model, quant)
+        self.model, self.weight_bound = self._serving_copy(model, quant)
         self.device = dev = model.device
         self.num_slots, self.max_len = num_slots, max_len
         self.block_size = decode_block
@@ -387,8 +387,8 @@ class PagedModelStepBackend:
         self.max_blocks = mb = max_len // block_size
         self.prefill_chunk_len = prefill_chunk
         self.kv_int8 = bool(kv_int8)
-        self.cache = model.init_paged_kv_cache(num_blocks, block_size,
-                                               kv_int8=self.kv_int8)
+        self.cache = self.model.init_paged_kv_cache(num_blocks, block_size,
+                                                    kv_int8=self.kv_int8)
         self.fused_decode = FusedDecode() if megakernel else None
         self.state = init_slot_state(num_slots, dev)
         self.state["table"] = torch.zeros((num_slots, mb), dtype=torch.int32,
@@ -419,6 +419,8 @@ class PagedModelStepBackend:
         """The function the decode program captures: the decode block
         (the speculative backend captures its verify step instead)."""
         return self._run_block
+
+    _serving_copy = ModelStepBackend._serving_copy
 
     def reset_state(self):
         """Free every slot in place (all-trash tables); returns the
@@ -550,6 +552,9 @@ class PagedEngine(ContinuousBatchingEngine):
       eviction keeps the index), and arms with its carried token and
       key (:meth:`try_admit`); ``spec=`` is routed by the factory to
       ``serving.spec.SpecPagedEngine``.
+    - ``tp=TPConfig(...)`` (or ``PT_SERVING_TP=1``) shards both programs
+      and the arena's kv heads over a mesh
+      (``serving.tp.ShardedPagedStepBackend``), as in JAX.
 
     ``block_size`` and ``prefill_chunk`` resolve as in the JAX engine:
     the argument, else ``PT_SERVING_BLOCK_SIZE`` /
@@ -571,7 +576,6 @@ class PagedEngine(ContinuousBatchingEngine):
                  megakernel: Optional[bool] = None, device=None):
         from ..device import resolve_device
         from .quant import resolve_quant_config
-        _refuse_unported(tp)
         _refuse_spec_outside_factory(self, spec)
         if not paged:
             raise ValueError("PagedEngine is the paged engine; build the "
@@ -602,12 +606,20 @@ class PagedEngine(ContinuousBatchingEngine):
         if prefill_chunk is None:
             prefill_chunk = env_int("PT_SERVING_PREFILL_CHUNK",
                                     2 * block_size)
-        if megakernel is None:
-            megakernel = env_bool("PT_SERVING_MEGAKERNEL")
-        backend = self._build_paged_backend(
-            model, num_slots, max_len, decode_block, block_size, num_blocks,
-            prefill_chunk, bool(kv_int8), bool(megakernel),
-            resolve_quant_config(quant))
+        tp_cfg = _resolve_tp(tp, megakernel)
+        if tp_cfg is not None:
+            from .tp import ShardedPagedStepBackend
+            backend = ShardedPagedStepBackend(
+                model, num_slots, max_len, decode_block, block_size,
+                num_blocks, prefill_chunk, bool(kv_int8), tp_cfg,
+                resolve_quant_config(quant), decode=self._decodes)
+        else:
+            if megakernel is None:
+                megakernel = env_bool("PT_SERVING_MEGAKERNEL")
+            backend = self._build_paged_backend(
+                model, num_slots, max_len, decode_block, block_size,
+                num_blocks, prefill_chunk, bool(kv_int8), bool(megakernel),
+                resolve_quant_config(quant))
         self.kv_int8 = backend.kv_int8
         self.kv_block_size = block_size
         self.num_kv_blocks = num_blocks

@@ -46,6 +46,10 @@ import torch
 from ..observability import metrics as _om
 from .handoff import FETCH_FORMAT, KVHandoff, leaf_to_wire, wire_to_tensor
 
+# the kv-head axis of every arena leaf's block rows (codes and int8
+# scales alike): what a tensor-parallel owner's payload splits
+KV_HEAD_AXIS = 2
+
 __all__ = ["PrefixCacheDirectory", "adopt_prefix", "extract_prefix"]
 
 _M_FETCHES = _om.counter("pt_prefix_fetches_total",
@@ -172,11 +176,42 @@ def copy_rows(engine, blocks: List[int], rows: List[np.ndarray]):
 
 
 def gather_rows(engine, blocks) -> List[np.ndarray]:
-    """The arena rows of ``blocks`` as wire arrays, one per leaf."""
+    """The arena rows of ``blocks`` as wire arrays, one per leaf (the
+    global rows of a sharded arena)."""
     dev = engine.backend.device
     idx = torch.as_tensor(np.asarray(blocks, np.int64), device=dev)
     return [leaf_to_wire(t.index_select(0, idx))
             for t in engine.backend.caches()]
+
+
+def payload_rows(engine, arrays: Dict[str, np.ndarray], blocks):
+    """Put the arena rows of ``blocks`` into a fetch payload: ``kv_{i}``
+    per leaf from an unsharded engine; from a tensor-parallel one, per
+    leaf its ``src_tp`` per-shard chunks along the kv-head axis,
+    ``kv_{i}_p{s}`` (JAX's payload; the requester joins them and splits
+    the rows into its own shards). Returns the source degree, the meta's
+    ``src_tp_degree``."""
+    src_tp = engine.tp_degree()
+    for i, rows in enumerate(gather_rows(engine, blocks)):
+        if src_tp > 1:
+            for s, piece in enumerate(np.split(rows, src_tp,
+                                               axis=KV_HEAD_AXIS)):
+                arrays[f"kv_{i}_p{s}"] = np.ascontiguousarray(piece)
+        else:
+            arrays[f"kv_{i}"] = rows
+    return src_tp
+
+
+def _logical_rows(h: KVHandoff, leaf: int, src_tp: int) -> np.ndarray:
+    """One leaf's global block rows from a payload (JAX's): directly from
+    an unsharded source, else its ``src_tp`` per-shard chunks joined on
+    the kv-head axis (int8 scale leaves too); the arena copy splits them
+    into the requester's own shards."""
+    direct = h.arrays.get(f"kv_{leaf}")
+    if direct is not None:
+        return direct
+    return np.concatenate([h.arrays[f"kv_{leaf}_p{s}"]
+                           for s in range(src_tp)], axis=KV_HEAD_AXIS)
 
 
 def extract_prefix(engine, tokens, n_blocks: int, skip: int = 0,
@@ -194,15 +229,14 @@ def extract_prefix(engine, tokens, n_blocks: int, skip: int = 0,
         engine.manager.release(blocks)
         return None
     arrays: Dict[str, np.ndarray] = {"tokens": sub}
-    for i, rows in enumerate(gather_rows(engine, blocks[skip:n_blocks])):
-        arrays[f"kv_{i}"] = rows
+    src_tp = payload_rows(engine, arrays, blocks[skip:n_blocks])
     engine.manager.release(blocks)
     meta = {
         "format": FETCH_FORMAT, "kind": "prefix",
         "n_blocks": int(n_blocks), "skip": int(skip),
         "block_size": int(bs), "kv_int8": bool(engine.kv_int8),
         "leaf_specs": leaf_specs(engine.backend),
-        "src_tp_degree": 1,
+        "src_tp_degree": int(src_tp),
         "source": {"worker": source},
     }
     return KVHandoff(meta=meta, arrays=arrays)
@@ -240,14 +274,12 @@ def adopt_prefix(engine, h: KVHandoff, local_blocks: List[int],
         raise ValueError(
             f"prefix-fetch covers blocks [{skip}, {n_blocks}) but the "
             f"requester holds {len(local_blocks)} local blocks")
-    if int(meta.get("src_tp_degree", 1)) != 1:
-        raise ValueError("a tensor-parallel owner's per-shard fetch "
-                         "payload: tp= is not ported yet (ROADMAP A.6)")
     fetched = engine.manager.allocate(k)
     if fetched is None:
         return None
+    src_tp = int(meta.get("src_tp_degree", 1))
     copy_rows(engine, fetched,
-              [h.arrays[f"kv_{i}"]
+              [_logical_rows(h, i, src_tp)
                for i in range(len(engine.backend.pool_specs))])
     bs = engine.kv_block_size
     engine.manager.register_prefix(

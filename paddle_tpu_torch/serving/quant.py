@@ -45,7 +45,7 @@ from ..ops.weight_only import weight_only_matmul
 from ..utils.flags import env_int, env_str
 
 __all__ = ["QuantConfig", "WeightOnlyLinear", "quantize_backend_model",
-           "resolve_quant_config"]
+           "resolve_quant_config", "scale_pspec"]
 
 # quant-bound gauges (JAX's names; registered at import, no-ops until
 # metrics.enable() / PT_METRICS)
@@ -142,6 +142,26 @@ class WeightOnlyLinear(nn.Module):
         return (f"in_features={self.in_features}, out_features="
                 f"{self.out_features}, bits={self.bits}, scales="
                 f"{tuple(self.scales.shape)}")
+
+
+def scale_pspec(weight_spec, scales: torch.Tensor) -> tuple:
+    """The tensor-parallel split of a quantized weight's scales (JAX
+    ``quant.py`` ``scale_pspec``, in the port's ``(out, in)`` layout):
+    the scales ride their weight's out-dim (dim 0) shard — per-channel
+    ``(out,)`` scales as ``(axes,)``, grouped ``(out, in // group)`` as
+    ``(axes, None)``; a replicated weight replicates its scales. The
+    codes pack int4 pairs and groups along the in axis, so an out-dim
+    shard never splits a pair or a group; any other split (the psum
+    layout's row shards) is refused."""
+    dims = tuple(weight_spec or ())
+    if not dims or all(d is None for d in dims):
+        return ()
+    if len(dims) != 2 or dims[1] is not None:
+        raise NotImplementedError(
+            f"weight-only quant cannot shard scales for weight spec "
+            f"{weight_spec} — only out-dim (column) sharding composes "
+            "(tp mode='exact')")
+    return (dims[0],) if scales.dim() == 1 else (dims[0], None)
 
 
 def _copy_tree(module: nn.Module) -> nn.Module:

@@ -150,6 +150,16 @@ class Server:
                     "(serving.frontend.FairScheduler): the FIFO "
                     "scheduler would hand every freed slot back to the "
                     "evicted victim")
+        if preemption and engine.tp_degree() > 1:
+            # the sharded state's eviction path is unpinned in JAX;
+            # refused loudly there and here, never run silently
+            if env_armed:
+                preemption = False
+            else:
+                raise NotImplementedError(
+                    "priority preemption is not yet composed with "
+                    "tensor-parallel engines — drop preemption= or "
+                    "tp= (ROADMAP follow-up)")
         self.preemption = bool(preemption)
         self.preemptions = 0
         self.resumes = 0
@@ -630,6 +640,8 @@ class Server:
                         for t, c in sorted(self.tenant_counts.items())},
         }
         out.update(self._res.counters())
+        if eng.tp_degree() > 1:                # tensor-parallel extras
+            out["tp_degree"] = eng.tp_degree()
         hit_rate = getattr(eng, "prefix_cache_hit_rate", None)
         if hit_rate is not None:               # paged engine extras
             out["prefix_cache_hit_rate"] = hit_rate()

@@ -32,8 +32,8 @@ On the card the verify step is ONE CUDA graph for the engine's life
 copy a step, and the step's one static output — target tokens, counts,
 ``ok`` flags and remaining budgets — is read by one host sync. The
 paged variant points dead rows' tables at the trash block, as the plain
-block does. ``spec=`` composes with ``paged=`` and ``quant=``; ``tp=``
-is not ported (ROADMAP A.6) and raises.
+block does. ``spec=`` composes with ``paged=`` and ``quant=``; beside
+``tp=`` it is refused, as in JAX.
 """
 from __future__ import annotations
 
@@ -321,10 +321,12 @@ class _SpecEngineMixin:
     and snapshots are the base engine's."""
 
     def _init_spec(self, spec, tp=None):
-        if tp not in (None, False):
+        from .tp import resolve_tp_config
+        if resolve_tp_config(tp) is not None:
             raise NotImplementedError(
-                "speculative decoding with tp= is not ported (ROADMAP "
-                "A.6): tensor-parallel serving is not ported yet")
+                "speculative decoding is not yet composed with "
+                "tensor-parallel serving — drop spec= or tp= (ROADMAP "
+                "follow-up)")
         self.spec = resolve_spec_config(spec) or SpecConfig()
         self.spec_k = self.spec.k
 

@@ -15,8 +15,8 @@ its programs run eagerly (the same functions the card captures), so:
   tied-head model at engine level;
 - bucket and capacity refusals are JAX's; ``paged=True`` and
   ``PT_SERVING_PAGED=1`` build the paged engine; ``spec`` and ``quant``
-  route to the speculative and quantized engines, ``tp`` names its
-  queue item; ``megakernel=True`` counts the
+  route to the speculative and quantized engines, a malformed ``tp``
+  is refused as in JAX; ``megakernel=True`` counts the
   rewrites and launches nothing in dense mode;
 - paged == dense (the north-star invariant): one decode step's
   log-probs over the same K/V history are bitwise equal through the
@@ -217,8 +217,10 @@ def test_routing_and_unported_arguments(setups, monkeypatch):
         ContinuousBatchingEngine(backend=paged.backend)
     with pytest.raises(ValueError, match="paged=False"):
         PagedEngine(tm, paged=False, block_size=8, **kw)
-    # spec= and quant= route to their engines (ROADMAP A.4); tp= still
-    # names its queue item
+    # spec= and quant= route to their engines (ROADMAP A.4), tp= to the
+    # sharded backends (tests/test_torch_port_tp.py); a tp= that is no
+    # TPConfig, True/False or None is refused, as JAX's
+    # resolve_tp_config refuses it
     for paged_kw in ({}, dict(paged=True, block_size=8)):
         spec = ContinuousBatchingEngine(tm, spec=SpecConfig(k=4),
                                         **paged_kw, **kw)
@@ -227,7 +229,7 @@ def test_routing_and_unported_arguments(setups, monkeypatch):
         quant = ContinuousBatchingEngine(tm, quant="int8", **paged_kw, **kw)
         assert quant.backend.quant_cfg == QuantConfig("int8")
         assert quant.weight_error_bound() > 0
-        with pytest.raises(NotImplementedError, match="A.6"):
+        with pytest.raises(ValueError, match="pass a TPConfig"):
             ContinuousBatchingEngine(tm, tp=4, **paged_kw, **kw)
     with pytest.raises(ValueError, match="factory"):
         PagedEngine(tm, spec=SpecConfig(k=4), block_size=8, **kw)

@@ -2343,3 +2343,91 @@ def test_preempting_engine_on_gpu(dev, kind):
     assert eng.decode_compile_count() == 1
     if kind == "paged":
         assert eng.prefill_compile_count() == 1 and not eng.manager._ref
+
+
+def _tp2(dev):
+    from paddle_tpu_torch.distributed.mesh import build_device_mesh
+    from paddle_tpu_torch.serving.tp import TPConfig
+    return TPConfig(mesh=build_device_mesh({"mp": 2}, devices=[dev, dev]))
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["fp32", "int8"])
+def test_tp2_paged_engine_on_one_card(dev, kv_int8):
+    """A ``tp=2`` paged engine on a mesh whose two devices are this card:
+    each program is still one capture; each shard launches its own
+    RMSNorms and its own paged decode at half the kv heads (exact
+    counts); greedy streams equal the unsharded engine's on the card;
+    each shard's arena is half of it."""
+    _, gpu = _tiny_pair(dev)
+    reqs = _greedy(_graph_reqs(3))
+    kw = dict(num_slots=2, max_len=64, decode_block=4, block_size=8,
+              prefill_chunk=8, kv_int8=kv_int8, device=dev)
+    ref = PagedEngine(gpu, **kw)
+    want = _serve_rows(ref, reqs)
+    eng = PagedEngine(gpu, tp=_tp2(dev), **kw)
+    assert eng.tp_degree() == 2
+    assert (eng.decode_compile_count(), eng.prefill_compile_count()) == \
+        (1, 1)
+    ops.reset_launch_counts()
+    got = _serve_rows(eng, reqs)
+    counts = ops.launch_counts()
+    assert (eng.decode_compile_count(), eng.prefill_compile_count()) == \
+        (1, 1)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    L = gpu.config.num_hidden_layers
+    kernel = "paged_attention_decode" + ("_int8" if kv_int8 else "")
+    assert counts[kernel] == 2 * L * eng.steps > 0
+    assert counts["rms_norm"] == 2 * (2 * L + 1) * (eng.steps
+                                                    + eng.prefill_chunks)
+    assert counts["rope"] == 0
+    full = sum(t.numel() * t.element_size() for t in ref.backend.caches())
+    assert eng.backend.shard_kv_bytes() == [full // 2, full // 2]
+    eng.manager.assert_consistent()
+
+
+def test_tp2_dense_and_quant_on_one_card(dev):
+    """The dense engine and ``quant="int8"`` under exact ``tp=2`` on one
+    card: one decode capture, streams equal the unsharded engines', the
+    weight-only kernel launched at the shard shapes by every shard."""
+    _, gpu = _tiny_pair(dev)
+    reqs = _greedy(_graph_reqs(4))
+    L = gpu.config.num_hidden_layers
+    for kind, kw in (("dense", {}), ("paged", dict(quant="int8"))):
+        want = _serve_rows(_feature_engine(gpu, dev, kind, **kw), reqs)
+        eng = _feature_engine(gpu, dev, kind, tp=_tp2(dev), **kw)
+        ops.reset_launch_counts()
+        got = _serve_rows(eng, reqs)
+        counts = ops.launch_counts()
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(b, a)
+        assert eng.decode_compile_count() == 1
+        per = eng.steps + (eng.prefill_chunks if kind == "paged"
+                           else eng.prefills)
+        assert counts["rms_norm"] == 2 * (2 * L + 1) * per
+        if kw:
+            assert counts["weight_only_gemm"] == 2 * (7 * L + 1) * per
+
+
+def test_tp2_psum_int8_gate_on_one_card(dev):
+    """psum mode with the int8 hop on one card: greedy streams run to
+    their length, the runtime bound is positive and the decode block
+    stays one capture after the probe; a budget under it is refused."""
+    import dataclasses
+    from paddle_tpu_torch.serving.tp import TPConfig
+    _, gpu = _tiny_pair(dev)
+    mesh = _tp2(dev).mesh
+    eng = _feature_engine(gpu, dev, "paged",
+                          tp=TPConfig(mode="psum", int8=True, mesh=mesh))
+    reqs = _greedy(_graph_reqs(5))
+    got = _serve_rows(eng, reqs)
+    assert [len(g) for g in got] == [len(p) + r["max_new_tokens"]
+                                     for p, r in reqs]
+    bound = eng.tp_int8_error_bound()
+    assert 0 < bound < 1 and eng.decode_compile_count() == 1
+    b = eng.backend
+    b.tp = dataclasses.replace(b.tp, int8_max_error=bound / 2)
+    b._int8_gate_pending = True
+    with pytest.raises(RuntimeError, match="error bound"):
+        _serve_rows(eng, reqs)
+    assert b._int8_gate_pending

@@ -37,9 +37,11 @@ from paddle_tpu.serving import Server as JaxServer
 from paddle_tpu.serving.quant import QuantConfig as JaxQuantConfig
 
 from paddle_tpu_torch.convert import params_from_jax
+from paddle_tpu_torch.distributed.mesh import build_device_mesh
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.nn import quant as tq
 from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.serving.tp import TPConfig
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine, PagedEngine,
                                       QuantConfig, Scheduler, Server,
                                       WeightOnlyLinear)
@@ -330,9 +332,18 @@ def test_quant_routing_and_refusals(setup, monkeypatch):
             QuantConfig(**bad)
     with pytest.raises(ValueError, match="quant="):
         ContinuousBatchingEngine(tm, quant=8, device="cpu", **DENSE_KW)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ContinuousBatchingEngine(tm, tp=2, quant="int8", device="cpu",
-                                 **DENSE_KW)
+    # tensor-parallel quant composes with the exact layout only (JAX's
+    # refusal of the psum layout, whose row shards split the in axis)
+    mesh = build_device_mesh({"mp": 2}, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="mode='exact'"):
+        ContinuousBatchingEngine(tm, tp=TPConfig(mode="psum", mesh=mesh),
+                                 quant="int8", device="cpu", **DENSE_KW)
+    sharded = ContinuousBatchingEngine(tm, tp=TPConfig(mesh=mesh),
+                                       quant="int8", device="cpu",
+                                       **DENSE_KW)
+    assert sharded.tp_degree() == 2
+    assert sharded.weight_error_bound() == ContinuousBatchingEngine(
+        tm, quant="int8", device="cpu", **DENSE_KW).weight_error_bound()
 
 
 def test_bound_gauges_registered_at_import():

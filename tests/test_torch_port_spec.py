@@ -34,6 +34,8 @@ from paddle_tpu.serving import SpecConfig as JaxSpecConfig
 from paddle_tpu.serving import ngram_propose as jax_ngram
 from paddle_tpu.utils import faults as jfaults
 
+from paddle_tpu_torch.distributed.mesh import build_device_mesh
+from paddle_tpu_torch.serving.tp import TPConfig
 from paddle_tpu_torch.convert import params_from_jax
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
@@ -438,9 +440,14 @@ def test_spec_routing(setup, monkeypatch):
     with pytest.raises(ValueError, match="SpecEngine"):
         SpecPagedEngine(tm, paged=False, spec=SpecConfig(k=2),
                         device="cpu", **PAGED_KW)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ContinuousBatchingEngine(tm, spec=SpecConfig(k=2), tp=2,
-                                 device="cpu", **DENSE_KW)
+    # JAX's refusal of spec= beside tp=
+    mesh = build_device_mesh({"mp": 2}, devices=["cpu"] * 2)
+    for kw in (DENSE_KW, dict(PAGED_KW, paged=True)):
+        with pytest.raises(NotImplementedError,
+                           match="speculative decoding is not yet"):
+            ContinuousBatchingEngine(tm, spec=SpecConfig(k=2),
+                                     tp=TPConfig(mesh=mesh), device="cpu",
+                                     **kw)
     with pytest.raises(ValueError, match="spec="):
         ContinuousBatchingEngine(tm, spec=4, device="cpu", **DENSE_KW)
     assert Server(e, FairScheduler(), preemption=True).preemption
