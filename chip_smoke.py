@@ -307,6 +307,37 @@ Phases, each of which raises on failure (nothing is caught):
    by a ``tp=1`` engine: streams equal. The phase prints its seconds and
    its peak memory.
 
+16. The process-group runtime and data-parallel training (run after
+   phase 9). ``tools/port_dp_worker.py`` launched with ``python -m
+   paddle_tpu_torch.distributed.launch``. (a) ``headline_big_config
+   ("full")`` (953.2M, bf16, AdamW with bf16 moments) on 2 ranks sharing
+   the card (so ``init_parallel_env`` picks gloo, which stages CUDA
+   tensors through pinned host memory), 4 x 2048 a rank (the headline's
+   global b8) from ``RandomState(0)`` through ``DistributedBatchSampler``,
+   ``DataLoader`` and ``device_prefetch``, 3 eager steps with
+   ``fused_allreduce_gradients`` bucketed (25 MB): both ranks' parameters
+   bit-identical after every step (SHA-256 over the native store); step
+   1's synced gradient equal bit for bit to the mean of the two halves'
+   gradients computed on one rank, and within 5e-2 (per tensor, relative)
+   of the one-rank global batch's; finite losses; each rank's launches
+   exact (phase 9's per step); step ms by part (forward+backward; the
+   sync: device-to-host, transport, host-to-device; AdamW), the sync's
+   bytes and GB/s, peak memory and each collective's route printed. (c)
+   In the same job: a 64 MiB CUDA tensor's p2p round trip through the
+   native store (the bulk guard warns once a rank), a collective of the
+   subset group [1] (rank 0 takes no part), ``ElasticManager``
+   membership of both ranks. (b) The headline width at 2 layers (cut:
+   the depth, so that the checkpoints stay small), 3 steps, each rank's
+   atomic checkpoint after step 2; under ``max_restarts=1`` rank 1 exits
+   after step 2, the pod is relaunched and resumes from the checkpoints:
+   the final parameters bit-identical to the same job run uninterrupted
+   beside it. (d) A one-rank nccl group on the card (``init_parallel_env``
+   picks nccl for a rank with a card of its own): ``all_reduce``,
+   ``broadcast`` and ``all_gather`` of a 256 MiB fp32 bucket, each equal
+   to its input and timed (one rank moves nothing between cards). The
+   phase prints its seconds; its workers' launches are the launches
+   line's ``dp_training``.
+
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU the script
@@ -5881,6 +5912,239 @@ def _empty_cache(torch):
         torch.cuda.empty_cache()
 
 
+# -- phase 16: the process-group runtime and data-parallel training ---------
+
+_REPO = os.path.dirname(os.path.abspath(__file__))
+_DP_WORKER = os.path.join(_REPO, "tools", "port_dp_worker.py")
+_DP_TIMEOUT_S = 420
+
+
+def _dp_per_step(L, n_tensors):
+    """Launches of one eager headline step (phase 9's per step: the full
+    recompute repeats the layer's forward kernels)."""
+    from paddle_tpu_torch import ops
+    per = {k: 0 for k in ops.launch_counts()}
+    per.update({"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+                "rope": 3 * L, "flash_attention_fwd": 2 * L,
+                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "adamw": n_tensors})
+    return per
+
+
+def _start_job(tmp, tag, nproc, worker_args, max_restarts=0):
+    """``python -m paddle_tpu_torch.distributed.launch`` of the DP worker
+    in ``tmp/tag``: (process, out dir, log dir)."""
+    out, log = os.path.join(tmp, tag), os.path.join(tmp, tag, "log")
+    os.makedirs(log, exist_ok=True)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc), "--log_dir", log,
+           "--max_restarts", str(max_restarts), _DP_WORKER, "--out", out,
+           *worker_args]
+    proc = subprocess.Popen(cmd, cwd=_REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, log
+
+
+def _finish_job(tag, job, nproc):
+    """Wait for a ``_start_job`` job; its ranks' records. A failed job
+    prints the launcher's output and each worker log's tail and raises."""
+    proc, out, log = job
+    try:
+        text, _ = proc.communicate(timeout=_DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+    recs = [os.path.join(out, f"rank{r}.json") for r in range(nproc)]
+    if proc.returncode != 0 or not all(map(os.path.exists, recs)):
+        print(f"phase 16 {tag}: launcher exit {proc.returncode}\n{text}")
+        for name in sorted(os.listdir(log)):
+            with open(os.path.join(log, name)) as f:
+                print(f"--- {tag} {name} (tail) ---\n"
+                      + "".join(f.readlines()[-40:]))
+        raise AssertionError(f"phase 16 {tag}: the job failed (exit "
+                             f"{proc.returncode})")
+    out_recs = []
+    for path in recs:
+        with open(path) as f:
+            out_recs.append(json.load(f))
+    return out_recs, text
+
+
+def _dp_training(torch, card, tmp):
+    """Phase 16 (a) and (c): 2 ranks of the headline model on the card."""
+    L = 16
+    t0 = time.perf_counter()
+    recs, _ = _finish_job("dp", _start_job(
+        tmp, "dp", 2, ["--config", "headline", "--batch", "4", "--seq",
+                       "2048", "--steps", "3", "--reference",
+                       "--store-checks"]), 2)
+    wall = time.perf_counter() - t0
+    runs = [r["runs"]["bucketed"] for r in recs]
+    per_step = _dp_per_step(L, runs[0]["param_tensors"])
+    totals = {k: 0 for k in per_step}
+    for r, run in zip(recs, runs):
+        counts = {k: run["launches"].get(k, 0) for k in per_step}
+        want = {k: 3 * v for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"phase 16 rank {r['rank']} launches "
+                                 f"{counts}, expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+    if runs[0]["digests"] != runs[1]["digests"] or any(
+            x["backend"] != "gloo" or x["device"] != recs[0]["device"]
+            or not x["store_native"] for x in recs):
+        raise AssertionError(f"phase 16 (a): ranks differ or took another "
+                             f"route: {[x['backend'] for x in recs]}")
+    ref = runs[0]["reference"]
+    params_b = runs[0]["params"] / 1e9
+    print(f"[{card}] phase 16 (a) data-parallel headline ({params_b:.4f}B "
+          f"params bf16, {L} layers, full recompute): 2 ranks "
+          f"on {recs[0]['device']} over gloo, batch 4 x 2048 a rank (global "
+          f"8), 3 eager "
+          f"steps, the launcher's wall {wall:.1f} s (rank 0's own "
+          f"{recs[0]['seconds']:.1f} s)")
+    print(f"phase 16 (a) params bit-identical across ranks after every "
+          f"step (SHA-256 over the store): "
+          f"{[d[:12] for d in runs[0]['digests']]}; losses rank 0 "
+          f"{runs[0]['losses']}, rank 1 {runs[1]['losses']}")
+    print(f"phase 16 (a) step 1's synced gradient: the halves' mean bit "
+          f"for bit ({len(ref['halves_mean_unequal'])} tensors differ); vs "
+          f"the one-rank global batch relative error max "
+          f"{ref['grad_rel_max']:.4e} ({ref['grad_rel_worst']}), median "
+          f"{ref['grad_rel_median']:.4e} (tol {ref['grad_tol']}); global "
+          f"loss {ref['global_loss']:.6f}")
+    for r, run in zip(recs, runs):
+        for i, st in enumerate(run["step_s"], 1):
+            gbs = st["bytes"] / st["sync"] / 1e9
+            print(f"[{card}] phase 16 (a) rank {r['rank']} step {i}: "
+                  f"fwd+bwd {1e3 * st['fwd_bwd']:.1f} ms, sync "
+                  f"{1e3 * st['sync']:.1f} ms (d2h {1e3 * st['d2h_s']:.1f},"
+                  f" transport {1e3 * st['transport_s']:.1f}, h2d "
+                  f"{1e3 * st['h2d_s']:.1f}; {st['bytes'] / 1e9:.3f} GB "
+                  f"each way, {gbs:.2f} GB/s), adamw "
+                  f"{1e3 * st['adamw']:.1f} ms")
+        peak = run.get("peak_mem_gb")
+        peak = "not measured" if peak is None else f"{peak:.3f} GB"
+        print(f"[{card}] phase 16 (a) rank {r['rank']}: peak memory "
+              f"{peak}; routes {run['routes']}; "
+              f"launches over 3 steps {run['launches']}")
+    for r in recs:
+        st = r["store"]
+        print(f"[{card}] phase 16 (c) rank {r['rank']}: native store "
+              f"{st['store_native']}; 64 MiB p2p round trip "
+              f"{st['p2p_round_trip_s']:.3f} s, equal {st['p2p_equal']}, "
+              f"bulk warnings {st['bulk_warnings']}; subset group "
+              f"{st.get('subset_ok', 'not a member')}; elastic alive "
+              f"{st['elastic_alive']}; routes {r['routes']}")
+    return totals
+
+
+def _dp_elastic(torch, card, tmp):
+    """Phase 16 (b): the headline width at 2 layers, 3 steps, rank 1
+    failing after step 2 under ``max_restarts=1``, against the same job
+    uninterrupted (the two pods run together)."""
+    common = ["--config", "headline", "--layers", "2", "--batch", "4",
+              "--seq", "2048", "--steps", "3", "--ckpt-step", "2"]
+    t0 = time.perf_counter()
+    jobs = {
+        "elastic": _start_job(tmp, "elastic", 2, common + [
+            "--ckpt-dir", os.path.join(tmp, "ckpt_e"), "--fail-rank", "1",
+            "--fail-step", "2"], max_restarts=1),
+        "uninterrupted": _start_job(tmp, "uninterrupted", 2, common + [
+            "--ckpt-dir", os.path.join(tmp, "ckpt_u")])}
+    got = {k: _finish_job(k, j, 2) for k, j in jobs.items()}
+    wall = time.perf_counter() - t0
+    (el, text), (un, _) = got["elastic"], got["uninterrupted"]
+    ok = all(r["restart"] == 1 and r["runs"]["bucketed"]["resumed_from"]
+             == 2 for r in el) \
+        and all(r["restart"] == 0 for r in un) \
+        and {r["runs"]["bucketed"]["digests"][-1] for r in el + un} \
+        == {un[0]["runs"]["bucketed"]["digests"][-1]}
+    note = text.strip().splitlines()[-1] if text.strip() else ""
+    print(f"[{card}] phase 16 (b) elastic relaunch (headline width, 2 "
+          f"layers, 3 steps): rank 1 exited after step 2, the pod "
+          f"relaunched ({note}) and resumed from each rank's step-2 "
+          f"checkpoint; final params "
+          f"{el[0]['runs']['bucketed']['digests'][-1][:12]} vs "
+          f"uninterrupted {un[0]['runs']['bucketed']['digests'][-1][:12]}: "
+          f"{'bit-identical' if ok else 'DIFFERENT'}; both pods "
+          f"{wall:.1f} s")
+    if not ok:
+        raise AssertionError("phase 16 (b): the relaunched job does not "
+                             "end where the uninterrupted one does")
+
+
+def _nccl_one_rank(torch, card):
+    """Phase 16 (d): a one-rank nccl group on cuda:0, all_reduce,
+    broadcast and all_gather of a 256 MiB fp32 bucket, each checked
+    against its input and timed."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import communication as C
+    from paddle_tpu_torch.distributed.launch_utils import free_ports
+    contract = {"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+                "PADDLE_LOCAL_RANK": "0", "PADDLE_LOCAL_SIZE": "1",
+                "MASTER_ADDR": "127.0.0.1",
+                "MASTER_PORT": str(free_ports(1)[0])}
+    saved = {k: os.environ.get(k) for k in contract}
+    os.environ.update(contract)
+    try:
+        env = dist.init_parallel_env()
+        if env.backend != "nccl" or dist.get_backend() != "NCCL":
+            raise AssertionError(f"one rank on its own card took "
+                                 f"{env.backend}, not nccl")
+        C.reset_counters()
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        x = torch.randn(64 << 20, generator=gen, device="cuda")
+        y, z, outs = x.clone(), x.clone(), []
+        dist.all_reduce(y)
+        dist.broadcast(z, src=0)
+        dist.all_gather(outs, x)
+        torch.cuda.synchronize()
+        ok = torch.equal(y, x) and torch.equal(z, x) and len(outs) == 1 \
+            and torch.equal(outs[0], x)
+        ms = {"all_reduce": _time_eager(lambda: dist.all_reduce(y)),
+              "broadcast": _time_eager(lambda: dist.broadcast(z, src=0)),
+              "all_gather": _time_eager(lambda: dist.all_gather([], x))}
+        routes = C.route_counts()
+        still = torch.equal(y, x) and torch.equal(z, x)
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"[{card}] phase 16 (d) one-rank nccl group on cuda:0, 256 MiB "
+          f"fp32: results equal to the input {ok and still}; ms "
+          f"{ {k: round(v, 4) for k, v in ms.items()} }; routes {routes} "
+          f"(one rank moves no bytes between cards: multi-card NCCL is "
+          f"not measured)")
+    if not (ok and still) or set(r for c in routes.values() for r in c) \
+            != {"nccl"}:
+        raise AssertionError(f"phase 16 (d): nccl group results {ok}, "
+                             f"{still}; routes {routes}")
+
+
+def dp_path(torch, card):
+    """Phase 16 (see the module docstring). Returns the launch counts of
+    (a)'s workers, both ranks, their 3 steps."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pt_dp_")
+    try:
+        totals = _dp_training(torch, card, tmp)
+        _dp_elastic(torch, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _nccl_one_rank(torch, card)
+    print(f"phase 16 (process-group runtime, data parallelism) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5967,13 +6231,15 @@ def main() -> int:
     ernie = ernie_moe_path(torch, card)
     torch.cuda.empty_cache()
     headline = headline_path(torch, card)
+    dp = dp_path(torch, card)
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, resilience_serving=resilience,
                  decode_features=features, fleet_serving=fleet,
                  durable_fleet=durable, tp_serving=tp,
                  training=train, ernie_moe_training=ernie,
-                 headline_training=headline, io_training=loader)
+                 headline_training=headline, io_training=loader,
+                 dp_training=dp)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))

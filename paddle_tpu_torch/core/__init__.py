@@ -1,21 +1,23 @@
 """The port's native host runtime: the shared-memory ring that carries
-the DataLoader's batches from its forked workers, and the host span
-tracer under ``profiler.RecordEvent``.
+the DataLoader's batches from its forked workers, the host span tracer
+under ``profiler.RecordEvent``, and the TCP store that the ranks of a
+job rendezvous through.
 
 Counterpart of ``paddle_tpu/core/__init__.py`` (``load_native``,
 ``native_available``) and of the ``ShmQueue`` façade of
-``paddle_tpu/core/native_api.py`` (copied); its ``NativeTracer`` façade
-is the port's ``core/native_api.py``. The JAX package builds one C
+``paddle_tpu/core/native_api.py`` (copied); its ``NativeTracer``,
+``TCPStore`` and ``MasterDaemon`` façades are the port's
+``core/native_api.py``. The JAX package builds one C
 library for its ring, tracer and TCP store; the port keeps its own
-copy of each part it has in a source of its own (``csrc/shm_ring.cc``,
-``csrc/host_tracer.cc``) and builds it with ``g++`` at first use (never
+copy of each part in a source of its own (``csrc/shm_ring.cc``,
+``csrc/host_tracer.cc``, ``csrc/tcp_store.cc``) and builds it with ``g++`` at first use (never
 at import) into ``paddle_tpu_torch/_build/``, under a name that carries
 a digest of the source and the flags, loaded with ``ctypes``. As in the
 JAX package, a machine without a compiler keeps every feature:
 ``ShmQueue`` then runs over a ``multiprocessing`` queue and
-``native_available()`` is False, and the tracer keeps its events in a
-Python list. The ``TCPStore`` is not ported yet (``ROADMAP.md``
-A.6)."""
+``native_available()`` is False, the tracer keeps its events in a
+Python list, and the store's server and clients speak JAX's pickle
+frames over Python sockets."""
 from __future__ import annotations
 
 import ctypes
@@ -29,11 +31,12 @@ import numpy as np
 
 from ..ops.build import BUILD_DIR, CSRC
 
-__all__ = ["load_native", "load_host_tracer", "native_available",
-           "ShmQueue"]
+__all__ = ["load_native", "load_host_tracer", "load_tcp_store",
+           "native_available", "ShmQueue"]
 
 # library name -> its source under csrc/
-_SOURCES = {"shm_ring": "shm_ring.cc", "host_tracer": "host_tracer.cc"}
+_SOURCES = {"shm_ring": "shm_ring.cc", "host_tracer": "host_tracer.cc",
+            "tcp_store": "tcp_store.cc"}
 _FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-pthread"]
 
 _libs = {}
@@ -123,6 +126,32 @@ def _bind_tracer(lib):
     lib.pt_trace_dump.restype = ctypes.c_int
 
 
+def _bind_store(lib):
+    lib.pt_store_server_start.argtypes = [ctypes.c_int]
+    lib.pt_store_server_start.restype = ctypes.c_void_p
+    lib.pt_store_server_port.argtypes = [ctypes.c_void_p]
+    lib.pt_store_server_port.restype = ctypes.c_int
+    lib.pt_store_server_stop.argtypes = [ctypes.c_void_p]
+    lib.pt_store_server_stop.restype = None
+    lib.pt_store_client_connect.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                            ctypes.c_int]
+    lib.pt_store_client_connect.restype = ctypes.c_void_p
+    lib.pt_store_set.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                 ctypes.c_char_p, ctypes.c_int]
+    lib.pt_store_set.restype = ctypes.c_int
+    lib.pt_store_get.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                 ctypes.c_void_p, ctypes.c_int]
+    lib.pt_store_get.restype = ctypes.c_int
+    lib.pt_store_add.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                 ctypes.c_int64]
+    lib.pt_store_add.restype = ctypes.c_int64
+    for fn in (lib.pt_store_wait, lib.pt_store_delete, lib.pt_store_check):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        fn.restype = ctypes.c_int
+    lib.pt_store_client_close.argtypes = [ctypes.c_void_p]
+    lib.pt_store_client_close.restype = None
+
+
 def load_native():
     """The ring's library (built first if needed), or None where it
     cannot be built or loaded."""
@@ -133,6 +162,12 @@ def load_host_tracer():
     """The host tracer's library (built first if needed), or None where
     it cannot be built or loaded."""
     return _load("host_tracer", _bind_tracer)
+
+
+def load_tcp_store():
+    """The TCP store's library (built first if needed), or None where it
+    cannot be built or loaded."""
+    return _load("tcp_store", _bind_store)
 
 
 def native_available() -> bool:

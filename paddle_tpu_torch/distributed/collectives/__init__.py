@@ -16,13 +16,18 @@ sets, the same on every shard. The host-level :func:`all_reduce`,
 :func:`all_gather` and :func:`reduce_scatter` take stacked per-device
 contributions and return the global result, as JAX's do.
 
-The gradient bucketing scheduler and the comms microbench of the JAX
-package are not part of this module yet."""
+The eager half of the JAX package's gradient bucketing
+(:mod:`.bucketing`: ``build_buckets``, ``bucketed_allreduce_gradients``)
+syncs the gradients of a data-parallel job over ``communication``. The
+in-graph ``BucketedGradSync``/``attach_grad_sync`` and the comms
+microbench are not part of this module yet (``ROADMAP.md`` A.6 (c))."""
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 from typing import Optional
+
+from ...utils.flags import env_bool
 
 __all__ = [
     "CollectiveConfig", "collective_config", "set_collective_config",
@@ -31,6 +36,7 @@ __all__ = [
     "hier_all_reduce", "hier_all_gather", "hier_reduce_scatter",
     "all_reduce", "all_gather", "reduce_scatter",
     "quantized_all_reduce", "int8_error_bound",
+    "build_buckets", "bucketed_allreduce_gradients",
 ]
 
 
@@ -43,14 +49,22 @@ class CollectiveConfig:
     - ``compress``: None (fp32) or "int8" (per-bucket-scaled int8
       payload, fp32 accumulation).
     - ``quant_bucket_size``: elements per int8 scale bucket.
+    - ``bucket_bytes``: the gradient bucketer's target (the reference
+      DataParallel's ``comm_buffer_size`` is 25 MB).
+    - ``bucketed_grad_sync``: ``fleet.utils.fused_allreduce_gradients``
+      syncs bucket by bucket (default off, or
+      ``PT_COLLECTIVES_BUCKETED_SYNC=1``); it changes how many
+      collectives run, not the values of fp32 gradients.
 
-    JAX's ``error_bound``, ``bucket_bytes`` and ``bucketed_grad_sync``
-    configure the gradient bucketer, which comes with its slice
-    (``ROADMAP.md`` A.6 (c)).
+    JAX's ``error_bound`` budgets the in-graph int8 grad sync, which is
+    not ported (``ROADMAP.md`` A.6 (c)).
     """
     hierarchy: str = "auto"                 # "auto" | "flat"
     compress: Optional[str] = None          # None | "int8"
     quant_bucket_size: int = 512
+    bucket_bytes: int = 25 << 20
+    bucketed_grad_sync: bool = dataclasses.field(
+        default_factory=lambda: env_bool("PT_COLLECTIVES_BUCKETED_SYNC"))
 
     def __post_init__(self):
         if self.hierarchy not in ("auto", "flat"):
@@ -93,3 +107,4 @@ from .hierarchical import (HierarchyPlan, plan_hierarchy,          # noqa: E402
                            hier_reduce_scatter,
                            all_reduce, all_gather, reduce_scatter)
 from .quantized import quantized_all_reduce, int8_error_bound      # noqa: E402
+from .bucketing import build_buckets, bucketed_allreduce_gradients  # noqa: E402

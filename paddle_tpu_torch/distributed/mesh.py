@@ -15,9 +15,14 @@ name a device more than once (``[torch.device("cuda:0")] * 2``, or
 XLA's simulated host devices are in the JAX package's tests. On one
 card a 2-way mesh then runs both shards there.
 
+``NamedSharding(mesh, axes)`` splits dim 0 of a tensor over mesh axes
+(JAX's ``NamedSharding(mesh, P(axes))``), the placement
+``io.device_prefetch(sharding=)`` gives each device's piece by.
+
 ``HybridCommunicateGroup`` and ``CommunicateTopology`` come only as far
-as building and setting a mesh: the process groups, ranks and per-axis
-groups of a multi-process run are not part of this module yet."""
+as building and setting a mesh: the per-axis process groups of a
+multi-process run are not part of this module yet (a job's world group
+is ``distributed.communication``'s)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -28,7 +33,7 @@ import torch
 __all__ = ["AXIS_ORDER", "Mesh", "HybridCommunicateGroup",
            "get_hybrid_communicate_group", "build_device_mesh",
            "CommunicateTopology", "set_current_mesh", "get_current_mesh",
-           "axis_devices"]
+           "axis_devices", "NamedSharding"]
 
 # axis order: outermost (slowest link) -> innermost (fastest link), as in
 # the JAX package: pp stages communicate least per step, mp/sep most
@@ -161,3 +166,46 @@ def axis_devices(mesh: Mesh, axes: Sequence[str]) -> list:
     names = mesh.axis_names
     index = tuple(slice(None) if a in axes else 0 for a in names)
     return list(mesh.devices[index].reshape(-1))
+
+
+class NamedSharding:
+    """Dim 0 split over mesh axes, replicated over the others: JAX's
+    ``NamedSharding(mesh, P(axes))`` for a leading-dim spec. ``axes`` is
+    one axis name or a tuple of them (outer-major in mesh order, as
+    ``P(("dp", "mp"))``). :meth:`pieces` gives one piece of a tensor per
+    mesh device, in the mesh's linear order: the rows of that device's
+    coordinate along ``axes``, which is what ``jax.device_put`` leaves on
+    the device as its addressable shard."""
+
+    def __init__(self, mesh: Mesh, axes):
+        self.mesh = mesh
+        self.axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in self.axes if a not in mesh.axis_names]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not axes of {mesh}")
+
+    def devices(self) -> list:
+        """The mesh's devices in linear order, each CUDA one with its
+        index (``"cuda"`` is the current card)."""
+        from ..device import resolve_device
+        return [resolve_device(d) if d.type == "cuda" else d
+                for d in self.mesh.devices.reshape(-1)]
+
+    def pieces(self, t: torch.Tensor) -> list:
+        names = self.mesh.axis_names
+        sizes = [self.mesh.shape[a] for a in self.axes]
+        n = int(np.prod(sizes))
+        if t.dim() == 0 or t.shape[0] % n:
+            raise ValueError(f"dim 0 of a {tuple(t.shape)} tensor does not "
+                             f"split into {n} pieces over {self.axes}")
+        rows = t.shape[0] // n
+        out = []
+        for coord in np.ndindex(*self.mesh.devices.shape):
+            k = 0
+            for a, size in zip(self.axes, sizes):
+                k = k * size + coord[names.index(a)]
+            out.append(t[k * rows:(k + 1) * rows])
+        return out
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.axes})"

@@ -24,9 +24,14 @@ takes them: each batch is staged in pinned host memory and copied with
 after the copy, and ``record_stream`` keeps the allocator from reusing
 the batch's memory while the consumer may still read it. At most
 ``size`` batches are in flight, by JAX's drain-before-transfer rule.
-``DistributedBatchSampler`` defaults to ``torch.distributed``'s world
-size and rank where a process group exists (JAX: the process count and
-index), else 1 and 0."""
+With ``sharding=NamedSharding(mesh, "dp")`` (``distributed.mesh``) each
+leaf is split on dim 0 over the mesh axis and every device of the mesh
+gets its piece, as ``jax.device_put`` with ``NamedSharding(mesh,
+P("dp"))`` gives each device its addressable shard.
+``DistributedBatchSampler`` defaults to the job's world size and rank
+(``distributed.get_world_size``/``get_rank``: the launch contract first,
+then the process group, else 1 and 0; JAX: the process count and
+index)."""
 from __future__ import annotations
 
 import bisect
@@ -213,8 +218,8 @@ class BatchSampler(Sampler):
 class DistributedBatchSampler(BatchSampler):
     """Per-rank sharded batches, contiguous per-rank shards of the
     padded index list (the JAX sampler's). The replica count and rank
-    default to ``torch.distributed``'s world size and rank when a
-    process group exists, else 1 and 0."""
+    default to the job's (``distributed.get_world_size``/``get_rank``,
+    which read the launch contract first)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -223,12 +228,9 @@ class DistributedBatchSampler(BatchSampler):
         self.shuffle = shuffle
         self.drop_last = drop_last
         if num_replicas is None or rank is None:
-            group = torch.distributed.is_available() \
-                and torch.distributed.is_initialized()
-            num_replicas = num_replicas or (
-                torch.distributed.get_world_size() if group else 1)
-            if rank is None:
-                rank = torch.distributed.get_rank() if group else 0
+            from ..distributed.parallel import get_rank, get_world_size
+            num_replicas = num_replicas or get_world_size()
+            rank = rank if rank is not None else get_rank()
         self.nranks = num_replicas
         self.local_rank = rank
         self.epoch = 0
@@ -527,49 +529,60 @@ def _pinned(t: torch.Tensor) -> torch.Tensor:
     return t if t.is_pinned() else t.pin_memory()
 
 
-def _transfer(batch, device, stream):
-    """Start copying ``batch``'s tensor and numpy leaves to ``device``:
-    ``(device batch, event, staged host tensors)``. On the card each
-    leaf is staged in pinned memory and copied with ``non_blocking`` on
-    ``stream``, and the event marks the copies' end; on the CPU the
-    batch is returned as tensors, with no event."""
-    def put(x):
+def _transfer(batch, target, streams):
+    """Start copying ``batch``'s tensor and numpy leaves to ``target``:
+    ``(device batch, {device: event}, staged host tensors)``. A device
+    takes each leaf whole; a ``NamedSharding`` turns each leaf into the
+    list of its pieces, one a mesh device (``target.pieces``). On
+    a card each leaf is staged in pinned memory and copied with
+    ``non_blocking`` on that card's copy stream, and an event a card
+    marks the copies' end; on the CPU the batch is returned as tensors,
+    with no event."""
+    def put(x, dev):
+        if dev.type != "cuda" or x.device == dev:
+            return x.to(dev)
+        with torch.cuda.stream(streams[dev]):
+            return x.to(dev, non_blocking=True)
+
+    def leaf(x):
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
         if not isinstance(x, torch.Tensor):
             return x
-        if device.type != "cuda" or x.device == device:
-            return x.to(device)
-        host = _pinned(x)
-        staged.append(host)
-        with torch.cuda.stream(stream):
-            return host.to(device, non_blocking=True)
+        whole = isinstance(target, torch.device)
+        targets = [target] if whole else target.devices()
+        if any(d.type == "cuda" and x.device != d for d in targets):
+            x = _pinned(x)
+            staged.append(x)
+        if whole:
+            return put(x, target)
+        return [put(p, d) for p, d in zip(target.pieces(x), targets)]
 
     def walk(tree):
         if isinstance(tree, (tuple, list)):
             return type(tree)(walk(t) for t in tree)
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items()}
-        return put(tree)
+        return leaf(tree)
 
     staged = []
     out = walk(batch)
-    event = None
-    if device.type == "cuda":
-        event = torch.cuda.Event()
-        event.record(stream)
-    return out, event, staged
+    events = {}
+    for dev, stream in streams.items():
+        events[dev] = torch.cuda.Event()
+        events[dev].record(stream)
+    return out, events, staged
 
 
-def _handover(entry, device):
+def _handover(entry):
     """The device batch of a ``_transfer`` entry, usable on the current
-    stream: the stream waits for the copies, and each copied tensor is
-    recorded as used by it (the allocator does not reuse its memory
-    before the consumer's work on it is done)."""
-    out, event, _ = entry
-    if event is not None:
-        consumer = torch.cuda.current_stream(device)
-        consumer.wait_event(event)
+    streams: each card's current stream waits for its copies, and each
+    copied tensor is recorded as used by it (the allocator does not
+    reuse its memory before the consumer's work on it is done)."""
+    out, events, _ = entry
+    if events:
+        for dev, event in events.items():
+            torch.cuda.current_stream(dev).wait_event(event)
 
         def mark(tree):
             if isinstance(tree, (tuple, list)):
@@ -578,8 +591,8 @@ def _handover(entry, device):
             elif isinstance(tree, dict):
                 for t in tree.values():
                     mark(t)
-            elif isinstance(tree, torch.Tensor) and tree.device == device:
-                tree.record_stream(consumer)
+            elif isinstance(tree, torch.Tensor) and tree.device in events:
+                tree.record_stream(torch.cuda.current_stream(tree.device))
         mark(out)
     return out
 
@@ -592,30 +605,35 @@ def device_prefetch(loader, size=2, sharding=None, device=None):
     host-to-device transfer with the current step. At most ``size``
     batches are in flight: a batch is yielded before the next transfer
     starts once ``size`` are pending (JAX's drain-before-transfer rule);
-    ``size=0`` transfers and yields in lockstep. ``sharding`` places
-    batches over a mesh of cards, which is not ported yet."""
+    ``size=0`` transfers and yields in lockstep. With ``sharding`` (a
+    ``distributed.mesh.NamedSharding``) the mesh's devices take the
+    place of ``device``: each leaf is yielded as the list of its dim-0
+    pieces, one a mesh device in the mesh's linear order."""
     if sharding is not None:
-        raise NotImplementedError(
-            "device_prefetch(sharding=...) places batches over a mesh of "
-            "cards, which is not ported yet (ROADMAP.md A.6)")
-    dev = resolve_device(device)
-    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        from ..distributed.mesh import NamedSharding
+        if not isinstance(sharding, NamedSharding) or device is not None:
+            raise TypeError(
+                "device_prefetch: sharding= takes a distributed.mesh."
+                f"NamedSharding (got {sharding!r}), and no device=")
+        target = sharding
+        cards = {d for d in sharding.devices() if d.type == "cuda"}
+    else:
+        target = resolve_device(device)
+        cards = {target} if target.type == "cuda" else set()
+    streams = {d: torch.cuda.Stream(d) for d in cards}
     if size <= 0:
         for batch in loader:
-            yield _handover(_transfer(batch, dev, stream), dev)
+            yield _handover(_transfer(batch, target, streams))
         return
     pending = collections.deque()
     for batch in loader:
         # drain BEFORE transferring: at most ``size`` batches are ever
         # in flight (append-then-check kept size+1 device buffers live)
         if len(pending) >= size:
-            yield _handover(pending.popleft(), dev)
-        pending.append(_transfer(batch, dev, stream))
+            yield _handover(pending.popleft())
+        pending.append(_transfer(batch, target, streams))
     while pending:
-        yield _handover(pending.popleft(), dev)
-
-
-
+        yield _handover(pending.popleft())
 
 
 class ConcatDataset(Dataset):

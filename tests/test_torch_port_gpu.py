@@ -2431,3 +2431,69 @@ def test_tp2_psum_int8_gate_on_one_card(dev):
     with pytest.raises(RuntimeError, match="error bound"):
         _serve_rows(eng, reqs)
     assert b._int8_gate_pending
+
+
+def test_dp2_on_one_card_keeps_ranks_bit_identical(dev, tmp_path):
+    """Two ranks of ``tools/port_dp_worker.py`` share the card (gloo,
+    CUDA tensors staged through the host): the tiny Llama in fp32 from
+    seed 0, 3 steps with the bucketed sync; after every step both ranks'
+    parameters hash alike, step 1's synced gradient is the mean of the
+    two halves' bit for bit, and each rank launched the training
+    kernels."""
+    import json
+    import os
+    from paddle_tpu_torch.distributed.launch import LaunchConfig, launch_pod
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = LaunchConfig(
+        os.path.join(repo, "tools", "port_dp_worker.py"),
+        ["--out", str(tmp_path), "--config", "tiny", "--batch", "2",
+         "--seq", "64", "--steps", "3", "--reference"],
+        nproc_per_node=2, log_dir=str(tmp_path / "log"),
+        envs={"PYTHONPATH": repo + os.pathsep
+              + os.environ.get("PYTHONPATH", "")})
+    rc = launch_pod(cfg)
+    logs = {p.name: p.read_text()[-3000:]
+            for p in (tmp_path / "log").iterdir()}
+    assert rc == 0, logs
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in (0, 1)]
+    runs = [r["runs"]["bucketed"] for r in recs]
+    assert runs[0]["digests"] == runs[1]["digests"]
+    assert runs[0]["reference"]["halves_mean_unequal"] == []
+    for r, run in zip(recs, runs):
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert r["store_native"]
+        assert run["launches"]["flash_attention_fwd"] > 0
+        assert run["launches"]["adamw"] == 3 * run["param_tensors"]
+        assert run["step_s"][0]["bytes"] == 4 * run["params"]
+
+
+def test_nccl_one_rank_group(dev, monkeypatch):
+    """A rank with a card of its own gets an nccl group: all_reduce,
+    broadcast and all_gather of a bucket on the card equal their input,
+    and every call takes the nccl route."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import communication as C
+    from paddle_tpu_torch.distributed.launch_utils import free_ports
+    for k, v in {"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+                 "PADDLE_LOCAL_RANK": "0", "PADDLE_LOCAL_SIZE": "1",
+                 "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(free_ports(1)[0])}.items():
+        monkeypatch.setenv(k, v)
+    env = dist.init_parallel_env()
+    try:
+        assert env.backend == "nccl" and dist.get_backend() == "NCCL"
+        C.reset_counters()
+        x = torch.randn(1 << 20, device=dev)
+        y, z, outs = x.clone(), x.clone(), []
+        dist.all_reduce(y)
+        dist.broadcast(z, src=0)
+        dist.all_gather(outs, x)
+        assert torch.equal(y, x) and torch.equal(z, x)
+        assert len(outs) == 1 and torch.equal(outs[0], x)
+        assert C.route_counts() == {"all_reduce": {"nccl": 1},
+                                    "broadcast": {"nccl": 1},
+                                    "all_gather": {"nccl": 1}}
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()

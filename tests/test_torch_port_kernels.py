@@ -183,6 +183,17 @@ class TestDeviceAndImportRules:
             "import paddle_tpu_torch.serving.resilience\n"
             "import paddle_tpu_torch.distributed.checkpoint\n"
             "import paddle_tpu_torch.core.native_api\n"
+            "import paddle_tpu_torch.distributed\n"
+            "import paddle_tpu_torch.distributed.communication\n"
+            "import paddle_tpu_torch.distributed.parallel\n"
+            "import paddle_tpu_torch.distributed.launch\n"
+            "import paddle_tpu_torch.distributed.elastic\n"
+            "import paddle_tpu_torch.distributed.consistency\n"
+            "import paddle_tpu_torch.distributed.fleet.utils\n"
+            "import paddle_tpu_torch.distributed.collectives.bucketing\n"
+            "import paddle_tpu_torch.io\n"
+            "sys.path.insert(0, 'tools')\n"
+            "import port_dp_worker\n"
             "from paddle_tpu_torch import core\n"
             "from paddle_tpu_torch.ops import build\n"
             "assert not build._loaded, build._loaded\n"
@@ -201,6 +212,7 @@ class TestDeviceAndImportRules:
 
     def test_sources_never_import_jax_or_paddle_tpu(self):
         files = list((REPO / "paddle_tpu_torch").rglob("*.py")) \
+            + list((REPO / "tools").glob("port_*.py")) \
             + [REPO / "chip_smoke.py"]
         assert len(files) > 10
         for f in files:
