@@ -331,12 +331,56 @@ Phases, each of which raises on failure (nothing is caught):
    atomic checkpoint after step 2; under ``max_restarts=1`` rank 1 exits
    after step 2, the pod is relaunched and resumes from the checkpoints:
    the final parameters bit-identical to the same job run uninterrupted
-   beside it. (d) A one-rank nccl group on the card (``init_parallel_env``
-   picks nccl for a rank with a card of its own): ``all_reduce``,
+   beside it; (b)'s pods run after phase 17 (a), beside 17's other
+   gate-only work (below), so they print no time. (d) A one-rank nccl
+   group on the card (``init_parallel_env`` picks nccl for a rank with a card of its own): ``all_reduce``,
    ``broadcast`` and ``all_gather`` of a 256 MiB fp32 bucket, each equal
    to its input and timed (one rank moves nothing between cards). The
    phase prints its seconds; its workers' launches are the launches
-   line's ``dp_training``.
+   line's ``dp_training``. Phases 16 and 17 run in this order: 16 (a),
+   17 (c), 17 (a) with (b)'s save and 2-rank load, each alone (their
+   times are measurements); then side by side 16 (b), 17 (b)'s one-rank
+   load and 17 (d), whose gates are bitwise or a tolerance and whose
+   times are not printed; then 16 (d).
+
+17. Group-sharded (ZeRO) training, the sharded checkpoint, the in-graph
+   bucketer and gradient merge (run after phase 16).
+   ``tools/port_zero_worker.py`` launched with ``python -m
+   paddle_tpu_torch.distributed.launch``: phase 16's model, data and 2
+   gloo ranks sharing the card. (a) From phase 16 (a)'s weights and
+   batches, 2 steps each, held to its data-parallel digests after those
+   steps (the DP reference: the same loop, so the job does not run it
+   again): ``group_sharded_parallel`` ``os``, ``os_g``
+   built through ``fleet.init`` + ``fleet.distributed_model`` +
+   ``fleet.distributed_optimizer`` (``sharding_configs={"stage": 2}``)
+   and ``p_g_os``: every stage's parameters bit-identical
+   to DP's after every step (SHA-256 digests over the store), the ranks
+   agreeing, finite losses, each rank's launches exact a step (phase
+   16's, AdamW once a parameter); each stage's peak and resting memory
+   a rank, slot bytes, step ms by part and bytes a collective printed.
+   (b) ``save_state_dict`` of the ``os`` state (model and optimizer)
+   after step 1, ``async_save=True`` then ``wait_async_save()``; loaded
+   at 2 ranks into a fresh ``p_g_os`` run and in a fresh one-rank
+   process: every region bit-equal to the saved one, and step 2 from
+   each load bit-equal to the continuing job's (the one-rank process
+   takes the two ranks' mean gradient); save and load seconds and the
+   largest host buffer against the largest region (the one-rank
+   process's load prints no time: it runs beside 16 (b)). (d)
+   ``fleet.distributed_optimizer`` with ``gradient_merge_configs=
+   {"k_steps": 2}`` (and sharding stage 1) at the headline width and 2
+   layers (cut: the depth, for the phase's time), in a 2-rank job of its
+   own: two micro-steps of 2 x 2048 against one step of 4 x 2048, the
+   merged gradient within 5e-2 (per tensor, relative norm; bf16). (c) In
+   this process, before the job:
+   ``BucketedGradSync`` over a 2-way ``("dp",)`` mesh of cuda:0 on
+   per-shard fp32 gradients of the headline's 12 shapes, captured once
+   as a CUDA graph and replayed: the replay and the eager hook bit-equal
+   to the plain mean; ``compress="int8"`` with ``error_bound=0``
+   bit-equal to fp32 and a loose budget within ``int8_error_bound`` (on
+   the embedding and the norms); then ``run_comms_bench`` over that
+   mesh (``within_bound``, ``constant_exact``). The parts print their
+   seconds; its workers' launches are the launches line's
+   ``zero_training``.
 
 Launch counters are zeroed just before each path and read just after.
 The line before the last is a JSON object with one entry per kernel; the
@@ -349,6 +393,8 @@ import json
 import math
 import os
 import re
+import shlex
+import signal
 import subprocess
 import sys
 import time
@@ -5931,37 +5977,79 @@ def _dp_per_step(L, n_tensors):
     return per
 
 
-def _start_job(tmp, tag, nproc, worker_args, max_restarts=0):
-    """``python -m paddle_tpu_torch.distributed.launch`` of the DP worker
-    in ``tmp/tag``: (process, out dir, log dir)."""
+_PYCACHE = os.path.join(_REPO, "paddle_tpu_torch", "_build", "pycache")
+
+
+def _cache_bytecode():
+    """This process writes the bytecode of what it imports from now on
+    under the build directory, where the launched jobs read it
+    (``_job_env``). Where the environment sets PYTHONDONTWRITEBYTECODE
+    and the installed packages hold no bytecode, every fresh interpreter
+    compiles torch's modules and the port's again, seconds a process."""
+    if not os.path.isdir(os.path.join(_REPO, "paddle_tpu_torch")):
+        return                   # the script alone: nothing to launch
+    os.makedirs(_PYCACHE, exist_ok=True)
+    sys.pycache_prefix = _PYCACHE
+    sys.dont_write_bytecode = False
+
+
+def _job_env():
+    """The launched jobs' environment: their bytecode cached where
+    ``_cache_bytecode`` puts this process's."""
+    os.makedirs(_PYCACHE, exist_ok=True)
+    env = dict(os.environ, PYTHONPYCACHEPREFIX=_PYCACHE)
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    return env
+
+
+def _start_job(tmp, tag, nproc, worker_args, max_restarts=0,
+               worker=_DP_WORKER):
+    """``python -m paddle_tpu_torch.distributed.launch`` of ``worker``
+    (the DP worker) in ``tmp/tag``: (process, out dir, log dir)."""
     out, log = os.path.join(tmp, tag), os.path.join(tmp, tag, "log")
     os.makedirs(log, exist_ok=True)
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", str(nproc), "--log_dir", log,
-           "--max_restarts", str(max_restarts), _DP_WORKER, "--out", out,
+           "--max_restarts", str(max_restarts), worker, "--out", out,
            *worker_args]
     proc = subprocess.Popen(cmd, cwd=_REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            env=_job_env(), start_new_session=True)
     return proc, out, log
 
 
-def _finish_job(tag, job, nproc):
-    """Wait for a ``_start_job`` job; its ranks' records. A failed job
-    prints the launcher's output and each worker log's tail and raises."""
+def _stop_job(job):
+    """Kill a ``_start_job`` job that still runs, its workers with it
+    (the launcher leads a process group of its own)."""
+    proc = job[0]
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _finish_job(tag, job, nproc, phase=16, records=None):
+    """Wait for a ``_start_job`` job; its ranks' records (``records``:
+    the file names, default ``rank<r>.json``). A failed job prints the
+    launcher's output and each worker log's tail and raises."""
     proc, out, log = job
     try:
         text, _ = proc.communicate(timeout=_DP_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        proc.kill()
+        _stop_job(job)
         text, _ = proc.communicate()
-    recs = [os.path.join(out, f"rank{r}.json") for r in range(nproc)]
+    recs = [os.path.join(out, name) for name in
+            (records or [f"rank{r}.json" for r in range(nproc)])]
     if proc.returncode != 0 or not all(map(os.path.exists, recs)):
-        print(f"phase 16 {tag}: launcher exit {proc.returncode}\n{text}")
+        print(f"phase {phase} {tag}: launcher exit {proc.returncode}\n"
+              f"{text}")
         for name in sorted(os.listdir(log)):
             with open(os.path.join(log, name)) as f:
                 print(f"--- {tag} {name} (tail) ---\n"
                       + "".join(f.readlines()[-40:]))
-        raise AssertionError(f"phase 16 {tag}: the job failed (exit "
+        raise AssertionError(f"phase {phase} {tag}: the job failed (exit "
                              f"{proc.returncode})")
     out_recs = []
     for path in recs:
@@ -5970,21 +6058,33 @@ def _finish_job(tag, job, nproc):
     return out_recs, text
 
 
-def _dp_training(torch, card, tmp):
-    """Phase 16 (a) and (c): 2 ranks of the headline model on the card."""
+_DP_STEPS = 3      # phase 16 (a)'s steps
+
+
+def _dp_args(tmp):
+    """Phase 16 (a)'s job: ``tools/port_dp_worker.py``'s arguments (it
+    runs first in phase 17's job, in the same processes)."""
+    return ["--out", os.path.join(tmp, "dp"), "--config", "headline",
+            "--batch", "4", "--seq", "2048", "--steps", str(_DP_STEPS),
+            "--reference", "--store-checks"]
+
+
+def _dp_training(card, tmp):
+    """Phase 16 (a) and (c): 2 ranks of the headline model on the card,
+    from the records of the job's data-parallel part. Returns
+    (launches, rank 0's digests after each step: phase 17's data-parallel
+    reference)."""
     L = 16
-    t0 = time.perf_counter()
-    recs, _ = _finish_job("dp", _start_job(
-        tmp, "dp", 2, ["--config", "headline", "--batch", "4", "--seq",
-                       "2048", "--steps", "3", "--reference",
-                       "--store-checks"]), 2)
-    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(2):
+        with open(os.path.join(tmp, "dp", f"rank{r}.json")) as f:
+            recs.append(json.load(f))
     runs = [r["runs"]["bucketed"] for r in recs]
     per_step = _dp_per_step(L, runs[0]["param_tensors"])
     totals = {k: 0 for k in per_step}
     for r, run in zip(recs, runs):
         counts = {k: run["launches"].get(k, 0) for k in per_step}
-        want = {k: 3 * v for k, v in per_step.items()}
+        want = {k: _DP_STEPS * v for k, v in per_step.items()}
         if counts != want:
             raise AssertionError(f"phase 16 rank {r['rank']} launches "
                                  f"{counts}, expected {want}")
@@ -6000,9 +6100,9 @@ def _dp_training(torch, card, tmp):
     print(f"[{card}] phase 16 (a) data-parallel headline ({params_b:.4f}B "
           f"params bf16, {L} layers, full recompute): 2 ranks "
           f"on {recs[0]['device']} over gloo, batch 4 x 2048 a rank (global "
-          f"8), 3 eager "
-          f"steps, the launcher's wall {wall:.1f} s (rank 0's own "
-          f"{recs[0]['seconds']:.1f} s)")
+          f"8), {_DP_STEPS} eager "
+          f"steps, rank 0's own {recs[0]['seconds']:.1f} s (the job then "
+          f"runs phase 17 (a))")
     print(f"phase 16 (a) params bit-identical across ranks after every "
           f"step (SHA-256 over the store): "
           f"{[d[:12] for d in runs[0]['digests']]}; losses rank 0 "
@@ -6027,7 +6127,7 @@ def _dp_training(torch, card, tmp):
         peak = "not measured" if peak is None else f"{peak:.3f} GB"
         print(f"[{card}] phase 16 (a) rank {r['rank']}: peak memory "
               f"{peak}; routes {run['routes']}; "
-              f"launches over 3 steps {run['launches']}")
+              f"launches over {_DP_STEPS} steps {run['launches']}")
     for r in recs:
         st = r["store"]
         print(f"[{card}] phase 16 (c) rank {r['rank']}: native store "
@@ -6036,22 +6136,27 @@ def _dp_training(torch, card, tmp):
               f"bulk warnings {st['bulk_warnings']}; subset group "
               f"{st.get('subset_ok', 'not a member')}; elastic alive "
               f"{st['elastic_alive']}; routes {r['routes']}")
-    return totals
+    return totals, runs[0]["digests"]
 
 
-def _dp_elastic(torch, card, tmp):
-    """Phase 16 (b): the headline width at 2 layers, 3 steps, rank 1
-    failing after step 2 under ``max_restarts=1``, against the same job
-    uninterrupted (the two pods run together)."""
+def _dp_elastic_start(tmp):
+    """Phase 16 (b)'s two pods, started: the headline width at 2 layers,
+    3 steps, rank 1 failing after step 2 under ``max_restarts=1``, and
+    the same job uninterrupted beside it."""
     common = ["--config", "headline", "--layers", "2", "--batch", "4",
               "--seq", "2048", "--steps", "3", "--ckpt-step", "2"]
-    t0 = time.perf_counter()
-    jobs = {
+    return time.perf_counter(), {
         "elastic": _start_job(tmp, "elastic", 2, common + [
             "--ckpt-dir", os.path.join(tmp, "ckpt_e"), "--fail-rank", "1",
             "--fail-step", "2"], max_restarts=1),
         "uninterrupted": _start_job(tmp, "uninterrupted", 2, common + [
             "--ckpt-dir", os.path.join(tmp, "ckpt_u")])}
+
+
+def _dp_elastic_finish(torch, card, started):
+    """Phase 16 (b): wait for the pods; the relaunched job must end where
+    the uninterrupted one does."""
+    t0, jobs = started
     got = {k: _finish_job(k, j, 2) for k, j in jobs.items()}
     wall = time.perf_counter() - t0
     (el, text), (un, _) = got["elastic"], got["uninterrupted"]
@@ -6067,8 +6172,9 @@ def _dp_elastic(torch, card, tmp):
           f"checkpoint; final params "
           f"{el[0]['runs']['bucketed']['digests'][-1][:12]} vs "
           f"uninterrupted {un[0]['runs']['bucketed']['digests'][-1][:12]}: "
-          f"{'bit-identical' if ok else 'DIFFERENT'}; both pods "
-          f"{wall:.1f} s")
+          f"{'bit-identical' if ok else 'DIFFERENT'} (both pods "
+          f"{wall:.1f} s, beside phase 17 (b)'s one-rank load and (d): a "
+          f"wall, not a measurement)")
     if not ok:
         raise AssertionError("phase 16 (b): the relaunched job does not "
                              "end where the uninterrupted one does")
@@ -6125,27 +6231,313 @@ def _nccl_one_rank(torch, card):
                              f"{still}; routes {routes}")
 
 
-def dp_path(torch, card):
-    """Phase 16 (see the module docstring). Returns the launch counts of
-    (a)'s workers, both ranks, their 3 steps."""
+# -- phase 17: group-sharded (ZeRO) training, the sharded checkpoint, the
+# in-graph bucketer, gradient merge ------------------------------------------
+
+_ZERO_WORKER = os.path.join(_REPO, "tools", "port_zero_worker.py")
+_ZERO_STEPS = 2            # each stage's steps
+_ZERO_RUNS = "os,os_g,p_g_os,load"   # (d) runs in a job of its own
+_ZERO_GM_LAYERS = 2        # (d)'s depth (cut: the phase's time)
+
+
+def _zero_args():
+    """The worker's model and data: phase 16's (the headline model, 4 x
+    2048 a rank from RandomState(0), the data sized for phase 16 (a)'s
+    steps so that each rank's batches are its)."""
+    return ["--config", "headline", "--batch", "4", "--seq", "2048",
+            "--steps", str(_ZERO_STEPS), "--data-steps", str(_DP_STEPS)]
+
+
+def _zero_check_launches(recs, per_step, per_step_gm):
+    """Every rank's launches, step by step: phase 16's per step (AdamW
+    once a parameter, every region non-empty at 2 ranks; (d) at its
+    depth); gradient merge two forward+backward passes a step. Returns
+    the totals."""
+    totals = {k: 0 for k in per_step}
+    for r in recs:
+        for run, rec in r["runs"].items():
+            for i, st in enumerate(rec["steps"], 1):
+                want = dict(per_step_gm if run.startswith("gm")
+                            else per_step)
+                if run == "gm":
+                    want = {k: (v if k == "adamw" else 2 * v)
+                            for k, v in want.items()}
+                got = {k: st["launches"].get(k, 0) for k in want}
+                if got != want or set(st["launches"]) - set(want):
+                    raise AssertionError(
+                        f"phase 17 rank {r['rank']} {run} step {i} "
+                        f"launches {st['launches']}, expected {want}")
+                for k in totals:
+                    totals[k] += got[k]
+    return totals
+
+
+def _zero_print(card, recs):
+    """Each stage's memory, slot bytes, step ms by part and bytes."""
+    for r in recs:
+        for run in ("os", "os_g", "p_g_os", "load"):
+            rec = r["runs"][run]
+            parts = []
+            for i, st in enumerate(rec["steps"], 1):
+                bits = [f"fwd+bwd {1e3 * st['fwd_bwd']:.1f}"]
+                for k in ("forward_all_gather", "all_reduce",
+                          "reduce_scatter", "all_gather"):
+                    if k in st:
+                        v = st[k]
+                        gbs = v["bytes"] / max(v["s"], 1e-9) / 1e9
+                        bits.append(f"{k} {1e3 * v['s']:.1f} ({v['bytes'] / 1e9:.3f} GB "
+                                    f"payload, {gbs:.2f} GB/s, "
+                                    f"{v.get('route')})")
+                bits.append(f"adamw {1e3 * st['adamw']:.1f}")
+                parts.append(f"step {i}: " + ", ".join(bits))
+            peak = rec.get("peak_gb")
+            rest = rec["steps"][-1]["resting_gb"]
+            mem = "not measured" if peak is None else \
+                f"peak {peak:.3f} GB, resting {rest:.3f} GB"
+            print(f"[{card}] phase 17 (a) rank {r['rank']} {run}: {mem} a "
+                  f"rank, slots {rec['slot_bytes'] / 1e9:.3f} GB; ms "
+                  f"{'; '.join(parts)}; losses {rec['losses']}")
+
+
+def _zero_training(torch, card, tmp):
+    """Phases 16 (a) and 17 (a) with (b)'s save and 2-rank load: one
+    2-rank job, alone on the card, that runs phase 16 (a)'s data-parallel
+    job and then the ZeRO stages, held to its digests (the same loop,
+    model and batches). Returns (phase 16 (a)'s launches, its records,
+    phase 17's launches, the launches of one step)."""
+    L = 16
+    t0 = time.perf_counter()
+    recs, _ = _finish_job("zero", _start_job(tmp, "zero", 2, _zero_args() + [
+        "--runs", _ZERO_RUNS, "--dp-args=" + shlex.join(_dp_args(tmp))],
+        worker=_ZERO_WORKER), 2, phase=17)
+    wall = time.perf_counter() - t0
+    dp, dp_digests = _dp_training(card, tmp)
+    n_tensors = recs[0]["runs"]["os"]["param_tensors"]
+    per_step = {k: v for k, v in _dp_per_step(L, n_tensors).items() if v}
+    totals = _zero_check_launches(recs, per_step, None)
+    for r in recs:
+        for run in ("os", "os_g", "p_g_os"):
+            if r["runs"][run]["digests"] != list(dp_digests[:_ZERO_STEPS]):
+                raise AssertionError(f"phase 17 (a) rank {r['rank']} {run}: "
+                                     f"params differ from phase 16's dp")
+    if any(x["backend"] != "gloo" for x in recs):
+        raise AssertionError("phase 17: the ranks took another route: "
+                             f"{[x['backend'] for x in recs]}")
+    print(f"[{card}] phase 17 (a) ZeRO on the headline model "
+          f"({recs[0]['runs']['os']['params'] / 1e9:.4f}B params bf16, {L} "
+          f"layers, full recompute, AdamW bf16 moments): 2 gloo ranks on "
+          f"{recs[0]['device']}, batch 4 x 2048 a rank, {_ZERO_STEPS} steps "
+          f"each of os, os_g, p_g_os, alone on the card; the launcher's "
+          f"wall with phase 16 (a) {wall:.1f} s (seconds by run, rank 0: "
+          f"{ {k: round(v['seconds'], 1) for k, v in recs[0]['runs'].items()} })")
+    print(f"phase 17 (a) every stage's params bit-identical to phase 16 "
+          f"(a)'s data-parallel run after each of its first {_ZERO_STEPS} "
+          f"steps, both ranks (SHA-256 over the store): "
+          f"{[d[:12] for d in dp_digests[:_ZERO_STEPS]]}; os_g built "
+          f"through fleet.init + distributed_model + distributed_optimizer "
+          f"(stage 2); routes os_g {recs[0]['runs']['os_g']['routes']}")
+    _zero_print(card, recs)
+    for r in recs:
+        sv, ld = r["runs"]["os"]["save"], r["runs"]["load"]
+        print(f"[{card}] phase 17 (b) rank {r['rank']}: save (async) of "
+              f"the os state after step {_ZERO_STEPS - 1}: host snapshot "
+              f"{sv['snapshot_s']:.3f} s, file writes {sv['write_s']:.3f} "
+              f"s, {sv['bytes'] / 1e9:.3f} GB "
+              f"({sv['bytes'] / 1e9 / max(sv['snapshot_s'] + sv['write_s'], 1e-9):.2f} GB/s); "
+              f"2-rank load into p_g_os {ld['load_s']:.3f} s, largest "
+              f"host buffer {ld['load_max_buffer_bytes'] / 1e6:.1f} MB vs "
+              f"largest region {ld['largest_region_bytes'] / 1e6:.1f} MB; "
+              f"regions bit-equal {ld['regions_equal']}, next step "
+              f"bit-equal to the continuing job's {ld['next_step_equal']}")
+        if not (ld["regions_equal"] and ld["next_step_equal"]) or \
+                ld["load_max_buffer_bytes"] > ld["largest_region_bytes"]:
+            raise AssertionError(f"phase 17 (b) rank {r['rank']}: {ld}")
+    return dp, recs, totals, per_step
+
+
+def _zero_beside_start(tmp):
+    """(b)'s one-rank load of the job's checkpoint (a fresh process) and
+    (d)'s 2-rank gradient-merge job, started beside phase 16 (b)."""
+    ckpt = os.path.join(tmp, "zero", "ckpt")
+    return (_start_job(tmp, "load1", 1, _zero_args() + [
+                "--load1", "--ckpt", ckpt], worker=_ZERO_WORKER),
+            _start_job(tmp, "gm", 2, _zero_args() + [
+                "--runs", "gm,gm_full", "--gm-layers",
+                str(_ZERO_GM_LAYERS)], worker=_ZERO_WORKER))
+
+
+def _zero_beside_finish(card, started, recs, per_step):
+    """Gates of (b)'s one-rank load (against the saving job's records)
+    and of (d); no time is printed (they ran beside phase 16 (b)).
+    Returns their launches."""
+    load1, gm = started
+    (one,), _ = _finish_job("load1", load1, 1, phase=17,
+                            records=["load1.json"])
+    saved = [r["runs"]["os"] for r in recs]
+    ok = one["loaded_params"] == saved[0]["saved_params"] \
+        and one["loaded_slots"] == [x["saved_slots"] for x in saved] \
+        and one["digest"] == saved[0]["digests"][-1]
+    print(f"[{card}] phase 17 (b) one-rank load (fresh process): largest "
+          f"host buffer {one['load_max_buffer_bytes'] / 1e6:.1f} MB; params "
+          f"and both ranks' slot regions bit-equal, and the next step (the "
+          f"two ranks' mean gradient) bit-equal to the continuing job's: "
+          f"{ok}")
+    if not ok:
+        raise AssertionError(f"phase 17 (b) one-rank load: {one}")
+    per1 = {k: (v if k == "adamw" else 2 * v) for k, v in per_step.items()}
+    if {k: one["launches"].get(k, 0) for k in per1} != per1:
+        raise AssertionError(f"phase 17 (b) one-rank launches "
+                             f"{one['launches']}, expected {per1}")
+    gm_recs, _ = _finish_job("gm", gm, 2, phase=17)
+    per_gm = {k: v for k, v in _dp_per_step(
+        _ZERO_GM_LAYERS, recs[0]["runs"]["os"]["param_tensors"]).items()
+        if v}
+    totals = _zero_check_launches(gm_recs, per_step, per_gm)
+    for k in totals:
+        totals[k] += per1[k]
+    for r in gm_recs:
+        gm, full = r["runs"]["gm"], r["runs"]["gm_full"]
+        print(f"[{card}] phase 17 (d) rank {r['rank']}: gradient merge "
+              f"k=2 at the headline width, {_ZERO_GM_LAYERS} layers (two "
+              f"micro-steps of 2 x 2048, sharding stage 1) vs one "
+              f"step of 4 x 2048: merged gradient relative error max "
+              f"{gm['grad_rel_max']:.4e}, median {gm['grad_rel_median']:.4e}"
+              f" (tol {gm['grad_tol']}); losses {gm['losses']} vs "
+              f"{full['losses']}")
+    return totals
+
+
+def _bucketer_check(torch, card):
+    """Phase 17 (c): ``BucketedGradSync`` over a 2-way ("dp",) mesh of
+    cuda:0 on per-shard fp32 gradients of the headline's shapes,
+    captured once as a CUDA graph and replayed; the int8 fallback; then
+    ``run_comms_bench`` over that mesh."""
+    from paddle_tpu_torch.distributed.collectives import (
+        BucketedGradSync, configure, int8_error_bound, run_comms_bench)
+    from paddle_tpu_torch.distributed.mesh import build_device_mesh
+    from paddle_tpu_torch.graphs import CapturedProgram
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from tools.port_train_bench import headline_big_config
+    model = LlamaForCausalLM(headline_big_config("full"), device="cuda")
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    mesh = build_device_mesh({"dp": 2}, devices=["cuda:0", "cuda:0"])
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    grads = [{n: torch.randn(s, generator=gen, device="cuda")
+              for n, s in shapes.items()} for _ in range(2)]
+
+    def plain(n):      # the plain mean, made per tensor (memory)
+        return (grads[0][n] + grads[1][n]) / 2
+    hook = BucketedGradSync(axes=("dp",), mesh=mesh, compress=None)
+    t0 = time.perf_counter()
+    eager = hook(grads)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0)
+    eager_ok = all(torch.equal(eager[s][n], plain(n))
+                   for s in range(2) for n in shapes)
+    del eager
+    outs = [{n: torch.empty(s, device="cuda") for n, s in shapes.items()}
+            for _ in range(2)]
+
+    def run():
+        res = hook(grads)
+        for s in range(2):
+            for n in shapes:
+                outs[s][n].copy_(res[s][n])
+    prog = CapturedProgram(run, "cuda:0", name="the bucketed grad sync")
+    prog.capture()
+    for o in outs:
+        for t in o.values():
+            t.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog()
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.perf_counter() - t0)
+    replay_ok = all(torch.equal(outs[s][n], plain(n))
+                    for s in range(2) for n in shapes)
+    del outs, prog
+    torch.cuda.empty_cache()
+    # the int8 route on the embedding and the norms (the full set's int8
+    # codes and dequantized copies would take tens of GB)
+    sub = [n for n in shapes if "embed" in n or "norm" in n]
+    small = [{n: g[n] for n in sub} for g in grads]
+    want = {n: plain(n) for n in sub}
+    with configure(compress="int8", error_bound=0.0):
+        exact = BucketedGradSync(axes=("dp",), mesh=mesh)(small)
+    with configure(compress="int8", error_bound=1e9):
+        loose = BucketedGradSync(axes=("dp",), mesh=mesh)(small)
+    exact_ok = all(torch.equal(exact[s][n], want[n])
+                   for s in range(2) for n in sub)
+    err = max(float((loose[0][n] - want[n]).abs().max()) for n in sub)
+    absmax = max(float(g[n].abs().max()) for g in small for n in sub)
+    out_mx = max(float((2 * want[n]).abs().max()) for n in sub)
+    bound = float(int8_error_bound(absmax, 2, bucket_absmax_out=out_mx)) / 2
+    del grads, small, exact, loose
+    torch.cuda.empty_cache()
+    n_el = sum(math.prod(s) for s in shapes.values())
+    print(f"[{card}] phase 17 (c) BucketedGradSync over a 2-way (\"dp\",) "
+          f"mesh of cuda:0, {len(shapes)} fp32 gradients of the headline's "
+          f"shapes ({n_el / 1e6:.1f}M elements a shard): eager "
+          f"{eager_ms:.1f} ms, bit-equal to the plain mean {eager_ok}; the "
+          f"captured program (one CUDA graph) replayed in {replay_ms:.1f} "
+          f"ms, bit-equal {replay_ok}; int8 with error_bound=0 bit-equal to "
+          f"fp32 {exact_ok}; int8 with a loose budget max error "
+          f"{err:.4e} within its bound {bound:.4e}: {err <= bound} (on "
+          f"{', '.join(sub)})")
+    if not (eager_ok and replay_ok and exact_ok and 0 < err <= bound):
+        raise AssertionError("phase 17 (c): the bucketed grad sync failed "
+                             "a gate")
+    bench = run_comms_bench(size_mb=64.0, iters=3, mesh=mesh)
+    print(f"[{card}] phase 17 (c) run_comms_bench(64 MB, mesh of cuda:0 "
+          f"x 2; one card: copies and sums, no link): {json.dumps(bench)}")
+    q = bench["all_reduce_int8"]
+    if not (q["within_bound"] and q["constant_exact"]):
+        raise AssertionError(f"phase 17 (c): comms bench {q}")
+
+
+def dp_zero_path(torch, card):
+    """Phases 16 and 17 (see the module docstring), in the order set out
+    there: what prints a time runs alone on the card. Returns the launch
+    counts of phase 16 (a)'s workers (both ranks, their steps) and of
+    phase 17's (both ranks of (a)/(b) and of (d), and (b)'s one-rank
+    load)."""
     import shutil
     import tempfile
+    from paddle_tpu_torch import ops
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="pt_dp_")
+    jobs = []
     try:
-        totals = _dp_training(torch, card, tmp)
-        _dp_elastic(torch, card, tmp)
+        dp, recs, zero, per_step = _zero_training(torch, card, tmp)
+        print(f"phases 16 (a) and 17 (a) with (b)'s save and 2-rank load "
+              f"took {time.perf_counter() - t_phase:.1f} s")
+        t0 = time.perf_counter()
+        _bucketer_check(torch, card)
+        print(f"phase 17 (c) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        elastic = _dp_elastic_start(tmp)
+        beside = _zero_beside_start(tmp)
+        jobs = list(elastic[1].values()) + list(beside)
+        _dp_elastic_finish(torch, card, elastic)
+        more = _zero_beside_finish(card, beside, recs, per_step)
+        print(f"phase 16 (b), 17 (b)'s one-rank load and 17 (d), side by "
+              f"side, took {time.perf_counter() - t0:.1f} s")
     finally:
+        for job in jobs:
+            _stop_job(job)
         shutil.rmtree(tmp, ignore_errors=True)
     _nccl_one_rank(torch, card)
-    print(f"phase 16 (process-group runtime, data parallelism) took "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return totals
+    print(f"phases 16 and 17 took {time.perf_counter() - t_phase:.1f} s")
+    zero = {k: zero.get(k, 0) + more.get(k, 0) for k in ops.launch_counts()}
+    return dp, zero
 
 
 def main() -> int:
+    _cache_bytecode()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
@@ -6231,7 +6623,7 @@ def main() -> int:
     ernie = ernie_moe_path(torch, card)
     torch.cuda.empty_cache()
     headline = headline_path(torch, card)
-    dp = dp_path(torch, card)
+    dp, zero = dp_zero_path(torch, card)
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, resilience_serving=resilience,
@@ -6239,7 +6631,7 @@ def main() -> int:
                  durable_fleet=durable, tp_serving=tp,
                  training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader,
-                 dp_training=dp)
+                 dp_training=dp, zero_training=zero)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))

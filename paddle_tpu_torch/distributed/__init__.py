@@ -4,10 +4,13 @@ serving runs on; the process-group runtime of a multi-process job (the
 TCP store, eager ``communication``, ``init_parallel_env`` and
 ``DataParallel``, ``launch`` with elastic relaunch, ``elastic``,
 ``consistency``), the eager bucketed gradient sync
-(``collectives.bucketing``, ``fleet.utils``); and the checkpoint
-module's atomic file writes. The sharded checkpoint and pipeline,
-sequence and expert parallelism come with the later slices of
-``ROADMAP.md`` A.6.
+(``collectives.bucketing``, ``fleet.utils``) and its in-graph half
+(``BucketedGradSync``); group-sharded training (ZeRO 1/2/3 over the
+process group: ``sharding``), fleet's strategy API with its
+meta-optimizers (``fleet``), and the resharding distributed checkpoint
+(``checkpoint``: ``save_state_dict``/``load_state_dict``). Pipeline,
+sequence and expert parallelism and the placement API come with the
+later slices of ``ROADMAP.md`` A.6.
 
 Deliberate differences from the JAX package: the world's collectives
 run on ``torch.distributed`` (gloo or nccl, ``parallel``) where JAX's run
@@ -34,6 +37,13 @@ from . import consistency                                          # noqa
 from .consistency import (program_fingerprint,                     # noqa
                           check_program_consistency)
 from . import fleet                                                # noqa
+from . import checkpoint                                           # noqa
+from . import sharding                                             # noqa
+from . import collectives                                          # noqa
+from .sharding import (group_sharded_parallel,                     # noqa
+                       save_group_sharded_model)
+from .checkpoint import save_state_dict, load_state_dict           # noqa
+from .fleet import DistributedStrategy as Strategy                 # noqa
 
 
 def is_initialized() -> bool:

@@ -16,11 +16,14 @@ sets, the same on every shard. The host-level :func:`all_reduce`,
 :func:`all_gather` and :func:`reduce_scatter` take stacked per-device
 contributions and return the global result, as JAX's do.
 
-The eager half of the JAX package's gradient bucketing
-(:mod:`.bucketing`: ``build_buckets``, ``bucketed_allreduce_gradients``)
-syncs the gradients of a data-parallel job over ``communication``. The
-in-graph ``BucketedGradSync``/``attach_grad_sync`` and the comms
-microbench are not part of this module yet (``ROADMAP.md`` A.6 (c))."""
+Gradient bucketing (:mod:`.bucketing`): the eager
+``bucketed_allreduce_gradients`` syncs the gradients of a data-parallel
+job over ``communication``; the in-graph ``BucketedGradSync`` (the
+optimizer's ``_grad_sync`` hook, :func:`attach_grad_sync`) syncs a list
+of per-shard gradients through the in-program collectives above, so a
+CUDA graph can capture it. :mod:`.microbench`'s ``run_comms_bench``
+times the host-level collectives over a mesh and checks the int8
+bound."""
 from __future__ import annotations
 
 import contextlib
@@ -36,7 +39,9 @@ __all__ = [
     "hier_all_reduce", "hier_all_gather", "hier_reduce_scatter",
     "all_reduce", "all_gather", "reduce_scatter",
     "quantized_all_reduce", "int8_error_bound",
-    "build_buckets", "bucketed_allreduce_gradients",
+    "build_buckets", "BucketedGradSync", "bucketed_allreduce_gradients",
+    "attach_grad_sync",
+    "run_comms_bench",
 ]
 
 
@@ -49,19 +54,25 @@ class CollectiveConfig:
     - ``compress``: None (fp32) or "int8" (per-bucket-scaled int8
       payload, fp32 accumulation).
     - ``quant_bucket_size``: elements per int8 scale bucket.
+    - ``error_bound``: the largest tolerable |quantized - fp32| an
+      element. With ``compress="int8"`` the in-graph
+      ``BucketedGradSync`` computes each fused bucket's runtime bound
+      and takes the fp32 reduction for a bucket whose bound exceeds it
+      (both reductions run for such buckets). The eager bucketed path
+      always ships fp32 and never reads it.
     - ``bucket_bytes``: the gradient bucketer's target (the reference
-      DataParallel's ``comm_buffer_size`` is 25 MB).
-    - ``bucketed_grad_sync``: ``fleet.utils.fused_allreduce_gradients``
-      syncs bucket by bucket (default off, or
-      ``PT_COLLECTIVES_BUCKETED_SYNC=1``); it changes how many
-      collectives run, not the values of fp32 gradients.
-
-    JAX's ``error_bound`` budgets the in-graph int8 grad sync, which is
-    not ported (``ROADMAP.md`` A.6 (c)).
+      DataParallel's ``comm_buffer_size`` is 25 MB); the group-sharded
+      step's collectives bucket by it too.
+    - ``bucketed_grad_sync``: wires ``BucketedGradSync`` into
+      ``group_sharded_parallel`` and makes
+      ``fleet.utils.fused_allreduce_gradients`` sync bucket by bucket
+      (default off, or ``PT_COLLECTIVES_BUCKETED_SYNC=1``); it changes
+      how many collectives run, not the values of fp32 gradients.
     """
     hierarchy: str = "auto"                 # "auto" | "flat"
     compress: Optional[str] = None          # None | "int8"
     quant_bucket_size: int = 512
+    error_bound: Optional[float] = None
     bucket_bytes: int = 25 << 20
     bucketed_grad_sync: bool = dataclasses.field(
         default_factory=lambda: env_bool("PT_COLLECTIVES_BUCKETED_SYNC"))
@@ -107,4 +118,6 @@ from .hierarchical import (HierarchyPlan, plan_hierarchy,          # noqa: E402
                            hier_reduce_scatter,
                            all_reduce, all_gather, reduce_scatter)
 from .quantized import quantized_all_reduce, int8_error_bound      # noqa: E402
-from .bucketing import build_buckets, bucketed_allreduce_gradients  # noqa: E402
+from .bucketing import (build_buckets, BucketedGradSync,           # noqa: E402
+                        bucketed_allreduce_gradients, attach_grad_sync)
+from .microbench import run_comms_bench                            # noqa: E402

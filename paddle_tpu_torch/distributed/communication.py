@@ -212,28 +212,20 @@ def _note(op: str, route: str) -> str:
     return route
 
 
-def _backend_call(route, tensors, fn):
-    """Run ``fn(*xs)`` on the process group, where ``xs`` are
-    ``tensors`` or, on the gloo route, pinned host copies of the CUDA
-    ones (timed); returns the ``xs`` after the call. The caller copies
-    results back with :func:`_to_device`."""
-    stage = route == "gloo" and any(t.is_cuda for t in tensors)
+def _stage_in(tensors, staged: bool) -> list:
+    """``tensors`` (contiguous) or, ``staged``, their pinned host copies
+    (the copies counted and timed as the gloo route's staging)."""
+    if not staged:
+        return [t.contiguous() for t in tensors]
     t0 = time.perf_counter()
-    if stage:
-        xs = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t)
-            xs.append(h)
-            _STAGE["bytes"] += h.numel() * h.element_size()
-        _STAGE["calls"] += 1
-    else:
-        xs = [t.contiguous() for t in tensors]
-    t1 = time.perf_counter()
-    fn(*xs)
-    if stage:
-        _STAGE["d2h_s"] += t1 - t0
-        _STAGE["transport_s"] += time.perf_counter() - t1
+    xs = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t)
+        xs.append(h)
+        _STAGE["bytes"] += h.numel() * h.element_size()
+    _STAGE["calls"] += 1
+    _STAGE["d2h_s"] += time.perf_counter() - t0
     return xs
 
 
@@ -246,6 +238,97 @@ def _to_device(dst: torch.Tensor, src: torch.Tensor):
     if dst.is_cuda and not src.is_cuda:
         _STAGE["h2d_s"] += time.perf_counter() - t0
     return dst
+
+
+class _Flight:
+    """A collective of the process group in flight (the gloo or nccl
+    route, ``async_op=True``): ``wait()`` ends it and copies its results
+    into the caller's tensors (from their pinned host copies on the gloo
+    route); the wait counts as the transport's time there."""
+
+    def __init__(self, work, pairs, staged, finish):
+        self._work = work
+        self._pairs = pairs
+        self._staged = staged
+        self._finish = finish
+
+    def wait(self):
+        if self._work is None:
+            return True
+        t0 = time.perf_counter()
+        self._work.wait()
+        if self._staged:
+            _STAGE["transport_s"] += time.perf_counter() - t0
+        for dst, src in self._pairs:
+            _to_device(dst, src)
+        if self._finish is not None:
+            self._finish()
+        self._work, self._pairs, self._finish = None, (), None
+        return True
+
+    def is_completed(self):
+        return self._work is None or self._work.is_completed()
+
+
+def _start(route, ins, outs, launch, inplace=False, finish=None):
+    """Start ``launch(*xs)`` (a ``torch.distributed`` call with
+    ``async_op=True``) over the inputs ``ins`` and the outputs ``outs``
+    (``inplace``: the inputs are the outputs); on the gloo route CUDA
+    tensors travel through pinned host copies (outputs as empty pinned
+    buffers). Returns the :class:`_Flight`, whose ``wait()`` copies the
+    results back and then runs ``finish()``. The one path of every
+    process-group collective: a synchronous op is ``_start(...).wait()``."""
+    ins, outs = list(ins), list(outs)
+    staged = route == "gloo" and any(t.is_cuda for t in ins + outs)
+    hin = _stage_in(ins, staged)
+    if inplace:
+        hout = hin
+    elif staged:
+        hout = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in outs]
+    else:
+        hout = [t.contiguous() for t in outs]
+    work = launch(*hin) if inplace else launch(*hin, *hout)
+    targets = ins if inplace else outs
+    return _Flight(work, [(d, h) for d, h in zip(targets, hout)
+                          if d is not h], staged, finish)
+
+
+def _start_all_gather(route, outs, mine):
+    """``torch.distributed.all_gather`` of ``mine`` into ``outs`` (one
+    tensor a rank), started."""
+    return _start(route, [mine], outs, lambda i, *o: torch.distributed
+                  .all_gather(list(o), i, async_op=True))
+
+
+def _reduce_scatter_flat(out, inp, group=None):
+    """``out`` (1-D) = this member's 1/n of the sum of every member's
+    ``inp`` (1-D, n times ``out``), started: the returned task's
+    ``wait()`` ends it. The gloo and nccl routes run
+    ``reduce_scatter_tensor``; the store route all-reduces and keeps
+    this member's part; one process copies."""
+    route = _note("reduce_scatter_tensor", _route(group))
+    if route in ("gloo", "nccl"):
+        return _start(route, [inp], [out], lambda i, o: torch.distributed
+                      .reduce_scatter_tensor(o, i, async_op=True))
+    if route == "store":
+        all_reduce(inp, group=group)
+    n = out.numel()
+    me = _me(group) if route == "store" else 0
+    out.copy_(inp[me * n:(me + 1) * n])
+    return Task()
+
+
+def _all_gather_flat(outs, mine, group=None):
+    """Every member's 1-D ``mine`` into ``outs`` (one tensor a member,
+    in group-rank order), started: the returned task's ``wait()`` ends
+    it."""
+    route = _note("all_gather", _route(group))
+    if route in ("gloo", "nccl"):
+        return _start_all_gather(route, outs, mine)
+    for o, p in zip(outs, _gather_parts(mine, group, "allgather", route)):
+        o.copy_(p)
+    return Task()
 
 
 _TORCH_OPS = {ReduceOp.SUM: "SUM", ReduceOp.AVG: "SUM", ReduceOp.MAX: "MAX",
@@ -564,15 +647,10 @@ def _gather_parts(v, group, op_name, route):
     if route == "store":
         return [p.to(v.device) for p in
                 _store_gather(v, group or _world(), op_name)]
-    outs = []
-
-    def run(x):
-        outs.extend(torch.empty_like(x)
-                    for _ in range(torch.distributed.get_world_size()))
-        torch.distributed.all_gather(outs, x)
-    _backend_call(route, [v], run)
-    return [o if o.device == v.device
-            else _to_device(torch.empty_like(v), o) for o in outs]
+    outs = [torch.empty_like(v)
+            for _ in range(torch.distributed.get_world_size())]
+    _start_all_gather(route, outs, v).wait()
+    return outs
 
 
 def _me(group) -> int:
@@ -581,20 +659,27 @@ def _me(group) -> int:
 
 
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
+    """In place. ``sync_op=False`` on the gloo or nccl route starts the
+    collective and returns a task whose ``wait()`` ends it (several may
+    be in flight, each on its own buffer); on the other routes the call
+    completes and returns a finished task."""
     v = _val(tensor)
     route = _note("all_reduce", _route(group))
     if route == "local":
-        return tensor
+        return tensor if sync_op else Task()
     if route == "store":
         parts = _store_gather(v, group or _world(), f"allreduce_{op}")
-        out = _reduce_terms(op, parts)
-        tensor.copy_(out)
-        return tensor
-    (x,) = _backend_call(route, [v], lambda x: torch.distributed.all_reduce(
-        x, op=getattr(torch.distributed.ReduceOp, _TORCH_OPS[op])))
-    if op == ReduceOp.AVG:
-        x = x / torch.distributed.get_world_size()
-    _to_device(tensor, x)
+        tensor.copy_(_reduce_terms(op, parts))
+        return tensor if sync_op else Task()
+    n = torch.distributed.get_world_size()
+    fl = _start(route, [v], [], lambda x: torch.distributed.all_reduce(
+        x, op=getattr(torch.distributed.ReduceOp, _TORCH_OPS[op]),
+        async_op=True), inplace=True,
+        finish=(lambda: tensor.copy_(tensor / n))
+        if op == ReduceOp.AVG else None)
+    if not sync_op:
+        return fl
+    fl.wait()
     return tensor
 
 
@@ -641,9 +726,8 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
     if route == "local":
         return tensor
     if route != "store":
-        (x,) = _backend_call(route, [v], lambda x: torch.distributed
-                             .broadcast(x, src))
-        _to_device(tensor, x)
+        _start(route, [v], [], lambda x: torch.distributed.broadcast(
+            x, src, async_op=True), inplace=True).wait()
         return tensor
     # src is the GLOBAL rank (reference semantics)
     g = group or _world()
@@ -692,9 +776,9 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
         else torch.zeros((g.nranks,) + tuple(tensor.shape),
                          dtype=tensor.dtype, device=tensor.device)
     if route != "store":
-        (x,) = _backend_call(route, [stacked], lambda x: torch.distributed
-                             .broadcast(x, src))
-        tensor.copy_(x[_my_rank()])
+        _start(route, [stacked], [], lambda x: torch.distributed.broadcast(
+            x, src, async_op=True), inplace=True).wait()
+        tensor.copy_(stacked[_my_rank()])
         return tensor
     parts = _store_gather(stacked, g, "scatter")
     idx = g.get_group_rank(src)

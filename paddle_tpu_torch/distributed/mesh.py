@@ -19,10 +19,10 @@ card a 2-way mesh then runs both shards there.
 (JAX's ``NamedSharding(mesh, P(axes))``), the placement
 ``io.device_prefetch(sharding=)`` gives each device's piece by.
 
-``HybridCommunicateGroup`` and ``CommunicateTopology`` come only as far
-as building and setting a mesh: the per-axis process groups of a
-multi-process run are not part of this module yet (a job's world group
-is ``distributed.communication``'s)."""
+``HybridCommunicateGroup`` builds and sets a mesh; in a job of several
+processes ``fleet.init`` also gives it this rank's process group along
+the dp and sharding axes (``get_data_parallel_group``,
+``get_sharding_parallel_group``: None where the degree is 1)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -142,12 +142,19 @@ class HybridCommunicateGroup:
         self._topo = CommunicateTopology(list(AXIS_ORDER),
                                          [self._dims.get(a, 1)
                                           for a in AXIS_ORDER])
+        self._groups = {}       # axis -> process group (fleet.init)
         global _HCG
         _HCG = self
         set_current_mesh(self.mesh)
 
     def axis_size(self, axis: str) -> int:
         return self._dims.get(axis, 1)
+
+    def get_data_parallel_group(self):
+        return self._groups.get("dp")
+
+    def get_sharding_parallel_group(self):
+        return self._groups.get("sharding")
 
     def topology(self):
         return self._topo

@@ -17,6 +17,12 @@ has a card of its own, ``gloo`` when ranks share a card (NCCL refuses
 two ranks on one GPU) or run on the host. The gloo route stages CUDA
 tensors through host memory (``communication``).
 
+Gloo moves each collective over one TCP connection, about 1 GB/s on
+loopback. When every rank of the job runs on this host and the job sets
+no ``GLOO_SOCKET_IFNAME``, ``init_parallel_env`` gives gloo
+``GLOO_LOOPBACK_DEVICES`` loopback devices (``lo`` repeated), and the
+bucketed syncs keep several buckets in flight, one a device.
+
 ``DataParallel`` keeps paddle's manual loop (forward, ``backward()``,
 ``sync_gradients()`` or ``fleet.utils.fused_allreduce_gradients``,
 ``opt.step()``): the eager sync is a bucketed mean all-reduce of the
@@ -26,6 +32,8 @@ eager."""
 from __future__ import annotations
 
 import contextlib
+import os
+import socket
 from typing import Optional
 
 import torch
@@ -38,6 +46,24 @@ __all__ = ["init_parallel_env", "get_rank", "get_world_size",
            "ParallelEnv", "DataParallel"]
 
 _STATE = {"device": None, "backend": None}
+GLOO_LOOPBACK_DEVICES = 4
+
+
+@contextlib.contextmanager
+def _gloo_loopback(n: int, local_size: int):
+    """Several loopback devices for a gloo group whose ranks all run on
+    this host (module docstring), set only while the group is made (gloo
+    reads ``GLOO_SOCKET_IFNAME`` there); a job's own value stands."""
+    if local_size < n or "GLOO_SOCKET_IFNAME" in os.environ or \
+            "lo" not in {name for _, name in socket.if_nameindex()}:
+        yield
+        return
+    os.environ["GLOO_SOCKET_IFNAME"] = ",".join(
+        ["lo"] * GLOO_LOOPBACK_DEVICES)
+    try:
+        yield
+    finally:
+        os.environ.pop("GLOO_SOCKET_IFNAME", None)
 
 
 def _shutdown():
@@ -84,9 +110,11 @@ def init_parallel_env(device=None):
                 "(python -m paddle_tpu_torch.distributed.launch sets them)")
         addr, port = "127.0.0.1", str(find_free_port())
     kw = {"device_id": dev} if backend == "nccl" else {}
-    torch.distributed.init_process_group(
-        backend, init_method=f"tcp://{addr}:{port}", rank=rank,
-        world_size=n, **kw)
+    with _gloo_loopback(n, local_size) if backend == "gloo" \
+            else contextlib.nullcontext():
+        torch.distributed.init_process_group(
+            backend, init_method=f"tcp://{addr}:{port}", rank=rank,
+            world_size=n, **kw)
     _STATE.update(device=dev, backend=backend)
     return ParallelEnv()
 
@@ -160,7 +188,9 @@ class DataParallel(torch.nn.Module):
     ``backward()`` and ``opt.step()`` a manual loop calls
     :meth:`sync_gradients` (a no-op inside :meth:`no_sync`), a bucketed
     mean all-reduce of the gradients sized by ``comm_buffer_size`` (MB),
-    as the reference's Reducer. ``state_dict`` is the model's."""
+    as the reference's Reducer; it leaves out the parameters of a
+    group-sharded optimizer, whose step reduces them (``sharding``).
+    ``state_dict`` is the model's."""
 
     def __init__(self, layers, strategy=None, comm_buffer_size=25,
                  last_comm_buffer_size=1, find_unused_parameters=False,

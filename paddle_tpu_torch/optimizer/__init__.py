@@ -21,9 +21,19 @@ step tensor on the device, so a CUDA graph of the training step
 replays it writes the learning rate first. The host ``_step_count``
 mirrors the step for ``state_dict()``. Loading a state copies into the
 tensors the optimizer already holds, so a captured graph keeps reading
-them."""
+them.
+
+The hooks of JAX's ``Optimizer``: ``_grad_sync`` (``{name: grad}`` ->
+``{name: grad}``, set by ``distributed.collectives.attach_grad_sync``)
+runs first in ``step()``, before ``grad_clip``; ``_shard_plan`` (set by
+``distributed.sharding.group_sharded_parallel``) then makes the step
+reduce the gradients over its process group and update each rank's
+region of every parameter (its slots are regions: ``state_dict()``
+returns them as ``ShardedTensor``s under JAX's keys). The clips sum
+squares over the group where a gradient is a region."""
 from __future__ import annotations
 
+import time
 from typing import Dict, Iterable
 
 import torch
@@ -49,8 +59,18 @@ def _capturing(device: torch.device) -> bool:
 # ---------------------------------------------------------------------------
 
 class ClipGradBase:
-    def apply(self, grads: dict) -> dict:
+    def apply(self, grads: dict, reduce_squares=None) -> dict:
+        """``reduce_squares``: ``{name: local sum of squares}`` -> the
+        global sums, where the gradients are regions of a sharded step
+        (``distributed.sharding``); None sums locally."""
         raise NotImplementedError
+
+
+def _squares(grads, reduce_squares):
+    """Each gradient's fp32 sum of squares (over the group where the
+    step shards it)."""
+    sq = {k: g.float().square().sum() for k, g in grads.items()}
+    return sq if reduce_squares is None else reduce_squares(sq)
 
 
 class ClipGradByValue(ClipGradBase):
@@ -58,7 +78,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = max
         self.min = min if min is not None else -max
 
-    def apply(self, grads):
+    def apply(self, grads, reduce_squares=None):
         return {k: g.clamp(self.min, self.max) for k, g in grads.items()}
 
 
@@ -73,13 +93,10 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
 
-    def apply(self, grads):
-        out = {}
-        for k, g in grads.items():
-            gf = g.float()
-            out[k] = (gf * _scale(self.clip_norm, gf.square().sum().sqrt())
-                      ).to(g.dtype)
-        return out
+    def apply(self, grads, reduce_squares=None):
+        sq = _squares(grads, reduce_squares)
+        return {k: (g.float() * _scale(self.clip_norm, sq[k].sqrt())
+                    ).to(g.dtype) for k, g in grads.items()}
 
 
 class ClipGradByGlobalNorm(ClipGradBase):
@@ -90,8 +107,8 @@ class ClipGradByGlobalNorm(ClipGradBase):
                  auto_skip_clip=False):
         self.clip_norm = clip_norm
 
-    def apply(self, grads):
-        sq = sum(g.float().square().sum() for g in grads.values())
+    def apply(self, grads, reduce_squares=None):
+        sq = sum(_squares(grads, reduce_squares).values())
         scale = _scale(self.clip_norm, sq.sqrt())
         return {k: (g.float() * scale).to(g.dtype)
                 for k, g in grads.items()}
@@ -120,6 +137,10 @@ class Optimizer:
         self._step_tensor = torch.zeros(1, dtype=torch.int32, device=dev)
         self._lr_tensor = torch.full((1,), self.get_lr(),
                                      dtype=torch.float32, device=dev)
+        # the in-graph gradient sync ({name: grad} -> {name: grad}) and
+        # the group-sharded plan (module docstring)
+        self._grad_sync = None
+        self._shard_plan = None
 
     def get_lr(self) -> float:
         if isinstance(self._learning_rate, LRScheduler):
@@ -158,15 +179,27 @@ class Optimizer:
         if not todo:
             return
         grads = {n: p.grad for n, p in todo.items()}
+        if self._grad_sync is not None:
+            grads = self._grad_sync(grads)
+        plan = self._shard_plan
+        if plan is not None:
+            grads = plan.sync(todo, grads)
         if self._grad_clip is not None:
-            grads = self._grad_clip.apply(grads)
+            grads = self._grad_clip.apply(
+                grads, None if plan is None else plan.reduce_squares(todo))
         if not _capturing(self._step_tensor.device):
             self.write_lr()
             self._step_count += 1
         self._step_tensor.add_(1)
+        t0 = time.perf_counter()
         for n, p in todo.items():
-            self._apply(p, grads[n], self._ensure_slots(p), self._lr_tensor,
-                        self._step_tensor)
+            if plan is None:
+                self._apply(p, grads[n], self._ensure_slots(p),
+                            self._lr_tensor, self._step_tensor)
+            else:
+                plan.apply(self, p, grads[n])
+        if plan is not None:
+            plan.finish(todo.values(), t0, self._step_tensor.device)
 
     def _init_slots(self, p) -> dict:
         return {}
@@ -177,11 +210,24 @@ class Optimizer:
         ``multi_precision`` (made from the parameter's current value)."""
         slots = self._slots.get(id(p))
         if slots is None:
-            slots = self._init_slots(p)
-            if self._multi_precision and p.dtype in _LOW:
-                slots["master"] = p.detach().float()
+            src = p.detach() if self._shard_plan is None else \
+                self._shard_plan.local_param(p).contiguous()
+            slots = self._init_slots(src)
+            if self._multi_precision and src.dtype in _LOW:
+                slots["master"] = src.float()
             self._slots[id(p)] = slots
         return slots
+
+    def functional_state(self) -> dict:
+        """Every trainable parameter's states, made where missing (zeros,
+        or the fp32 master), and the step count, as JAX's
+        ``functional_state``: ``{"slots": {name: {slot: tensor}},
+        "step": int}`` (the held tensors, not copies)."""
+        slots = {}
+        for n, p in zip(self._param_names, self._param_list):
+            if p.requires_grad:
+                slots[n] = dict(self._ensure_slots(p))
+        return {"slots": slots, "step": self._step_count}
 
     def _apply(self, p, g, slots, lr, step):
         raise NotImplementedError
@@ -191,6 +237,8 @@ class Optimizer:
         ``(p, slot)`` (its address stays, for a captured graph that reads
         it); a new tensor on p's device where there is none yet."""
         slots = self._slots.setdefault(id(p), {})
+        if self._shard_plan is not None:
+            value = self._shard_plan.localize(p, value)
         value = torch.as_tensor(value)
         held = slots.get(slot)
         if held is not None and held.shape == value.shape \
@@ -220,11 +268,19 @@ class Optimizer:
     # -- state dict (the JAX layout: "<param name>.<slot>" keys) ---------
     def state_dict(self) -> dict:
         """Copies of the states (later steps update the live ones in
-        place), the step count and the scheduler's state."""
+        place), the step count and the scheduler's state; under a
+        group-sharded plan a sharded parameter's states are this rank's
+        regions, as ``ShardedTensor``s."""
         out = {}
+        plan = self._shard_plan
         for n, p in zip(self._param_names, self._param_list):
             for k, v in self._slots.get(id(p), {}).items():
-                out[f"{n}.{k}"] = v.detach().clone()
+                v = v.detach().clone()
+                if plan is not None and plan.dim(p) is not None:
+                    from ..distributed.sharding import ShardedTensor
+                    v = ShardedTensor(plan.shape(p), v, plan.region(p),
+                                      plan.group, plan.dim(p))
+                out[f"{n}.{k}"] = v
         out["@step"] = self._step_count
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()

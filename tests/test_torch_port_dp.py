@@ -246,3 +246,25 @@ def test_prefetch_sharding_equals_jax_addressable_shards():
     with pytest.raises(ValueError, match="split"):
         list(tio.device_prefetch(iter([np.zeros((6, 2))]),
                                  sharding=NamedSharding(tmesh, "dp")))
+
+
+def test_gloo_loopback_devices_only_while_the_group_is_made(monkeypatch):
+    """``init_parallel_env`` gives a one-host gloo group several loopback
+    devices through ``GLOO_SOCKET_IFNAME``, set only around the group's
+    creation; a job's own value stands, and a group of several hosts
+    gets none."""
+    import socket
+    from paddle_tpu_torch.distributed import parallel
+    monkeypatch.delenv("GLOO_SOCKET_IFNAME", raising=False)
+    with parallel._gloo_loopback(2, 2):
+        inside = os.environ.get("GLOO_SOCKET_IFNAME")
+    has_lo = "lo" in {name for _, name in socket.if_nameindex()}
+    assert inside == (",".join(["lo"] * parallel.GLOO_LOOPBACK_DEVICES)
+                      if has_lo else None)
+    assert "GLOO_SOCKET_IFNAME" not in os.environ
+    with parallel._gloo_loopback(4, 2):         # ranks on another host
+        assert "GLOO_SOCKET_IFNAME" not in os.environ
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "eth0")
+    with parallel._gloo_loopback(2, 2):
+        assert os.environ["GLOO_SOCKET_IFNAME"] == "eth0"
+    assert os.environ["GLOO_SOCKET_IFNAME"] == "eth0"

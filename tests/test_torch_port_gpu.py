@@ -2497,3 +2497,76 @@ def test_nccl_one_rank_group(dev, monkeypatch):
     finally:
         dist.destroy_process_group()
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_on_a_non_leading_region(dev, dtype):
+    """The group-sharded step's AdamW input: a region along dim 1 of a
+    (4, 384, 96) parameter (what the sharding rule picks), copied to be
+    contiguous, updated by the kernel in place against its plain version
+    on the same region, at steps 1 and 2."""
+    from paddle_tpu_torch.distributed.sharding import region, sharded_dim
+    from paddle_tpu_torch.ops.fused import adamw_reference, fused_adamw
+    g = torch.Generator(device=dev).manual_seed(20)
+    shape = (4, 384, 96)
+    d = sharded_dim(shape, 2)
+    assert d == 1
+    a, b = region(shape, d, 2, 1)[d]
+    full = torch.randn(shape, generator=g, device=dev).to(dtype)
+    p = full.narrow(d, a, b - a).contiguous()
+    assert not full.narrow(d, a, b - a).is_contiguous()
+    grad = torch.randn(p.shape, generator=g, device=dev).to(dtype)
+    m = torch.zeros_like(p)
+    v = torch.zeros_like(p)
+    pr, mr, vr = p.clone(), m.clone(), v.clone()
+    lr = torch.full((1,), 1e-3, device=dev)
+    for step in (1, 2):
+        st = torch.full((1,), step, dtype=torch.int32, device=dev)
+        before = fused_adamw.launches
+        fused_adamw(p, grad, m, v, lr, 0.9, 0.999, 1e-8, 0.01, st)
+        assert fused_adamw.launches == before + 1
+        with ops.plain_versions():
+            pr, mr, vr = adamw_reference(pr, grad, mr, vr, lr, st, 0.9,
+                                         0.999, 1e-8, 0.01)
+    torch.cuda.synchronize()
+    tol = {} if dtype == torch.float32 else {"atol": 1e-2, "rtol": 2 ** -7}
+    for got, want in ((p, pr), (m, mr), (v, vr)):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_captured_bucketer_equals_eager(dev):
+    """``BucketedGradSync`` over a 2-way ("dp",) mesh of one card,
+    captured as a CUDA graph and replayed, against the eager hook and
+    the plain mean (bit for bit), over buckets smaller than a tensor."""
+    from paddle_tpu_torch.distributed.collectives import BucketedGradSync
+    from paddle_tpu_torch.distributed.mesh import build_device_mesh
+    from paddle_tpu_torch.graphs import CapturedProgram
+    mesh = build_device_mesh({"dp": 2}, devices=[dev, dev])
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = {"w1": (64, 32), "b1": (32,), "w2": (32, 300), "e": (0, 4)}
+    grads = [{k: torch.randn(s, generator=g, device=dev)
+              for k, s in shapes.items()} for _ in range(2)]
+    hook = BucketedGradSync(axes=("dp",), mesh=mesh, bucket_bytes=4096,
+                            compress=None)
+    eager = hook(grads)
+    outs = [{k: torch.empty(s, device=dev) for k, s in shapes.items()}
+            for _ in range(2)]
+
+    def run():
+        res = hook(grads)
+        for s in range(2):
+            for k in shapes:
+                outs[s][k].copy_(res[s][k])
+    prog = CapturedProgram(run, dev, name="the bucketed sync")
+    prog.capture()
+    assert prog.captures == 1
+    for o in outs:
+        for t in o.values():
+            t.fill_(float("nan"))
+    prog()
+    torch.cuda.synchronize()
+    for s in range(2):
+        for k in shapes:
+            want = (grads[0][k] + grads[1][k]) / 2
+            assert torch.equal(eager[s][k], want), k
+            assert torch.equal(outs[s][k], want), k

@@ -191,9 +191,13 @@ class TestDeviceAndImportRules:
             "import paddle_tpu_torch.distributed.consistency\n"
             "import paddle_tpu_torch.distributed.fleet.utils\n"
             "import paddle_tpu_torch.distributed.collectives.bucketing\n"
+            "import paddle_tpu_torch.distributed.collectives.microbench\n"
+            "import paddle_tpu_torch.distributed.sharding\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_optimizers\n"
             "import paddle_tpu_torch.io\n"
             "sys.path.insert(0, 'tools')\n"
             "import port_dp_worker\n"
+            "import port_zero_worker\n"
             "from paddle_tpu_torch import core\n"
             "from paddle_tpu_torch.ops import build\n"
             "assert not build._loaded, build._loaded\n"

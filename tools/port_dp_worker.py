@@ -345,16 +345,14 @@ def train(args, sync, device, rank, world, restart, store):
     return rec
 
 
-def main(argv=None) -> int:
-    args = parse(argv)
+def run(args, env, t_start) -> dict:
+    """The job's runs and checks on the process group ``init_parallel_env``
+    made (``env``); writes this rank's record and returns it."""
     import torch
-    from paddle_tpu_torch.distributed import (get_rank, get_world_size,
-                                              init_parallel_env)
+    from paddle_tpu_torch.distributed import get_rank, get_world_size
     from paddle_tpu_torch.distributed import communication as C
     from paddle_tpu_torch.distributed.checkpoint import atomic_json_dump
 
-    t_start = time.perf_counter()
-    env = init_parallel_env(device=args.device)
     device = env.device
     rank, world = get_rank(), get_world_size()
     restart = int(os.environ.get("PADDLE_RESTART_COUNT", "0"))
@@ -373,6 +371,17 @@ def main(argv=None) -> int:
     out["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     atomic_json_dump(os.path.join(args.out, f"rank{rank}.json"), out)
+    return out
+
+
+def main(argv=None) -> int:
+    args = parse(argv)
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.distributed import communication as C
+
+    t_start = time.perf_counter()
+    env = init_parallel_env(device=args.device)
+    run(args, env, t_start)
     C.barrier()
     C.destroy_process_group()
     return 0
