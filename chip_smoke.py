@@ -36,9 +36,11 @@ Phases, each of which raises on failure (nothing is caught):
    lr and step from device memory, as the optimizer passes them, and is
    held against its plain version at steps 1, 2 and 1000.
 3. The serving path: ``Server`` over ``PagedEngine`` over Llama-2-7B's
-   published shape at full depth, fp32 (random weights from a seeded
-   generator, created on the card), 12 requests with a shared prefix and
-   one sampled stream (threefry, as ``jax.random``). The engine captures
+   published widths at 12 layers (``_SERVING_LAYERS``: the depth cut
+   from 32 for the script's time, for phases 3-6 and 11-15 alike), fp32
+   (random weights from a seeded generator, created on the card), 12
+   requests with a shared prefix and one sampled stream (threefry, as
+   ``jax.random``). The engine captures
    its decode block and its prefill chunk as one CUDA graph each when it
    is built and replays them: both compile counts must be 1 after the
    stream, and the capture seconds and each graph pool's bytes are
@@ -49,10 +51,11 @@ Phases, each of which raises on failure (nothing is caught):
    kernels the profiler saw the device run in one replay must be, kernel
    by kernel, the launches the graph captured.
 4. The int8 serving path on the same model: ``PagedEngine(num_slots=32,
-   max_len=2048, kv_int8=True)``, whose 4097-block int8 arena (17.72 GB)
-   fits beside the fp32 weights where an fp32 arena (68.7 GB) would
-   not; 32 requests of 256-1744 prompt tokens, four sharing a prefix,
-   two sampled. Outputs, block accounting, exact launch counts, the
+   max_len=2048, kv_int8=True)``, a 4097-block int8 arena (17.72 GB at
+   32 layers, where an fp32 arena of 68.7 GB would not fit beside the
+   fp32 weights; three eighths of both at 12); 32 requests of 256-1744
+   prompt tokens, four sharing a prefix, two sampled. Outputs, block
+   accounting, exact launch counts, the
    error bound, both compile counts 1, one decode step with all 32 slots
    at lengths over 1024 (kernels against plain versions), one profiled
    decode block, and how far the greedy streams agree with an fp32
@@ -62,7 +65,7 @@ Phases, each of which raises on failure (nothing is caught):
    phases 3 and 4 with ``megakernel=True`` (phase 4's engines freed
    first) serve the same requests; exact launch counts (the megakernel
    once per layer and decode step, the paged-decode kernels never),
-   ``megakernel_kernel_calls() == 32``, both compile counts 1, greedy
+   ``megakernel_kernel_calls() == L``, both compile counts 1, greedy
    streams token-identical to the unfused engine's of phases 3 and 4,
    one decode step's log-probs three ways (megakernel, unfused kernels,
    plain versions), one profiled decode block, and decode step ms,
@@ -382,8 +385,45 @@ Phases, each of which raises on failure (nothing is caught):
    seconds; its workers' launches are the launches line's
    ``zero_training``.
 
+18. Tensor-parallel (mp) training (run after phases 16 and 17, alone on
+   the card). ``tools/port_mp_worker.py`` launched with ``python -m
+   paddle_tpu_torch.distributed.launch``, 2 gloo ranks sharing the
+   card. (a) ``headline_big_config("full")`` with ``tensor_parallel=
+   True`` (953.2M, bf16, AdamW with bf16 moments, full recompute, the
+   stacked trunk; hidden 2048, 16 heads of 128, MLP 5632, vocabulary
+   32000): ``fleet.init(mp_degree=2)``, ``fleet.distributed_model``
+   (each rank keeps its half of every split parameter: 8 heads, 2816
+   MLP columns, 16000 vocabulary rows), ``fleet.distributed_optimizer``;
+   both ranks take phase 16's first 4 x 2048 batch and the next, 2
+   eager steps. Gates: the replicated parameters' SHA-256 digests equal
+   across the ranks after every step (over the store); finite losses;
+   rank 0 first runs the same two steps on the whole model from the same
+   weights and batches, and the mp loss, step 1's gradients and each
+   step's parameters (gathered over the mp group) are held to it
+   (``tools/port_mp_worker.py``'s tolerances: loss 2^-9 relative,
+   gradients 5e-2 and parameters 9e-3 per tensor, relative norm, and
+   step 1's gradients no further from fp32 gradients of the same weights
+   than 1.5x one rank's bf16 gradients; how they follow from the
+   rounding sites: there); each rank's launches
+   exact a step (phase 16's per step on the split shapes); 5L + 5 mp
+   collectives a step. Printed: step ms by part (forward and backward,
+   of which the mp all-reduces' count, bytes and seconds; AdamW), peak
+   and resting memory a rank beside phase 16's data-parallel peak. (b)
+   ``save_state_dict(convert.jax_state_dict(model))`` of (a)'s
+   parameters after step 2 (JAX's layout and global shapes), loaded in
+   a fresh one-rank process at the headline width: every saved region
+   bit-equal (SHA-256). (c) In this process, after the job: flash
+   forward, dq and dkv at one rank's shape (4, 2048, 8, 128) bf16 (with
+   phase 2's flash cases), RoPE on q and k of that shape, RMSNorm
+   forward and backward on (8192, 2048) bf16, AdamW over bf16 moments
+   on the split stacks (16, 2816, 2048) and (16, 2048, 2816), each
+   against its plain version. The phase prints its seconds; its
+   workers' launches are the launches line's ``mp_training``.
+
 Launch counters are zeroed just before each path and read just after.
-The line before the last is a JSON object with one entry per kernel; the
+``phase seconds: {...}`` gives each phase's wall seconds (phase 1 with
+the builds, 2 with the kernel checks; 6 holds ``generate()``), then the
+``launches:`` line. The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU the script
 exits 1 before printing any result."""
 from __future__ import annotations
@@ -807,9 +847,10 @@ def check_flash(torch, results):
     """The three flash kernels against their plain versions, at the
     Llama training path's shape (4, 2048, 32, 128) bf16 causal, a GQA
     kvh=8 case, an fp32 case at seq 512, the ERNIE-MoE path's shape
-    (16, 1024, 12, 64) bf16 causal and the headline training path's
-    (8, 2048, 16, 128) bf16 causal. The backward pair gets the kernel's
-    o and lse and the same delta on both sides.
+    (16, 1024, 12, 64) bf16 causal, the headline training path's
+    (8, 2048, 16, 128) bf16 causal and one rank's of its mp 2 run (4,
+    2048, 8, 128). The backward pair gets the kernel's o and lse and the
+    same delta on both sides.
 
     Tolerances. fp32: o and lse 2e-5, gradients 1e-4 absolute (the same
     fp32 sums in another order). bf16, per element: the kernels round
@@ -823,8 +864,9 @@ def check_flash(torch, results):
 
     Beside each time: the achieved TFLOP/s, the share of the bound
     (bound / kernel) and the ratio to the library call; the main shape's
-    times go into the kernels line, the ERNIE and headline shapes' into
-    ``results["ernie"]`` and ``results["headline"]``."""
+    times go into the kernels line, the ERNIE, headline and mp 2 shapes'
+    into ``results["ernie"]``, ``results["headline"]`` and
+    ``results["mp2"]``."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -835,7 +877,8 @@ def check_flash(torch, results):
              ("gqa", 4, 2048, 32, 8, 128, torch.bfloat16),
              ("fp32", 4, 512, 32, 32, 128, torch.float32),
              ("ernie", 16, 1024, 12, 12, 64, torch.bfloat16),
-             ("headline", 8, 2048, 16, 16, 128, torch.bfloat16)]
+             ("headline", 8, 2048, 16, 16, 128, torch.bfloat16),
+             ("mp2", 4, 2048, 8, 8, 128, torch.bfloat16)]
     for name, b, s, h, hk, d, dtype in cases:
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(
@@ -942,7 +985,7 @@ def check_flash(torch, results):
                        bound_by=by, library_ms=lib)
             if name == "main":
                 results[kname] = row
-            elif name in ("ernie", "headline"):
+            elif name in ("ernie", "headline", "mp2"):
                 results.setdefault(name, {})[kname] = row
         print(f"  dq + dkv: kernel_ms={ms_dq + ms_dkv:.4f} "
               f"vs_library={(ms_dq + ms_dkv) / lib_b:.2f}x; plain_ms of dq "
@@ -3032,7 +3075,7 @@ def _print_serving(card, label, st, extra=""):
 def _check_step_logprobs(torch, model, engine, label, megakernel=False):
     """One decode step on the engine's armed slots, the kernels against
     the plain versions on the same state (both write the same K/V into
-    the arena). 32 fp32 layers: the kernels' reassociated sums and
+    the arena). Each fp32 layer: the kernels' reassociated sums and
     rsqrtf differ from the plain versions by a few ulp per layer, so
     the log-probs are held to 2e-3. With ``megakernel`` three ways: the
     fused decode layer (one megakernel launch per layer), the unfused
@@ -3076,16 +3119,29 @@ def _check_step_logprobs(torch, model, engine, label, megakernel=False):
           f"{agree}/{first.shape[0]}")
 
 
+# The serving phases' model (3-6, 11-15): Llama-2-7B's published widths
+# at this depth, cut from 32 layers for the script's time (PERF.md §4;
+# every gate there holds at any depth: streams against references made at
+# the same depth in the same run, launch counts by the config's L).
+_SERVING_LAYERS = 12
+
+
+def _serving_config():
+    from paddle_tpu_torch.models import llama_7b_config
+    return llama_7b_config(num_hidden_layers=_SERVING_LAYERS)
+
+
 def serving_path(torch, card):
     import numpy as np
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import PagedEngine, Scheduler, Server
-    cfg = llama_7b_config()
+    cfg = _serving_config()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
-    print(f"model: Llama-2-7B shape, {model.num_params() / 1e9:.3f}B "
-          f"params fp32 on the card in {time.perf_counter() - t0:.2f} s")
+    print(f"model: Llama-2-7B widths, {cfg.num_hidden_layers} layers, "
+          f"{model.num_params() / 1e9:.3f}B params fp32 on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
     engine = PagedEngine(model, num_slots=8, max_len=1024, decode_block=8,
                          block_size=16, prefill_chunk=32, device="cuda")
     print(f"engine: 8 slots, max_len 1024, decode_block 8, block 16, "
@@ -3103,8 +3159,8 @@ def serving_path(torch, card):
     st = srv.stats()
     _print_serving(card, "", st)
     print(f"[{card}] decode_step_ms={st['decode_step_ms']:.3f} with the "
-          f"sentinel's ok flags in the block; PERF.md before them: "
-          f"23.4-24.0 ms")
+          f"sentinel's ok flags in the block ({cfg.num_hidden_layers} "
+          f"layers; PERF.md at 32 layers before them: 23.4-24.0 ms)")
 
     _arm_fp32_check(engine, cfg)
     _check_step_logprobs(torch, model, engine, "")
@@ -3320,9 +3376,8 @@ def _int8_requests(rng, vocab):
 
 
 def serving_int8_path(torch, card, model):
-    """Paged serving over the int8 KV arena at Llama-2-7B shape, full
-    depth, on the fp32 serving path's model (see the module
-    docstring). Returns the launch counts of the served requests."""
+    """Paged serving over the int8 KV arena at Llama-2-7B's widths, on
+    the fp32 serving path's model (see the module docstring). Returns the launch counts of the served requests."""
     import numpy as np
     from paddle_tpu_torch.serving import PagedEngine, Scheduler, Server
     cfg = model.config
@@ -3910,7 +3965,8 @@ def serving_resilience_path(torch, card, model):
             st = srv.stats()
             print(f"[{card}] {label} clean: decode_step_ms="
                   f"{st['decode_step_ms']:.3f} (with the ok flags; "
-                  f"PERF.md before them: 23.4-24.0 at 8 slots of 1024), "
+                  f"PERF.md at 32 layers before them: 23.4-24.0 at 8 "
+                  f"slots of 1024), "
                   f"tokens_per_s={st['tokens_per_sec']:.1f}, "
                   f"{st['decode_steps']} steps")
             if kind in ("fp32", "dense"):
@@ -4432,7 +4488,8 @@ def decode_features_path(torch, card, model, ref):
         wb = eng.decode_bytes_per_step()["weights"]
         print(f"[{card}] phase 12 (b) quant {label}: decode_step_ms="
               f"{st['decode_step_ms']:.3f} (phase 3's fp32 "
-              f"{ref['stats']['decode_step_ms']:.3f}; PERF.md 23.4-24.1), "
+              f"{ref['stats']['decode_step_ms']:.3f}; PERF.md at 32 "
+              f"layers 23.4-24.1), "
               f"decode_tokens_per_s={st['decode_tokens_per_sec']:.1f}, "
               f"weight bytes a step {wb} ({wb / 1e9:.3f} GB; fp32 "
               f"{fp32_w / 1e9:.3f} GB), weight_error_bound="
@@ -4701,13 +4758,13 @@ def fleet_path(torch, card, ref, device="cuda"):
     every served run."""
     import gc
     import numpy as np
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import (PagedEngine, RequestFailure,
                                           Scheduler, Server,
                                           SocketTransport, TraceConfig,
                                           generate_trace)
     t_phase = time.perf_counter()
-    cfg = llama_7b_config()
+    cfg = _serving_config()
     # phase 12's dequant twins overwrote the model's linears: phase 3's
     # model is rebuilt from its seed
     model = LlamaForCausalLM(cfg, device=device, seed=0)
@@ -5291,10 +5348,10 @@ def durable_path(torch, card, ref, device="cuda"):
     every served run."""
     import shutil
     import numpy as np
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import TraceConfig, generate_trace
     t_phase = time.perf_counter()
-    cfg = llama_7b_config()
+    cfg = _serving_config()
     model = LlamaForCausalLM(cfg, device=device, seed=0)
     print(f"phase 14 model rebuilt from seed 0 in "
           f"{time.perf_counter() - t_phase:.2f} s; "
@@ -5526,7 +5583,7 @@ def tp_path(torch, card, ref, device="cuda"):
     import tempfile
     import numpy as np
     from paddle_tpu_torch.distributed.mesh import build_device_mesh
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.serving import (PagedEngine, Server, adopt_prefix,
                                           extract_prefix)
     from paddle_tpu_torch.serving.tp import TPConfig
@@ -5534,7 +5591,7 @@ def tp_path(torch, card, ref, device="cuda"):
     _tp_free(torch)                 # phase 14's model and engines
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
-    cfg = llama_7b_config()
+    cfg = _serving_config()
     model = LlamaForCausalLM(cfg, device=device, seed=0)
     print(f"phase 15 model rebuilt from seed 0 in "
           f"{time.perf_counter() - t_phase:.2f} s; "
@@ -5895,11 +5952,13 @@ def _tp_int8_cause(torch, model, exact, prompt, card, device):
           f"(tp=2 vs tp=1) differ at layer 0 by at most {fp_ulps[0]:.1f} / "
           f"{fp_ulps[1]:.1f} ulp of the row's absmax (k / v), "
           f"{fp_steps[0]:.2e} / "
-          f"{fp_steps[1]:.2e} of a step, over all 32 layers by "
+          f"{fp_steps[1]:.2e} of a step, over all {len(rows['u32'])} "
+          f"layers by "
           f"{max(fp_ulps):.1f} ulp, {max(fp_steps):.2e} of a step; int8 "
           f"codes moved at layer 0: {flips[0]} / {flips[1]} of {total} "
           f"each, by at most {max(dcode[:2])}; "
-          f"over all layers {sum(flips)} moved codes of {64 * total}, "
+          f"over all layers {sum(flips)} moved codes of "
+          f"{2 * len(rows['u32']) * total}, "
           f"by at most {max(dcode)}; took {time.perf_counter() - t0:.1f} s")
     for name, moved in by_layer.items():
         print(f"[{card}] phase 15 (b) cause: unsharded chunk-32 int8 arena "
@@ -6536,6 +6595,213 @@ def dp_zero_path(torch, card):
     return dp, zero
 
 
+# -- phase 18: tensor-parallel (mp) training --------------------------------
+
+_MP_WORKER = os.path.join(_REPO, "tools", "port_mp_worker.py")
+_MP_STEPS = 2
+_MP_LAYERS = 16         # (a)'s depth: the headline's, uncut
+_DP_PEAK_GB = 9.915     # phase 16 (a)'s peak a rank (PERF.md §6, run Z1)
+
+
+def _mp_args(tmp):
+    return ["--config", "headline", "--batch", "4", "--seq", "2048",
+            "--steps", str(_MP_STEPS), "--layers", str(_MP_LAYERS)]
+
+
+def _mp_check(card, recs, wall):
+    """Phase 18 (a)'s gates and lines from the job's records; returns
+    the launches of both ranks' steps."""
+    from paddle_tpu_torch import ops
+    L = _MP_LAYERS
+    per_step = {k: v for k, v in _dp_per_step(
+        L, recs[0]["param_tensors"]).items() if v}
+    totals = {k: 0 for k in ops.launch_counts()}
+    for r in recs:
+        for step, got in enumerate(r["launches"], 1):
+            counts = {k: got.get(k, 0) for k in per_step}
+            if counts != per_step:
+                raise AssertionError(f"phase 18 rank {r['rank']} step {step}"
+                                     f" launches {got}, expected {per_step}")
+            for k in counts:
+                totals[k] += counts[k]
+        if any(s["mp_collectives"] != 5 * L + 5 for s in r["step_s"]):
+            raise AssertionError(f"phase 18 rank {r['rank']}: mp "
+                                 f"collectives {r['step_s']}, expected "
+                                 f"{5 * L + 5} a step")
+    losses = recs[0]["losses"]
+    if any(r["losses"] != losses or r["backend"] != "gloo"
+           or r["replicated_digests"] != recs[0]["replicated_digests"]
+           for r in recs) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 18 (a): ranks disagree or took another"
+                             f" route: {[(r['losses'], r['backend']) for r in recs]}")
+    if recs[0]["slice_digests"] == recs[1]["slice_digests"]:
+        raise AssertionError("phase 18 (a): both ranks hold the same slices")
+    ref = recs[0]
+    for key in ("loss_check", "param_check", "grad_check", "accuracy"):
+        if key not in ref:
+            raise AssertionError(f"phase 18 (a): rank 0 ran no {key}")
+    print(f"[{card}] phase 18 (a) tensor-parallel headline "
+          f"({ref['params'] / 1e9:.4f}B params bf16, {L} layers, full "
+          f"recompute, stacked trunk, AdamW bf16 moments) at mp 2: 2 gloo "
+          f"ranks on one card, {ref['local_params'] / 1e9:.4f}B params a "
+          f"rank (8 heads, 2816 MLP columns, 16000 vocabulary rows), batch "
+          f"4 x 2048 on both, {_MP_STEPS} steps; the launcher's wall "
+          f"{wall:.1f} s (rank 0's one-rank reference "
+          f"{ref['reference_s']:.1f} s of it)")
+    print(f"phase 18 (a) losses {losses}; replicated parameters (the norms)"
+          f" bit-identical across the ranks after every step: "
+          f"{[d[:12] for d in ref['replicated_digests']]}")
+    for c in ref["loss_check"]:
+        print(f"phase 18 (a) loss mp {c['mp']:.6f} vs one rank "
+              f"{c['one_rank']:.6f}: relative {c['rel']:.3e} (tol "
+              f"{c['tol']:.3e})")
+    g = ref["grad_check"]
+    print(f"phase 18 (a) step 1's gradients gathered vs one rank: largest "
+          f"relative norm {g['max']:.4e} ({g['worst']}, tol {g['tol']}), "
+          f"median {g['median']:.4e}")
+    a = ref["accuracy"]
+    print(f"phase 18 (a) step 1's gradients vs fp32 gradients of the same "
+          f"weights and batch: one rank (bf16) median {a['one_rank_median']:.4e}"
+          f", max {a['one_rank_max']:.4e}; mp median {a['mp_median']:.4e}, "
+          f"max {a['mp_max']:.4e}; largest mp / one-rank ratio "
+          f"{a['ratio_max']:.3f} ({a['worst']}, tol {a['tol']})")
+    for step, c in enumerate(ref["param_check"], 1):
+        print(f"phase 18 (a) step {step}'s parameters gathered vs one rank:"
+              f" largest relative norm {c['max']:.4e} ({c['worst']}, tol "
+              f"{c['tol']})")
+    for r in recs:
+        for step, s in enumerate(r["step_s"], 1):
+            print(f"[{card}] phase 18 (a) rank {r['rank']} step {step}: "
+                  f"forward+backward {1e3 * s['fwd_bwd']:.1f} ms, of which "
+                  f"{s['mp_collectives']} mp all-reduces "
+                  f"{s['mp_bytes'] / 1e9:.3f} GB in {1e3 * s['mp_s']:.1f} ms"
+                  f" ({s['mp_bytes'] / 1e9 / max(s['mp_s'], 1e-9):.2f} GB/s,"
+                  f" gloo through pinned host memory) and compute "
+                  f"{1e3 * (s['fwd_bwd'] - s['mp_s']):.1f} ms; AdamW "
+                  f"{1e3 * s['adamw']:.1f} ms")
+        mem = (f"peak {r['peak_mem_gb']:.3f} GB, resting "
+               f"{r['resting_mem_gb']:.3f} GB") if "peak_mem_gb" in r \
+            else "memory not measured (no card)"
+        print(f"[{card}] phase 18 (a) rank {r['rank']}: {mem} (phase 16's "
+              f"data-parallel peak {_DP_PEAK_GB} GB a rank)")
+    return totals
+
+
+def _mp_kernel_checks(torch):
+    """Phase 18 (c): RoPE, RMSNorm forward and backward and AdamW at one
+    mp rank's shapes against their plain versions (flash at that shape is
+    phase 2's ``mp2`` case)."""
+    from paddle_tpu_torch.models.llama import _rope_cache
+    from paddle_tpu_torch.ops import plain_versions
+    from paddle_tpu_torch.ops.fused import (_rope_pair, rms_norm,
+                                            rms_norm_backward_reference,
+                                            rms_norm_bwd, rms_norm_reference)
+    from tools.port_train_bench import headline_big_config
+    cfg = headline_big_config()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    cos, sin = (t[:2048].bfloat16() for t in _rope_cache(cfg, "cuda"))
+    q, k = (torch.randn(4, 2048, 8, 128, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    tol = 2.0 ** -7 * 2 * float(max(q.float().abs().max(),
+                                    k.float().abs().max()))
+    rope_err = 0.0
+    for sign in (1.0, -1.0):
+        got = _rope_pair(q, k, cos, sin, sign)
+        with plain_versions():
+            want = _rope_pair(q, k, cos, sin, sign)
+        rope_err = max([rope_err] + [_max_err(a, b)
+                                     for a, b in zip(got, want)])
+    if not rope_err <= tol:
+        raise AssertionError(f"phase 18 (c) rope (4, 2048, 8, 128): "
+                             f"{rope_err} > {tol}")
+    del q, k, got, want
+    h, eps = cfg.hidden_size, cfg.rms_norm_eps
+    x = torch.randn(4 * 2048, h, generator=gen, device="cuda").bfloat16()
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).bfloat16()
+    ct = torch.randn(4 * 2048, h, generator=gen, device="cuda").bfloat16()
+    y, want = rms_norm(x, w, eps), rms_norm_reference(x, w, eps)
+    rms_err = _max_err(y, want)
+    if not torch.allclose(y.float(), want.float(), atol=RMS_BF16_TOL[0],
+                          rtol=RMS_BF16_TOL[1]):
+        raise AssertionError(f"phase 18 (c) rms_norm (8192, 2048): "
+                             f"{rms_err}")
+    dx, dw = rms_norm_bwd(x, w, ct, eps)
+    pdx, pdw = rms_norm_backward_reference(x, w, ct, eps)
+    okx, _, sx = _rms_bwd_close(dx, pdx, _rms_bwd_tol(torch, pdx, "dx"))
+    okw, _, sw = _rms_bwd_close(
+        dw, pdw, _rms_bwd_tol(torch, pdw, "dw", x, ct, eps))
+    if not (okx and okw):
+        raise AssertionError(f"phase 18 (c) rms_norm_bwd (8192, 2048): dx "
+                             f"share {sx}, dw share {sw}")
+    del x, w, ct, y, want, dx, dw, pdx, pdw
+    hp = _adamw_hp(torch)
+    shares = {}
+    for shape in ((16, 2816, h), (16, h, 2816)):
+        p = (0.02 * torch.randn(shape, generator=gen, device="cuda")
+             ).bfloat16()
+        g = (1e-3 * torch.randn(shape, generator=gen, device="cuda")
+             ).bfloat16()
+        m = (1e-4 * torch.randn(shape, generator=gen, device="cuda")
+             ).bfloat16()
+        v = (1e-8 * torch.rand(shape, generator=gen, device="cuda")
+             ).bfloat16()
+        by_step, _ = _adamw_steps(torch, p, g, m, v, hp, _bf16_shares)
+        shares[shape] = max(max(s) for s in by_step.values())
+        if not shares[shape] <= 1.0:
+            raise AssertionError(f"phase 18 (c) adamw {shape}: {by_step}")
+        del p, g, m, v
+    torch.cuda.empty_cache()
+    print(f"phase 18 (c) at one mp rank's shapes, kernels vs plain: rope "
+          f"(4, 2048, 8, 128) bf16 max abs err {rope_err:.4e} (tol "
+          f"{tol:.4e}); rms_norm (8192, 2048) bf16 {rms_err:.4e}, its "
+          f"backward within tol (largest shares dx {sx:.3f}, dw {sw:.3f}); "
+          f"adamw bf16 moments largest share of the per-element tol "
+          + ", ".join(f"{s} {v:.3f}" for s, v in shares.items())
+          + "; flash (4, 2048, 8, 128): phase 2's mp2 lines")
+
+
+def mp_path(torch, card):
+    """Phase 18 (see the module docstring). Returns the launch counts of
+    (a)'s workers (both ranks, their steps)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pt_mp_")
+    jobs = []
+    try:
+        ckpt = os.path.join(tmp, "mp", "ckpt")
+        t0 = time.perf_counter()
+        jobs.append(_start_job(tmp, "mp", 2, _mp_args(tmp) + [
+            "--reference", "--ckpt", ckpt], worker=_MP_WORKER))
+        recs, _ = _finish_job("mp", jobs[-1], 2, phase=18)
+        launches = _mp_check(card, recs, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        jobs.append(_start_job(tmp, "mpload", 1, _mp_args(tmp) + [
+            "--load", ckpt], worker=_MP_WORKER))
+        (one,), _ = _finish_job("mpload", jobs[-1], 1, phase=18)
+        saved = sum(r["saved_regions"] for r in recs)
+        if one["regions_checked"] != saved:
+            raise AssertionError(f"phase 18 (b): {one['regions_checked']} "
+                                 f"regions checked, {saved} saved")
+        print(f"[{card}] phase 18 (b) the mp 2 checkpoint (JAX's layout and"
+              f" global shapes, {saved} regions; rank 0's save "
+              f"{recs[0]['save_s']:.2f} s) loaded by a fresh one-rank "
+              f"process at the headline width in {one['load_s']:.2f} s: "
+              f"every region bit-equal (SHA-256); the process took "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        for job in jobs:
+            _stop_job(job)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    _mp_kernel_checks(torch)
+    print(f"phase 18 (c) took {time.perf_counter() - t0:.1f} s")
+    print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     _cache_bytecode()
     import torch
@@ -6547,6 +6813,14 @@ def main() -> int:
     from tools.port_train_bench import card_line
 
     t_script = time.perf_counter()
+    seconds, last = {}, [t_script]
+
+    def mark(phase):
+        """The seconds since the previous mark, as ``phase``'s."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - last[0], 1)
+        last[0] = now
+
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -6567,6 +6841,7 @@ def main() -> int:
     check_flash_sass()
     check_megakernel_sass()
     check_weight_only_sass()
+    mark("1")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6594,36 +6869,54 @@ def main() -> int:
     check_decode_layer(torch, mega, mega8)
     residual = rms_residual_entry(torch)
     torch.cuda.empty_cache()
+    mark("2")
     serving, model, ref = serving_path(torch, card)
     torch.cuda.empty_cache()
+    mark("3")
     serving8, ref8 = serving_int8_path(torch, card, model)
+    mark("4")
     megakernel = serving_megakernel_path(torch, card, model,
                                          {"fp32": ref, "int8": ref8})
     torch.cuda.empty_cache()
+    mark("5")
     dense, dense_engine = serving_dense_path(torch, card, model, ref)
     gen = generate_path(torch, card, model, dense_engine)
     del dense_engine
     torch.cuda.empty_cache()
+    mark("6")
     resilience = serving_resilience_path(torch, card, model)
     torch.cuda.empty_cache()
+    mark("11")
     wo, features = decode_features_path(torch, card, model, ref)
     del model
     gc.collect()          # the serving phases' engines form cycles
     torch.cuda.empty_cache()
+    mark("12")
     fleet = fleet_path(torch, card, ref)
+    mark("13")
     durable = durable_path(torch, card, ref)
     torch.cuda.empty_cache()
+    mark("14")
     tp = tp_path(torch, card, ref)
+    mark("15")
     print(f"after the serving paths: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     train, idle7 = train_path(torch, card)
     torch.cuda.empty_cache()
+    mark("7")
     loader = io_path(torch, card, idle7)
     torch.cuda.empty_cache()
+    mark("10")
     ernie = ernie_moe_path(torch, card)
     torch.cuda.empty_cache()
+    mark("8")
     headline = headline_path(torch, card)
+    mark("9")
     dp, zero = dp_zero_path(torch, card)
+    mark("16-17")
+    mp = mp_path(torch, card)
+    mark("18")
+    print("phase seconds: " + json.dumps(seconds))
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
                  generate=gen, resilience_serving=resilience,
@@ -6631,7 +6924,7 @@ def main() -> int:
                  durable_fleet=durable, tp_serving=tp,
                  training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader,
-                 dp_training=dp, zero_training=zero)
+                 dp_training=dp, zero_training=zero, mp_training=mp)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))

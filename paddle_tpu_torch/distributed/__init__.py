@@ -7,10 +7,13 @@ TCP store, eager ``communication``, ``init_parallel_env`` and
 (``collectives.bucketing``, ``fleet.utils``) and its in-graph half
 (``BucketedGradSync``); group-sharded training (ZeRO 1/2/3 over the
 process group: ``sharding``), fleet's strategy API with its
-meta-optimizers (``fleet``), and the resharding distributed checkpoint
+meta-optimizers and its mp axis (``fleet``: the tensor-parallel layers
+of ``fleet.meta_parallel`` and the mp communication of
+``fleet.mp_ops`` over fleet's mp process group, ``fleet.utils.
+recompute``), and the resharding distributed checkpoint
 (``checkpoint``: ``save_state_dict``/``load_state_dict``). Pipeline,
 sequence and expert parallelism and the placement API come with the
-later slices of ``ROADMAP.md`` A.6.
+later slices of ``ROADMAP.md`` A.6 ((e2)-(e5)).
 
 Deliberate differences from the JAX package: the world's collectives
 run on ``torch.distributed`` (gloo or nccl, ``parallel``) where JAX's run

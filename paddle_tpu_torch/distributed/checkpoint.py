@@ -16,7 +16,8 @@ other:
 
 What a rank writes: the region of a :class:`~paddle_tpu_torch.
 distributed.sharding.ShardedTensor` (a sharded slot, a stage-3
-parameter at rest), and a plain tensor whole on the coordinator only
+parameter at rest, an mp slice of ``convert.jax_state_dict``: its
+first holder only), and a plain tensor whole on the coordinator only
 (JAX writes a replicated array's replica 0 once). Nested dicts flatten
 to dotted keys. ``load_state_dict`` fills the target dict's tensors in
 place, resharding: each rank reads only the saved pieces overlapping
@@ -236,8 +237,10 @@ def save_state_dict(state_dict, path, process_group=None,
     for key, v, _, _ in _leaf_items(state_dict):
         if isinstance(v, ShardedTensor):
             local, index, gshape = v.local, v.region, list(v.shape)
-            # an unsharded region is replicated: the coordinator writes it
-            mine = v.dim is not None or rank == coordinator_rank
+            # an unsharded region is replicated: the coordinator writes
+            # it; a region several ranks hold, its first holder
+            mine = (v.dim is not None and v.replica == 0) \
+                or rank == coordinator_rank
         elif isinstance(v, (torch.Tensor, np.ndarray)):
             local = torch.as_tensor(v)
             gshape = list(local.shape)

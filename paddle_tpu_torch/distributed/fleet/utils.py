@@ -1,11 +1,15 @@
-"""Fleet's eager gradient sync (``paddle_tpu/distributed/fleet/utils.py``
-``fused_allreduce_gradients``), for manual loops: forward,
-``backward()``, ``fused_allreduce_gradients(params)``, ``opt.step()``."""
+"""Fleet's training-loop utilities (``paddle_tpu/distributed/fleet/
+utils.py``): the eager gradient sync ``fused_allreduce_gradients``, for
+manual loops (forward, ``backward()``, ``fused_allreduce_gradients(
+params)``, ``opt.step()``), and activation recompute (``recompute``,
+``recompute_sequential``, from ``utils_recompute``)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["fused_allreduce_gradients"]
+from .utils_recompute import recompute, recompute_sequential  # noqa: F401
+
+__all__ = ["fused_allreduce_gradients", "recompute", "recompute_sequential"]
 
 
 def fused_allreduce_gradients(parameter_list, hcg=None, group=None,

@@ -21,8 +21,19 @@ card a 2-way mesh then runs both shards there.
 
 ``HybridCommunicateGroup`` builds and sets a mesh; in a job of several
 processes ``fleet.init`` also gives it this rank's process group along
-the dp and sharding axes (``get_data_parallel_group``,
-``get_sharding_parallel_group``: None where the degree is 1)."""
+each of the dp, sharding and mp axes of degree above 1
+(``get_data_parallel_group``, ``get_sharding_parallel_group``,
+``get_model_parallel_group``: None where the degree is 1). Its rank
+getters give this process's coordinate along an axis of the
+``AXIS_ORDER`` grid of the job's ranks (one rank a device, as JAX's
+``_axis_rank`` reads a process's position in the mesh).
+
+A tensor-parallel split is a partition spec, a tuple with ``"mp"`` at
+the split dimension (``LlamaForCausalLM.partition_specs()``, in the
+port's layout): :func:`spec_dim` finds that dimension and
+:func:`spec_piece` takes one rank's slice, the one rule that both the
+serving shards (``serving.tp``) and the training split
+(``fleet.distributed_model``) follow."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -33,7 +44,7 @@ import torch
 __all__ = ["AXIS_ORDER", "Mesh", "HybridCommunicateGroup",
            "get_hybrid_communicate_group", "build_device_mesh",
            "CommunicateTopology", "set_current_mesh", "get_current_mesh",
-           "axis_devices", "NamedSharding"]
+           "axis_devices", "NamedSharding", "spec_dim", "spec_piece"]
 
 # axis order: outermost (slowest link) -> innermost (fastest link), as in
 # the JAX package: pp stages communicate least per step, mp/sep most
@@ -68,6 +79,28 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="
                 f"{[str(d) for d in self.devices.reshape(-1)]})")
+
+
+def spec_dim(spec) -> Optional[int]:
+    """The split dimension of a partition spec (the first entry that
+    names an axis), or None for a replicated one (None or all None)."""
+    return next((i for i, e in enumerate(spec or ()) if e), None)
+
+
+def spec_piece(t: torch.Tensor, spec, index: int, degree: int
+               ) -> torch.Tensor:
+    """Slice ``index`` of ``degree`` equal slices of ``t`` along the
+    dimension ``spec`` splits (a view), or ``t`` itself for a
+    replicated spec or a degree of 1. A dimension the degree does not
+    divide raises."""
+    dim = spec_dim(spec)
+    if dim is None or degree == 1:
+        return t
+    if t.shape[dim] % degree:
+        raise ValueError(f"dim {dim} of a {tuple(t.shape)} tensor does not "
+                         f"split into {degree} equal slices")
+    n = t.shape[dim] // degree
+    return t.narrow(dim, index * n, n)
 
 
 def set_current_mesh(mesh: Optional[Mesh]):
@@ -150,14 +183,95 @@ class HybridCommunicateGroup:
     def axis_size(self, axis: str) -> int:
         return self._dims.get(axis, 1)
 
+    # -- fleet.topology's API (JAX ``mesh.py:122-216``) --------------------
+    def get_parallel_mode(self):
+        if self._dims["pp"] > 1:
+            return "pipeline_parallel"
+        if self._dims["sharding"] > 1:
+            return "sharding_parallel"
+        if self._dims["mp"] > 1:
+            return "tensor_parallel"
+        return "data_parallel"
+
+    def topology(self):
+        return self._topo
+
+    def get_global_rank(self):
+        from .communication import _my_rank
+        return _my_rank()
+
+    def _coord(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` of the job's
+        ``AXIS_ORDER`` grid (rank-major, one rank a device)."""
+        shape = [self._dims.get(a, 1) for a in AXIS_ORDER]
+        rank = self.get_global_rank()
+        if rank >= int(np.prod(shape)):
+            return 0
+        return int(np.unravel_index(rank, shape)[AXIS_ORDER.index(axis)])
+
+    def _src_rank(self, axis: str) -> int:
+        """The global rank of coordinate 0 along ``axis`` with this
+        rank's other coordinates: the first rank of its group there."""
+        shape = [self._dims.get(a, 1) for a in AXIS_ORDER]
+        stride = int(np.prod(shape[AXIS_ORDER.index(axis) + 1:]))
+        return self.get_global_rank() - self._coord(axis) * stride
+
+    def get_data_parallel_world_size(self):
+        return self._dims["dp"]
+
+    def get_model_parallel_world_size(self):
+        return self._dims["mp"]
+
+    def get_pipe_parallel_world_size(self):
+        return self._dims["pp"]
+
+    def get_sharding_parallel_world_size(self):
+        return self._dims["sharding"]
+
+    def get_sep_parallel_world_size(self):
+        return self._dims["sep"]
+
+    def get_data_parallel_rank(self):
+        return self._coord("dp")
+
+    def get_model_parallel_rank(self):
+        return self._coord("mp")
+
+    def get_stage_id(self):
+        return self._coord("pp")
+
+    def get_sharding_parallel_rank(self):
+        return self._coord("sharding")
+
+    def get_sep_parallel_rank(self):
+        return self._coord("sep")
+
     def get_data_parallel_group(self):
         return self._groups.get("dp")
+
+    def get_model_parallel_group(self):
+        return self._groups.get("mp")
 
     def get_sharding_parallel_group(self):
         return self._groups.get("sharding")
 
-    def topology(self):
-        return self._topo
+    def get_pipe_parallel_group(self):
+        return self._groups.get("pp")
+
+    def get_sep_parallel_group(self):
+        return self._groups.get("sep")
+
+    def get_data_parallel_group_src_rank(self):
+        return self._src_rank("dp")
+
+    def get_model_parallel_group_src_rank(self):
+        return self._src_rank("mp")
+
+    def is_first_stage(self):
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self):
+        return self.get_stage_id() == self._dims["pp"] - 1
 
 
 def get_hybrid_communicate_group() -> Optional[HybridCommunicateGroup]:

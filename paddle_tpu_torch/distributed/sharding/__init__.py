@@ -98,15 +98,18 @@ class ShardedTensor:
     for a sharded slot, a stage-3 model's ``state_dict()`` for a
     parameter at rest; ``distributed.save_state_dict`` writes the region
     and ``load_state_dict`` fills it from the saved pieces it
-    overlaps."""
+    overlaps. ``replica``: this rank's index among the ranks that hold
+    the same region (an mp slice is held once a dp rank); only replica 0
+    writes it."""
 
     def __init__(self, shape, local: torch.Tensor, region, group=None,
-                 dim: Optional[int] = None):
+                 dim: Optional[int] = None, replica: int = 0):
         self.shape = tuple(int(s) for s in shape)
         self.local = local
         self.region = [[int(a), int(b)] for a, b in region]
         self.group = group
         self.dim = dim
+        self.replica = replica
 
     @classmethod
     def shard(cls, full: torch.Tensor, group=None) -> "ShardedTensor":

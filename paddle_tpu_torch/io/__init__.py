@@ -219,7 +219,9 @@ class DistributedBatchSampler(BatchSampler):
     """Per-rank sharded batches, contiguous per-rank shards of the
     padded index list (the JAX sampler's). The replica count and rank
     default to the job's (``distributed.get_world_size``/``get_rank``,
-    which read the launch contract first)."""
+    which read the launch contract first), or, once ``fleet.init`` laid
+    out an mp axis of degree above 1, to the data-parallel degree and
+    rank: the ranks of an mp group hold one model and take one batch."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -228,9 +230,16 @@ class DistributedBatchSampler(BatchSampler):
         self.shuffle = shuffle
         self.drop_last = drop_last
         if num_replicas is None or rank is None:
+            from ..distributed.mesh import get_hybrid_communicate_group
             from ..distributed.parallel import get_rank, get_world_size
-            num_replicas = num_replicas or get_world_size()
-            rank = rank if rank is not None else get_rank()
+            hcg = get_hybrid_communicate_group()
+            if hcg is not None and hcg.axis_size("mp") > 1:
+                world = hcg.get_data_parallel_world_size()
+                me = hcg.get_data_parallel_rank()
+            else:
+                world, me = get_world_size(), get_rank()
+            num_replicas = num_replicas or world
+            rank = rank if rank is not None else me
         self.nranks = num_replicas
         self.local_rank = rank
         self.epoch = 0

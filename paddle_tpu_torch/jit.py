@@ -26,9 +26,15 @@ The graphs of one step share one memory pool: they never run at once,
 and everything a step allocates inside (activations, the gradients that
 ``clear_grad`` drops at its end) dies within it. There is no switch
 that turns capture off; a capture that fails raises and names the
-cause. On the CPU the same step runs eagerly."""
+cause. On the CPU the same step runs eagerly, and so does the step of a
+model split over an mp process group of more than one rank
+(``fleet.distributed_model``): its forward and backward run collectives
+of the process group, which a CUDA graph cannot hold (gloo stages them
+through host memory); ``TrainStep.eager_reason`` says so, and the first
+such call warns."""
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -179,6 +185,19 @@ class TrainStep:
         self.last_loss = None
         self._programs = {}
         self._pool = None
+        self._warned = False
+
+    @property
+    def eager_reason(self) -> Optional[str]:
+        """Why the step cannot be captured on the card, or None: a
+        module of the model runs collectives of an mp process group."""
+        for m in self.model.modules():
+            group = getattr(m, "mp_group", None)
+            if group is not None and group.nranks > 1:
+                return (f"the model is split over an mp process group of "
+                        f"{group.nranks} ranks; its collectives cannot sit "
+                        "inside a CUDA graph, so the step runs eagerly")
+        return None
 
     @property
     def device(self) -> torch.device:
@@ -209,7 +228,12 @@ class TrainStep:
 
     def _steps(self, batch, n_steps: int):
         """``n_steps`` steps on ``batch``; the last one's outputs."""
-        if self.device.type != "cuda":
+        reason = self.eager_reason
+        if self.device.type != "cuda" or reason:
+            if reason and self.device.type == "cuda" and not self._warned:
+                warnings.warn(f"TrainStep: {reason}", RuntimeWarning,
+                              stacklevel=3)
+                self._warned = True
             batch = _on_device(batch, self.device)
             for _ in range(n_steps):
                 out = self._step(batch)

@@ -28,7 +28,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..incubate.nn import fused_linear_cross_entropy
+from ..incubate.nn import (fused_linear_cross_entropy,
+                           parallel_fused_linear_cross_entropy)
 from ..nn import RMSNorm
 from ..nn import functional as PF
 from ..ops import plain_active, plain_as
@@ -55,11 +56,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     # the mesh fields, with the JAX defaults and checks. tensor_parallel
-    # gives the partition table a sharded serving engine reads
-    # (partition_specs; inert on one device, as in JAX without a mesh);
-    # pipeline_parallel builds the stacked trunk and runs it as one stage;
-    # sequence_parallel and virtual_pp > 1 raise (the trunk over a mesh is
-    # not ported)
+    # gives the partition table that a sharded serving engine reads and
+    # that fleet.distributed_model splits the model by over an mp process
+    # group (partition_specs; inert without one, as in JAX without a
+    # mesh); pipeline_parallel builds the stacked trunk and runs it as one
+    # stage; sequence_parallel and virtual_pp > 1 raise (the pipeline and
+    # sequence parallelism are not ported)
     tensor_parallel: bool = True
     sequence_parallel: bool = False
     sequence_parallel_mode: str = "megatron"
@@ -120,8 +122,9 @@ class LlamaConfig:
         if self.sequence_parallel or self.virtual_pp > 1:
             raise NotImplementedError(
                 "sequence_parallel and virtual_pp > 1 shard the trunk over "
-                "a mesh of cards, which is not ported yet (ROADMAP.md "
-                "A.6)")
+                "a mesh of cards, which is not ported yet (ROADMAP.md A.6 "
+                "(e3): sequence and context parallelism; A.6 (e2): the "
+                "pipeline)")
 
     @property
     def head_dim(self) -> int:
@@ -240,6 +243,9 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
+        # the mp process group of a model split for training
+        # (fleet.distributed_model); None runs the layer whole
+        self.mp_group = None
 
     def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
                 fused_decode=None, pad=None):
@@ -263,23 +269,39 @@ class LlamaDecoderLayer(nn.Module):
         down_proj): each ``yield`` hands ``(hook, tensor, *args)`` to
         the loop that runs it and resumes with the hook's result
         (``utils.tp_hooks``: :func:`~paddle_tpu_torch.utils.tp_hooks
-        .run_local` for one device, ``run_shards`` for a mesh). A call
-        the fused decode layer takes (:meth:`_fusable`) returns its
-        result without yielding: the megakernel is never sharded."""
+        .run_local` for one device, ``run_shards`` for a mesh). The
+        training route of an mp split (``mp_group``) yields its own
+        hooks: ``mp_allreduce`` behind o_proj and down_proj, and
+        ``c_identity`` at one more site in front of each pair of
+        column-split products. A call the fused decode layer takes
+        (:meth:`_fusable`) returns its result without yielding: the
+        megakernel is never sharded."""
         if fused_decode is not None and self._fusable(x, cache, pos,
                                                       block_table, pad):
             return self._fused_decode(x, cos, sin, cache, pos, block_table,
                                       fused_decode, pad)
-        attn, mlp = self.self_attn, self.mlp
-        a = attn._attend(self.input_layernorm(x), cos, sin, cache, pos,
-                         block_table, pad)
+        attn, mlp, mp = self.self_attn, self.mlp, self.mp_group
+        n = self.input_layernorm(x)
+        if mp is not None:
+            n = yield tp_hooks.mp_copy_in, n, mp
+        a = attn._attend(n, cos, sin, cache, pos, block_table, pad)
         a = yield tp_hooks.maybe_gather, a, attn.width
-        o = yield tp_hooks.maybe_reduce, attn.o_proj(a)
+        o = yield self._reduce_site(attn.o_proj(a))
         h = x + o
-        m = mlp._act(self.post_attention_layernorm(h))
+        n = self.post_attention_layernorm(h)
+        if mp is not None:
+            n = yield tp_hooks.mp_copy_in, n, mp
+        m = mlp._act(n)
         m = yield tp_hooks.maybe_gather, m, mlp.width
-        d = yield tp_hooks.maybe_reduce, mlp.down_proj(m)
+        d = yield self._reduce_site(mlp.down_proj(m))
         return h + d
+
+    def _reduce_site(self, t):
+        """The hook behind a row-split product: the training route's
+        all-reduce over the mp group, else serving's."""
+        if self.mp_group is not None:
+            return tp_hooks.mp_reduce, t, self.mp_group
+        return tp_hooks.maybe_reduce, t
 
     def _fusable(self, x, cache, pos, block_table, pad=None) -> bool:
         """Whether this call is the slot-pool decode shape the fused
@@ -391,6 +413,16 @@ class LlamaDecoderStack(nn.Module):
             self.register_parameter(n.replace(".", "__"),
                                     nn.Parameter(stacked))
 
+    @property
+    def mp_group(self):
+        """The prototype layer's mp group (the slices it runs are this
+        rank's)."""
+        return self._proto.mp_group
+
+    @mp_group.setter
+    def mp_group(self, group):
+        self._proto.mp_group = group
+
     def forward(self, x, cos, sin):
         c = self.config
         plain = plain_active()
@@ -429,6 +461,7 @@ class LlamaModel(nn.Module):
                 [LlamaDecoderLayer(config, **kw)
                  for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        self.mp_group = None        # the table's vocabulary split (training)
 
     def forward(self, input_ids, cos, sin, cache=None, pos=None,
                 block_table=None, fused_decode=None, pad=None):
@@ -436,7 +469,12 @@ class LlamaModel(nn.Module):
             return tp_hooks.run_local(self._phases(
                 input_ids, cos, sin, cache, pos, block_table, fused_decode,
                 pad))
-        x = self.embed_tokens(input_ids)
+        if self.mp_group is not None:
+            from ..distributed.fleet.mp_ops import vocab_parallel_embedding
+            x = vocab_parallel_embedding(input_ids, self.embed_tokens.weight,
+                                         self.mp_group)
+        else:
+            x = self.embed_tokens(input_ids)
         if isinstance(self.layers, LlamaDecoderStack):
             return self.norm(self.layers(x, cos, sin))
         for layer in self.layers:
@@ -483,6 +521,9 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
             device="meta", dtype=dt)
         self.to_empty(device=dev)
         self.init_weights(seed)
+        # the mp process group once fleet.distributed_model split the
+        # model for training: the head's vocabulary split
+        self.mp_group = None
         cos, sin = _rope_cache(config, dev)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
@@ -568,15 +609,39 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                 input_ids, cache, pos, block_table, fused_decode, pad))
         h = self.llama(input_ids, self.rope_cos, self.rope_sin)
         c = self.config
+        mp = self.mp_group
         if labels is not None and c.fused_head_ce:
-            loss = fused_linear_cross_entropy(
-                h, self.head_weight, labels,
-                num_chunks=c.fused_head_ce_chunks)
+            if mp is not None:
+                loss = parallel_fused_linear_cross_entropy(
+                    h, self.head_weight, labels, mp,
+                    num_chunks=c.fused_head_ce_chunks)
+            else:
+                loss = fused_linear_cross_entropy(
+                    h, self.head_weight, labels,
+                    num_chunks=c.fused_head_ce_chunks)
             return loss, None
+        if mp is not None:
+            return self._mp_head(h, labels, mp)
         logits = self._head(h)
         if labels is None:
             return logits
         return PF.cross_entropy(logits, labels), logits
+
+    def _mp_head(self, h, labels, mp):
+        """The unfused head of an mp split: this rank's vocabulary
+        columns of the logits behind ``c_identity``, the vocab-parallel
+        cross-entropy's mean over the valid labels (in the logits'
+        dtype, as ``cross_entropy``), and the whole logits gathered
+        (what JAX's head returns)."""
+        from ..distributed.fleet import mp_ops
+        local = self._head(mp_ops.c_identity(h, mp))
+        logits = mp_ops.gather(local, mp, -1)
+        if labels is None:
+            return logits
+        tok = mp_ops.parallel_cross_entropy(local, labels, mp).to(
+            local.dtype)
+        valid = (labels.long() != -100).to(tok.dtype).sum()
+        return tok.sum() / torch.clamp(valid, min=1.0), logits
 
     def _head(self, h):
         return h @ self.head_weight.t() if self.lm_head is None \
@@ -587,7 +652,13 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         """The cache-path forward as a generator over its hook sites
         (``utils.tp_hooks``): the layers' four a layer, then the logits
         gather of a vocab-sharded head (JAX ``llama.py:713``). A mesh
-        runs one per shard in lockstep (``serving.tp``)."""
+        runs one per shard in lockstep (``serving.tp``). A model split
+        for mp training holds only its slices and refuses the path."""
+        if self.mp_group is not None:
+            raise ValueError(
+                "this model is split over an mp process group for training "
+                "(fleet.distributed_model); serve a whole model, sharded "
+                "with tp= (serving.tp)")
         h = yield from self.llama._phases(
             input_ids, self.rope_cos, self.rope_sin, cache, pos,
             block_table, fused_decode, pad)
@@ -605,23 +676,44 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         ``P(None, "mp")`` (column: q/k/v, gate/up, lm_head) is dim 0
         here and its ``P("mp", None)`` (row: o/down) dim 1; the
         embedding table is (vocab, hidden) in both, ``("mp", None)``;
-        norms replicate."""
+        norms replicate. A stacked trunk's ``(L, out, in)`` weight
+        (``self_attn__q_proj__weight``) splits one dimension later
+        (JAX's stack specs lead with None)."""
         if not self.config.tensor_parallel:
             return {}
         column, row = ("mp", None), (None, "mp")
         out = {}
         for name, _ in self.named_parameters():
-            leaf = name.rsplit(".", 2)[-2] if "." in name else name
+            if "__" in name:              # a stacked (L, ...) parameter
+                leaf = name.rsplit(".", 1)[-1].split("__")[-2]
+                lead = (None,)
+            else:
+                leaf = name.rsplit(".", 2)[-2] if "." in name else name
+                lead = ()
             if leaf in ("q_proj", "k_proj", "v_proj", "gate_proj",
                         "up_proj", "lm_head"):
-                out[name] = column
+                out[name] = lead + column
             elif leaf in ("o_proj", "down_proj"):
-                out[name] = row
+                out[name] = lead + row
             elif leaf == "embed_tokens":
                 out[name] = ("mp", None)
             else:
                 out[name] = None
         return out
+
+    def check_mp_degree(self, degree: int):
+        """Raise unless an mp split of ``degree`` gives every rank whole
+        heads and equal slices of the MLP and the vocabulary."""
+        c = self.config
+        for what, total in (("num_attention_heads", c.num_attention_heads),
+                            ("num_key_value_heads", c.num_key_value_heads),
+                            ("intermediate_size", c.intermediate_size),
+                            ("vocab_size", c.vocab_size)):
+            if total % degree:
+                raise ValueError(
+                    f"{what}={total} is not divisible by the mp degree "
+                    f"{degree}: each rank must hold an equal slice (whole "
+                    "heads; MLP columns; vocabulary rows)")
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -21,16 +21,26 @@ the same stream in both packages. It follows JAX 0.9 with
 uint32 values are held in int64 tensors, masked with ``& 0xFFFFFFFF``
 after every add and shift, so every op runs on the tensors' own device
 (the CPU or the GPU). Keys are ``(..., 2)`` int64 tensors; every function
-is vectorised over the leading dimensions of its keys."""
+is vectorised over the leading dimensions of its keys.
+
+The stateful stream of ``paddle_tpu/framework.py``: :func:`seed` sets
+the global key, :func:`split_key` splits the key in use (the innermost
+:func:`rng_context`'s, else the global one) and returns the new subkey,
+keeping the other half, and :func:`rng_context` makes a key the one in
+use for its body (the fleet RNG tracker's named streams)."""
 from __future__ import annotations
 
 from typing import Sequence, Union
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
 
 __all__ = ["prng_key", "split", "random_bits", "uniform", "gumbel",
-           "categorical", "threefry2x32"]
+           "categorical", "threefry2x32", "seed", "split_key",
+           "rng_context"]
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -123,3 +133,47 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis: keys (..., 2),
     fp32 logits (..., V) -> (...,) int64, the Gumbel-max draw."""
     return torch.argmax(gumbel(keys, logits.shape[-1]) + logits, dim=-1)
+
+
+# -- the stateful stream ----------------------------------------------------
+
+_STATE = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_STATE, "stack"):
+        _STATE.stack = []
+        _STATE.key = prng_key(0)
+    return _STATE.stack
+
+
+def seed(n: int) -> None:
+    """The global key becomes ``prng_key(n)`` (``paddle.seed``)."""
+    _stack()
+    _STATE.key = prng_key(n)
+
+
+def split_key() -> torch.Tensor:
+    """One fresh subkey: the key in use is split in two, the first half
+    kept as the key in use and the second returned (JAX's
+    ``framework.split_key``)."""
+    stack = _stack()
+    key = stack[-1] if stack else _STATE.key
+    key, sub = split(key)
+    if stack:
+        stack[-1] = key
+    else:
+        _STATE.key = key
+    return sub
+
+
+@contextlib.contextmanager
+def rng_context(key: torch.Tensor):
+    """``key`` is the key in use inside the body; on exit the previous
+    one is in use again, as it was."""
+    stack = _stack()
+    stack.append(key)
+    try:
+        yield
+    finally:
+        stack.pop()

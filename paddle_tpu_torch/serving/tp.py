@@ -60,7 +60,8 @@ from torch import nn
 
 from .. import ops
 from ..distributed.collectives.hierarchical import plan_hierarchy
-from ..distributed.mesh import Mesh, axis_devices, get_current_mesh
+from ..distributed.mesh import (Mesh, axis_devices, get_current_mesh,
+                                spec_dim, spec_piece)
 from ..observability import metrics as _om
 from ..utils import tp_hooks
 from ..utils.flags import env_bool, env_str
@@ -160,10 +161,6 @@ def _param_pspec(name: str, sharding_spec, mode: str,
     if mode == "exact" and i == 1:
         return ()                     # row-parallel weight: replicate
     return tuple(axes if j == i else None for j in range(len(dims)))
-
-
-def _sharded_dim(spec) -> Optional[int]:
-    return next((i for i, e in enumerate(spec) if e), None)
 
 
 # ---------------------------------------------------------------------------
@@ -308,14 +305,12 @@ class ShardedModel:
         replicas = {}
 
         def piece(t: torch.Tensor, pspec, s: int, dev) -> torch.Tensor:
-            i = _sharded_dim(pspec) if pspec else None
-            if i is None:
+            if spec_dim(pspec) is None:
                 key = (id(t), dev)
                 if key not in replicas:
                     replicas[key] = t.detach().to(dev)
                 return replicas[key]
-            n = t.shape[i] // d
-            part = t.detach().narrow(i, s * n, n)
+            part = spec_piece(t.detach(), pspec, s, d)
             # a dim-0 slice of a contiguous tensor is a contiguous view;
             # a row-parallel (dim 1) slice is copied once
             return part.contiguous().to(dev)
@@ -491,7 +486,7 @@ class _TPBackendMixin:
                 "specs — build it with tensor_parallel=True before "
                 "sharding the serving programs")
         for n, s in sharded:
-            dim = _sharded_dim(s)
+            dim = spec_dim(s)
             if named[n].shape[dim] % d:
                 raise ValueError(
                     f"parameter {n} dim {dim} ({named[n].shape[dim]}) "

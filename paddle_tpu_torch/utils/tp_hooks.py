@@ -19,10 +19,20 @@ controller drives that forward:
   ``shard_map`` program runs at that site. Each shard resumes with its
   own element of the result.
 
-The hooks take and return that list. They act only while a
-:class:`TPSpec` is :func:`active`; ``serving/tp.py`` arms it around
-every sharded run. This module lives in ``utils`` because the model
-imports it and must not import the serving package."""
+The hooks take and return that list. The serving hooks act only while
+a :class:`TPSpec` is :func:`active`; ``serving/tp.py`` arms it around
+every sharded run.
+
+The training route of a model split over an mp process group
+(``fleet.distributed_model``: one process a rank, each running its own
+slice) yields its own hooks with its group: :func:`mp_reduce`
+(``mp_allreduce``, ``distributed/fleet/mp_ops.py``) at the sites behind
+o_proj and down_proj, in place of :func:`maybe_reduce`, and
+:func:`mp_copy_in` (``c_identity``) at one more site in front of each
+pair of column-split products. A model with no mp group yields what it
+always did.
+This module lives in ``utils`` because the model imports it and must
+not import the serving package."""
 from __future__ import annotations
 
 import contextlib
@@ -30,8 +40,8 @@ import dataclasses
 from typing import List, Optional
 
 __all__ = ["TPSpec", "current_tp", "active", "maybe_gather",
-           "maybe_gather_logits", "maybe_reduce", "run_local",
-           "run_shards"]
+           "maybe_gather_logits", "maybe_reduce", "mp_copy_in", "mp_reduce",
+           "run_local", "run_shards"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +103,23 @@ def maybe_gather_logits(ts, vocab_size: int):
     if spec is None or ts[0].shape[-1] == vocab_size:
         return ts
     return _gather_last_dim(ts, spec.plan)
+
+
+def mp_copy_in(ts, group):
+    """The training route's ``c_identity`` in front of the column-split
+    products of a model split over the mp process group ``group``:
+    identity forward, the gradient all-reduced."""
+    from ..distributed.fleet.mp_ops import c_identity
+    return [c_identity(t, group) for t in ts]
+
+
+def mp_reduce(ts, group):
+    """The training route's ``mp_allreduce`` behind the row-split
+    products (o_proj, down_proj) of a model split over the mp process
+    group ``group``: the partial sums all-reduced, the gradient passed
+    through."""
+    from ..distributed.fleet.mp_ops import mp_allreduce
+    return [mp_allreduce(t, group) for t in ts]
 
 
 def maybe_reduce(ts):

@@ -247,3 +247,178 @@ def test_grad_scaler_equals_jax():
     t2.load_state_dict(ts.state_dict())
     assert t2.get_loss_scaling() == 2.0 ** 9 and t2.state_dict() == \
         {**ts.state_dict(), "incr_ratio": 2.0, "decr_ratio": 0.5}
+
+
+# ---------------------------------------------------------------------------
+# fleet.init over a process group: the degrees it refuses, the mp group and
+# the HybridCommunicateGroup's getters (gloo jobs of 2 and 4 ranks)
+# ---------------------------------------------------------------------------
+
+_FLEET_WORKER = r'''
+import json, os, sys
+from paddle_tpu_torch import distributed as dist
+from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed import communication as C
+
+out = sys.argv[1]
+dist.init_parallel_env(device="cpu")
+rank, world = dist.get_rank(), dist.get_world_size()
+rec = {"refused": {}, "layouts": {}}
+refusals = {"pp": {"pp_degree": 2}, "sep": {"sep_degree": 2},
+            "mp_sharding": {"mp_degree": 2, "sharding_degree": 2}} \
+    if world == 2 else {}
+for tag, h in refusals.items():
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = dict({"dp_degree": 1}, **h) \
+        if tag != "mp_sharding" else h
+    try:
+        fleet.init(is_collective=True, strategy=st)
+        rec["refused"][tag] = None
+    except NotImplementedError as e:
+        rec["refused"][tag] = str(e)
+layouts = {"dp2_mp2": {"dp_degree": 2, "mp_degree": 2},
+           "mp4": {"dp_degree": 1, "mp_degree": 4},
+           "sharding2_dp2": {"dp_degree": 2, "sharding_degree": 2}} \
+    if world == 4 else {"mp2": {"dp_degree": 1, "mp_degree": 2}}
+for tag, h in layouts.items():
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = h
+    fleet.init(is_collective=True, strategy=st)
+    hcg = fleet.get_hybrid_communicate_group()
+    g = {k: getattr(hcg, f"get_{k}_parallel_group")()
+         for k in ("data", "model", "sharding", "pipe", "sep")}
+    rec["layouts"][tag] = {
+        "mode": hcg.get_parallel_mode(), "global": hcg.get_global_rank(),
+        "sizes": [hcg.get_data_parallel_world_size(),
+                  hcg.get_model_parallel_world_size(),
+                  hcg.get_pipe_parallel_world_size(),
+                  hcg.get_sharding_parallel_world_size(),
+                  hcg.get_sep_parallel_world_size()],
+        "ranks": [hcg.get_data_parallel_rank(),
+                  hcg.get_model_parallel_rank(), hcg.get_stage_id(),
+                  hcg.get_sharding_parallel_rank(),
+                  hcg.get_sep_parallel_rank()],
+        "src": [hcg.get_data_parallel_group_src_rank(),
+                hcg.get_model_parallel_group_src_rank()],
+        "groups": {k: (v.ranks if v is not None else None)
+                   for k, v in g.items()},
+        "stage": [hcg.is_first_stage(), hcg.is_last_stage()]}
+    from paddle_tpu_torch import io
+    sampler = io.DistributedBatchSampler(list(range(8)), 2)
+    rec["layouts"][tag]["sampler"] = [sampler.nranks, sampler.local_rank]
+    mp = g["model"]
+    if mp is not None:       # the mp group carries a collective
+        import torch
+        t = torch.tensor([float(rank)])
+        C.all_reduce(t, group=mp)
+        rec["layouts"][tag]["mp_sum"] = float(t[0])
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(rec, f)
+C.barrier()
+C.destroy_process_group()
+'''
+
+
+def _fleet_job(tmp, world):
+    import json
+    import os
+    from paddle_tpu_torch.distributed.launch import LaunchConfig, launch_pod
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp / "worker.py"
+    script.write_text(_FLEET_WORKER)
+    cfg = LaunchConfig(str(script), [str(tmp)], nproc_per_node=world,
+                       log_dir=str(tmp / "log"),
+                       envs={"OMP_NUM_THREADS": "1",
+                             "PYTHONPATH": repo + os.pathsep
+                             + os.environ.get("PYTHONPATH", "")})
+    rc = launch_pod(cfg)
+    logs = {p.name: p.read_text()[-3000:] for p in (tmp / "log").iterdir()}
+    assert rc == 0, logs
+    return [json.loads((tmp / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def fleet_jobs(tmp_path_factory):
+    return {w: _fleet_job(tmp_path_factory.mktemp(f"fleet{w}"), w)
+            for w in (2, 4)}
+
+
+@pytest.mark.parametrize("tag,item", [("pp", "A.6 (e2)"),
+                                      ("sep", "A.6 (e3)"),
+                                      ("mp_sharding", "A.6 (e5)")])
+def test_init_refuses_unported_degrees_on_every_rank(fleet_jobs, tag, item):
+    """Each of the two ranks raises NotImplementedError naming the item
+    that ports the axis, before any group is made (the job then goes on
+    to the layouts below, so nothing hung)."""
+    for rec in fleet_jobs[2]:
+        msg = rec["refused"][tag]
+        assert msg is not None and item in msg and "ROADMAP.md" in msg
+
+
+def _jax_layout(dims, rank):
+    """JAX's HybridCommunicateGroup getters for the device ``rank`` of a
+    mesh of 4 devices, one a process (JAX's ``_axis_rank`` reads the
+    process's coordinate in the mesh)."""
+    from paddle_tpu.distributed.mesh import AXIS_ORDER
+    from paddle_tpu.distributed.mesh import \
+        HybridCommunicateGroup as JaxHCG
+    n = int(np.prod(list(dims.values())))
+    import jax
+    h = JaxHCG(devices=jax.devices()[:n], **{f"{k}_degree": v
+                                             for k, v in dims.items()})
+    ids = np.vectorize(lambda d: d.id)(h.mesh.devices)
+    base = min(d.id for d in jax.devices()[:n])
+    coord = [int(c[0]) for c in np.nonzero(ids - base == rank)]
+    at = dict(zip(AXIS_ORDER, coord))
+
+    def src(axis):
+        c = list(coord)
+        c[AXIS_ORDER.index(axis)] = 0
+        return int(ids[tuple(c)] - base)
+
+    def group(axis):
+        if h.axis_size(axis) == 1:
+            return None
+        c = [slice(None) if a == axis else x
+             for a, x in zip(AXIS_ORDER, coord)]
+        return sorted(int(i - base) for i in ids[tuple(c)].reshape(-1))
+
+    out = {"mode": h.get_parallel_mode(), "global": rank,
+           "sizes": [h.get_data_parallel_world_size(),
+                     h.get_model_parallel_world_size(),
+                     h.get_pipe_parallel_world_size(),
+                     h.get_sharding_parallel_world_size(),
+                     h.get_sep_parallel_world_size()],
+           "ranks": [at["dp"], at["mp"], at["pp"], at["sharding"],
+                     at["sep"]],
+           "src": [src("dp"), src("mp")],
+           "groups": {"data": group("dp"), "model": group("mp"),
+                      "sharding": group("sharding"), "pipe": group("pp"),
+                      "sep": group("sep")},
+           "stage": [True, True]}
+    from paddle_tpu.distributed import mesh as jmesh
+    from paddle_tpu.distributed.mesh import set_current_mesh as jset
+    jset(None)
+    jmesh._HCG = None
+    return out
+
+
+@pytest.mark.parametrize("world,tag,dims", [
+    (2, "mp2", {"dp": 1, "mp": 2}),
+    (4, "dp2_mp2", {"dp": 2, "mp": 2}),
+    (4, "mp4", {"dp": 1, "mp": 4}),
+    (4, "sharding2_dp2", {"dp": 2, "sharding": 2})])
+def test_hcg_getters_equal_jax_for_each_layout(fleet_jobs, world, tag, dims):
+    for r, rec in enumerate(fleet_jobs[world]):
+        got = dict(rec["layouts"][tag])
+        mp_sum = got.pop("mp_sum", None)
+        sampler = got.pop("sampler")
+        want = _jax_layout(dims, r)
+        assert got == want
+        # the ranks of an mp group take one batch: the sampler's replicas
+        # are the dp ranks; without mp, every rank of the world
+        assert sampler == ([want["sizes"][0], want["ranks"][0]]
+                           if dims.get("mp", 1) > 1 else [world, r])
+        if dims.get("mp", 1) > 1:        # a collective over the mp group
+            assert mp_sum == sum(got["groups"]["model"])

@@ -381,6 +381,9 @@ FLASH_GPU_CASES = {
     "long_causal": (1, 4096, 4096, 4, 4, 128, True, None),
     # bench.py's headline configuration (tools/port_train_bench.py)
     "headline": (8, 2048, 2048, 16, 16, 128, True, None),
+    # one rank of its tensor-parallel run at mp 2 (chip_smoke.py phase
+    # 18): half the heads, the batch of 4
+    "headline_mp2": (4, 2048, 2048, 8, 8, 128, True, None),
 }
 
 
@@ -517,6 +520,32 @@ def test_rope_kernel_matches_plain(dev, dtype):
                     2.0 ** -7 * 2 * float(q.float().abs().max()) \
                     * float(cos.float().abs().max())
                 assert err <= tol, err
+
+
+def test_rope_kernel_at_the_mp2_headline_shape(dev):
+    """RoPE on one mp rank's q and k of the headline run at mp 2 (4,
+    2048, 8, 128) bf16 with the model's tables: one launch, forward and
+    backward, within one bf16 ulp of the largest term of the plain
+    version."""
+    from paddle_tpu_torch.models.llama import _rope_cache
+    from paddle_tpu_torch.ops.fused import _rope_pair
+    from tools.port_train_bench import headline_big_config
+    cos, sin = (t[:2048].bfloat16() for t in
+                _rope_cache(headline_big_config(), dev))
+    g = torch.Generator(device=dev).manual_seed(18)
+    q, k = (torch.randn(4, 2048, 8, 128, generator=g, device=dev)
+            .bfloat16() for _ in range(2))
+    tol = 2.0 ** -7 * 2 * float(max(q.float().abs().max(),
+                                    k.float().abs().max()))
+    for sign in (1.0, -1.0):
+        ops.reset_launch_counts()
+        got = _rope_pair(q, k, cos, sin, sign)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rope"] == 1
+        with ops.plain_versions():
+            want = _rope_pair(q, k, cos, sin, sign)
+        for a, b_ in zip(got, want):
+            assert float((a.float() - b_.float()).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("pdtype,gdtype", [
