@@ -327,9 +327,12 @@ Phases, each of which raises on failure (nothing is caught):
    sync: device-to-host, transport, host-to-device; AdamW), the sync's
    bytes and GB/s, peak memory and each collective's route printed. (c)
    In the same job: a 64 MiB CUDA tensor's p2p round trip through the
-   native store (the bulk guard warns once a rank), a collective of the
-   subset group [1] (rank 0 takes no part), ``ElasticManager``
-   membership of both ranks. (b) The headline width at 2 layers (cut:
+   native store before the process group starts (its bulk guard warns
+   once a rank), the same round trip over the process group (gloo
+   through pinned host memory; the guard stays silent), a collective of
+   the subset group
+   [1] through the native store (rank 0 takes no part),
+   ``ElasticManager`` membership of both ranks. (b) The headline width at 2 layers (cut:
    the depth, so that the checkpoints stay small), 3 steps, each rank's
    atomic checkpoint after step 2; under ``max_restarts=1`` rank 1 exits
    after step 2, the pod is relaunched and resumes from the checkpoints:
@@ -419,6 +422,45 @@ Phases, each of which raises on failure (nothing is caught):
    on the split stacks (16, 2816, 2048) and (16, 2048, 2816), each
    against its plain version. The phase prints its seconds; its
    workers' launches are the launches line's ``mp_training``.
+
+19. Pipeline-parallel (pp) training (run after phase 18, alone on the
+   card). ``tools/port_pp_worker.py`` launched with ``python -m
+   paddle_tpu_torch.distributed.launch``, 2 gloo ranks sharing the card.
+   (a) ``headline_big_config("full")`` with ``pipeline_parallel=True``,
+   ``pp_num_microbatches=4`` (953.2M, bf16, AdamW with bf16 moments,
+   full recompute, the stacked trunk; the headline's widths and 16
+   layers): ``fleet.init(pp_degree=2)``, ``fleet.distributed_model``
+   (each stage keeps 8 layers' rows of every stack, the table on stage
+   0, the final norm and the head on stage 1), ``fleet.
+   distributed_optimizer``; both ranks take phase 16's first 4 x 2048
+   batch and the next, 2 eager steps of the FThenB schedule (four 1 x
+   2048 microbatches; the hops gloo p2p through pinned host memory).
+   Gates: finite losses, equal on both ranks; rank 0 first runs the same
+   two steps on the whole model from the same weights with the same
+   microbatches in the same order (``one_rank_schedule``), and every
+   region of every stage's parameters equals that run's after every step
+   (SHA-256 over the store); that run's losses and parameters are within
+   ``tools/port_pp_worker.py``'s tolerances of the whole-batch step
+   (loss 2^-9, parameters 9e-3 per tensor, relative norm: there); each
+   rank's launches exact a step (``expected_launches``: RMSNorm 4LM/S
+   (+1 on the last stage), its backward 2LM/S (+1), RoPE 3LM/S, flash
+   forward 2LM/S, dq and dkv LM/S, AdamW one a tensor the stage holds);
+   8 hops a step a rank (4 sends, 4 receives) on the gloo route, staged.
+   (b) The same model at ``virtual_pp=2`` (the interleaved schedule, 12
+   sends and 12 receives a step a rank), 2 steps from the same weights,
+   held to (a)'s references and gates. (c) ``save_state_dict(convert.
+   jax_state_dict(model))`` of (a)'s parameters after step 2 (JAX's
+   layout and global shapes), loaded in a fresh one-rank process at the
+   headline width: every saved region bit-equal. (d) In this process,
+   after the job: flash forward, dq and dkv at a microbatch's shape (1,
+   2048, 16, 128) bf16 (phase 2's ``pp`` case), RoPE on q and k of that
+   shape, RMSNorm forward and backward on (2048, 2048) bf16, AdamW over
+   bf16 moments on a stage's stacks (8, 5632, 2048) and (8, 2048, 5632),
+   each against its plain version. Printed: step seconds a rank by part
+   (forward and backward, of which the hop waits, the loss broadcast;
+   AdamW), hops and bytes, peak and resting memory a rank beside phase
+   16's DP peak and phase 18's mp peak. The phase prints its seconds; its
+   workers' launches are the launches line's ``pp_training``.
 
 Launch counters are zeroed just before each path and read just after.
 ``phase seconds: {...}`` gives each phase's wall seconds (phase 1 with
@@ -848,8 +890,8 @@ def check_flash(torch, results):
     Llama training path's shape (4, 2048, 32, 128) bf16 causal, a GQA
     kvh=8 case, an fp32 case at seq 512, the ERNIE-MoE path's shape
     (16, 1024, 12, 64) bf16 causal, the headline training path's
-    (8, 2048, 16, 128) bf16 causal and one rank's of its mp 2 run (4,
-    2048, 8, 128). The backward pair gets the kernel's o and lse and the
+    (8, 2048, 16, 128) bf16 causal, one rank's of its mp 2 run (4,
+    2048, 8, 128) and one microbatch of its pp run (1, 2048, 16, 128). The backward pair gets the kernel's o and lse and the
     same delta on both sides.
 
     Tolerances. fp32: o and lse 2e-5, gradients 1e-4 absolute (the same
@@ -865,8 +907,8 @@ def check_flash(torch, results):
     Beside each time: the achieved TFLOP/s, the share of the bound
     (bound / kernel) and the ratio to the library call; the main shape's
     times go into the kernels line, the ERNIE, headline and mp 2 shapes'
-    into ``results["ernie"]``, ``results["headline"]`` and
-    ``results["mp2"]``."""
+    into ``results["ernie"]``, ``results["headline"]``,
+    ``results["mp2"]`` and ``results["pp"]``."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -878,7 +920,8 @@ def check_flash(torch, results):
              ("fp32", 4, 512, 32, 32, 128, torch.float32),
              ("ernie", 16, 1024, 12, 12, 64, torch.bfloat16),
              ("headline", 8, 2048, 16, 16, 128, torch.bfloat16),
-             ("mp2", 4, 2048, 8, 8, 128, torch.bfloat16)]
+             ("mp2", 4, 2048, 8, 8, 128, torch.bfloat16),
+             ("pp", 1, 2048, 16, 16, 128, torch.bfloat16)]
     for name, b, s, h, hk, d, dtype in cases:
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(
@@ -985,7 +1028,7 @@ def check_flash(torch, results):
                        bound_by=by, library_ms=lib)
             if name == "main":
                 results[kname] = row
-            elif name in ("ernie", "headline", "mp2"):
+            elif name in ("ernie", "headline", "mp2", "pp"):
                 results.setdefault(name, {})[kname] = row
         print(f"  dq + dkv: kernel_ms={ms_dq + ms_dkv:.4f} "
               f"vs_library={(ms_dq + ms_dkv) / lib_b:.2f}x; plain_ms of dq "
@@ -6154,6 +6197,12 @@ def _dp_training(card, tmp):
             or not x["store_native"] for x in recs):
         raise AssertionError(f"phase 16 (a): ranks differ or took another "
                              f"route: {[x['backend'] for x in recs]}")
+    for x in recs:
+        sp = x["store"]["store_p2p"]
+        if not sp["p2p_equal"] or sp["bulk_warnings"] != 1 or \
+                sp["routes"].get("send") != {"store": 1}:
+            raise AssertionError(f"phase 16 (c) rank {x['rank']}: the "
+                                 f"store's p2p round trip: {sp}")
     ref = runs[0]["reference"]
     params_b = runs[0]["params"] / 1e9
     print(f"[{card}] phase 16 (a) data-parallel headline ({params_b:.4f}B "
@@ -6189,8 +6238,12 @@ def _dp_training(card, tmp):
               f"launches over {_DP_STEPS} steps {run['launches']}")
     for r in recs:
         st = r["store"]
+        sp = st["store_p2p"]
         print(f"[{card}] phase 16 (c) rank {r['rank']}: native store "
-              f"{st['store_native']}; 64 MiB p2p round trip "
+              f"{st['store_native']}; 64 MiB p2p round trip through the "
+              f"store {sp['p2p_round_trip_s']:.3f} s, equal "
+              f"{sp['p2p_equal']}, bulk warnings {sp['bulk_warnings']}, "
+              f"routes {sp['routes']}; over the process group "
               f"{st['p2p_round_trip_s']:.3f} s, equal {st['p2p_equal']}, "
               f"bulk warnings {st['bulk_warnings']}; subset group "
               f"{st.get('subset_ok', 'not a member')}; elastic alive "
@@ -6691,6 +6744,14 @@ def _mp_kernel_checks(torch):
     """Phase 18 (c): RoPE, RMSNorm forward and backward and AdamW at one
     mp rank's shapes against their plain versions (flash at that shape is
     phase 2's ``mp2`` case)."""
+    _stage_kernel_checks(torch, "18 (c)", "one mp rank's", (4, 2048, 8),
+                         ((16, 2816, 2048), (16, 2048, 2816)), "mp2")
+
+
+def _stage_kernel_checks(torch, label, what, qshape, stacks, flash_case):
+    """RoPE on q and k of ``qshape`` + (128,), RMSNorm forward and
+    backward on its rows x 2048 and AdamW over bf16 moments on
+    ``stacks``, bf16, each against its plain version."""
     from paddle_tpu_torch.models.llama import _rope_cache
     from paddle_tpu_torch.ops import plain_versions
     from paddle_tpu_torch.ops.fused import (_rope_pair, rms_norm,
@@ -6700,7 +6761,7 @@ def _mp_kernel_checks(torch):
     cfg = headline_big_config()
     gen = torch.Generator(device="cuda").manual_seed(18)
     cos, sin = (t[:2048].bfloat16() for t in _rope_cache(cfg, "cuda"))
-    q, k = (torch.randn(4, 2048, 8, 128, generator=gen, device="cuda")
+    q, k = (torch.randn(*qshape, 128, generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
     tol = 2.0 ** -7 * 2 * float(max(q.float().abs().max(),
                                     k.float().abs().max()))
@@ -6712,18 +6773,19 @@ def _mp_kernel_checks(torch):
         rope_err = max([rope_err] + [_max_err(a, b)
                                      for a, b in zip(got, want)])
     if not rope_err <= tol:
-        raise AssertionError(f"phase 18 (c) rope (4, 2048, 8, 128): "
-                             f"{rope_err} > {tol}")
+        raise AssertionError(f"phase {label} rope {qshape}: {rope_err} > "
+                             f"{tol}")
     del q, k, got, want
     h, eps = cfg.hidden_size, cfg.rms_norm_eps
-    x = torch.randn(4 * 2048, h, generator=gen, device="cuda").bfloat16()
+    rows = qshape[0] * qshape[1]
+    x = torch.randn(rows, h, generator=gen, device="cuda").bfloat16()
     w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).bfloat16()
-    ct = torch.randn(4 * 2048, h, generator=gen, device="cuda").bfloat16()
+    ct = torch.randn(rows, h, generator=gen, device="cuda").bfloat16()
     y, want = rms_norm(x, w, eps), rms_norm_reference(x, w, eps)
     rms_err = _max_err(y, want)
     if not torch.allclose(y.float(), want.float(), atol=RMS_BF16_TOL[0],
                           rtol=RMS_BF16_TOL[1]):
-        raise AssertionError(f"phase 18 (c) rms_norm (8192, 2048): "
+        raise AssertionError(f"phase {label} rms_norm ({rows}, {h}): "
                              f"{rms_err}")
     dx, dw = rms_norm_bwd(x, w, ct, eps)
     pdx, pdw = rms_norm_backward_reference(x, w, ct, eps)
@@ -6731,12 +6793,12 @@ def _mp_kernel_checks(torch):
     okw, _, sw = _rms_bwd_close(
         dw, pdw, _rms_bwd_tol(torch, pdw, "dw", x, ct, eps))
     if not (okx and okw):
-        raise AssertionError(f"phase 18 (c) rms_norm_bwd (8192, 2048): dx "
-                             f"share {sx}, dw share {sw}")
+        raise AssertionError(f"phase {label} rms_norm_bwd ({rows}, {h}): "
+                             f"dx share {sx}, dw share {sw}")
     del x, w, ct, y, want, dx, dw, pdx, pdw
     hp = _adamw_hp(torch)
     shares = {}
-    for shape in ((16, 2816, h), (16, h, 2816)):
+    for shape in stacks:
         p = (0.02 * torch.randn(shape, generator=gen, device="cuda")
              ).bfloat16()
         g = (1e-3 * torch.randn(shape, generator=gen, device="cuda")
@@ -6748,16 +6810,16 @@ def _mp_kernel_checks(torch):
         by_step, _ = _adamw_steps(torch, p, g, m, v, hp, _bf16_shares)
         shares[shape] = max(max(s) for s in by_step.values())
         if not shares[shape] <= 1.0:
-            raise AssertionError(f"phase 18 (c) adamw {shape}: {by_step}")
+            raise AssertionError(f"phase {label} adamw {shape}: {by_step}")
         del p, g, m, v
     torch.cuda.empty_cache()
-    print(f"phase 18 (c) at one mp rank's shapes, kernels vs plain: rope "
-          f"(4, 2048, 8, 128) bf16 max abs err {rope_err:.4e} (tol "
-          f"{tol:.4e}); rms_norm (8192, 2048) bf16 {rms_err:.4e}, its "
+    print(f"phase {label} at {what} shapes, kernels vs plain: rope "
+          f"{qshape + (128,)} bf16 max abs err {rope_err:.4e} (tol "
+          f"{tol:.4e}); rms_norm ({rows}, {h}) bf16 {rms_err:.4e}, its "
           f"backward within tol (largest shares dx {sx:.3f}, dw {sw:.3f}); "
           f"adamw bf16 moments largest share of the per-element tol "
           + ", ".join(f"{s} {v:.3f}" for s, v in shares.items())
-          + "; flash (4, 2048, 8, 128): phase 2's mp2 lines")
+          + f"; flash {qshape + (128,)}: phase 2's {flash_case} lines")
 
 
 def mp_path(torch, card):
@@ -6799,6 +6861,156 @@ def mp_path(torch, card):
     _mp_kernel_checks(torch)
     print(f"phase 18 (c) took {time.perf_counter() - t0:.1f} s")
     print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -- phase 19: pipeline-parallel (pp) training ------------------------------
+
+_PP_WORKER = os.path.join(_REPO, "tools", "port_pp_worker.py")
+_PP_STEPS = 2
+_PP_LAYERS = 16         # (a)'s and (b)'s depth: the headline's, uncut
+_MP_PEAK_GB = 5.076     # phase 18 (a)'s peak a rank (PERF.md §6, run M2)
+
+
+def _pp_args():
+    return ["--config", "headline", "--batch", "4", "--seq", "2048",
+            "--steps", str(_PP_STEPS), "--layers", str(_PP_LAYERS),
+            "--micro", "4"]
+
+
+def _pp_check(card, recs, wall):
+    """Phase 19 (a) and (b)'s gates and lines from the job's records;
+    returns the launches of both ranks' steps."""
+    from paddle_tpu_torch import ops
+    totals = {k: 0 for k in ops.launch_counts()}
+    for label, i, vpp in (("(a)", 0, 1), ("(b)", 1, 2)):
+        runs = [r["runs"][i] for r in recs]
+        losses = runs[0]["losses"]
+        for r, run in zip(recs, runs):
+            if run["vpp"] != vpp:
+                raise AssertionError(f"phase 19 {label}: ran vpp "
+                                     f"{run['vpp']}, expected {vpp}")
+            want = {k: v for k, v in run["expected_launches"].items()}
+            for step, got in enumerate(run["launches"], 1):
+                counts = {k: got.get(k, 0) for k in want}
+                if counts != want:
+                    raise AssertionError(
+                        f"phase 19 {label} rank {r['rank']} step {step} "
+                        f"launches {got}, expected {want}")
+                for k in counts:
+                    totals[k] += counts[k]
+            # each microbatch hops V S - 1 times each way: over 2 stages,
+            # M (2V - 1) sends and as many receives a rank
+            hops = run["micro"] * (2 * vpp - 1)
+            for step, h in enumerate(run["p2p"], 1):
+                if not (h["sends"] == h["recvs"] == hops
+                        and h["routes"]["send"] == {"gloo": hops}
+                        and h["routes"]["recv"] == {"gloo": hops}
+                        and h["staged_calls"] > 0):
+                    raise AssertionError(f"phase 19 {label} rank "
+                                         f"{r['rank']} step {step} hops {h}")
+            if run["losses"] != losses or r["backend"] != "gloo":
+                raise AssertionError(f"phase 19 {label}: ranks disagree or "
+                                     f"took another route")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 19 {label}: losses {losses}")
+        ref = runs[0]
+        checks = ref["reference_checks"]
+        if len(checks) != _PP_STEPS or any(c["differ"] or not c["checked"]
+                                           for c in checks):
+            raise AssertionError(f"phase 19 {label}: reference {checks}")
+        schedule = "FThenB" if vpp == 1 else "interleaved (V=2)"
+        print(f"[{card}] phase 19 {label} pipeline-parallel headline "
+              f"({ref['params'] / 1e9:.4f}B params bf16, {ref['layers']} "
+              f"layers, full recompute, AdamW bf16 moments) at pp 2, "
+              f"{schedule}, M = {ref['micro']} microbatches of 1 x 2048: 2 "
+              f"gloo ranks on one card, "
+              + ", ".join(f"stage {x['stage']} {x['local_params'] / 1e9:.4f}"
+                          f"B params" for x in runs)
+              + f", {_PP_STEPS} steps on phase 16's batches")
+        print(f"phase 19 {label} losses {losses} (both ranks); every region"
+              f" of both stages bit-identical (SHA-256) to rank 0's one-rank "
+              f"run of the same microbatches after every step "
+              f"({', '.join(str(c['checked']) for c in checks)} regions)")
+        for step, (a, b, c) in enumerate(zip(ref["reference_losses"],
+                                             ref["whole_losses"],
+                                             ref["param_rel"]), 1):
+            print(f"phase 19 {label} step {step} vs the whole-batch step: "
+                  f"loss {a:.6f} vs {b:.6f} (relative "
+                  f"{abs(a - b) / abs(b):.3e}, tol {ref['tol']['loss']:.3e}); "
+                  f"parameters largest relative norm {c['max']:.4e} "
+                  f"({c['worst']}, tol {ref['tol']['param']}), median "
+                  f"{c['median']:.4e}")
+        for r, run in zip(recs, runs):
+            for step, (t, h) in enumerate(zip(run["step_s"], run["p2p"]),
+                                          1):
+                print(f"[{card}] phase 19 {label} rank {r['rank']} (stage "
+                      f"{run['stage']}) step {step}: waited "
+                      f"{1e3 * t['start_wait']:.1f} ms for the other rank "
+                      f"to start the step; forward+backward "
+                      f"{1e3 * t['fwd_bwd']:.1f} ms, of which hop waits "
+                      f"{1e3 * t['p2p_wait']:.1f} ms (receives "
+                      f"{1e3 * t['recv_wait']:.1f}), the loss broadcast "
+                      f"{1e3 * t['broadcast']:.1f} ms, compute "
+                      f"{1e3 * t['compute']:.1f} ms; AdamW "
+                      f"{1e3 * t['adamw']:.1f} ms; {h['sends']} sends "
+                      f"{h['bytes_sent'] / 1e6:.1f} MB, {h['recvs']} "
+                      f"receives {h['bytes_received'] / 1e6:.1f} MB (gloo, "
+                      f"staged through pinned host memory)")
+            print(f"[{card}] phase 19 {label} rank {r['rank']}: peak "
+                  f"{run.get('peak_mem_gb', float('nan')):.3f} GB, resting "
+                  f"{run.get('resting_mem_gb', float('nan')):.3f} GB (phase "
+                  f"16's DP peak {_DP_PEAK_GB} GB, phase 18's mp peak "
+                  f"{_MP_PEAK_GB} GB a rank)")
+    print(f"[{card}] phase 19 job: the launcher's wall {wall:.1f} s (rank "
+          f"0's two one-rank references {recs[0]['reference_s']:.1f} s of "
+          f"it)")
+    return totals
+
+
+def pp_path(torch, card):
+    """Phase 19 (see the module docstring). Returns the launch counts of
+    (a)'s and (b)'s workers (both ranks, their steps)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pt_pp_")
+    jobs = []
+    try:
+        ckpt = os.path.join(tmp, "pp", "ckpt")
+        t0 = time.perf_counter()
+        jobs.append(_start_job(tmp, "pp", 2, _pp_args() + [
+            "--vpp", "1,2", "--reference", "--ckpt", ckpt],
+            worker=_PP_WORKER))
+        recs, _ = _finish_job("pp", jobs[-1], 2, phase=19)
+        launches = _pp_check(card, recs, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        jobs.append(_start_job(tmp, "ppload", 1, _pp_args() + [
+            "--load", ckpt], worker=_PP_WORKER))
+        (one,), _ = _finish_job("ppload", jobs[-1], 1, phase=19)
+        saved = sum(r["runs"][0]["saved_regions"] for r in recs)
+        if one["regions_checked"] != saved:
+            raise AssertionError(f"phase 19 (c): {one['regions_checked']} "
+                                 f"regions checked, {saved} saved")
+        print(f"[{card}] phase 19 (c) the pp 2 checkpoint (JAX's layout and"
+              f" global shapes, {saved} regions; saves "
+              + ", ".join(f"rank {r['rank']} {r['runs'][0]['save_s']:.2f} s"
+                          for r in recs)
+              + f") loaded by a fresh one-rank process at the headline "
+              f"width in {one['load_s']:.2f} s: every region bit-equal "
+              f"(SHA-256); the process took {time.perf_counter() - t0:.1f} s")
+    finally:
+        for job in jobs:
+            _stop_job(job)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    _stage_kernel_checks(torch, "19 (d)", "one microbatch's (pp stage)",
+                         (1, 2048, 16), ((8, 5632, 2048), (8, 2048, 5632)),
+                         "pp")
+    print(f"phase 19 (d) took {time.perf_counter() - t0:.1f} s")
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -6916,6 +7128,8 @@ def main() -> int:
     mark("16-17")
     mp = mp_path(torch, card)
     mark("18")
+    pp = pp_path(torch, card)
+    mark("19")
     print("phase seconds: " + json.dumps(seconds))
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
@@ -6924,7 +7138,8 @@ def main() -> int:
                  durable_fleet=durable, tp_serving=tp,
                  training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader,
-                 dp_training=dp, zero_training=zero, mp_training=mp)
+                 dp_training=dp, zero_training=zero, mp_training=mp,
+                 pp_training=pp)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))

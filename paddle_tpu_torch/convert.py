@@ -20,7 +20,12 @@ port's layout, ``LlamaForCausalLM.partition_specs()`` or
 ``jax_state_dict`` goes the other way for the distributed checkpoint:
 every parameter in JAX's layout under JAX's name, a split one as this
 rank's region of JAX's global tensor (a ``ShardedTensor``), so that
-``save_state_dict`` writes JAX's global shapes."""
+``save_state_dict`` writes JAX's global shapes. A model split by stage
+over a pp process group writes its stage's rows of each stacked
+parameter (the mp regions inside them under pp x mp), and each
+parameter that only some stages hold (the embedding, the final norm,
+the head) from its first holder. At ``virtual_pp > 1`` the stacks are
+JAX's ``(V, L/V, ...)`` in both directions."""
 from __future__ import annotations
 
 import re
@@ -61,7 +66,8 @@ def _to_torch(name: str, arr) -> torch.Tensor:
         t = torch.from_numpy(np.array(arr, copy=True))
     ndim = _linear_ndim(name)
     if ndim:
-        if t.ndim != ndim:
+        # a stacked weight at virtual_pp > 1 is (V, L/V, in, out)
+        if t.ndim != ndim and not (ndim == 3 and t.ndim == 4):
             raise ValueError(f"{name}: expected a {ndim}-D linear weight, "
                              f"got shape {tuple(t.shape)}")
         t = t.transpose(-1, -2).contiguous()
@@ -97,7 +103,7 @@ def params_from_jax_mp(named_numpy: Dict[str, np.ndarray], specs: dict,
     (``mesh.spec_piece``, a copy) of each parameter that ``specs``
     splits: the state dict of a model that holds only its mp slice."""
     from .distributed.mesh import spec_piece
-    return {n: spec_piece(t, specs.get(n), rank, degree).contiguous()
+    return {n: spec_piece(t, specs.get(n), rank, degree, "mp").contiguous()
             for n, t in params_from_jax(named_numpy).items()}
 
 
@@ -105,37 +111,60 @@ def jax_state_dict(model: torch.nn.Module) -> dict:
     """``{JAX name: tensor or ShardedTensor}``: every parameter of
     ``model`` in JAX's layout (linear weights transposed back, as views
     of the parameters); a parameter that ``fleet.distributed_model``
-    split over the mp group is this rank's region of JAX's global
-    tensor, written by the first dp rank that holds it.
+    split over the mp or the pp group is this rank's region of JAX's
+    global tensor, and under a pp split every parameter is written by
+    the first rank that holds it (module docstring).
     ``distributed.save_state_dict`` of it writes a directory that JAX's
     ``load_state_dict`` reads with its global shapes;
     ``distributed.load_state_dict`` into it fills the parameters in
     place, from a directory of any split (or none)."""
     from .distributed.mesh import get_hybrid_communicate_group, spec_dim
     from .distributed.sharding import ShardedTensor
-    split = getattr(model, "_mp_split", {})
-    group = getattr(model, "mp_group", None)
+    mp_split = getattr(model, "_mp_split", {})
+    pp_split = getattr(model, "_pp_split", None)
     hcg = get_hybrid_communicate_group()
-    replica = hcg.get_data_parallel_rank() if hcg is not None else 0
+    groups = {"mp": getattr(model, "mp_group", None),
+              "pp": hcg.get_pipe_parallel_group() if hcg is not None
+              else None}
+    dp_rank = hcg.get_data_parallel_rank() if hcg is not None else 0
+    mp_rank = hcg.get_model_parallel_rank() if hcg is not None else 0
+    mp_n = hcg.get_model_parallel_world_size() if hcg is not None else 1
+    stage = hcg.get_stage_id() if hcg is not None else 0
+    shared = set(getattr(model, "_pp_shared_names", ()))
     out = {}
     for name, p in model.named_parameters():
         t = p.detach()
         swap = _linear_ndim(name) != 0
         if swap:
             t = t.transpose(-1, -2)
-        if name not in split:
+        axes = [a for a, split in (("pp", pp_split or {}),
+                                   ("mp", mp_split)) if name in split]
+        if not axes and pp_split is None:
             out[name] = t
             continue
-        spec, gshape = split[name]
-        dim = spec_dim(spec)
+        spec, gshape = (pp_split or {}).get(name) or \
+            mp_split.get(name) or (None, tuple(p.shape))
         shape = list(gshape)
         if swap:
             shape[-1], shape[-2] = shape[-2], shape[-1]
-            dim = {len(shape) - 1: len(shape) - 2,
-                   len(shape) - 2: len(shape) - 1}.get(dim, dim)
         region = [[0, d] for d in shape]
-        k = shape[dim] // group.nranks
-        region[dim] = [group.rank * k, (group.rank + 1) * k]
-        out[name] = ShardedTensor(shape, t, region, group, dim,
+        dim = None
+        for axis in axes:
+            d = spec_dim(spec, axis)
+            if swap:
+                d = {len(shape) - 1: len(shape) - 2,
+                     len(shape) - 2: len(shape) - 1}.get(d, d)
+            g = groups[axis]
+            k = shape[d] // g.nranks
+            region[d] = [g.rank * k, (g.rank + 1) * k]
+            dim = d if dim is None else dim
+        # the first holder writes: one dp rank, one mp rank of a tensor
+        # the mp group holds whole, the first of two stages that hold it
+        replica = dp_rank * (1 if "mp" in axes else mp_n) \
+            + (0 if "mp" in axes else mp_rank) \
+            + (1 if name in shared and stage != 0 else 0)
+        out[name] = ShardedTensor(shape, t, region,
+                                  groups[axes[-1]] if axes else None,
+                                  dim if dim is not None else 0,
                                   replica=replica)
     return out

@@ -7,13 +7,15 @@ TCP store, eager ``communication``, ``init_parallel_env`` and
 (``collectives.bucketing``, ``fleet.utils``) and its in-graph half
 (``BucketedGradSync``); group-sharded training (ZeRO 1/2/3 over the
 process group: ``sharding``), fleet's strategy API with its
-meta-optimizers and its mp axis (``fleet``: the tensor-parallel layers
-of ``fleet.meta_parallel`` and the mp communication of
+meta-optimizers and its mp and pp axes (``fleet``: the tensor-parallel
+layers of ``fleet.meta_parallel`` and the mp communication of
 ``fleet.mp_ops`` over fleet's mp process group, ``fleet.utils.
-recompute``), and the resharding distributed checkpoint
-(``checkpoint``: ``save_state_dict``/``load_state_dict``). Pipeline,
-sequence and expert parallelism and the placement API come with the
-later slices of ``ROADMAP.md`` A.6 ((e2)-(e5)).
+recompute``; ``PipelineLayer`` and the schedules of ``pipeline`` over
+fleet's pp process group, their hops tagged p2p over the process
+group), and the resharding distributed checkpoint (``checkpoint``:
+``save_state_dict``/``load_state_dict``). Sequence and expert
+parallelism and the placement API come with the later slices of
+``ROADMAP.md`` A.6 ((e3)-(e5)).
 
 Deliberate differences from the JAX package: the world's collectives
 run on ``torch.distributed`` (gloo or nccl, ``parallel``) where JAX's run
@@ -41,6 +43,7 @@ from .consistency import (program_fingerprint,                     # noqa
                           check_program_consistency)
 from . import fleet                                                # noqa
 from . import checkpoint                                           # noqa
+from . import pipeline                                             # noqa
 from . import sharding                                             # noqa
 from . import collectives                                          # noqa
 from .sharding import (group_sharded_parallel,                     # noqa

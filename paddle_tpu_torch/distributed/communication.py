@@ -16,9 +16,14 @@ of the process, never by a failure:
   ``gloo`` runs on host memory, so a CUDA tensor is staged through a
   pinned host copy and back (:func:`stage_stats` keeps the seconds of
   each part and the bytes).
-- ``"store"``: point-to-point ops, subset groups (so that non-members
-  need not take part), ``gather``, and world collectives of a
-  multi-process job that has no process group. They ride the job's
+- ``"store"``: subset groups (so that non-members need not take
+  part), ``gather``, and world collectives and point-to-point ops of a
+  multi-process job that has no process group. Once the process group
+  is up, ``send``/``recv`` and their async forms take its route (gloo
+  or nccl), since its world holds both peers of any group. On gloo and
+  the store a receive only takes a message of its own tag; torch's nccl
+  backend ignores tags, so there the sends and receives between two
+  ranks must be made in the same order. The store's ops ride the job's
   ``TCPStore`` (``PADDLE_MASTER``; rank 0 hosts the daemon) as JAX's
   ``RAW0``/``BF16`` npy frames under JAX's keys, so a JAX rank and a port
   rank exchange through one store.
@@ -136,14 +141,17 @@ def get_group(gid=0):
 
 
 def destroy_process_group(group=None):
-    """Drop ``group`` from the registry; with no group, drop every group,
-    close the store connection (rank 0's daemon with it), reset the
+    """Drop ``group`` from the registry; with no group, end the sends
+    still in flight, drop every group, close the store connection (rank
+    0's daemon with it), reset the
     sequence counters (a job started again begins in lock-step with its
     peers) and destroy ``init_parallel_env``'s process group."""
     global _STORE
     if group is not None and group.id in _GROUPS and group.id != 0:
         del _GROUPS[group.id]
         return
+    if _pg_up():
+        _reap_sends(every=True)
     _GROUPS.clear()
     with _STORE_LOCK:
         if _STORE is not None:
@@ -466,34 +474,115 @@ class Task:
         return self._thread is None or not self._thread.is_alive()
 
 
-def send(tensor, dst=0, group=None, sync_op=True):
-    """Send ``tensor`` to GLOBAL rank ``dst`` over the store; ``group``
-    only namespaces the exchange. Per-(group, src, dst) sequence numbers
-    match repeated sends to their receives in order."""
+def _p2p_route() -> str:
+    """The route of a point-to-point op: the process group's backend
+    once ``init_parallel_env`` started it (its world holds both peers,
+    whatever group namespaces the exchange), else the store."""
+    return str(torch.distributed.get_backend()) if _pg_up() else "store"
+
+
+def _p2p_start(route, tensor, peer, tag, receive):
+    """Start a send of ``tensor`` to GLOBAL rank ``peer`` (or a receive
+    into it) on the process group, tagged ``tag``: a :class:`_Flight`
+    whose ``wait()`` ends it. On gloo a CUDA tensor travels through a
+    pinned host copy (counted and timed as the collectives' staging);
+    the copy lives until the flight ends."""
+    staged = route == "gloo" and tensor.is_cuda
+    if receive:
+        if staged:
+            buf = torch.empty(tensor.shape, dtype=tensor.dtype,
+                              pin_memory=True)
+        else:
+            buf = tensor if tensor.is_contiguous() else \
+                torch.empty_like(tensor,
+                                 memory_format=torch.contiguous_format)
+        work = torch.distributed.irecv(buf, src=peer, tag=tag)
+        return _Flight(work, [(tensor, buf)], staged, None)
+    [buf] = _stage_in([tensor], staged)
+    work = torch.distributed.isend(buf, dst=peer, tag=tag)
+    return _Flight(work, [], staged, lambda: buf)
+
+
+def _p2p_key(gid, src, dst, tag, seqs):
+    """The store key of the next message from ``src`` to ``dst`` under
+    ``tag``: JAX's ``p2p/{gid}/{src}->{dst}/{seq}`` for tag 0, the tag
+    in the key otherwise; sequence numbers count per (group, pair,
+    tag)."""
+    with _SEQ_LOCK:
+        seq = seqs.get((gid, src, dst, tag), 0)
+        seqs[(gid, src, dst, tag)] = seq + 1
+    mid = f"t{tag}/" if tag else ""
+    return f"p2p/{gid}/{src}->{dst}/{mid}{seq}"
+
+
+# sends of ``send`` on the process group still in flight (their private
+# copies with them), ended as they complete and all at
+# ``destroy_process_group``
+_PENDING_SENDS: list = []
+
+
+def _reap_sends(every: bool = False):
+    keep = []
+    for fl in _PENDING_SENDS:
+        if every or fl.is_completed():
+            fl.wait()
+        else:
+            keep.append(fl)
+    _PENDING_SENDS[:] = keep
+
+
+def send(tensor, dst=0, group=None, sync_op=True, tag=0):
+    """Send ``tensor`` to GLOBAL rank ``dst``; ``group`` only namespaces
+    the exchange. Once the process group is up the send is the group's
+    (``torch.distributed.isend``); otherwise it rides the store, where
+    per-(group, src, dst, tag) sequence numbers match repeated sends to
+    their receives in order. On gloo and the store a receive never takes
+    a message of another ``tag``; on nccl, which ignores tags, the sends
+    and receives of a pair must be made in the same order. Either way
+    the call returns once the message is handed over, before its receive
+    starts (a store set never waits; on the process group a private copy
+    travels: the pinned host copy of a CUDA tensor that gloo stages,
+    else a clone), so two ranks may each send, then receive, and the
+    caller may reuse the tensor at once; ``sync_op=False`` returns the
+    process group's flight instead (its ``wait()`` ends the transfer;
+    the tensor must not change before)."""
     v = _val(tensor)
+    route = _note("send", _p2p_route())
+    if route != "store":
+        if not sync_op:
+            return _p2p_start(route, v, dst, tag, receive=False)
+        _reap_sends()
+        staged = route == "gloo" and v.is_cuda
+        _PENDING_SENDS.append(_p2p_start(
+            route, v if staged else v.clone(), dst, tag, receive=False))
+        return None
     _warn_if_bulk(v, "send")
-    _note("send", "store")
     store = _get_store()
-    src = _my_rank()
-    gid = group.id if group else 0
-    with _SEQ_LOCK:
-        seq = _SEND_SEQ.get((gid, src, dst), 0)
-        _SEND_SEQ[(gid, src, dst)] = seq + 1
-    store.set(f"p2p/{gid}/{src}->{dst}/{seq}", _pack(v))
+    key = _p2p_key(group.id if group else 0, _my_rank(), dst, tag,
+                   _SEND_SEQ)
+    store.set(key, _pack(v))
+    return None if sync_op else Task()
 
 
-def recv(tensor, src=0, group=None, sync_op=True):
-    """Blocking receive of the matching :func:`send` from GLOBAL rank
-    ``src``, copied into ``tensor`` (its device and dtype; the shapes
-    must agree); with no tensor, the received host tensor."""
-    _note("recv", "store")
+def recv(tensor, src=0, group=None, sync_op=True, tag=0):
+    """Receive the matching :func:`send` from GLOBAL rank ``src`` into
+    ``tensor`` (its device and dtype; the shapes must agree); on the
+    store route with no tensor, the received host tensor. On the process
+    group the receive needs its tensor, and ``sync_op=False`` returns
+    the flight whose ``wait()`` fills it."""
+    route = _note("recv", _p2p_route())
+    if route != "store":
+        if not isinstance(tensor, torch.Tensor):
+            raise ValueError("recv over the process group needs the tensor "
+                             "to receive into (its shape and dtype)")
+        fl = _p2p_start(route, tensor, src, tag, receive=True)
+        if not sync_op:
+            return fl
+        fl.wait()
+        return tensor
     store = _get_store()
-    me = _my_rank()
-    gid = group.id if group else 0
-    with _SEQ_LOCK:
-        seq = _RECV_SEQ.get((gid, src, me), 0)
-        _RECV_SEQ[(gid, src, me)] = seq + 1
-    key = f"p2p/{gid}/{src}->{me}/{seq}"
+    key = _p2p_key(group.id if group else 0, src, _my_rank(), tag,
+                   _RECV_SEQ)
     store.wait(key)
     v = _unpack(store.get(key))
     store.delete_key(key)
@@ -520,12 +609,18 @@ def _async(fn, *args, **kw):
     return Task(t, box)
 
 
-def isend(tensor, dst=0, group=None):
-    return _async(send, tensor, dst, group)
+def isend(tensor, dst=0, group=None, tag=0):
+    """:func:`send` started: the process group's flight, or a thread
+    over the store; ``wait()`` ends it."""
+    if _pg_up():
+        return send(tensor, dst, group, sync_op=False, tag=tag)
+    return _async(send, tensor, dst, group, tag=tag)
 
 
-def irecv(tensor, src=0, group=None):
-    return _async(recv, tensor, src, group)
+def irecv(tensor, src=0, group=None, tag=0):
+    if _pg_up():
+        return recv(tensor, src, group, sync_op=False, tag=tag)
+    return _async(recv, tensor, src, group, tag=tag)
 
 
 @dataclasses.dataclass
@@ -534,12 +629,14 @@ class P2POp:
     tensor: object
     peer: int
     group: object = None
+    tag: int = 0
 
 
 def batch_isend_irecv(p2p_op_list):
-    """Issue a batch of P2POps concurrently; returns their Tasks. Sends
-    first (a store set never blocks), then receives: the deadlock-free
-    order for symmetric exchanges."""
+    """Start a batch of P2POps concurrently; returns their tasks. Sends
+    first (neither a store set nor a process group's send waits for its
+    receive to start), then receives: the deadlock-free order for
+    symmetric exchanges."""
     for p in p2p_op_list:
         if p.op not in (send, isend, recv, irecv):
             raise ValueError(
@@ -547,10 +644,10 @@ def batch_isend_irecv(p2p_op_list):
     tasks = []
     for p in p2p_op_list:
         if p.op in (send, isend):
-            tasks.append(_async(send, p.tensor, p.peer, p.group))
+            tasks.append(isend(p.tensor, p.peer, p.group, tag=p.tag))
     for p in p2p_op_list:
         if p.op in (recv, irecv):
-            tasks.append(_async(recv, p.tensor, p.peer, p.group))
+            tasks.append(irecv(p.tensor, p.peer, p.group, tag=p.tag))
     return tasks
 
 

@@ -6,30 +6,38 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``.
 ``HybridCommunicateGroup``: in the port the degrees lay the job's ranks
 out as ``mesh.AXIS_ORDER`` (rank-major, as JAX's mesh lays out its
 devices), and each rank gets a process group along each of its dp,
-sharding and mp axes of degree above 1 (``get_data_parallel_group``,
-``get_sharding_parallel_group``, ``get_model_parallel_group``); the
-HCG's mesh is this rank's device, one entry a rank. ``pp_degree`` and
-``sep_degree`` above 1 raise ``NotImplementedError`` on every rank
-before any group is made (``ROADMAP.md`` A.6 (e2), (e3)), and so does
-mp beside a sharding degree above 1 (A.6 (e5)).
+sharding, mp and pp axes of degree above 1 (``get_data_parallel_group``,
+``get_sharding_parallel_group``, ``get_model_parallel_group``,
+``get_pipe_parallel_group``); the HCG's mesh is this rank's device, one
+entry a rank. ``sep_degree`` above 1 raises ``NotImplementedError`` on
+every rank before any group is made (``ROADMAP.md`` A.6 (e3)), and so
+do mp and pp beside a sharding degree above 1 (A.6 (e5)) and pp beside
+sep (A.6 (e3)).
 
-``distributed_model`` splits the model over the mp group when mp > 1:
-each parameter that the model's ``partition_specs()`` (or a
-meta-parallel layer) marks keeps this rank's slice in place
+``distributed_model`` returns a ``PipelineParallel`` for a
+``PipelineLayer`` (split by stage when pp > 1, as JAX wraps it). A model
+with a pipelined trunk (``LlamaConfig(pipeline_parallel=True)``) is
+split by stage when pp > 1: each parameter that ``partition_specs()``
+marks with ``"pp"`` keeps this stage's rows in place, and the modules
+outside the trunk stay only on the stage that runs them
+(``pipeline_stage_modules()``: a module of the first and the last stage
+lives on both, its gradient summed between them after each backward).
+Then, when mp > 1, each parameter that the same table (or a
+meta-parallel layer) marks with ``"mp"`` keeps this rank's slice
 (``mesh.spec_piece``), the replicated ones stay whole, and the model's
-forward then runs the mp collectives (``meta_parallel``, ``mp_ops``).
-A model that nothing splits is refused at mp > 1. It then returns a
+forward runs the mp collectives (``meta_parallel``, ``mp_ops``). A model
+that nothing splits is refused at mp > 1 or pp > 1. It then returns a
 ``DataParallel`` over the dp group when dp > 1, else the model (JAX
-returns the model itself for mp); under sharding stage 3 it marks the
-model (its parameters rest as regions and are gathered at its forward,
-``sharding.mark_stage3``). ``distributed_optimizer`` turns
+returns the model itself for mp and pp); under sharding stage 3 it marks
+the model (its parameters rest as regions and are gathered at its
+forward, ``sharding.mark_stage3``). ``distributed_optimizer`` turns
 ``sharding_configs["stage"]`` into ``group_sharded_parallel``'s level
 over the sharding group (else the dp group), then wraps
 ``gradient_merge`` and ``amp`` as JAX does.
 ``worker_num``/``worker_index``/``is_first_worker``/``barrier_worker``
 ride the process group. ``meta_parallel`` holds the tensor-parallel
-layers and ``utils`` the gradient sync and ``recompute``;
-``PipelineLayer`` comes with A.6 (e2)."""
+layers and ``PipelineLayer``, and ``utils`` the gradient sync and
+``recompute``."""
 from __future__ import annotations
 
 
@@ -46,21 +54,23 @@ from . import meta_parallel
 from . import mp_ops
 from . import utils                                        # noqa: F401
 from .meta_parallel import (ColumnParallelLinear,          # noqa: F401
-                            ParallelCrossEntropy, RowParallelLinear,
-                            VocabParallelEmbedding)
+                            LayerDesc, ParallelCrossEntropy,
+                            PipelineLayer, RowParallelLinear,
+                            SharedLayerDesc, VocabParallelEmbedding)
 
 __all__ = ["init", "DistributedStrategy", "distributed_model",
            "distributed_optimizer", "get_hybrid_communicate_group",
            "get_strategy", "worker_num", "worker_index", "is_first_worker",
            "barrier_worker", "meta_optimizers", "meta_parallel", "utils",
            "ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "ParallelCrossEntropy"]
+           "VocabParallelEmbedding", "ParallelCrossEntropy", "LayerDesc",
+           "SharedLayerDesc", "PipelineLayer"]
 
 _FLEET = {"initialized": False, "strategy": None, "hcg": None}
 _DEGREES = ("dp_degree", "mp_degree", "pp_degree", "sharding_degree",
             "sep_degree")
 # the axes of degree above 1 that the port builds a process group along
-_GROUP_AXES = ("dp", "sharding", "mp")
+_GROUP_AXES = ("dp", "sharding", "mp", "pp")
 
 
 class DistributedStrategy:
@@ -95,8 +105,8 @@ class DistributedStrategy:
 
 
 def _axis_groups(dims: dict) -> dict:
-    """A process group along each of the dp, sharding and mp axes of
-    degree above 1, for this rank: the ranks whose coordinates differ
+    """A process group along each of the dp, sharding, mp and pp axes
+    of degree above 1, for this rank: the ranks whose coordinates differ
     only there. Every rank creates every group, in one order (ids
     agree)."""
     shape = [dims[a] for a in AXIS_ORDER]
@@ -137,14 +147,17 @@ def init(role_maker=None, is_collective=True, strategy=None,
     dims = {k[:-len("_degree")]: v for k, v in degrees.items()}
     # refused before any group is made, on every rank alike, so that the
     # job stops at once instead of training unsplit copies or hanging
-    if dims["pp"] > 1:
-        raise NotImplementedError(
-            f"pp_degree={dims['pp']}: the pipeline over a pp process group "
-            "is not ported yet (ROADMAP.md A.6 (e2))")
     if dims["sep"] > 1:
         raise NotImplementedError(
             f"sep_degree={dims['sep']}: sequence and context parallelism "
-            "are not ported yet (ROADMAP.md A.6 (e3))")
+            "are not ported yet (ROADMAP.md A.6 (e3))"
+            + (f"; pp_degree={dims['pp']} beside it waits on it too"
+               if dims["pp"] > 1 else ""))
+    if dims["pp"] > 1 and dims["sharding"] > 1:
+        raise NotImplementedError(
+            f"pp_degree={dims['pp']} beside sharding_degree="
+            f"{dims['sharding']}: group sharding of a stage's parameters "
+            "is not ported yet (ROADMAP.md A.6 (e5))")
     if dims["mp"] > 1 and dims["sharding"] > 1:
         raise NotImplementedError(
             f"mp_degree={dims['mp']} beside sharding_degree="
@@ -186,7 +199,8 @@ def _split_for_mp(model, group):
     Returns ``{name: (spec, global shape)}`` of the split parameters."""
     specs = model.partition_specs() \
         if hasattr(model, "partition_specs") else {}
-    split = {n: s for n, s in specs.items() if spec_dim(s) is not None}
+    split = {n: s for n, s in specs.items()
+             if spec_dim(s, "mp") is not None}
     # meta-parallel layers are built split: only their group is theirs
     layers = any(isinstance(m, meta_parallel._MPLayer)
                  for m in model.modules())
@@ -205,7 +219,7 @@ def _split_for_mp(model, group):
             if name in split:
                 out[name] = (split[name], tuple(p.shape))
                 p.data = spec_piece(p.data, split[name], group.rank,
-                                    group.nranks).clone(
+                                    group.nranks, "mp").clone(
                     memory_format=torch.contiguous_format)
     for m in model.modules():
         if hasattr(m, "mp_group") and not isinstance(
@@ -215,13 +229,71 @@ def _split_for_mp(model, group):
     return out
 
 
+def _split_for_pp(model, group):
+    """Keep this stage's rows of every parameter that the model's
+    partition specs mark with "pp", and the modules outside the trunk
+    on the stage that runs them (module docstring); hand the group to
+    the trunk. Returns ``{name: (spec, global shape)}`` of the split
+    parameters."""
+    specs = model.partition_specs() \
+        if hasattr(model, "partition_specs") else {}
+    split = {n: s for n, s in specs.items()
+             if spec_dim(s, "pp") is not None}
+    if not split:
+        raise ValueError(
+            f"pp_degree={group.nranks}: {type(model).__name__} has no "
+            "stacked trunk that splits over the pp group (build it with "
+            "pipeline_parallel=True, or as a PipelineLayer); its ranks "
+            "would train unsplit copies")
+    S, s = group.nranks, group.rank
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in split:
+                out[name] = (split[name], tuple(p.shape))
+                p.data = spec_piece(p.data, split[name], s, S, "pp").clone(
+                    memory_format=torch.contiguous_format)
+    owners = model.pipeline_stage_modules()
+    first, last = set(owners["first"]), set(owners["last"])
+    for name in sorted(first | last):
+        if not ((name in first and s == 0) or (name in last and s == S - 1)):
+            parent, _, attr = name.rpartition(".")
+            setattr(model.get_submodule(parent) if parent else model,
+                    attr, None)
+    shared, names = [], []
+    for name in sorted(first & last):
+        # every rank makes the group, in one order (ids agree)
+        g = C.new_group([group.ranks[0], group.ranks[S - 1]])
+        if s in (0, S - 1):
+            mod = model.get_submodule(name)
+            shared.append((list(mod.parameters()), g))
+            names += [f"{name}.{pn}" for pn, _ in mod.named_parameters()]
+    for m in model.modules():
+        if hasattr(m, "pp_group"):
+            m.pp_group = group
+            m.pp_shared = shared
+    model._pp_split = out
+    model._pp_shared_names = names
+    return out
+
+
 def distributed_model(model):
-    """Split the model over the mp group when mp > 1; then a
-    ``DataParallel`` over the dp group when dp > 1, else the model.
-    Under sharding stage 3 the model is marked first (its parameters
-    rest as regions once ``distributed_optimizer`` shards them)."""
+    """A ``PipelineLayer`` becomes a ``PipelineParallel`` (split by stage
+    when pp > 1). Otherwise the model is split by stage when pp > 1 and
+    over the mp group when mp > 1; then a ``DataParallel`` over the dp
+    group when dp > 1, else the model. Under sharding stage 3 the model
+    is marked first (its parameters rest as regions once
+    ``distributed_optimizer`` shards them)."""
     _require_init()
     hcg = _FLEET["hcg"]
+    pp = hcg.get_pipe_parallel_group()
+    if isinstance(model, meta_parallel.PipelineLayer):
+        from ..pipeline import PipelineParallel
+        if pp is not None:
+            model._pp_split = model.split_for_pipeline(pp)
+        return PipelineParallel(model, hcg, _FLEET["strategy"])
+    if pp is not None:
+        _split_for_pp(model, pp)
     mp = hcg.get_model_parallel_group()
     if mp is not None:
         _split_for_mp(model, mp)

@@ -34,15 +34,32 @@ JAX layer's full weight carries across by slicing alone
 
 Initial weights follow JAX's initializers on the global shape (Xavier
 normal for the linears, N(0, 1) for the table, zero biases), drawn for
-the local slice. ``PipelineLayer``, ``LayerDesc`` and
-``SharedLayerDesc`` come with the pipeline (``ROADMAP.md`` A.6 (e2))."""
+the local slice.
+
+The pipeline part (JAX ``meta_parallel.py:214-516``): ``LayerDesc``,
+``SharedLayerDesc`` and ``PipelineLayer``, which finds the model's
+longest periodic trunk of structurally identical units
+(``_layer_signature``, ``_find_periodic_trunk``), stacks the trunk's
+parameters into ``(S, U, ...)`` leaves (``(S, V, U, ...)`` with
+``num_virtual_pipeline_stages=V``) named as JAX names them, and runs
+them through ``distributed.pipeline``'s schedules over fleet's pp
+group. ``fleet.distributed_model`` splits it by stage: each rank keeps
+its row of every leaf, the layers before the trunk (the prologue) on
+the first stage and those after it (the epilogue) on the last; a
+``SharedLayerDesc`` used on two stages lives on both, its gradient
+summed between them after each backward (Paddle's shared-layer group).
+The last stage's output is broadcast to every stage (JAX returns it
+replicated). With no pp group the stacked trunk runs unit by unit in
+global order."""
 from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ... import random as prandom
 from ...device import resolve_device
@@ -53,7 +70,8 @@ from .mp_ops import mp_degree
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "ParallelCrossEntropy", "ScatterOp",
            "GatherOp", "mark_as_sequence_parallel_parameter",
-           "get_rng_state_tracker", "mp_partition_specs"]
+           "get_rng_state_tracker", "mp_partition_specs", "LayerDesc",
+           "SharedLayerDesc", "PipelineLayer"]
 
 
 def _group(mp_group):
@@ -235,3 +253,373 @@ _RNG_TRACKER = _RNGStateTracker()
 
 def get_rng_state_tracker():
     return _RNG_TRACKER
+
+
+# ---------------------------------------------------------------------------
+# pipeline scaffolding
+# ---------------------------------------------------------------------------
+
+class LayerDesc:
+    def __init__(self, layer_func, *inputs, **kwargs):
+        self.layer_func = layer_func
+        self.inputs = inputs
+        self.kwargs = kwargs
+
+    def build_layer(self):
+        return self.layer_func(*self.inputs, **self.kwargs)
+
+
+class SharedLayerDesc(LayerDesc):
+    def __init__(self, key, layer_func, forward_func=None,
+                 shared_weight_attr="weight", *inputs, **kwargs):
+        super().__init__(layer_func, *inputs, **kwargs)
+        self.layer_name = key
+        self.forward_func = forward_func
+        self.shared_weight_attr = shared_weight_attr
+
+
+class _SharedCall(nn.Module):
+    """A ``SharedLayerDesc`` call site: every site reads the one shared
+    layer. The first site owns (registers) it; later sites keep an
+    unregistered reference. ``forward_func(shared_layer, x)`` runs at
+    every site that declared one."""
+
+    def __init__(self, shared_layer, forward_func=None, owns=False):
+        super().__init__()
+        if owns:
+            self.shared = shared_layer
+        object.__setattr__(self, "_shared", shared_layer)
+        object.__setattr__(self, "_forward_func", forward_func)
+
+    def forward(self, x):
+        if self._forward_func is not None:
+            return self._forward_func(self._shared, x)
+        return self._shared(x)
+
+
+class _Call(nn.Module):
+    """A bare callable of the layer list (``F.relu``) as a module."""
+
+    def __init__(self, fn):
+        super().__init__()
+        object.__setattr__(self, "_fn", fn)
+
+    def forward(self, x):
+        return self._fn(x)
+
+
+def _layer_signature(layer):
+    """Structural identity used to find the pipelinable trunk: two layers
+    with equal signatures share one stage body. Includes scalar config
+    attributes (Dropout(0.1) != Dropout(0.5)) and a bare callable's name
+    (F.relu != F.gelu)."""
+    if not isinstance(layer, nn.Module):
+        return (getattr(layer, "__name__", type(layer).__name__),
+                None, None, 0)
+    params = tuple((n, tuple(p.shape), str(p.dtype))
+                   for n, p in layer.named_parameters())
+    config = tuple(sorted(
+        (k, v) for k, v in vars(layer).items()
+        if isinstance(v, (int, float, str, bool, type(None)))
+        and not k.startswith("_")))
+    bufs = tuple((n, tuple(b.shape)) for n, b in layer.named_buffers())
+    return (type(layer).__name__, params, config, bufs)
+
+
+def _find_periodic_trunk(sigs, min_units):
+    """Longest contiguous periodic region of ``sigs``: (start, period,
+    n_units) maximizing the covered length (ties: more units);
+    n_units = 0 when no region has >= ``min_units`` units."""
+    n = len(sigs)
+    best = (0, 1, 0)
+    for q in range(1, n // 2 + 1):
+        i = 0
+        while i + q <= n:
+            k = 1
+            while (i + (k + 1) * q <= n
+                   and sigs[i + k * q:i + (k + 1) * q] == sigs[i:i + q]):
+                k += 1
+            if k >= 2:
+                cov, best_cov = k * q, best[2] * best[1]
+                if cov > best_cov or (cov == best_cov and k > best[2]):
+                    best = (i, q, k)
+                i += k * q
+            else:
+                i += 1
+    return best if best[2] >= min_units else (0, 1, 0)
+
+
+def _modules(items):
+    return nn.ModuleList([l if isinstance(l, nn.Module) else _Call(l)
+                          for l in items])
+
+
+class PipelineLayer(nn.Module):
+    """Stage-partitioned sequential model (module docstring). Built
+    whole on every rank from the same seed; ``fleet.distributed_model``
+    keeps a stage's part. ``num_microbatches`` (default S) microbatches
+    go through the schedule; ``recompute_interval`` recomputes the
+    trunk (each unit without a pp group, each stage's body per
+    microbatch under one)."""
+
+    def __init__(self, layers, num_stages=None, topology=None,
+                 loss_fn=None, seg_method="uniform", recompute_interval=0,
+                 num_microbatches=None, num_virtual_pipeline_stages=1,
+                 **kwargs):
+        super().__init__()
+        self._descs = list(layers)
+        self.loss_fn = loss_fn
+        self._num_stages = num_stages or 1
+        self.num_microbatches = num_microbatches
+        self._vpp = max(1, int(num_virtual_pipeline_stages or 1))
+        self._recompute = bool(recompute_interval)
+        self.pp_group = None        # set by fleet.distributed_model
+        self._pp_shared = []        # (parameters, group) across stages
+        built, shared = [], {}
+        for d in self._descs:
+            if isinstance(d, SharedLayerDesc):
+                if d.layer_name in shared:
+                    built.append(_SharedCall(shared[d.layer_name],
+                                             d.forward_func))
+                else:
+                    inst = d.build_layer()
+                    shared[d.layer_name] = inst
+                    built.append(
+                        _SharedCall(inst, d.forward_func, owns=True)
+                        if d.forward_func is not None else inst)
+            elif isinstance(d, LayerDesc):
+                built.append(d.build_layer())
+            else:
+                built.append(d)
+        self._shared_layers = list(shared.values())
+        n = len(built)
+        per = max(1, n // self._num_stages)
+        self._stage_of = [min(i // per, self._num_stages - 1)
+                          for i in range(n)]
+        for i, l in enumerate(built):
+            if isinstance(l, nn.Module):
+                for p in l.parameters():
+                    p.pp_stage = self._stage_of[i]
+        self._pipelined = False
+        if self._num_stages > 1:
+            self._try_build_trunk(built)
+        if not self._pipelined:
+            if self._num_stages > 1:
+                warnings.warn(
+                    "PipelineLayer: no periodic trunk of >= "
+                    f"{self._num_stages} structurally identical units "
+                    "found; falling back to sequential (un-pipelined) "
+                    "execution. Stack identical blocks (LayerDesc of the "
+                    "same class/shape) to enable the pipeline.",
+                    stacklevel=2)
+            self.run_function = _modules(built)
+
+    # -- trunk construction -------------------------------------------------
+    def _try_build_trunk(self, built):
+        S, V = self._num_stages, self._vpp
+        sigs = [_layer_signature(l) for l in built]
+        start, q, k = _find_periodic_trunk(sigs, S)
+        k_used = (k // (S * V)) * (S * V)
+        if k_used < max(S * V, 2):
+            return
+        end = start + k_used * q
+        # per-unit buffer state (BatchNorm's running statistics) cannot
+        # be stacked: such a trunk stays unstacked
+        for lay in built[start:end]:
+            if isinstance(lay, nn.Module) and any(True for _ in
+                                                  lay.buffers()):
+                return
+        protos = built[start:start + q]
+        pindex = []
+        for j in range(q):
+            if not isinstance(protos[j], nn.Module):
+                continue
+            for pname, _ in protos[j].named_parameters():
+                vals = [built[start + u * q + j].get_parameter(pname)
+                        .detach() for u in range(k_used)]
+                stacked = torch.stack(vals)
+                if V > 1:
+                    # stage s's chunk v is global chunk vS + s: (S, V, U)
+                    U = k_used // (S * V)
+                    leaf = stacked.reshape(V, S, U, *vals[0].shape
+                                           ).transpose(0, 1)
+                else:
+                    leaf = stacked.reshape(S, k_used // S, *vals[0].shape)
+                reg = f"trunk_{j}__{pname.replace('.', '__')}"
+                self.register_parameter(reg, nn.Parameter(
+                    leaf.contiguous()))
+                pindex.append((j, pname, reg))
+        if not pindex:
+            return
+        self.prologue = _modules(built[:start])
+        self.epilogue = _modules(built[end:])
+        object.__setattr__(self, "_protos", protos)
+        self._pindex = pindex
+        self._period = q
+        self._units = k_used
+        self._pipelined = True
+
+    def get_stage_from_index(self, idx):
+        return self._stage_of[idx]
+
+    def partition_specs(self) -> dict:
+        """The trunk leaves' split over the pp axis (dim 0, JAX's
+        ``P("pp", ...)``); everything else is whole."""
+        if not self._pipelined:
+            return {}
+        return {reg: ("pp",) for _, _, reg in self._pindex}
+
+    # -- execution ----------------------------------------------------------
+    def _unit_fwd(self, slices, h):
+        """One trunk unit with its parameter values in the prototypes
+        (``functional_call``; ``slices`` in ``_pindex`` order)."""
+        i = 0
+        for j, proto in enumerate(self._protos):
+            if not isinstance(proto, nn.Module):
+                h = proto(h)
+                continue
+            names = [pn for jj, pn, _ in self._pindex if jj == j]
+            h = functional_call(proto, dict(zip(names,
+                                                slices[i:i + len(names)])),
+                                (h,))
+            i += len(names)
+        return h
+
+    def _run_units(self, leaves, h, remat):
+        for sl in zip(*(lf.unbind(0) for lf in leaves)):
+            if remat:
+                h = torch.utils.checkpoint.checkpoint(
+                    self._unit_fwd, sl, h, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                h = self._unit_fwd(sl, h)
+        return h
+
+    def _leaves(self):
+        return [self.get_parameter(reg) for _, _, reg in self._pindex]
+
+    def _pp(self):
+        from ..pipeline import pipeline_group
+        g = self.pp_group or pipeline_group()
+        if g is None or g.nranks == 1 or not self._pipelined:
+            return None
+        if g.nranks != self._num_stages:
+            from ...utils.enforce import InvalidArgumentError
+            raise InvalidArgumentError(
+                f"PipelineLayer was built with num_stages="
+                f"{self._num_stages} but the pp group has pp={g.nranks}",
+                "re-build the model or the job so the degrees agree")
+        if self.pp_group is None:
+            raise RuntimeError(
+                "PipelineLayer under a pp group of degree "
+                f"{g.nranks}: split it by stage first "
+                "(fleet.distributed_model(model))")
+        return g
+
+    def _forward(self, x, tail=None):
+        """The forward; ``tail(out)`` runs on the last stage's output
+        (the loss) before the broadcast to every stage."""
+        if not self._pipelined:
+            for fn in self.run_function:
+                x = fn(x)
+            return tail(x) if tail is not None else x
+        g = self._pp()
+        if g is None:
+            for fn in self.prologue:
+                x = fn(x)
+            leaves = self._leaves()
+            V = self._vpp
+            flat = [(lf.transpose(0, 1) if V > 1 else lf)
+                    .reshape(self._units, *lf.shape[3 if V > 1 else 2:])
+                    for lf in leaves]
+            x = self._run_units(flat, x, self._recompute)
+            for fn in self.epilogue:
+                x = fn(x)
+            return tail(x) if tail is not None else x
+        return self._forward_pp(x, g, tail)
+
+    def _forward_pp(self, x, g, tail):
+        from .. import pipeline as pl
+        S, V = g.nranks, self._vpp
+        first, last = g.rank == 0, g.rank == S - 1
+        if first:
+            for fn in self.prologue:
+                x = fn(x)
+        # the later stages build their buffers from the first's shape
+        shape, dtype = pl.broadcast_meta(x if first else None, g, 0)
+        local = [lf[0] for lf in self._leaves()]
+
+        def stage_fn(params, h):
+            return self._run_units(params, h, False)
+        out = pl._schedule(
+            stage_fn, local, x if first else None, group=g, V=V,
+            num_microbatches=self.num_microbatches or S, shape=shape,
+            dtype=dtype, device=local[0].device, remat=self._recompute,
+            finish=(lambda: pl.sync_shared_gradients(self._pp_shared))
+            if self._pp_shared else None)
+        if last:
+            out = pl.merge_microbatches(out)
+            for fn in self.epilogue:
+                out = fn(out)
+            if tail is not None:
+                out = tail(out)
+        return pl.broadcast_from_last(out, g)
+
+    def forward(self, x):
+        return self._forward(x)
+
+    def forward_loss(self, x, y, loss_fn):
+        """``loss_fn(self(x), y)``, the loss computed on the last stage
+        only and broadcast to every stage."""
+        return self._forward(x, tail=lambda out: loss_fn(out, y))
+
+    # -- the split by stage (fleet.distributed_model) -----------------------
+    def split_for_pipeline(self, group):
+        """Keep this stage's part (module docstring): the row of every
+        trunk leaf, the prologue on the first stage, the epilogue on the
+        last; a shared layer used on two stages lives on both, with a
+        group of their ranks to sum its gradient over. Every rank of the
+        job calls it (groups are made in one order)."""
+        from .. import communication as C
+        if not self._pipelined or group is None or group.nranks == 1:
+            return {}
+        S, s = group.nranks, group.rank
+        if S != self._num_stages:
+            from ...utils.enforce import InvalidArgumentError
+            raise InvalidArgumentError(
+                f"PipelineLayer was built with num_stages="
+                f"{self._num_stages} but the pp group has pp={S}",
+                "re-build the model or the job so the degrees agree")
+        from ..mesh import spec_piece
+        split = {}
+        with torch.no_grad():
+            for reg, spec in self.partition_specs().items():
+                p = self.get_parameter(reg)
+                split[reg] = (spec, tuple(p.shape))
+                p.data = spec_piece(p.data, spec, s, S, "pp").clone()
+        sections = {"prologue": 0, "epilogue": S - 1}
+        users = {id(inst): set() for inst in self._shared_layers}
+        for name, stage in sections.items():
+            for site in getattr(self, name):
+                inst = getattr(site, "_shared", site)
+                if id(inst) in users:
+                    users[id(inst)].add(stage)
+        for name, stage in sections.items():
+            if s != stage:
+                setattr(self, name, nn.ModuleList())
+        mine = {id(m) for m in self.modules()}
+        for inst in self._shared_layers:
+            stages = sorted(users[id(inst)])
+            here = s in stages
+            if here and id(inst) not in mine:
+                for site in list(self.prologue) + list(self.epilogue):
+                    if getattr(site, "_shared", None) is inst:
+                        site.shared = inst       # now this stage owns it
+                        break
+            if len(stages) > 1:
+                # every rank makes the group, in one order (ids agree)
+                g = C.new_group([group.ranks[t] for t in stages])
+                if here:
+                    self._pp_shared.append((list(inst.parameters()), g))
+        self.pp_group = group
+        return split

@@ -21,19 +21,21 @@ card a 2-way mesh then runs both shards there.
 
 ``HybridCommunicateGroup`` builds and sets a mesh; in a job of several
 processes ``fleet.init`` also gives it this rank's process group along
-each of the dp, sharding and mp axes of degree above 1
+each of the dp, sharding, mp and pp axes of degree above 1
 (``get_data_parallel_group``, ``get_sharding_parallel_group``,
-``get_model_parallel_group``: None where the degree is 1). Its rank
+``get_model_parallel_group``, ``get_pipe_parallel_group``: None where
+the degree is 1). Its rank
 getters give this process's coordinate along an axis of the
 ``AXIS_ORDER`` grid of the job's ranks (one rank a device, as JAX's
 ``_axis_rank`` reads a process's position in the mesh).
 
 A tensor-parallel split is a partition spec, a tuple with ``"mp"`` at
 the split dimension (``LlamaForCausalLM.partition_specs()``, in the
-port's layout): :func:`spec_dim` finds that dimension and
-:func:`spec_piece` takes one rank's slice, the one rule that both the
-serving shards (``serving.tp``) and the training split
-(``fleet.distributed_model``) follow."""
+port's layout), and a pipeline's split of a stacked trunk the same
+tuple with ``"pp"`` at the stacked dimension: :func:`spec_dim` finds
+an axis's dimension and :func:`spec_piece` takes one rank's slice,
+the one rule that the serving shards (``serving.tp``) and the
+training splits over mp and pp (``fleet.distributed_model``) follow."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -81,19 +83,23 @@ class Mesh:
                 f"{[str(d) for d in self.devices.reshape(-1)]})")
 
 
-def spec_dim(spec) -> Optional[int]:
-    """The split dimension of a partition spec (the first entry that
-    names an axis), or None for a replicated one (None or all None)."""
-    return next((i for i, e in enumerate(spec or ()) if e), None)
+def spec_dim(spec, axis: Optional[str]) -> Optional[int]:
+    """The split dimension of a partition spec: the first entry that
+    names ``axis``, or None where no entry does (a replicated spec: None
+    or all None). A spec may name two axes, as a pipelined trunk's
+    ``("pp", "mp", None)``, so every caller names its axis; None (any
+    axis) only suits a spec that splits one dimension."""
+    return next((i for i, e in enumerate(spec or ())
+                 if e and (axis is None or e == axis)), None)
 
 
-def spec_piece(t: torch.Tensor, spec, index: int, degree: int
-               ) -> torch.Tensor:
+def spec_piece(t: torch.Tensor, spec, index: int, degree: int,
+               axis: Optional[str]) -> torch.Tensor:
     """Slice ``index`` of ``degree`` equal slices of ``t`` along the
-    dimension ``spec`` splits (a view), or ``t`` itself for a
-    replicated spec or a degree of 1. A dimension the degree does not
-    divide raises."""
-    dim = spec_dim(spec)
+    dimension ``spec`` splits over ``axis`` (:func:`spec_dim`; a view),
+    or ``t`` itself for a replicated spec or a degree of 1. A dimension
+    the degree does not divide raises."""
+    dim = spec_dim(spec, axis)
     if dim is None or degree == 1:
         return t
     if t.shape[dim] % degree:

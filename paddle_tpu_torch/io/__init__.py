@@ -220,8 +220,9 @@ class DistributedBatchSampler(BatchSampler):
     padded index list (the JAX sampler's). The replica count and rank
     default to the job's (``distributed.get_world_size``/``get_rank``,
     which read the launch contract first), or, once ``fleet.init`` laid
-    out an mp axis of degree above 1, to the data-parallel degree and
-    rank: the ranks of an mp group hold one model and take one batch."""
+    out an mp or a pp axis of degree above 1, to the data-parallel
+    degree and rank: the ranks of an mp group hold one model, and the
+    stages of one pipeline run one model, and each takes one batch."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -233,7 +234,8 @@ class DistributedBatchSampler(BatchSampler):
             from ..distributed.mesh import get_hybrid_communicate_group
             from ..distributed.parallel import get_rank, get_world_size
             hcg = get_hybrid_communicate_group()
-            if hcg is not None and hcg.axis_size("mp") > 1:
+            if hcg is not None and (hcg.axis_size("mp") > 1
+                                    or hcg.axis_size("pp") > 1):
                 world = hcg.get_data_parallel_world_size()
                 me = hcg.get_data_parallel_rank()
             else:

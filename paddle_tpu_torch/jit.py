@@ -190,12 +190,19 @@ class TrainStep:
     @property
     def eager_reason(self) -> Optional[str]:
         """Why the step cannot be captured on the card, or None: a
-        module of the model runs collectives of an mp process group."""
+        module of the model runs collectives of an mp process group, or
+        a pipeline's hops over a pp process group."""
         for m in self.model.modules():
             group = getattr(m, "mp_group", None)
             if group is not None and group.nranks > 1:
                 return (f"the model is split over an mp process group of "
                         f"{group.nranks} ranks; its collectives cannot sit "
+                        "inside a CUDA graph, so the step runs eagerly")
+            group = getattr(m, "pp_group", None)
+            if group is not None and group.nranks > 1:
+                return (f"the model is split by stage over a pp process "
+                        f"group of {group.nranks} ranks; a pipeline hop (a "
+                        "gloo send staged through host memory) cannot sit "
                         "inside a CUDA graph, so the step runs eagerly")
         return None
 

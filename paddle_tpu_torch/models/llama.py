@@ -6,8 +6,15 @@ and training fields), the RoPE tables, and the attention / MLP / decoder
 layer / model / causal-LM modules, on the cache path (a dense cache or
 the paged arena, with per-row left-pad counts and the sliding window)
 and on the no-cache path (training, with the fused head +
-cross-entropy), where ``scan_layers`` (or ``pipeline_parallel``, one
-stage) runs the stacked trunk with per-layer recompute.
+cross-entropy), where ``scan_layers`` (or ``pipeline_parallel``) runs
+the stacked trunk with per-layer recompute. Under a pp process group
+(``fleet.init(pp_degree=S)``, then ``fleet.distributed_model``) the
+trunk is JAX's pipeline: each rank holds its stage's rows of the stacks
+and runs them through ``distributed.pipeline``'s schedule (FThenB, or
+the interleaved one at ``virtual_pp > 1``); the embedding runs on the
+first stage and the final norm, the head and the loss on the last, on
+the merged batch as in JAX, and the loss (or logits) is broadcast to
+every stage.
 RMSNorm, RoPE and flash attention run the CUDA kernels on the GPU; the
 projections are ``nn.Linear`` (``torch.matmul``), as the JAX package
 leaves them to XLA. Parameter
@@ -59,9 +66,12 @@ class LlamaConfig:
     # gives the partition table that a sharded serving engine reads and
     # that fleet.distributed_model splits the model by over an mp process
     # group (partition_specs; inert without one, as in JAX without a
-    # mesh); pipeline_parallel builds the stacked trunk and runs it as one
-    # stage; sequence_parallel and virtual_pp > 1 raise (the pipeline and
-    # sequence parallelism are not ported)
+    # mesh); pipeline_parallel builds the stacked trunk, which
+    # fleet.distributed_model splits by stage over a pp process group
+    # (pp_num_microbatches through the schedule; virtual_pp chunks a
+    # stage, stored (V, L/V, ...) as JAX stores them) and which runs as
+    # one stage without one; sequence_parallel raises (sequence
+    # parallelism is not ported)
     tensor_parallel: bool = True
     sequence_parallel: bool = False
     sequence_parallel_mode: str = "megatron"
@@ -119,12 +129,11 @@ class LlamaConfig:
             raise ValueError(
                 f"num_hidden_layers={self.num_hidden_layers} not "
                 f"divisible by virtual_pp={self.virtual_pp}")
-        if self.sequence_parallel or self.virtual_pp > 1:
+        if self.sequence_parallel:
             raise NotImplementedError(
-                "sequence_parallel and virtual_pp > 1 shard the trunk over "
-                "a mesh of cards, which is not ported yet (ROADMAP.md A.6 "
-                "(e3): sequence and context parallelism; A.6 (e2): the "
-                "pipeline)")
+                "sequence_parallel shards the sequence over a mesh of "
+                "cards, which is not ported yet (ROADMAP.md A.6 (e3): "
+                "sequence and context parallelism)")
 
     @property
     def head_dim(self) -> int:
@@ -407,11 +416,22 @@ class LlamaDecoderStack(nn.Module):
                            LlamaDecoderLayer(config, device="meta",
                                              dtype=dtype))
         self._pnames = [n for n, _ in self._proto.named_parameters()]
+        L, V = config.num_hidden_layers, config.virtual_pp
         for n in self._pnames:
             stacked = torch.stack([layer.get_parameter(n).detach()
                                    for layer in layers])
+            if V > 1:       # JAX's VPP storage: (V, L/V, ...)
+                stacked = stacked.reshape(V, L // V, *stacked.shape[1:])
             self.register_parameter(n.replace(".", "__"),
                                     nn.Parameter(stacked))
+        # the pp process group once fleet.distributed_model split the
+        # stacks by stage, and the parameters held on two stages whose
+        # gradients it sums after the backward (the tied embedding)
+        self.pp_group = None
+        self.pp_shared = []
+        # run the schedule's microbatches on this rank (no group): the
+        # run a pp step is held to bit for bit
+        self.one_rank_schedule = False
 
     @property
     def mp_group(self):
@@ -423,23 +443,79 @@ class LlamaDecoderStack(nn.Module):
     def mp_group(self, group):
         self._proto.mp_group = group
 
-    def forward(self, x, cos, sin):
-        c = self.config
-        plain = plain_active()
+    def _leaves(self) -> list:
+        return [self.get_parameter(n.replace(".", "__"))
+                for n in self._pnames]
+
+    def _checkpoint_kw(self) -> dict:
         # the layer draws no random numbers: no RNG state to keep
         kw = dict(use_reentrant=False, preserve_rng_state=False)
-        if c.recompute_granularity == "selective":
+        if self.config.recompute_granularity == "selective":
             kw["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts, _save_products)
-        slices = zip(*(self.get_parameter(n.replace(".", "__")).unbind(0)
-                       for n in self._pnames))
-        for layer in slices:
-            if c.recompute:
+        return kw
+
+    def _run_layers(self, leaves, x, cos, sin, plain):
+        """The layers whose slices ``leaves`` stack (one ``unbind`` a
+        stack), each checkpointed under ``config.recompute``."""
+        kw = self._checkpoint_kw()
+        for layer in zip(*(p.unbind(0) for p in leaves)):
+            if self.config.recompute:
                 x = checkpoint(self._layer_fwd, x, cos, sin, plain, *layer,
                                **kw)
             else:
                 x = self._layer_fwd(x, cos, sin, plain, *layer)
         return x
+
+    def pp_active(self) -> bool:
+        return self.pp_group is not None and self.pp_group.nranks > 1
+
+    def forward(self, x, cos, sin, shape=None):
+        """``x`` (b, s, hidden) through the trunk. Under a pp group:
+        ``x`` on the first stage only (None elsewhere, ``shape`` its
+        shape), and the merged output on the last stage (an empty
+        anchor elsewhere)."""
+        plain = plain_active()
+        if self.pp_active() or self.one_rank_schedule:
+            return self._pipeline(x, cos, sin, plain, shape)
+        leaves = self._leaves()
+        if self.config.virtual_pp > 1:      # flattened layer order
+            leaves = [p.reshape(-1, *p.shape[2:]) for p in leaves]
+        return self._run_layers(leaves, x, cos, sin, plain)
+
+    def _pipeline(self, x, cos, sin, plain, shape):
+        """JAX's pipelined trunk over the pp group (``llama.py:511-564``):
+        the batch in ``pp_num_microbatches`` microbatches through this
+        stage's rows, FThenB at ``virtual_pp == 1``, else interleaved;
+        with no group (``one_rank_schedule``) the microbatches run through
+        every layer in sequence."""
+        from ..distributed import pipeline as pl
+        c = self.config
+        g = self.pp_group if self.pp_active() else None
+        S = g.nranks if g is not None else 1
+        V = c.virtual_pp if g is not None else 1
+        L = c.num_hidden_layers
+        if L % (S * c.virtual_pp) != 0:
+            raise ValueError(f"num_hidden_layers={L} not divisible by "
+                             f"pp degree {S} x virtual_pp {c.virtual_pp}")
+        leaves = self._leaves()
+        if g is None and c.virtual_pp > 1:
+            leaves = [p.reshape(-1, *p.shape[2:]) for p in leaves]
+        first = g is None or g.rank == 0
+
+        def stage_fn(params, h, cos_, sin_):
+            return self._run_layers(params, h, cos_, sin_, plain)
+        out = pl._schedule(
+            stage_fn, leaves, x if first else None, group=g, V=V,
+            num_microbatches=c.pp_num_microbatches,
+            shape=tuple(x.shape) if first else tuple(shape),
+            dtype=leaves[0].dtype, device=leaves[0].device,
+            extras=(cos, sin),
+            finish=(lambda: pl.sync_shared_gradients(self.pp_shared))
+            if self.pp_shared else None)
+        if g is None or g.rank == S - 1:
+            return pl.merge_microbatches(out)
+        return out
 
     def _layer_fwd(self, x, cos, sin, plain, *layer):
         with plain_as(plain):
@@ -469,17 +545,28 @@ class LlamaModel(nn.Module):
             return tp_hooks.run_local(self._phases(
                 input_ids, cos, sin, cache, pos, block_table, fused_decode,
                 pad))
-        if self.mp_group is not None:
-            from ..distributed.fleet.mp_ops import vocab_parallel_embedding
-            x = vocab_parallel_embedding(input_ids, self.embed_tokens.weight,
-                                         self.mp_group)
-        else:
-            x = self.embed_tokens(input_ids)
-        if isinstance(self.layers, LlamaDecoderStack):
-            return self.norm(self.layers(x, cos, sin))
+        stack = self.layers if isinstance(self.layers,
+                                          LlamaDecoderStack) else None
+        if stack is not None and stack.pp_active():
+            # the embedding on the first stage, the norm on the last
+            g = stack.pp_group
+            x = self._embed(input_ids) if g.rank == 0 else None
+            y = stack(x, cos, sin, shape=(*input_ids.shape,
+                                          stack.config.hidden_size))
+            return self.norm(y) if g.rank == g.nranks - 1 else y
+        x = self._embed(input_ids)
+        if stack is not None:
+            return self.norm(stack(x, cos, sin))
         for layer in self.layers:
             x = layer(x, cos, sin)
         return self.norm(x)
+
+    def _embed(self, input_ids):
+        if self.mp_group is not None:
+            from ..distributed.fleet.mp_ops import vocab_parallel_embedding
+            return vocab_parallel_embedding(
+                input_ids, self.embed_tokens.weight, self.mp_group)
+        return self.embed_tokens(input_ids)
 
     def _phases(self, input_ids, cos, sin, cache, pos, block_table,
                 fused_decode=None, pad=None):
@@ -530,7 +617,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
 
     @property
     def device(self) -> torch.device:
-        return self.llama.embed_tokens.weight.device
+        return next(self.parameters()).device
 
     @property
     def head_weight(self) -> torch.Tensor:
@@ -608,6 +695,37 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
             return tp_hooks.run_local(self._phases(
                 input_ids, cache, pos, block_table, fused_decode, pad))
         h = self.llama(input_ids, self.rope_cos, self.rope_sin)
+        g = self._pp_group()
+        if g is not None:
+            return self._pp_outputs(h, labels, g)
+        return self._outputs(h, labels)
+
+    def _pp_group(self):
+        """The pp group once the trunk is split by stage (degree > 1)."""
+        stack = self.llama.layers
+        if isinstance(stack, LlamaDecoderStack) and stack.pp_active():
+            return stack.pp_group
+        return None
+
+    def _pp_outputs(self, h, labels, g):
+        """The head on the last stage; every output is the last stage's,
+        broadcast over the pp group (JAX's are replicated). The other
+        stages pass their trunk anchor, which runs their backward."""
+        from ..distributed.pipeline import broadcast_from_last
+        if g.rank == g.nranks - 1:
+            out = self._outputs(h, labels)
+        elif labels is None:
+            out = h
+        else:
+            out = (h, None if self.config.fused_head_ce else h)
+        if not isinstance(out, tuple):
+            return broadcast_from_last(out, g)
+        return tuple(None if t is None else broadcast_from_last(t, g)
+                     for t in out)
+
+    def _outputs(self, h, labels):
+        """The head (fused with the loss, or the logits and the loss) on
+        the final hidden states ``h``."""
         c = self.config
         mp = self.mp_group
         if labels is not None and c.fused_head_ce:
@@ -667,39 +785,55 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         return logits
 
     def partition_specs(self) -> dict:
-        """The tensor-parallel split of every parameter, the port's copy
-        of the ``_sharding_spec`` the JAX layers attach under
-        ``tensor_parallel`` (empty without it): ``{name: spec}``, spec a
-        tuple with "mp" at the sharded dim of the port's layout and None
-        elsewhere, or None for a replicated parameter. JAX's linear
-        weights are (in, out) and ``nn.Linear``'s (out, in), so JAX's
-        ``P(None, "mp")`` (column: q/k/v, gate/up, lm_head) is dim 0
-        here and its ``P("mp", None)`` (row: o/down) dim 1; the
-        embedding table is (vocab, hidden) in both, ``("mp", None)``;
-        norms replicate. A stacked trunk's ``(L, out, in)`` weight
-        (``self_attn__q_proj__weight``) splits one dimension later
-        (JAX's stack specs lead with None)."""
-        if not self.config.tensor_parallel:
+        """The split of every parameter over the mp and pp axes, the
+        port's copy of the ``_sharding_spec`` the JAX layers attach
+        (empty with neither ``tensor_parallel`` nor
+        ``pipeline_parallel``): ``{name: spec}``, spec a tuple naming
+        "mp" and "pp" at the split dims of the port's layout and None
+        elsewhere, or None for a whole parameter. Under
+        ``tensor_parallel``: JAX's linear weights are (in, out) and
+        ``nn.Linear``'s (out, in), so JAX's ``P(None, "mp")`` (column:
+        q/k/v, gate/up, lm_head) is dim 0 here and its ``P("mp", None)``
+        (row: o/down) dim 1; the embedding table is (vocab, hidden) in
+        both, ``("mp", None)``; norms replicate. A stacked trunk's ``(L,
+        out, in)`` weight (``self_attn__q_proj__weight``) leads with its
+        layer dim: ``"pp"`` under ``pipeline_parallel`` (JAX's ``P("pp",
+        ...)``), and at ``virtual_pp > 1`` its ``(V, L/V, ...)`` storage
+        leads with ``(None, "pp")`` (JAX's ``P(None, "pp", ...)``)."""
+        c = self.config
+        if not (c.tensor_parallel or c.pipeline_parallel):
             return {}
+        pp = "pp" if c.pipeline_parallel else None
         column, row = ("mp", None), (None, "mp")
+        if not c.tensor_parallel:
+            column = row = (None, None)
         out = {}
         for name, _ in self.named_parameters():
             if "__" in name:              # a stacked (L, ...) parameter
                 leaf = name.rsplit(".", 1)[-1].split("__")[-2]
-                lead = (None,)
+                lead = (None, pp) if c.virtual_pp > 1 else (pp,)
             else:
                 leaf = name.rsplit(".", 2)[-2] if "." in name else name
                 lead = ()
             if leaf in ("q_proj", "k_proj", "v_proj", "gate_proj",
                         "up_proj", "lm_head"):
-                out[name] = lead + column
+                spec = lead + column
             elif leaf in ("o_proj", "down_proj"):
-                out[name] = lead + row
-            elif leaf == "embed_tokens":
-                out[name] = ("mp", None)
+                spec = lead + row
+            elif leaf == "embed_tokens" and c.tensor_parallel:
+                spec = ("mp", None)
             else:
-                out[name] = None
+                spec = lead + (None,) if lead else None
+            out[name] = spec if spec and any(spec) else None
         return out
+
+    def pipeline_stage_modules(self) -> dict:
+        """The modules outside the trunk by the stage that runs them:
+        the embedding on the first, the final norm and the head on the
+        last (the embedding on both when the head is tied to it)."""
+        last = ["llama.norm", "llama.embed_tokens"
+                if self.config.tie_word_embeddings else "lm_head"]
+        return {"first": ["llama.embed_tokens"], "last": last}
 
     def check_mp_degree(self, degree: int):
         """Raise unless an mp split of ``degree`` gives every rank whole

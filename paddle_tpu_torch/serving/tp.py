@@ -304,13 +304,15 @@ class ShardedModel:
         self._streams = {}
         replicas = {}
 
+        # a serving spec (``_param_pspec``) splits one dimension, over
+        # the plan's axes: any named axis is that dimension
         def piece(t: torch.Tensor, pspec, s: int, dev) -> torch.Tensor:
-            if spec_dim(pspec) is None:
+            if spec_dim(pspec, None) is None:
                 key = (id(t), dev)
                 if key not in replicas:
                     replicas[key] = t.detach().to(dev)
                 return replicas[key]
-            part = spec_piece(t.detach(), pspec, s, d)
+            part = spec_piece(t.detach(), pspec, s, d, None)
             # a dim-0 slice of a contiguous tensor is a contiguous view;
             # a row-parallel (dim 1) slice is copied once
             return part.contiguous().to(dev)
@@ -486,7 +488,7 @@ class _TPBackendMixin:
                 "specs — build it with tensor_parallel=True before "
                 "sharding the serving programs")
         for n, s in sharded:
-            dim = spec_dim(s)
+            dim = spec_dim(s, None)
             if named[n].shape[dim] % d:
                 raise ValueError(
                     f"parameter {n} dim {dim} ({named[n].shape[dim]}) "

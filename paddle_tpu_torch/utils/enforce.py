@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-__all__ = ["EnforceNotMet", "OutOfRangeError"]
+__all__ = ["EnforceNotMet", "OutOfRangeError", "InvalidArgumentError"]
 
 
 class EnforceNotMet(RuntimeError):
@@ -24,3 +24,8 @@ class EnforceNotMet(RuntimeError):
 class OutOfRangeError(EnforceNotMet, IndexError, ValueError):
     """A value past its range (also a ValueError, as in the JAX
     package)."""
+
+
+class InvalidArgumentError(EnforceNotMet, ValueError):
+    """An argument that disagrees with the job or the model (also a
+    ValueError, as in the JAX package)."""

@@ -297,7 +297,7 @@ if rank == 0:
 objs = []
 dist.all_gather_object(objs, {"rank": rank})
 dist.barrier()
-# p2p through the store, in the same two processes
+# p2p over the process group (each rank sends, then receives)
 peer = 1 - rank
 b16 = (x * (rank + 1)).to(torch.bfloat16)
 dist.send(x * 10, dst=peer)
@@ -366,7 +366,7 @@ def test_two_process_gloo_job_matches_jax(tmp_path):
         assert meta[r]["backend"] == "GLOO" and meta[r]["init"]
         routes = meta[r]["routes"]
         assert routes["all_reduce"]["gloo"] == len(OPS)
-        assert routes["send"] == {"store": 2} and \
+        assert routes["send"] == {"gloo": 2} and \
             routes["gather"] == {"store": 1}
     np.testing.assert_array_equal(res[0]["gather"], np.stack(xs))
     np.testing.assert_array_equal(res[1]["subset"], xs[1])

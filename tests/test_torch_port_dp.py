@@ -160,9 +160,12 @@ def test_store_checks_in_the_job(dp_job):
     recs, _, _, _ = dp_job
     for r in recs:
         st = r["store"]
-        assert st["p2p_equal"] and st["bulk_warnings"] == 1
+        assert st["p2p_equal"] and st["bulk_warnings"] == 0
+        sp = st["store_p2p"]
+        assert sp["p2p_equal"] and sp["bulk_warnings"] == 1
+        assert sp["routes"] == {"send": {"store": 1}, "recv": {"store": 1}}
         assert st["elastic_alive"] == ["rank0", "rank1"]
-        assert r["routes"]["send"] == {"store": 1}
+        assert r["routes"]["send"] == {"gloo": 1}
     assert recs[1]["store"]["subset_ok"]
     assert recs[1]["routes"]["all_reduce"]["store"] == 1
 

@@ -264,7 +264,9 @@ out = sys.argv[1]
 dist.init_parallel_env(device="cpu")
 rank, world = dist.get_rank(), dist.get_world_size()
 rec = {"refused": {}, "layouts": {}}
-refusals = {"pp": {"pp_degree": 2}, "sep": {"sep_degree": 2},
+refusals = {"pp_sharding": {"pp_degree": 2, "sharding_degree": 2},
+            "pp_sep": {"pp_degree": 2, "sep_degree": 2},
+            "sep": {"sep_degree": 2},
             "mp_sharding": {"mp_degree": 2, "sharding_degree": 2}} \
     if world == 2 else {}
 for tag, h in refusals.items():
@@ -278,8 +280,11 @@ for tag, h in refusals.items():
         rec["refused"][tag] = str(e)
 layouts = {"dp2_mp2": {"dp_degree": 2, "mp_degree": 2},
            "mp4": {"dp_degree": 1, "mp_degree": 4},
-           "sharding2_dp2": {"dp_degree": 2, "sharding_degree": 2}} \
-    if world == 4 else {"mp2": {"dp_degree": 1, "mp_degree": 2}}
+           "sharding2_dp2": {"dp_degree": 2, "sharding_degree": 2},
+           "dp2_pp2": {"dp_degree": 2, "pp_degree": 2},
+           "pp2_mp2": {"dp_degree": 1, "pp_degree": 2, "mp_degree": 2}} \
+    if world == 4 else {"mp2": {"dp_degree": 1, "mp_degree": 2},
+                        "pp2": {"dp_degree": 1, "pp_degree": 2}}
 for tag, h in layouts.items():
     st = fleet.DistributedStrategy()
     st.hybrid_configs = h
@@ -312,6 +317,16 @@ for tag, h in layouts.items():
         t = torch.tensor([float(rank)])
         C.all_reduce(t, group=mp)
         rec["layouts"][tag]["mp_sum"] = float(t[0])
+    pp = g["pipe"]
+    if pp is not None:       # and the pp group a hop to the next stage
+        import torch
+        nxt = pp.ranks[(pp.rank + 1) % pp.nranks]
+        prv = pp.ranks[(pp.rank - 1) % pp.nranks]
+        t = torch.zeros(1)
+        task = C.isend(torch.tensor([float(rank)]), nxt, pp, tag=5)
+        C.recv(t, prv, pp, tag=5)
+        task.wait()
+        rec["layouts"][tag]["pp_from"] = float(t[0])
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
     json.dump(rec, f)
 C.barrier()
@@ -344,13 +359,15 @@ def fleet_jobs(tmp_path_factory):
             for w in (2, 4)}
 
 
-@pytest.mark.parametrize("tag,item", [("pp", "A.6 (e2)"),
+@pytest.mark.parametrize("tag,item", [("pp_sharding", "A.6 (e5)"),
+                                      ("pp_sep", "A.6 (e3)"),
                                       ("sep", "A.6 (e3)"),
                                       ("mp_sharding", "A.6 (e5)")])
 def test_init_refuses_unported_degrees_on_every_rank(fleet_jobs, tag, item):
     """Each of the two ranks raises NotImplementedError naming the item
-    that ports the axis, before any group is made (the job then goes on
-    to the layouts below, so nothing hung)."""
+    that ports the axis or the pairing, before any group is made (the job
+    then goes on to the layouts below, so nothing hung). pp alone is
+    ported (the layouts below)."""
     for rec in fleet_jobs[2]:
         msg = rec["refused"][tag]
         assert msg is not None and item in msg and "ROADMAP.md" in msg
@@ -396,7 +413,7 @@ def _jax_layout(dims, rank):
            "groups": {"data": group("dp"), "model": group("mp"),
                       "sharding": group("sharding"), "pipe": group("pp"),
                       "sep": group("sep")},
-           "stage": [True, True]}
+           "stage": [at["pp"] == 0, at["pp"] == h.axis_size("pp") - 1]}
     from paddle_tpu.distributed import mesh as jmesh
     from paddle_tpu.distributed.mesh import set_current_mesh as jset
     jset(None)
@@ -408,17 +425,26 @@ def _jax_layout(dims, rank):
     (2, "mp2", {"dp": 1, "mp": 2}),
     (4, "dp2_mp2", {"dp": 2, "mp": 2}),
     (4, "mp4", {"dp": 1, "mp": 4}),
-    (4, "sharding2_dp2", {"dp": 2, "sharding": 2})])
+    (4, "sharding2_dp2", {"dp": 2, "sharding": 2}),
+    (2, "pp2", {"dp": 1, "pp": 2}),
+    (4, "dp2_pp2", {"dp": 2, "pp": 2}),
+    (4, "pp2_mp2", {"dp": 1, "pp": 2, "mp": 2})])
 def test_hcg_getters_equal_jax_for_each_layout(fleet_jobs, world, tag, dims):
     for r, rec in enumerate(fleet_jobs[world]):
         got = dict(rec["layouts"][tag])
         mp_sum = got.pop("mp_sum", None)
+        pp_from = got.pop("pp_from", None)
         sampler = got.pop("sampler")
         want = _jax_layout(dims, r)
         assert got == want
-        # the ranks of an mp group take one batch: the sampler's replicas
-        # are the dp ranks; without mp, every rank of the world
+        # the ranks of an mp group, and the stages of a pipeline, take
+        # one batch: the sampler's replicas are the dp ranks; without mp
+        # or pp, every rank of the world
+        split = dims.get("mp", 1) > 1 or dims.get("pp", 1) > 1
         assert sampler == ([want["sizes"][0], want["ranks"][0]]
-                           if dims.get("mp", 1) > 1 else [world, r])
+                           if split else [world, r])
         if dims.get("mp", 1) > 1:        # a collective over the mp group
             assert mp_sum == sum(got["groups"]["model"])
+        if dims.get("pp", 1) > 1:        # a hop from the previous stage
+            ring = got["groups"]["pipe"]
+            assert pp_from == ring[(ring.index(r) - 1) % len(ring)]

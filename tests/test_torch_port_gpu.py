@@ -13,7 +13,9 @@ inside a CUDA graph, and at rows past its registers) and the training
 kernels (flash attention forward/dq/dkv, RoPE, AdamW, and the RMSNorm
 backward with and without a residual, long rows included), the
 ERNIE-MoE kernels (softmax cross-entropy forward and backward, the MoE
-row gather, AdamW over bf16 moments); the tiny Llama on the GPU against
+row gather, AdamW over bf16 moments), and the training kernels at the
+shapes of the mp and pp runs (one rank's heads; one microbatch, one
+stage's stacks); the tiny Llama on the GPU against
 the same model on the CPU, serving (both arenas) and training, and the
 tiny ERNIE-MoE training step likewise; threefry on the card against the
 CPU."""
@@ -384,6 +386,9 @@ FLASH_GPU_CASES = {
     # one rank of its tensor-parallel run at mp 2 (chip_smoke.py phase
     # 18): half the heads, the batch of 4
     "headline_mp2": (4, 2048, 2048, 8, 8, 128, True, None),
+    # one microbatch of its pipeline-parallel run (chip_smoke.py phase
+    # 19): a sequence a microbatch
+    "headline_pp_microbatch": (1, 2048, 2048, 16, 16, 128, True, None),
 }
 
 
@@ -546,6 +551,58 @@ def test_rope_kernel_at_the_mp2_headline_shape(dev):
             want = _rope_pair(q, k, cos, sin, sign)
         for a, b_ in zip(got, want):
             assert float((a.float() - b_.float()).abs().max()) <= tol
+
+
+def test_rope_kernel_at_the_pp_microbatch_shape(dev):
+    """RoPE on one microbatch of the headline run at pp 2 (1, 2048, 16,
+    128) bf16 with the model's tables: one launch, forward and backward,
+    within one bf16 ulp of the largest term of the plain version."""
+    from paddle_tpu_torch.models.llama import _rope_cache
+    from paddle_tpu_torch.ops.fused import _rope_pair
+    from tools.port_train_bench import headline_big_config
+    cos, sin = (t[:2048].bfloat16() for t in
+                _rope_cache(headline_big_config(), dev))
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k = (torch.randn(1, 2048, 16, 128, generator=g, device=dev)
+            .bfloat16() for _ in range(2))
+    tol = 2.0 ** -7 * 2 * float(max(q.float().abs().max(),
+                                    k.float().abs().max()))
+    for sign in (1.0, -1.0):
+        ops.reset_launch_counts()
+        got = _rope_pair(q, k, cos, sin, sign)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["rope"] == 1
+        with ops.plain_versions():
+            want = _rope_pair(q, k, cos, sin, sign)
+        for a, b_ in zip(got, want):
+            assert float((a.float() - b_.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("shape", [(8, 5632, 2048), (8, 2048, 5632)])
+def test_adamw_bf16_moments_on_a_pp_stage_stack(dev, shape):
+    """AdamW over bf16 p, g, m and v on one stage's MLP stacks of the
+    headline at pp 2 (8 of its 16 layers): one launch, every element
+    within one bf16 ulp of the plain version, as the whole stack's test
+    holds them."""
+    from paddle_tpu_torch.ops.fused import fused_adamw
+    g = torch.Generator(device=dev).manual_seed(22)
+    p = (0.02 * torch.randn(shape, generator=g, device=dev)).bfloat16()
+    grad = torch.randn(shape, generator=g, device=dev).bfloat16()
+    m = (0.1 * torch.randn(shape, generator=g, device=dev)).bfloat16()
+    v = (0.01 * torch.rand(shape, generator=g, device=dev)).bfloat16()
+    hp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.01, step=2)
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    ops.reset_launch_counts()
+    fused_adamw(kp, grad, km, kv, **hp)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["adamw"] == 1
+    with ops.plain_versions():
+        fused_adamw(p, grad, m, v, **hp)
+    for got, want in ((kp, p), (km, m), (kv, v)):
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=2.0 ** -7,
+            atol=2.0 ** -23 * float(want.float().abs().max()))
 
 
 @pytest.mark.parametrize("pdtype,gdtype", [

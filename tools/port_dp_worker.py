@@ -30,8 +30,11 @@ checkpoint after that step and resume from it at start;
 ``--fail-rank``/``--fail-step`` make that rank exit with code 3 after
 that step on the first launch (the elastic relaunch's failure).
 ``--store-checks``: a 64 MiB p2p round trip between ranks 0 and 1
-through the store, a subset-group collective and ``ElasticManager``
-membership.
+through the store before the process group starts (its bulk guard warns
+once a rank), the same round trip over the process group (gloo, the
+card's tensor staged through pinned host memory; the guard stays
+silent), a subset-group collective through the store and
+``ElasticManager`` membership.
 
 Each rank writes ``<out>/rank<r>.json`` (losses, digests, the step's
 seconds by part, the sync's bytes, launch counts, collective routes,
@@ -201,18 +204,18 @@ def check_reference(model, ref):
     return out
 
 
-def store_checks(device, rank, world):
-    """A 64 MiB p2p round trip 0 -> 1 -> 0 through the store, a
-    collective of the subset group [1] (rank 0 takes no part), and
-    ``ElasticManager`` membership of every rank."""
+def p2p_round_trip(device, rank) -> dict:
+    """A 64 MiB p2p round trip 0 -> 1 -> 0 of a tensor on ``device`` on
+    the route the job is on (the store before ``init_parallel_env``, the
+    process group after): its seconds, the store's bulk warnings, the
+    bytes, whether the tensor came back equal, and the routes taken."""
     import torch
     from paddle_tpu_torch.distributed import communication as C
-    from paddle_tpu_torch.distributed.elastic import ElasticManager
-    store = C._get_store()
-    out = {"store_native": store.is_native}
+    C.reset_counters()
     gen = torch.Generator(device=device).manual_seed(1234)
     x = torch.randn(P2P_ELEMS, generator=gen, device=device)
     buf = torch.empty_like(x)
+    out = {}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
@@ -228,6 +231,24 @@ def store_checks(device, rank, world):
                                for w in caught)
     out["p2p_bytes"] = x.numel() * x.element_size()
     out["p2p_equal"] = rank > 1 or bool(torch.equal(buf, x))
+    out["routes"] = {op: r for op, r in C.route_counts().items()
+                     if op in ("send", "recv")}
+    return out
+
+
+def store_checks(device, rank, world, store_p2p):
+    """``store_p2p`` (:func:`p2p_round_trip` through the store, made
+    before the process group started: the bulk guard warns once) and
+    the same round trip over the process group (no warning: the store
+    carries no p2p once the group is up), a collective of the subset
+    group [1] through the store (rank 0 takes no part), and
+    ``ElasticManager`` membership of every rank."""
+    import torch
+    from paddle_tpu_torch.distributed import communication as C
+    from paddle_tpu_torch.distributed.elastic import ElasticManager
+    store = C._get_store()
+    out = {"store_native": store.is_native, "store_p2p": store_p2p}
+    out.update(p2p_round_trip(device, rank))
     g = C.new_group([1])
     if rank == 1:
         y = torch.arange(4, dtype=torch.float32, device=device)
@@ -245,7 +266,9 @@ def store_checks(device, rank, world):
     C.barrier()
     em.close()
     if out["elastic_alive"] != [f"rank{r}" for r in range(world)] \
-            or not out["p2p_equal"] or out["bulk_warnings"] != 1 \
+            or not out["p2p_equal"] or out["bulk_warnings"] != 0 \
+            or not store_p2p["p2p_equal"] \
+            or store_p2p["bulk_warnings"] != 1 \
             or not out.get("subset_ok", True):
         raise AssertionError(f"rank {rank} store checks: {out}")
     return out
@@ -345,9 +368,10 @@ def train(args, sync, device, rank, world, restart, store):
     return rec
 
 
-def run(args, env, t_start) -> dict:
+def run(args, env, t_start, store_p2p=None) -> dict:
     """The job's runs and checks on the process group ``init_parallel_env``
-    made (``env``); writes this rank's record and returns it."""
+    made (``env``; ``store_p2p`` the store's round trip made before it);
+    writes this rank's record and returns it."""
     import torch
     from paddle_tpu_torch.distributed import get_rank, get_world_size
     from paddle_tpu_torch.distributed import communication as C
@@ -366,12 +390,28 @@ def run(args, env, t_start) -> dict:
         out["runs"][sync] = train(args, sync, device, rank, world,
                                   restart, store)
     if args.store_checks:
-        out["store"] = store_checks(device, rank, world)
+        out["store"] = store_checks(device, rank, world, store_p2p)
         out["routes"] = C.route_counts()
     out["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     atomic_json_dump(os.path.join(args.out, f"rank{rank}.json"), out)
     return out
+
+
+def store_p2p_before_init(args):
+    """With ``--store-checks``, :func:`p2p_round_trip` through the store,
+    on the device ``init_parallel_env(args.device)`` will give this rank;
+    called before the process group starts (else None)."""
+    import torch
+    if not args.store_checks:
+        return None
+    rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        device = torch.device("cpu")
+    else:
+        local = int(os.environ.get("PADDLE_LOCAL_RANK", str(rank)))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    return p2p_round_trip(device, rank)
 
 
 def main(argv=None) -> int:
@@ -380,8 +420,9 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.distributed import communication as C
 
     t_start = time.perf_counter()
+    store_p2p = store_p2p_before_init(args)
     env = init_parallel_env(device=args.device)
-    run(args, env, t_start)
+    run(args, env, t_start, store_p2p)
     C.barrier()
     C.destroy_process_group()
     return 0

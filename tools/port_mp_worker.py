@@ -225,7 +225,7 @@ def gather_full(model, tensors, mp) -> dict:
     out, split = {}, getattr(model, "_mp_split", {})
     for name, t in tensors.items():
         if name in split:
-            dim = spec_dim(split[name][0])
+            dim = spec_dim(split[name][0], "mp")
             out[name] = mp_ops._all_gather(t.detach(), mp, dim)
         else:
             out[name] = t.detach()

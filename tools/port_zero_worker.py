@@ -463,6 +463,12 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.distributed.checkpoint import atomic_json_dump
 
     t_start = time.perf_counter()
+    dp_args = None
+    store_p2p = None
+    if args.dp_args is not None:
+        import shlex
+        dp_args = port_dp_worker.parse(shlex.split(args.dp_args))
+        store_p2p = port_dp_worker.store_p2p_before_init(dp_args)
     env = init_parallel_env(device=args.device)
     device = env.device
     if args.load1:
@@ -476,10 +482,8 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         out["card"] = torch.cuda.get_device_name(device)
     ref = None
-    if args.dp_args is not None:       # the data-parallel job, first
-        import shlex
-        dp = port_dp_worker.run(port_dp_worker.parse(
-            shlex.split(args.dp_args)), env, t_start)
+    if dp_args is not None:            # the data-parallel job, first
+        dp = port_dp_worker.run(dp_args, env, t_start, store_p2p)
         ref = {"digests": dp["runs"]["bucketed"]["digests"]}
         del dp
         _free(device)
