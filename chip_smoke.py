@@ -462,6 +462,51 @@ Phases, each of which raises on failure (nothing is caught):
    16's DP peak and phase 18's mp peak. The phase prints its seconds; its
    workers' launches are the launches line's ``pp_training``.
 
+20. Sequence-parallel (sep) training (run after phase 19, alone on the
+   card). ``tools/port_sep_worker.py`` launched with ``python -m
+   paddle_tpu_torch.distributed.launch``, 2 gloo ranks sharing the card,
+   ``fleet.init(sep_degree=2)``: ``headline_big_config("full")`` with
+   ``sequence_parallel=True`` and ``max_position_embeddings=8192``
+   (953.2M, bf16, AdamW with bf16 moments, full recompute, the stacked
+   trunk), one sequence of 8192 tokens a step (phase 16's ids, labels
+   rolled by one), each rank passing its 4096; 2 eager steps a mode.
+   (a) ``sequence_parallel_mode="ring"`` at full depth: K/V pass around
+   the ring (one gloo hop a layer forward, again in the recompute, and
+   the reverse hop backward), the diagonal block causal and the past
+   block not through ``flash_block``, merged in fp32. (b) ``"ulysses"``
+   (all-to-alls swap the sequence split for a head split around the
+   flash kernels over 8192 tokens and 8 heads) and ``"megatron"`` (K/V
+   gathered, the diagonal block and the prefix), each 2 steps from the
+   same weights, at full depth. Gates, each mode: finite losses, equal
+   on both ranks; parameters bit-identical on both ranks after every
+   step (SHA-256 over the store); rank 0 first runs the same steps on
+   one rank with the whole model on the unsplit 1 x 8192 batch, and
+   each mode's losses, step 1's gradients (after the sum over the sep
+   group, before the update) and each step's parameters are within
+   ``tools/port_sep_worker.py``'s tolerances of it (loss 2^-9,
+   gradients 5e-2 and parameters 9e-3 per tensor, relative norm; the
+   gradients' norm ratios are printed: a sum over sep missed or taken
+   twice puts one at 1/2 or 2);
+   each rank's launches exact a step (``expected_launches``: flash
+   forward 2L a block, dq and dkv L a block, a block being the ring's
+   rank + 1, megatron's 1 + (rank > 0), Ulysses' 1; RMSNorm 4L + 1, its
+   backward 2L + 1, RoPE 3L, AdamW one a tensor) and the exchanges
+   exact (``expected_exchanges``). (c) In this process, after the job:
+   flash forward, dq and dkv at a rank's (1, 4096, 16, 128) bf16, causal
+   (the diagonal block) and not (a past block), with an lse cotangent
+   in the backward's delta; not causal with 4096 queries against 12288
+   keys (the prefix rank 3 of a sep 4 group attends to); Ulysses' (1,
+   8192, 8, 128) causal; RoPE on q and k of (1, 4096, 16, 128) at the
+   second half's table rows, RMSNorm forward and backward on (4096,
+   2048) bf16, AdamW over bf16 moments on the stacks (16, 5632, 2048)
+   and (16, 2048, 5632), each against its plain version. Printed: step
+   seconds a rank by part (forward and backward, of which the exchanges
+   and the gradients' sum over the group, each the host's wait for the
+   peer less gloo's staging copies, ``sep_ops.sep_stats``; AdamW), each
+   exchange's count, MB and seconds, peak and resting memory a rank. The phase prints its
+   seconds; its workers' launches are the launches line's
+   ``sep_training``.
+
 Launch counters are zeroed just before each path and read just after.
 ``phase seconds: {...}`` gives each phase's wall seconds (phase 1 with
 the builds, 2 with the kernel checks; 6 holds ``generate()``), then the
@@ -6748,10 +6793,12 @@ def _mp_kernel_checks(torch):
                          ((16, 2816, 2048), (16, 2048, 2816)), "mp2")
 
 
-def _stage_kernel_checks(torch, label, what, qshape, stacks, flash_case):
-    """RoPE on q and k of ``qshape`` + (128,), RMSNorm forward and
-    backward on its rows x 2048 and AdamW over bf16 moments on
-    ``stacks``, bf16, each against its plain version."""
+def _stage_kernel_checks(torch, label, what, qshape, stacks, flash_case,
+                         positions=(0, 2048)):
+    """RoPE on q and k of ``qshape`` + (128,) at the table rows
+    ``positions``, RMSNorm forward and backward on its rows x 2048 and
+    AdamW over bf16 moments on ``stacks``, bf16, each against its plain
+    version."""
     from paddle_tpu_torch.models.llama import _rope_cache
     from paddle_tpu_torch.ops import plain_versions
     from paddle_tpu_torch.ops.fused import (_rope_pair, rms_norm,
@@ -6759,8 +6806,11 @@ def _stage_kernel_checks(torch, label, what, qshape, stacks, flash_case):
                                             rms_norm_bwd, rms_norm_reference)
     from tools.port_train_bench import headline_big_config
     cfg = headline_big_config()
+    cfg.max_position_embeddings = max(cfg.max_position_embeddings,
+                                      positions[1])
     gen = torch.Generator(device="cuda").manual_seed(18)
-    cos, sin = (t[:2048].bfloat16() for t in _rope_cache(cfg, "cuda"))
+    cos, sin = (t[positions[0]:positions[1]].bfloat16()
+                for t in _rope_cache(cfg, "cuda"))
     q, k = (torch.randn(*qshape, 128, generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
     tol = 2.0 ** -7 * 2 * float(max(q.float().abs().max(),
@@ -6814,12 +6864,14 @@ def _stage_kernel_checks(torch, label, what, qshape, stacks, flash_case):
         del p, g, m, v
     torch.cuda.empty_cache()
     print(f"phase {label} at {what} shapes, kernels vs plain: rope "
-          f"{qshape + (128,)} bf16 max abs err {rope_err:.4e} (tol "
+          f"{qshape + (128,)} bf16 at table rows {positions[0]}-"
+          f"{positions[1] - 1} max abs err {rope_err:.4e} (tol "
           f"{tol:.4e}); rms_norm ({rows}, {h}) bf16 {rms_err:.4e}, its "
           f"backward within tol (largest shares dx {sx:.3f}, dw {sw:.3f}); "
           f"adamw bf16 moments largest share of the per-element tol "
           + ", ".join(f"{s} {v:.3f}" for s, v in shares.items())
-          + f"; flash {qshape + (128,)}: phase 2's {flash_case} lines")
+          + (f"; flash {qshape + (128,)}: phase 2's {flash_case} lines"
+             if flash_case else ""))
 
 
 def mp_path(torch, card):
@@ -7014,6 +7066,238 @@ def pp_path(torch, card):
     return launches
 
 
+# -- phase 20: sequence-parallel (sep) training -----------------------------
+
+_SEP_WORKER = os.path.join(_REPO, "tools", "port_sep_worker.py")
+_SEP_STEPS = 2
+_SEP_SEQ = 8192         # one sequence a step: 4096 tokens a rank at sep 2
+_EXCHANGES = ("hop", "all_to_all", "all_gather", "reduce_scatter",
+              "all_reduce")
+
+
+def _sep_args():
+    return ["--config", "headline", "--batch", "1", "--seq", str(_SEP_SEQ),
+            "--steps", str(_SEP_STEPS), "--sep", "2",
+            "--modes", "ring,ulysses,megatron"]
+
+
+def _sep_check(card, recs, wall):
+    """Phase 20 (a) and (b)'s gates and lines from the job's records
+    (the worker has held the exchanges, the ranks' agreement and the
+    one-rank tolerances: a job that failed them raised); returns the
+    launches of both ranks' steps."""
+    from paddle_tpu_torch import ops
+    totals = {k: 0 for k in ops.launch_counts()}
+    for i, first in enumerate(recs[0]["runs"]):
+        mode = first["mode"]
+        label = f"{'(a)' if i == 0 else '(b)'} {mode}"
+        runs = [r["runs"][i] for r in recs]
+        for r, run in zip(recs, runs):
+            if run["failed"] or r["backend"] != "gloo":
+                raise AssertionError(f"phase 20 {label} rank {r['rank']}: "
+                                     f"{run['failed']} ({r['backend']})")
+            want = run["expected_launches"]
+            for step, got in enumerate(run["launches"], 1):
+                counts = {k: got.get(k, 0) for k in want}
+                if counts != want:
+                    raise AssertionError(
+                        f"phase 20 {label} rank {r['rank']} step {step} "
+                        f"launches {got}, expected {want}")
+                for k in counts:
+                    totals[k] += counts[k]
+            if run["losses"] != first["losses"]:
+                raise AssertionError(f"phase 20 {label}: ranks disagree: "
+                                     f"{run['losses']} {first['losses']}")
+        losses = first["losses"]
+        if not all(math.isfinite(x) for x in losses) or \
+                len(first["reference_checks"]) != _SEP_STEPS or \
+                "grad_check" not in first:
+            raise AssertionError(f"phase 20 {label}: losses {losses}, "
+                                 f"checks {first['reference_checks']}")
+        print(f"[{card}] phase 20 {label} sequence-parallel headline "
+              f"({first['params'] / 1e9:.4f}B params bf16, "
+              f"{first['layers']} layers, full recompute, AdamW bf16 "
+              f"moments) at sep 2, one sequence of {_SEP_SEQ} tokens a "
+              f"step, {first['tokens']} a rank: 2 gloo ranks on one card, "
+              f"{_SEP_STEPS} steps")
+        print(f"phase 20 {label} losses {losses} (both ranks); parameters "
+              f"bit-identical (SHA-256) on both ranks after every step")
+        g = first["grad_check"]
+        print(f"phase 20 {label} step 1's gradients (summed over sep) vs "
+              f"one rank's on the unsplit batch: largest relative norm "
+              f"{g['max']:.4e} ({g['worst']}, tol {g['tol']}), median "
+              f"{g['median']:.4e}; norm ratios {g['ratio_min']:.6f}-"
+              f"{g['ratio_max']:.6f}")
+        for step, (a, b, c) in enumerate(zip(
+                losses, first["reference_losses"],
+                first["reference_checks"]), 1):
+            print(f"phase 20 {label} step {step} vs one rank's step on the "
+                  f"unsplit 1 x {_SEP_SEQ} batch: loss {a:.6f} vs {b:.6f} "
+                  f"(relative {abs(a - b) / abs(b):.3e}, tol "
+                  f"{first['tol']['loss']:.3e}); parameters largest "
+                  f"relative norm {c['max']:.4e} ({c['worst']}, tol "
+                  f"{first['tol']['param']}), median {c['median']:.4e}")
+        for r, run in zip(recs, runs):
+            for step, (t, ex) in enumerate(zip(run["step_s"],
+                                               run["exchanges"]), 1):
+                parts = ", ".join(
+                    f"{ex[k]['calls']} {k} {ex[k]['bytes'] / 1e6:.1f} MB "
+                    f"{1e3 * ex[k]['seconds']:.1f} ms"
+                    for k in _EXCHANGES if ex[k]["calls"])
+                print(f"[{card}] phase 20 {label} rank {r['rank']} step "
+                      f"{step}: waited {1e3 * t['start_wait']:.1f} ms for "
+                      f"the other rank to start the step; forward+backward "
+                      f"{1e3 * t['fwd_bwd']:.1f} ms, of which the exchanges"
+                      f" {1e3 * t['exchanges']:.1f} ms ({parts}) and the "
+                      f"gradients' sum over the group "
+                      f"{1e3 * t['grad_sum']:.1f} ms "
+                      f"({ex['grad_sum']['bytes'] / 1e9:.3f} GB of "
+                      f"gradients, summed in fp32 buckets); AdamW "
+                      f"{1e3 * t['adamw']:.1f} ms")
+            print(f"[{card}] phase 20 {label} rank {r['rank']}: peak "
+                  f"{run.get('peak_mem_gb', float('nan')):.3f} GB, resting "
+                  f"{run.get('resting_mem_gb', float('nan')):.3f} GB")
+    print(f"[{card}] phase 20 job: the launcher's wall {wall:.1f} s (rank "
+          f"0's one-rank references {recs[0]['reference_s']:.1f} s of it)")
+    return totals
+
+
+def _sep_flash_checks(torch):
+    """Phase 20 (c)'s flash cases: forward, dq and dkv against their
+    plain versions (``check_flash``'s bf16 tolerances), the backward's
+    delta carrying an lse cotangent where the ring's merge gives one;
+    each with its bound, its plain version's and SDPA's times."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cases = [("the diagonal block", 4096, 4096, 16, True, True),
+             ("a past block", 4096, 4096, 16, False, True),
+             ("rank 3's prefix at sep 4", 4096, 12288, 16, False, True),
+             ("Ulysses' heads", 8192, 8192, 8, True, False)]
+    try:
+        for label, sq, sk, h, causal, dlse in cases:
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device="cuda").bfloat16()
+            q, k, v, do = rnd(1, sq, h, 128), rnd(1, sk, h, 128), \
+                rnd(1, sk, h, 128), rnd(1, sq, h, 128)
+            kw = dict(is_causal=causal, scale=1 / math.sqrt(128),
+                      window=None)
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = (do * o).float().sum(-1).transpose(1, 2)
+            if dlse:
+                delta = delta - 0.5 * torch.randn(
+                    1, h, sq, generator=gen, device="cuda")
+            delta = delta.contiguous()
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                **kw)
+            ref = fa.flash_attention_reference(q, k, v, causal, kw["scale"])
+            plain = (ref[0],) + fa.flash_attention_bwd_reference(
+                q, k, v, do, lse, delta, **kw)
+            lse_err = _max_err(lse, ref[1])
+            del ref
+            spread = fa.bf16_rounding_spread(q, k, v, do, lse, delta, **kw)
+            shares = {}
+            for (name, got, want), sp in zip(
+                    zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), plain),
+                    spread):
+                tol = fa.bf16_tolerance(got, want, sp, 2 if name == "o"
+                                        else 1)
+                shares[name] = float(((got.float() - want.float()).abs()
+                                      / tol).max())
+                del tol
+            del spread, plain
+            torch.cuda.empty_cache()
+            if not (lse_err <= 1e-4 and max(shares.values()) <= 1.0):
+                raise AssertionError(f"phase 20 (c) flash {label}: lse "
+                                     f"{lse_err}, shares {shares}")
+            ms = {"fwd": _time_eager(lambda: fa.flash_attention_fwd(
+                      q, k, v, **kw)),
+                  "dq": _time_eager(lambda: fa.flash_attention_bwd_dq(
+                      q, k, v, do, lse, delta, **kw)),
+                  "dkv": _time_eager(lambda: fa.flash_attention_bwd_dkv(
+                      q, k, v, do, lse, delta, **kw))}
+            plain = {"fwd": _time_eager(lambda: fa.flash_attention_reference(
+                         q, k, v, causal, kw["scale"]), iters=3),
+                     "bwd": _time_eager(
+                         lambda: fa.flash_attention_bwd_reference(
+                             q, k, v, do, lse, delta, **kw), iters=3)}
+            # the library yardstick (never called by the port): SDPA in
+            # its (b, h, s, d) layout, forward, and its backward's one call
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            lib = {"fwd": _time_eager(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))}
+            lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            dot = do.transpose(1, 2).contiguous()
+            lib["bwd"] = _time_eager(lambda: torch.autograd.grad(
+                lo, (qt, kt, vt), dot, retain_graph=True))
+            del lo, qt, kt, vt, dot
+            # bounds as check_flash counts them, for sq queries x sk keys
+            # (every case here has as many K/V heads as query heads)
+            pairs = h * (sq * (sq + 1) // 2 if causal else sq * sk)
+            io = (sq * h + 2 * sk * h) * 128 * 2
+            bounds = {
+                "fwd": _bound_ms(io + sq * h * (128 * 2 + 4),
+                                 4 * 128 * pairs),
+                "dq": _bound_ms(io + sq * h * (2 * 128 * 2 + 8),
+                                6 * 128 * pairs),
+                "dkv": _bound_ms(io + sq * h * (128 * 2 + 8)
+                                 + 2 * sk * h * 128 * 2, 8 * 128 * pairs)}
+            print(f"phase 20 (c) flash {label} q (1, {sq}, {h}, 128) x "
+                  f"{sk} keys bf16 {'causal' if causal else 'not causal'}"
+                  f"{', lse cotangent in delta' if dlse else ''}: lse err "
+                  f"{lse_err:.3e} (tol 1e-4), largest share of the "
+                  f"per-element tol "
+                  + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
+                  + "; " + ", ".join(
+                      f"{n} kernel_ms={v:.4f} bound_ms={bounds[n][0]:.4f} "
+                      f"({bounds[n][1]}) plain_ms="
+                      f"{plain['fwd' if n == 'fwd' else 'bwd']:.4f} "
+                      f"library_ms={lib['fwd' if n == 'fwd' else 'bwd']:.4f}"
+                      for n, v in ms.items())
+                  + " (plain and library backward: one call for dq, dk "
+                  "and dv)")
+            del q, k, v, do, o, lse, delta, dq, dk, dv
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+
+
+def sep_path(torch, card):
+    """Phase 20 (see the module docstring). Returns the launch counts of
+    (a)'s and (b)'s workers (both ranks, their steps)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pt_sep_")
+    jobs = []
+    try:
+        t0 = time.perf_counter()
+        jobs.append(_start_job(tmp, "sep", 2, _sep_args() + ["--reference"],
+                               worker=_SEP_WORKER))
+        recs, _ = _finish_job("sep", jobs[-1], 2, phase=20)
+        launches = _sep_check(card, recs, time.perf_counter() - t0)
+    finally:
+        for job in jobs:
+            _stop_job(job)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    _sep_flash_checks(torch)
+    _stage_kernel_checks(torch, "20 (c)", "one sep rank's", (1, 4096, 16),
+                         ((16, 5632, 2048), (16, 2048, 5632)), None,
+                         positions=(4096, 8192))
+    print(f"phase 20 (c) took {time.perf_counter() - t0:.1f} s")
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     _cache_bytecode()
     import torch
@@ -7130,6 +7414,8 @@ def main() -> int:
     mark("18")
     pp = pp_path(torch, card)
     mark("19")
+    sep = sep_path(torch, card)
+    mark("20")
     print("phase seconds: " + json.dumps(seconds))
     paths = dict(residual=residual, serving=serving, int8_serving=serving8,
                  megakernel_serving=megakernel, dense_serving=dense,
@@ -7139,7 +7425,7 @@ def main() -> int:
                  training=train, ernie_moe_training=ernie,
                  headline_training=headline, io_training=loader,
                  dp_training=dp, zero_training=zero, mp_training=mp,
-                 pp_training=pp)
+                 pp_training=pp, sep_training=sep)
     counts = {k: sum(c[k] for c in paths.values()) for k in serving}
     print("launches: " + "; ".join(f"{name} {c}"
                                    for name, c in paths.items()))

@@ -126,7 +126,11 @@ def jax_state_dict(model: torch.nn.Module) -> dict:
     groups = {"mp": getattr(model, "mp_group", None),
               "pp": hcg.get_pipe_parallel_group() if hcg is not None
               else None}
-    dp_rank = hcg.get_data_parallel_rank() if hcg is not None else 0
+    # the replicas of a region: the dp and sep coordinates (sep splits
+    # no parameter)
+    dp_rank = hcg.get_data_parallel_rank() \
+        * hcg.get_sep_parallel_world_size() \
+        + hcg.get_sep_parallel_rank() if hcg is not None else 0
     mp_rank = hcg.get_model_parallel_rank() if hcg is not None else 0
     mp_n = hcg.get_model_parallel_world_size() if hcg is not None else 1
     stage = hcg.get_stage_id() if hcg is not None else 0
@@ -158,7 +162,7 @@ def jax_state_dict(model: torch.nn.Module) -> dict:
             k = shape[d] // g.nranks
             region[d] = [g.rank * k, (g.rank + 1) * k]
             dim = d if dim is None else dim
-        # the first holder writes: one dp rank, one mp rank of a tensor
+        # the first holder writes: one dp and sep rank, one mp rank of a tensor
         # the mp group holds whole, the first of two stages that hold it
         replica = dp_rank * (1 if "mp" in axes else mp_n) \
             + (0 if "mp" in axes else mp_rank) \

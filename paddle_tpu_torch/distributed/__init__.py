@@ -7,15 +7,17 @@ TCP store, eager ``communication``, ``init_parallel_env`` and
 (``collectives.bucketing``, ``fleet.utils``) and its in-graph half
 (``BucketedGradSync``); group-sharded training (ZeRO 1/2/3 over the
 process group: ``sharding``), fleet's strategy API with its
-meta-optimizers and its mp and pp axes (``fleet``: the tensor-parallel
+meta-optimizers and its mp, pp and sep axes (``fleet``: the tensor-parallel
 layers of ``fleet.meta_parallel`` and the mp communication of
 ``fleet.mp_ops`` over fleet's mp process group, ``fleet.utils.
 recompute``; ``PipelineLayer`` and the schedules of ``pipeline`` over
 fleet's pp process group, their hops tagged p2p over the process
-group), and the resharding distributed checkpoint (``checkpoint``:
-``save_state_dict``/``load_state_dict``). Sequence and expert
-parallelism and the placement API come with the later slices of
-``ROADMAP.md`` A.6 ((e3)-(e5)).
+group; the sep axis: ring, Ulysses and megatron attention of
+``context_parallel`` over fleet's sep process group, their exchanges
+``sep_ops``' autograd functions), and the resharding distributed
+checkpoint (``checkpoint``: ``save_state_dict``/``load_state_dict``).
+Expert parallelism and the placement API come with the later slices of
+``ROADMAP.md`` A.6 ((e4), (e5)).
 
 Deliberate differences from the JAX package: the world's collectives
 run on ``torch.distributed`` (gloo or nccl, ``parallel``) where JAX's run

@@ -35,7 +35,7 @@ import torch
 
 __all__ = ["build_buckets", "BucketedGradSync",
            "bucketed_allreduce_gradients", "attach_grad_sync",
-           "allreduce_mean_"]
+           "allreduce_mean_", "allreduce_sum_"]
 
 
 def build_buckets(named_sizes: Sequence[Tuple[str, int]],
@@ -80,6 +80,19 @@ def allreduce_mean_(tensors, group=None, bucket_bytes: Optional[int] = None):
     (``collective_config().bucket_bytes`` by default), up to
     ``IN_FLIGHT`` of them at a time. Each element's sum is the one the
     per-tensor path takes."""
+    _allreduce_buckets_(tensors, group, bucket_bytes, _group_n(group))
+
+
+def allreduce_sum_(tensors, group=None, bucket_bytes: Optional[int] = None):
+    """Sum all-reduce of ``tensors`` in place over ``group``, bucketed as
+    :func:`allreduce_mean_` (the sequence-parallel gradients' sum,
+    ``distributed.sep_ops``)."""
+    _allreduce_buckets_(tensors, group, bucket_bytes, 1)
+
+
+def _allreduce_buckets_(tensors, group, bucket_bytes, n: int):
+    """The bucketed all-reduce of ``tensors`` in place over ``group``,
+    each sum divided by ``n``."""
     from .. import communication as C
     from . import collective_config
 
@@ -88,7 +101,6 @@ def allreduce_mean_(tensors, group=None, bucket_bytes: Optional[int] = None):
     ts = [t for t in tensors if t.numel() > 0]
     if not ts:
         return
-    n = _group_n(group)
     pending = collections.deque()
 
     def finish():

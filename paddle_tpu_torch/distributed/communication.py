@@ -32,9 +32,11 @@ of the process, never by a failure:
 the store sums the members' parts in rank order, as JAX's
 ``_reduce_terms``; a gloo or NCCL ring sums in its own order, so an fp32
 reduction agrees with JAX's within rounding, not bit for bit. Every
-member of a collective still receives the same bits. ``reduce_scatter``,
-``scatter`` and ``alltoall`` gather everything and keep their part
-(O(world) traffic, as JAX's eager ones)."""
+member of a collective still receives the same bits. ``reduce_scatter``
+and ``scatter`` gather everything and keep their part (O(world) traffic,
+as JAX's eager ones); so does ``alltoall`` on the store, while on gloo
+and nccl it is one ``all_to_all_single``, each member sending each other
+member only its part."""
 from __future__ import annotations
 
 import collections
@@ -887,6 +889,10 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
 
 def alltoall(in_tensor_list, out_tensor_list=None, group=None,
              sync_op=True):
+    """``in_tensor_list[j]`` (one tensor a member, of one shape) to
+    member j; ``out_tensor_list`` gets member j's tensor for this member,
+    in group-rank order. On gloo and nccl one ``all_to_all_single``
+    moves each part once; the store gathers every member's list."""
     g = group or _world()
     if out_tensor_list is None:
         out_tensor_list = []
@@ -895,6 +901,12 @@ def alltoall(in_tensor_list, out_tensor_list=None, group=None,
         out_tensor_list.extend(_val(t).clone() for t in in_tensor_list)
         return out_tensor_list
     stacked = torch.stack([_val(t) for t in in_tensor_list])
+    if route in ("gloo", "nccl"):
+        got = torch.empty_like(stacked)
+        _start(route, [stacked], [got], lambda i, o: torch.distributed
+               .all_to_all_single(o, i, async_op=True)).wait()
+        out_tensor_list.extend(got.unbind(0))
+        return out_tensor_list
     rows = _gather_parts(stacked, g, "alltoall", route)
     me = _me(group)
     out_tensor_list.extend(r[me] for r in rows)

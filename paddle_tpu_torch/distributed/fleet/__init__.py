@@ -6,13 +6,13 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``.
 ``HybridCommunicateGroup``: in the port the degrees lay the job's ranks
 out as ``mesh.AXIS_ORDER`` (rank-major, as JAX's mesh lays out its
 devices), and each rank gets a process group along each of its dp,
-sharding, mp and pp axes of degree above 1 (``get_data_parallel_group``,
-``get_sharding_parallel_group``, ``get_model_parallel_group``,
+sharding, sep, mp and pp axes of degree above 1
+(``get_data_parallel_group``, ``get_sharding_parallel_group``,
+``get_sep_parallel_group``, ``get_model_parallel_group``,
 ``get_pipe_parallel_group``); the HCG's mesh is this rank's device, one
-entry a rank. ``sep_degree`` above 1 raises ``NotImplementedError`` on
-every rank before any group is made (``ROADMAP.md`` A.6 (e3)), and so
-do mp and pp beside a sharding degree above 1 (A.6 (e5)) and pp beside
-sep (A.6 (e3)).
+entry a rank. mp, pp and sep beside a sharding degree above 1, and sep
+beside pp, raise ``NotImplementedError`` on every rank before any group
+is made (``ROADMAP.md`` A.6 (e5)).
 
 ``distributed_model`` returns a ``PipelineParallel`` for a
 ``PipelineLayer`` (split by stage when pp > 1, as JAX wraps it). A model
@@ -26,9 +26,18 @@ Then, when mp > 1, each parameter that the same table (or a
 meta-parallel layer) marks with ``"mp"`` keeps this rank's slice
 (``mesh.spec_piece``), the replicated ones stay whole, and the model's
 forward runs the mp collectives (``meta_parallel``, ``mp_ops``). A model
-that nothing splits is refused at mp > 1 or pp > 1. It then returns a
+that nothing splits is refused at mp > 1 or pp > 1. When sep > 1 the
+model must be sequence-parallel (``LlamaConfig(sequence_parallel=True)``:
+each rank passes its piece of the sequence, ``context_parallel``); every
+module with a ``sep_group`` attribute gets the group, and the end of each
+backward sums every parameter's gradient over it (``sep_ops``): the
+parameters are replicated over sep and each rank's backward holds only
+its tokens' share. That is the first of two reductions: the dp mean
+stays the user's (``DataParallel.sync_gradients``,
+``utils.fused_allreduce_gradients``), so a loop reads as under dp alone.
+It then returns a
 ``DataParallel`` over the dp group when dp > 1, else the model (JAX
-returns the model itself for mp and pp); under sharding stage 3 it marks
+returns the model itself for mp, pp and sep); under sharding stage 3 it marks
 the model (its parameters rest as regions and are gathered at its
 forward, ``sharding.mark_stage3``). ``distributed_optimizer`` turns
 ``sharding_configs["stage"]`` into ``group_sharded_parallel``'s level
@@ -70,7 +79,7 @@ _FLEET = {"initialized": False, "strategy": None, "hcg": None}
 _DEGREES = ("dp_degree", "mp_degree", "pp_degree", "sharding_degree",
             "sep_degree")
 # the axes of degree above 1 that the port builds a process group along
-_GROUP_AXES = ("dp", "sharding", "mp", "pp")
+_GROUP_AXES = ("dp", "sharding", "mp", "pp", "sep")
 
 
 class DistributedStrategy:
@@ -105,8 +114,8 @@ class DistributedStrategy:
 
 
 def _axis_groups(dims: dict) -> dict:
-    """A process group along each of the dp, sharding, mp and pp axes
-    of degree above 1, for this rank: the ranks whose coordinates differ
+    """A process group along each of the dp, sharding, mp, pp and sep
+    axes of degree above 1, for this rank: the ranks whose coordinates differ
     only there. Every rank creates every group, in one order (ids
     agree)."""
     shape = [dims[a] for a in AXIS_ORDER]
@@ -147,12 +156,13 @@ def init(role_maker=None, is_collective=True, strategy=None,
     dims = {k[:-len("_degree")]: v for k, v in degrees.items()}
     # refused before any group is made, on every rank alike, so that the
     # job stops at once instead of training unsplit copies or hanging
-    if dims["sep"] > 1:
-        raise NotImplementedError(
-            f"sep_degree={dims['sep']}: sequence and context parallelism "
-            "are not ported yet (ROADMAP.md A.6 (e3))"
-            + (f"; pp_degree={dims['pp']} beside it waits on it too"
-               if dims["pp"] > 1 else ""))
+    for other in ("pp", "sharding"):
+        if dims["sep"] > 1 and dims[other] > 1:
+            raise NotImplementedError(
+                f"sep_degree={dims['sep']} beside {other}_degree="
+                f"{dims[other]}: sequence parallelism (ROADMAP.md A.6 (e3))"
+                f" beside {'a pipeline' if other == 'pp' else 'group sharding'}"
+                " is not ported yet (ROADMAP.md A.6 (e5))")
     if dims["pp"] > 1 and dims["sharding"] > 1:
         raise NotImplementedError(
             f"pp_degree={dims['pp']} beside sharding_degree="
@@ -277,10 +287,36 @@ def _split_for_pp(model, group):
     return out
 
 
+def _split_for_sep(model, group, mp_degree):
+    """Hand the sep group to every module of ``model`` with a
+    ``sep_group`` attribute and sum the parameters' gradients over it at
+    the end of each backward (module docstring). A model that is not
+    sequence-parallel is refused: its ranks would attend within their
+    own pieces only."""
+    check = getattr(model, "check_sep_degree", None)
+    if check is None:
+        raise ValueError(
+            f"sep_degree={group.nranks}: {type(model).__name__} has no "
+            "sequence-parallel attention (build a LlamaForCausalLM with "
+            "sequence_parallel=True); its ranks would attend within their "
+            "own pieces of the sequence")
+    check(group.nranks, mp_degree)
+    for m in model.modules():
+        if hasattr(m, "sep_group"):
+            m.sep_group = group
+    from .. import sep_ops
+    state = sep_ops._GradSum(model, group)
+    model._sep_grad_sum = model.register_forward_hook(
+        lambda mod, args, out: sep_ops.sum_gradients_after_backward(
+            out, state))
+
+
 def distributed_model(model):
     """A ``PipelineLayer`` becomes a ``PipelineParallel`` (split by stage
     when pp > 1). Otherwise the model is split by stage when pp > 1 and
-    over the mp group when mp > 1; then a ``DataParallel`` over the dp
+    over the mp group when mp > 1, and takes the sep group when sep > 1
+    (the gradients summed over it after each backward); then a
+    ``DataParallel`` over the dp
     group when dp > 1, else the model. Under sharding stage 3 the model
     is marked first (its parameters rest as regions once
     ``distributed_optimizer`` shards them)."""
@@ -297,6 +333,9 @@ def distributed_model(model):
     mp = hcg.get_model_parallel_group()
     if mp is not None:
         _split_for_mp(model, mp)
+    sep = hcg.get_sep_parallel_group()
+    if sep is not None:
+        _split_for_sep(model, sep, hcg.get_model_parallel_world_size())
     if _stage(_FLEET["strategy"], hcg) >= 3:
         from ..sharding import mark_stage3
         mark_stage3(model)

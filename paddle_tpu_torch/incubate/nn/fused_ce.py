@@ -27,7 +27,16 @@ exps merge with one max and one sum all-reduce, the label's logit is
 all-reduced from the rank that holds it, and the backward recomputes
 the local chunks against the global log-sum-exp and all-reduces ``dh``
 (in ``h``'s dtype, as JAX's ``shard_map`` sums the cotangent of its
-replicated input)."""
+replicated input).
+
+Under a sep process group (``sep_group=``, each rank holding a piece of
+the sequence) both heads return the whole sequence's mean: the sum of
+the valid tokens' losses and their count are summed over the group (one
+fp32 all-reduce, ``distributed.sep_ops``), so the loss is the same on
+every rank and is not a mean of the ranks' means, which differs when the
+ignored labels fall unevenly. The backward weighs each local token by
+the upstream gradient over the global count, unchanged by the group: a
+rank's gradient is its tokens' share."""
 from __future__ import annotations
 
 import torch
@@ -98,16 +107,30 @@ def _grads(h, w, safe, hit, lse, wvalid, num_chunks):
     return gh, gw
 
 
+def _mean(tok, valid, sep_group):
+    """The sum of ``tok`` over the valid tokens over their count (at
+    least one), both summed over ``sep_group`` when it is given (module
+    docstring); returns (loss, count)."""
+    if sep_group is None:
+        denom = valid.sum().clamp(min=1)
+        return tok.sum() / denom, denom
+    from ...distributed.sep_ops import all_reduce_
+    both = all_reduce_(torch.stack([tok.sum(), valid.sum().float()]),
+                       sep_group)
+    denom = both[1].clamp(min=1)
+    return both[0] / denom, denom
+
+
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, w, labels, num_chunks, ignore_index):
+    def forward(ctx, h, w, labels, num_chunks, ignore_index, sep_group):
         v_total = w.shape[0]
         labels = labels.long()
         safe = labels.clamp(0, v_total - 1)
         lse, tgt = _scan(h, w, safe, num_chunks)
         valid = labels != ignore_index
-        denom = valid.sum().clamp(min=1)
-        loss = torch.where(valid, lse - tgt, 0.0).sum() / denom
+        loss, denom = _mean(torch.where(valid, lse - tgt, 0.0), valid,
+                            sep_group)
         ctx.save_for_backward(h, w, safe, lse, valid, denom)
         ctx.num_chunks = num_chunks
         return loss
@@ -118,24 +141,30 @@ class _FusedLinearCE(torch.autograd.Function):
         wvalid = valid.float() * (g.float() / denom)   # per-token weight
         gh, gw = _grads(h, w, safe, torch.ones_like(valid), lse, wvalid,
                         ctx.num_chunks)
-        return gh.to(h.dtype), gw, None, None, None
+        return gh.to(h.dtype), gw, None, None, None, None
+
+
+def _sep_or_none(group):
+    return group if group is not None and group.nranks > 1 else None
 
 
 def fused_linear_cross_entropy(h, w, labels, num_chunks=16,
-                               ignore_index=-100):
+                               ignore_index=-100, sep_group=None):
     """Mean cross-entropy of ``softmax(h @ w.T)`` against ``labels``
     without building the full logits. h (..., D); w (V, D), the
     lm_head/embedding layout; labels (...,) int. Tokens whose label is
     ``ignore_index`` count for nothing; the mean is over the rest (at
-    least one). Returns an fp32 scalar, differentiable in h and w."""
+    least one; over every rank's tokens of ``sep_group``, module
+    docstring). Returns an fp32 scalar, differentiable in h and w."""
     h2 = h.reshape(-1, h.shape[-1])
     return _FusedLinearCE.apply(h2, w, labels.reshape(-1), int(num_chunks),
-                                int(ignore_index))
+                                int(ignore_index), _sep_or_none(sep_group))
 
 
 class _ParallelFusedLinearCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, w, labels, group, num_chunks, ignore_index):
+    def forward(ctx, h, w, labels, group, num_chunks, ignore_index,
+                sep_group):
         from ...distributed import communication as C
         v_loc = w.shape[0]
         labels = labels.long()
@@ -151,8 +180,8 @@ class _ParallelFusedLinearCE(torch.autograd.Function):
         tgt = _reduce(torch.where(hit, tgt_loc, torch.zeros_like(tgt_loc)),
                       group)
         valid = labels != ignore_index
-        denom = valid.sum().clamp(min=1)
-        loss = torch.where(valid, lse - tgt, 0.0).sum() / denom
+        loss, denom = _mean(torch.where(valid, lse - tgt, 0.0), valid,
+                            sep_group)
         ctx.save_for_backward(h, w, safe, hit, lse, valid, denom)
         ctx.num_chunks, ctx.group = num_chunks, group
         return loss
@@ -163,7 +192,7 @@ class _ParallelFusedLinearCE(torch.autograd.Function):
         wvalid = valid.float() * (g.float() / denom)
         gh, gw = _grads(h, w, safe, hit, lse, wvalid, ctx.num_chunks)
         return (_reduce(gh.to(h.dtype), ctx.group), gw, None, None, None,
-                None)
+                None, None)
 
 
 def _reduce(t, group, op=None):
@@ -175,17 +204,19 @@ def _reduce(t, group, op=None):
 
 
 def parallel_fused_linear_cross_entropy(h, w, labels, group, num_chunks=8,
-                                        ignore_index=-100):
+                                        ignore_index=-100, sep_group=None):
     """Mean cross-entropy of ``softmax(h @ W.T)`` for a ``W`` split by
     vocabulary row over the mp process group ``group``: ``w`` is this
     rank's ``(V/n, D)`` slice (rank r holds rows ``[r V/n, (r+1)
     V/n)``), ``h`` (..., D) and ``labels`` (...,) are the same on every
-    rank, and so is the returned fp32 scalar (module docstring). With no
-    group, or one of one member, it is :func:`fused_linear_cross_entropy`
-    (JAX's falls back to it without an mp mesh axis)."""
+    rank, and so is the returned fp32 scalar (module docstring; the mean
+    over every rank's tokens of ``sep_group``). With no group, or one of
+    one member, it is :func:`fused_linear_cross_entropy` (JAX's falls
+    back to it without an mp mesh axis)."""
     if group is None or group.nranks == 1:
         return fused_linear_cross_entropy(h, w, labels, num_chunks,
-                                          ignore_index)
+                                          ignore_index, sep_group)
     h2 = h.reshape(-1, h.shape[-1])
     return _ParallelFusedLinearCE.apply(h2, w, labels.reshape(-1), group,
-                                        int(num_chunks), int(ignore_index))
+                                        int(num_chunks), int(ignore_index),
+                                        _sep_or_none(sep_group))

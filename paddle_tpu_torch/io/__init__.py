@@ -220,9 +220,10 @@ class DistributedBatchSampler(BatchSampler):
     padded index list (the JAX sampler's). The replica count and rank
     default to the job's (``distributed.get_world_size``/``get_rank``,
     which read the launch contract first), or, once ``fleet.init`` laid
-    out an mp or a pp axis of degree above 1, to the data-parallel
-    degree and rank: the ranks of an mp group hold one model, and the
-    stages of one pipeline run one model, and each takes one batch."""
+    out an mp, a pp or a sep axis of degree above 1, to the data-parallel
+    degree and rank: the ranks of an mp group hold one model, the
+    stages of one pipeline run one model, and the ranks of a sep group
+    split one batch's sequences, and each takes one batch."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -235,7 +236,8 @@ class DistributedBatchSampler(BatchSampler):
             from ..distributed.parallel import get_rank, get_world_size
             hcg = get_hybrid_communicate_group()
             if hcg is not None and (hcg.axis_size("mp") > 1
-                                    or hcg.axis_size("pp") > 1):
+                                    or hcg.axis_size("pp") > 1
+                                    or hcg.axis_size("sep") > 1):
                 world = hcg.get_data_parallel_world_size()
                 me = hcg.get_data_parallel_rank()
             else:

@@ -27,7 +27,7 @@ and everything a step allocates inside (activations, the gradients that
 ``clear_grad`` drops at its end) dies within it. There is no switch
 that turns capture off; a capture that fails raises and names the
 cause. On the CPU the same step runs eagerly, and so does the step of a
-model split over an mp process group of more than one rank
+model split over an mp, pp or sep process group of more than one rank
 (``fleet.distributed_model``): its forward and backward run collectives
 of the process group, which a CUDA graph cannot hold (gloo stages them
 through host memory); ``TrainStep.eager_reason`` says so, and the first
@@ -190,8 +190,9 @@ class TrainStep:
     @property
     def eager_reason(self) -> Optional[str]:
         """Why the step cannot be captured on the card, or None: a
-        module of the model runs collectives of an mp process group, or
-        a pipeline's hops over a pp process group."""
+        module of the model runs collectives of an mp process group, a
+        pipeline's hops over a pp process group, or the exchanges of a
+        sep process group."""
         for m in self.model.modules():
             group = getattr(m, "mp_group", None)
             if group is not None and group.nranks > 1:
@@ -203,6 +204,12 @@ class TrainStep:
                 return (f"the model is split by stage over a pp process "
                         f"group of {group.nranks} ranks; a pipeline hop (a "
                         "gloo send staged through host memory) cannot sit "
+                        "inside a CUDA graph, so the step runs eagerly")
+            group = getattr(m, "sep_group", None)
+            if group is not None and group.nranks > 1:
+                return (f"the model's sequence is split over a sep process "
+                        f"group of {group.nranks} ranks; its exchanges (gloo "
+                        "collectives staged through host memory) cannot sit "
                         "inside a CUDA graph, so the step runs eagerly")
         return None
 

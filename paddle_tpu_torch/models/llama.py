@@ -14,7 +14,13 @@ and runs them through ``distributed.pipeline``'s schedule (FThenB, or
 the interleaved one at ``virtual_pp > 1``); the embedding runs on the
 first stage and the final norm, the head and the loss on the last, on
 the merged batch as in JAX, and the loss (or logits) is broadcast to
-every stage.
+every stage. Under a sep process group (``fleet.init(sep_degree=S)``,
+``sequence_parallel=True``) each rank passes the contiguous piece ``[r
+s/S, (r+1) s/S)`` of every sequence (JAX's ``P(None, "sep")`` batch):
+RoPE takes the piece's rows of the tables, attention exchanges K/V over
+the group in the config's mode (``distributed.context_parallel``: the
+ring, Ulysses, or the megatron gather), and the loss is the whole
+sequence's mean over its valid tokens, the same on every rank.
 RMSNorm, RoPE and flash attention run the CUDA kernels on the GPU; the
 projections are ``nn.Linear`` (``torch.matmul``), as the JAX package
 leaves them to XLA. Parameter
@@ -70,8 +76,11 @@ class LlamaConfig:
     # fleet.distributed_model splits by stage over a pp process group
     # (pp_num_microbatches through the schedule; virtual_pp chunks a
     # stage, stored (V, L/V, ...) as JAX stores them) and which runs as
-    # one stage without one; sequence_parallel raises (sequence
-    # parallelism is not ported)
+    # one stage without one; sequence_parallel with
+    # sequence_parallel_mode picks the attention of a model that
+    # fleet.distributed_model hands a sep process group (ring, ulysses,
+    # megatron: distributed.context_parallel; inert without one, as in
+    # JAX without a "sep" mesh axis)
     tensor_parallel: bool = True
     sequence_parallel: bool = False
     sequence_parallel_mode: str = "megatron"
@@ -129,15 +138,21 @@ class LlamaConfig:
             raise ValueError(
                 f"num_hidden_layers={self.num_hidden_layers} not "
                 f"divisible by virtual_pp={self.virtual_pp}")
-        if self.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel shards the sequence over a mesh of "
-                "cards, which is not ported yet (ROADMAP.md A.6 (e3): "
-                "sequence and context parallelism)")
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+def _sep_mean(tok, labels, sep):
+    """The mean of the per-token losses ``tok`` over the valid labels of
+    every rank of the sep group: the sum and the count summed over the
+    group (one all-reduce, in ``tok``'s dtype, its gradient unchanged), so
+    every rank holds the whole sequence's loss."""
+    from ..distributed.sep_ops import sep_allreduce
+    valid = (labels.long() != -100).to(tok.dtype).sum()
+    both = sep_allreduce(torch.stack([tok.sum(), valid]), sep)
+    return both[0] / torch.clamp(both[1], min=1.0)
 
 
 def llama_tiny_config(**kw) -> LlamaConfig:
@@ -168,9 +183,10 @@ def _rope_cache(config: LlamaConfig, device) -> Tuple[torch.Tensor,
 
 
 def _apply_rope(q, k, cos, sin):
-    """q/k (b, s, h, d): neox rotate-half at positions 0..s-1 through the
-    fused RoPE op, with the tables cast to q's dtype (JAX
-    ``_apply_rope``)."""
+    """q/k (b, s, h, d): neox rotate-half at the tables' first s rows
+    (positions 0..s-1, or a sep rank's piece when the caller sliced the
+    tables) through the fused RoPE op, with the tables cast to q's dtype
+    (JAX ``_apply_rope``)."""
     s = q.shape[1]
     return fused_rope(q, k, cos[:s].to(q.dtype), sin[:s].to(q.dtype))
 
@@ -190,6 +206,11 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(h, kv, **kw)
         self.v_proj = nn.Linear(h, kv, **kw)
         self.o_proj = nn.Linear(h, h, **kw)
+        # the training attention of a sep process group (set by
+        # fleet.distributed_model): sequence_parallel_mode's
+        self.sp_mode = config.sequence_parallel_mode \
+            if config.sequence_parallel else None
+        self.sep_group = None
 
     def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
                 pad=None):
@@ -208,10 +229,17 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).view(b, s, -1, self.head_dim)
         v = self.v_proj(x).view(b, s, -1, self.head_dim)
         if cache is None:
-            # training: causal flash attention over the whole sequence
+            # training: causal flash attention over the whole sequence,
+            # or over the sep group's pieces of it
             q, k = _apply_rope(q, k, cos, sin)
-            out = PF.scaled_dot_product_attention(
-                q, k, v, is_causal=True, sliding_window=self.sliding_window)
+            g = self.sep_group
+            if g is not None and g.nranks > 1:
+                from ..distributed.context_parallel import sep_attention
+                out = sep_attention(self.sp_mode, q, k, v, g)
+            else:
+                out = PF.scaled_dot_product_attention(
+                    q, k, v, is_causal=True,
+                    sliding_window=self.sliding_window)
             return out.reshape(b, s, -1)
         # a dense (k, v) cache, (k, v) arenas, or int8 (k, v) codes +
         # (k, v) scales
@@ -443,6 +471,15 @@ class LlamaDecoderStack(nn.Module):
     def mp_group(self, group):
         self._proto.mp_group = group
 
+    @property
+    def sep_group(self):
+        """The prototype layer's sep group (its attention's)."""
+        return self._proto.self_attn.sep_group
+
+    @sep_group.setter
+    def sep_group(self, group):
+        self._proto.self_attn.sep_group = group
+
     def _leaves(self) -> list:
         return [self.get_parameter(n.replace(".", "__"))
                 for n in self._pnames]
@@ -609,8 +646,10 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.to_empty(device=dev)
         self.init_weights(seed)
         # the mp process group once fleet.distributed_model split the
-        # model for training: the head's vocabulary split
+        # model for training: the head's vocabulary split; the sep group
+        # whose ranks each hold a piece of every sequence
         self.mp_group = None
+        self.sep_group = None
         cos, sin = _rope_cache(config, dev)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
@@ -682,10 +721,12 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         (written in place; see ``generation.cached_attention``: a dense
         cache from :meth:`init_kv_cache` or, with ``block_table``, the
         paged arena; ``pad`` (b,) left-pad counts) -> (b, s, vocab)
-        logits. Without: the training forward over positions
-        0..s-1; with ``labels`` it returns ``(loss, None)`` through the
-        fused head + CE (``fused_head_ce``, the default) or ``(loss,
-        logits)`` with the plain head and ``nn.functional.cross_entropy``
+        logits. Without: the training forward over positions 0..s-1
+        (under a sep group: this rank's piece, positions r s..r s + s-1,
+        and the whole sequence's loss); with ``labels`` it returns
+        ``(loss, None)`` through the fused head + CE (``fused_head_ce``,
+        the default) or ``(loss, logits)`` with the plain head and
+        ``nn.functional.cross_entropy``
         (the xent kernels on the card; on the CPU their plain version
         under ``PT_FUSION_PASSES=1``, as the JAX head),
         and without labels the logits. ``fused_decode``
@@ -694,11 +735,33 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         if cache is not None:
             return tp_hooks.run_local(self._phases(
                 input_ids, cache, pos, block_table, fused_decode, pad))
-        h = self.llama(input_ids, self.rope_cos, self.rope_sin)
+        cos, sin = self._rope_rows(input_ids.shape[1])
+        h = self.llama(input_ids, cos, sin)
         g = self._pp_group()
         if g is not None:
             return self._pp_outputs(h, labels, g)
         return self._outputs(h, labels)
+
+    def _sep(self):
+        """The sep group when it has more than one rank."""
+        g = self.sep_group
+        return g if g is not None and g.nranks > 1 else None
+
+    def _rope_rows(self, s: int):
+        """The RoPE tables from this rank's first position: row 0, or
+        ``r s`` for sep rank r of a group whose ranks each pass ``s``
+        positions; a global length past the tables raises."""
+        g = self._sep()
+        if g is None:
+            return self.rope_cos, self.rope_sin
+        n = self.config.max_position_embeddings
+        if s * g.nranks > n:
+            raise ValueError(
+                f"a sequence of {s} tokens a rank over sep degree "
+                f"{g.nranks} is {s * g.nranks} positions, past "
+                f"max_position_embeddings={n}")
+        off = g.rank * s
+        return self.rope_cos[off:off + s], self.rope_sin[off:off + s]
 
     def _pp_group(self):
         """The pp group once the trunk is split by stage (degree > 1)."""
@@ -727,30 +790,34 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         """The head (fused with the loss, or the logits and the loss) on
         the final hidden states ``h``."""
         c = self.config
-        mp = self.mp_group
+        mp, sep = self.mp_group, self._sep()
         if labels is not None and c.fused_head_ce:
             if mp is not None:
                 loss = parallel_fused_linear_cross_entropy(
                     h, self.head_weight, labels, mp,
-                    num_chunks=c.fused_head_ce_chunks)
+                    num_chunks=c.fused_head_ce_chunks, sep_group=sep)
             else:
                 loss = fused_linear_cross_entropy(
                     h, self.head_weight, labels,
-                    num_chunks=c.fused_head_ce_chunks)
+                    num_chunks=c.fused_head_ce_chunks, sep_group=sep)
             return loss, None
         if mp is not None:
-            return self._mp_head(h, labels, mp)
+            return self._mp_head(h, labels, mp, sep)
         logits = self._head(h)
         if labels is None:
             return logits
+        if sep is not None:
+            tok = PF.cross_entropy(logits, labels, reduction="none")
+            return _sep_mean(tok, labels, sep), logits
         return PF.cross_entropy(logits, labels), logits
 
-    def _mp_head(self, h, labels, mp):
+    def _mp_head(self, h, labels, mp, sep=None):
         """The unfused head of an mp split: this rank's vocabulary
         columns of the logits behind ``c_identity``, the vocab-parallel
         cross-entropy's mean over the valid labels (in the logits'
-        dtype, as ``cross_entropy``), and the whole logits gathered
-        (what JAX's head returns)."""
+        dtype, as ``cross_entropy``; over the sep group's labels under
+        one), and the whole logits gathered (what JAX's head
+        returns)."""
         from ..distributed.fleet import mp_ops
         local = self._head(mp_ops.c_identity(h, mp))
         logits = mp_ops.gather(local, mp, -1)
@@ -758,6 +825,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
             return logits
         tok = mp_ops.parallel_cross_entropy(local, labels, mp).to(
             local.dtype)
+        if sep is not None:
+            return _sep_mean(tok, labels, sep), logits
         valid = (labels.long() != -100).to(tok.dtype).sum()
         return tok.sum() / torch.clamp(valid, min=1.0), logits
 
@@ -834,6 +903,31 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         last = ["llama.norm", "llama.embed_tokens"
                 if self.config.tie_word_embeddings else "lm_head"]
         return {"first": ["llama.embed_tokens"], "last": last}
+
+    def check_sep_degree(self, degree: int, mp_degree: int = 1):
+        """Raise unless the model can run over a sep group of ``degree``
+        (each mp rank's heads over its own): ``sequence_parallel``, a
+        head count Ulysses can split, no sliding window (the config
+        refuses one under ring and Ulysses, as JAX's; under megatron it
+        is not ported: ROADMAP.md A.6 (e5))."""
+        c = self.config
+        if not c.sequence_parallel:
+            raise ValueError(
+                f"sep_degree={degree}: the model is not sequence-parallel "
+                "(LlamaConfig(sequence_parallel=True)); its ranks would "
+                "attend within their own pieces of the sequence")
+        heads = c.num_attention_heads // max(mp_degree, 1)
+        if c.sequence_parallel_mode == "ulysses" and heads % degree:
+            raise ValueError(
+                f"num_heads={heads} (a rank's, over mp {mp_degree}) not "
+                f"divisible by sep degree {degree} (required for Ulysses)")
+        if c.sliding_window is not None:
+            raise NotImplementedError(
+                f"sliding_window={c.sliding_window} under "
+                f"sequence_parallel_mode={c.sequence_parallel_mode!r} at "
+                f"sep_degree={degree}: windowed attention across the sep "
+                "group's pieces of the sequence is not ported yet "
+                "(ROADMAP.md A.6 (e5))")
 
     def check_mp_degree(self, degree: int):
         """Raise unless an mp split of ``degree`` gives every rank whole

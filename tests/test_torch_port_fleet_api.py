@@ -266,7 +266,7 @@ rank, world = dist.get_rank(), dist.get_world_size()
 rec = {"refused": {}, "layouts": {}}
 refusals = {"pp_sharding": {"pp_degree": 2, "sharding_degree": 2},
             "pp_sep": {"pp_degree": 2, "sep_degree": 2},
-            "sep": {"sep_degree": 2},
+            "sep": {"sep_degree": 2, "sharding_degree": 2},
             "mp_sharding": {"mp_degree": 2, "sharding_degree": 2}} \
     if world == 2 else {}
 for tag, h in refusals.items():
@@ -366,8 +366,10 @@ def fleet_jobs(tmp_path_factory):
 def test_init_refuses_unported_degrees_on_every_rank(fleet_jobs, tag, item):
     """Each of the two ranks raises NotImplementedError naming the item
     that ports the axis or the pairing, before any group is made (the job
-    then goes on to the layouts below, so nothing hung). pp alone is
-    ported (the layouts below)."""
+    then goes on to the layouts below, so nothing hung). pp alone and sep
+    alone are ported (the layouts below; tests/test_torch_port_sep_train
+    .py); sep beside pp or sharding names the item that ported sep and
+    the one that ports the pairing."""
     for rec in fleet_jobs[2]:
         msg = rec["refused"][tag]
         assert msg is not None and item in msg and "ROADMAP.md" in msg

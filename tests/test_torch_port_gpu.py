@@ -389,6 +389,16 @@ FLASH_GPU_CASES = {
     # one microbatch of its pipeline-parallel run (chip_smoke.py phase
     # 19): a sequence a microbatch
     "headline_pp_microbatch": (1, 2048, 2048, 16, 16, 128, True, None),
+    # the blocks of its sequence-parallel run (chip_smoke.py phase 20):
+    # a rank's diagonal block (causal) and a past one (not), the prefix
+    # rank 3 of a sep 4 group attends to (4096 queries, 12288 keys), and
+    # Ulysses' whole sequence over half the heads; a non-causal block
+    # whose key count is a multiple of neither tile
+    "sep_diagonal": (1, 4096, 4096, 16, 16, 128, True, None),
+    "sep_past_block": (1, 4096, 4096, 16, 16, 128, False, None),
+    "sep_prefix": (1, 4096, 12288, 16, 16, 128, False, None),
+    "sep_ulysses": (1, 8192, 8192, 8, 8, 128, True, None),
+    "sep_ragged_block": (1, 300, 1000, 4, 2, 128, False, None),
 }
 
 
@@ -2656,3 +2666,93 @@ def test_captured_bucketer_equals_eager(dev):
             want = (grads[0][k] + grads[1][k]) / 2
             assert torch.equal(eager[s][k], want), k
             assert torch.equal(outs[s][k], want), k
+
+
+_RING_WORKER = r'''
+import json, os, sys
+import torch
+from paddle_tpu_torch import distributed as dist
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.distributed import communication as C
+from paddle_tpu_torch.distributed import context_parallel as cp
+from paddle_tpu_torch.distributed import fleet
+
+out = sys.argv[1]
+env = dist.init_parallel_env()
+rank = dist.get_rank()
+st = fleet.DistributedStrategy()
+st.hybrid_configs = {"dp_degree": 1, "sep_degree": 2}
+fleet.init(is_collective=True, strategy=st)
+g = fleet.get_hybrid_communicate_group().get_sep_parallel_group()
+rec = {"backend": env.backend}
+for dtype in (torch.float32, torch.bfloat16):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    full = [torch.randn(1, 1024, 8, 128, generator=gen, device="cuda")
+            for _ in range(4)]
+    q, k, v, do = (t[:, rank * 512:(rank + 1) * 512].to(dtype).contiguous()
+                   for t in full)
+    runs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_launch_counts()
+        if plain:
+            with ops.plain_versions():
+                o = cp.ring_attention_spmd(*leaves, group=g)
+                (o.float() * do.float()).sum().backward()
+        else:
+            o = cp.ring_attention_spmd(*leaves, group=g)
+            (o.float() * do.float()).sum().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            rec[str(dtype)] = {"launches": ops.launch_counts()}
+        runs.append([o.detach()] + [t.grad for t in leaves])
+    errs = []
+    for a, b in zip(*runs):
+        a, b = a.float(), b.float()
+        errs.append([float((a - b).abs().max()),
+                     float((a - b).norm() / b.norm())])
+    rec[str(dtype)]["errs"] = errs
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(rec, f)
+C.barrier()
+C.destroy_process_group()
+'''
+
+
+def test_sep2_ring_step_on_one_card(dev, tmp_path):
+    """Two ranks of a sep 2 group share the card (gloo, CUDA tensors
+    staged through the host): one ring attention step, forward and
+    backward, on the kernels and again on their plain versions, each
+    rank its 512 of 1024 tokens. fp32: 2e-5 for the output, 1e-4 for the
+    gradients (the flash tests' bounds); bf16: a relative norm of 2^-7
+    (each side rounds the blocks' outputs and the products once).
+    Rank 0 launches its diagonal block's kernels only, rank 1 the past
+    block's too."""
+    import json
+    import os
+    from paddle_tpu_torch.distributed.launch import LaunchConfig, launch_pod
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "ring.py"
+    script.write_text(_RING_WORKER)
+    cfg = LaunchConfig(str(script), [str(tmp_path)], nproc_per_node=2,
+                       log_dir=str(tmp_path / "log"),
+                       envs={"PYTHONPATH": repo + os.pathsep
+                             + os.environ.get("PYTHONPATH", "")})
+    rc = launch_pod(cfg)
+    logs = {p.name: p.read_text()[-3000:]
+            for p in (tmp_path / "log").iterdir()}
+    assert rc == 0, logs
+    for r in (0, 1):
+        rec = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert rec["backend"] == "gloo"
+        for dtype, (atol_o, atol_g) in (("torch.float32", (2e-5, 1e-4)),
+                                        ("torch.bfloat16", (None, None))):
+            got = rec[dtype]
+            assert got["launches"]["flash_attention_fwd"] == r + 1
+            assert got["launches"]["flash_attention_bwd_dq"] == r + 1
+            for i, (err, relnorm) in enumerate(got["errs"]):
+                if atol_o is None:
+                    assert relnorm <= 2.0 ** -7, (dtype, r, i, relnorm)
+                else:
+                    assert err <= (atol_o if i == 0 else atol_g), \
+                        (dtype, r, i, err)

@@ -471,8 +471,9 @@ def test_params_from_jax_mp_splits_a_pipelined_model_over_mp(vpp):
 def test_config_and_eager_train_step():
     llama_tiny_config(pipeline_parallel=True, virtual_pp=2,
                       num_hidden_layers=4)
-    with pytest.raises(NotImplementedError, match=r"A\.6 \(e3\)"):
-        llama_tiny_config(sequence_parallel=True)
+    # sequence parallelism is ported (A.6 (e3)); beside pp, fleet.init
+    # refuses it (A.6 (e5), tests/test_torch_port_sep_train.py)
+    assert llama_tiny_config(sequence_parallel=True).sequence_parallel
     with pytest.raises(ValueError, match="virtual_pp"):
         llama_tiny_config(virtual_pp=2)
     m = LlamaForCausalLM(llama_tiny_config(**BASE, pipeline_parallel=True),

@@ -465,13 +465,15 @@ def test_config_defaults_and_checks_are_jax():
 @pytest.mark.parametrize("kw", [dict(sequence_parallel=True),
                                 dict(virtual_pp=2, pipeline_parallel=True)])
 def test_sequence_parallel_and_vpp_raise_not_implemented(kw):
-    """JAX takes both. The port raises for sequence parallelism (not
-    ported: ROADMAP.md A.6 (e3)); ``virtual_pp > 1`` is ported with the
-    pipeline and stores the trunk as JAX does, (V, L/V, ...)."""
+    """JAX takes both, and so does the port now: sequence parallelism
+    (ported: ROADMAP.md A.6 (e3)) is inert without a sep group, and
+    ``virtual_pp > 1`` is ported with the pipeline and stores the trunk
+    as JAX does, (V, L/V, ...)."""
     jax_tiny_config(**kw)                   # JAX takes them
     if kw.get("sequence_parallel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-            llama_tiny_config(**kw)
+        m = LlamaForCausalLM(llama_tiny_config(**kw), device="cpu")
+        assert m.config.sequence_parallel and m.sep_group is None
+        assert m.llama.layers[0].self_attn.sp_mode == "megatron"
         return
     m = LlamaForCausalLM(llama_tiny_config(**kw), device="cpu")
     L = m.config.num_hidden_layers
